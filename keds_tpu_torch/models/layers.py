@@ -17,26 +17,28 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from keds_tpu_torch.ops.attention import attention
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dense layer, ``w`` is (in, out); computes in ``x``'s dtype."""
-    y = torch.matmul(x, w.to(x.dtype))
-    if b is not None:
-        y = y + b.to(x.dtype)
-    return y
+    """Dense layer, ``w`` is (in, out); computes in ``x``'s dtype.  The bias
+    rides in the matrix product (one kernel: it is added in the f32
+    accumulator before the output is rounded)."""
+    w = w.to(x.dtype)
+    if b is None:
+        return torch.matmul(x, w)
+    y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+    return y.view(*x.shape[:-1], w.shape[1])
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """Float32-island LayerNorm: normalise in f32, return in x.dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    """Float32-island LayerNorm: statistics, normalisation and the affine
+    map in f32 (PyTorch's fused kernel accumulates a bf16 input in f32),
+    result rounded once to x.dtype."""
+    return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype), bias.to(x.dtype), eps)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

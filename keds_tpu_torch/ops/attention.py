@@ -2,11 +2,13 @@
 ``keds_tpu/ops/attention.py``).
 
 :func:`attention` is the op every tower block calls.  On a CUDA tensor it
-launches the hand-written kernel ``csrc/attention.cu`` (which replaces the
-Pallas ``flash_attention``) or raises; on a CPU tensor it runs the plain
-version :func:`attention_reference`.  Keys at or past the real sequence
-length never enter a softmax, so no sequence padding is needed.  Forward
-only: the backward arrives with the training slice.
+launches a hand-written kernel of ``csrc/attention.cu`` (which replaces the
+Pallas ``flash_attention``) or raises: bf16 runs the tensor-core kernel
+(variant ``bf16_tc``, Dh = 64), f32 the exact-f32 CUDA-core kernel
+(variant ``f32``).  On a CPU tensor it runs the plain version
+:func:`attention_reference`.  Keys at or past the real sequence length
+never enter a softmax, so no sequence padding is needed.  Forward only: the
+backward arrives with the training slice.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ KERNEL = CudaKernel("attention", {
                            ctypes.c_float, _P],
     "keds_attention_max_seq": [],
     "keds_attention_max_head_dim": [],
-})
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+    "keds_attention_tc_head_dim": [],
+}, variants=("bf16_tc", "f32"))
+_VARIANTS = {torch.bfloat16: ("bf16_tc", 1), torch.float32: ("f32", 0)}
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -59,23 +62,34 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, Dh = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _VARIANTS:
         raise ValueError(f"attention kernel takes f32 or bf16 q/k/v, got "
                          f"{q.dtype} {k.dtype} {v.dtype}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention kernel needs a contiguous head dimension")
     lib = KERNEL.lib()
-    if S > lib.keds_attention_max_seq() or Dh > lib.keds_attention_max_head_dim():
-        raise ValueError(
-            f"attention kernel supports S <= {lib.keds_attention_max_seq()} and "
-            f"Dh <= {lib.keds_attention_max_head_dim()}, got S={S} Dh={Dh}")
+    max_seq = lib.keds_attention_max_seq()
+    if not 1 <= S <= max_seq:
+        raise ValueError(f"attention kernel supports 1 <= S <= {max_seq}, got S={S}")
+    variant, code = _VARIANTS[q.dtype]
+    if variant == "bf16_tc":
+        head_dim = lib.keds_attention_tc_head_dim()
+        if Dh != head_dim:
+            raise ValueError(f"bf16 attention kernel supports Dh = {head_dim}, got {Dh}")
+        # 16-byte cp.async rows of k and v, 4-byte loads of q
+        if any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (k, v)) \
+                or q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3]):
+            raise ValueError("bf16 attention kernel needs 16-byte aligned k/v rows")
+    elif Dh > lib.keds_attention_max_head_dim():
+        raise ValueError(f"f32 attention kernel supports Dh <= "
+                         f"{lib.keds_attention_max_head_dim()}, got {Dh}")
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*[
         st for t in (q, k, v, out) for st in (t.stride(0), t.stride(2), t.stride(1))])
     err = lib.keds_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
         B, H, S, Dh, ctypes.cast(strides, ctypes.c_void_p), int(causal),
         1.0 / math.sqrt(Dh), stream_ptr(q))
     KERNEL.check(err)
-    KERNEL.launches += 1
+    KERNEL.launches[variant] += 1
     return out

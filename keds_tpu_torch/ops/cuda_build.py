@@ -12,6 +12,7 @@ every kernel at once, one ``nvcc`` process per source, all started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -36,19 +37,23 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` library, its C entry points and a launch count.
+    """One ``csrc/<name>.cu`` library, its C entry points and a launch count
+    per kernel variant.
 
-    ``launches`` is incremented by the op's wrapper each time it launches
-    the kernel on a CUDA tensor, and nowhere else; a run resets it to 0 to
-    show that a code path went through the kernel.
+    ``launches[variant]`` is incremented by the op's wrapper each time it
+    launches that variant on a CUDA tensor, and nowhere else; a run resets
+    the counts (:meth:`reset`) to show that a code path went through a kernel.
     """
 
-    def __init__(self, name: str, functions: Dict[str, List]):
+    def __init__(self, name: str, functions: Dict[str, List], variants: Iterable[str]):
         self.name = name
         self.functions = functions      # C name -> ctypes argtypes
-        self.launches = 0
+        self.launches = dict.fromkeys(variants, 0)
         self._lib: Optional[ctypes.CDLL] = None
         self.build_log = ""
+
+    def reset(self) -> None:
+        self.launches = dict.fromkeys(self.launches, 0)
 
     @property
     def source(self) -> pathlib.Path:
@@ -106,6 +111,17 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
     for k, p in zip(kernels, procs):
         k._finish_build(p)
         k.lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of ``t``'s CUDA device."""
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream_ptr(t: torch.Tensor) -> int:

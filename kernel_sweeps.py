@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Design measurements of the port's kernels on one CUDA card, kept apart
+from ``chip_smoke.py`` so that the smoke run stays a check.
+
+    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy]
+
+Each phase prints one JSON line; with no phase named, all run.
+
+rank              the f32 ranking top-k (64, 256, 768, k=10) and ``mm`` +
+                  ``topk``, each timed two ways: CUDA-graph replays
+                  (``chip_smoke.time_ms``) and eager launches between two
+                  events (``eager_ms``, the timing of the first slice).
+                  ``--impl DIR`` imports ``keds_tpu_torch`` from DIR instead,
+                  e.g. a ``git archive`` of an earlier commit, so that two
+                  versions are timed by one method in one call.
+topk_anatomy      where the bf16 top-k's time goes at the retrieval shape:
+                  one query at k=1 is the database stream alone, 64 queries
+                  at k=1 add the products, k=16 and k=32 add insertions into
+                  the running lists, and zero queries (every score ties, so
+                  nothing after the first chunk is inserted) isolate the
+                  fold's fixed cost.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from chip_smoke import DB_ROWS, QUERY_BATCH, _unit_rows, emit, time_ms
+
+PHASES = ("rank", "topk_anatomy")
+
+
+def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms of one call from ``iters`` eager launches between two events,
+    so a kernel shorter than its launch is timed at the host's launch rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rank(impl: str) -> None:
+    from keds_tpu_torch.ops.topk import mips_topk
+
+    B, N, D, k = QUERY_BATCH, 256, 768, 10
+    db = _unit_rows(N, D, torch.float32, seed=N)
+    q = _unit_rows(B, D, torch.float32, seed=B + 1)
+    fns = {"kernel": lambda: mips_topk(q, db, k),
+           "library": lambda: torch.topk(torch.mm(q, db.t()), k)}
+    emit("rank", impl=impl, shape=[B, N, D, k], dtype="float32",
+         graph_ms={name: time_ms(fn) for name, fn in fns.items()},
+         eager_ms={name: eager_ms(fn) for name, fn in fns.items()})
+
+
+def topk_anatomy(N: int = DB_ROWS, D: int = 768) -> None:
+    from keds_tpu_torch.ops.topk import mips_topk
+
+    db = _unit_rows(N, D, torch.bfloat16, seed=1)
+    q64 = _unit_rows(QUERY_BATCH, D, torch.bfloat16, seed=2)
+    cases = {"B1_k1": (q64[:1], 1), "B64_k1": (q64, 1), "B64_k16": (q64, 16),
+             "B64_k32": (q64, 32), "B64_k16_zero_queries": (torch.zeros_like(q64), 16)}
+    ms = {name: time_ms(lambda: mips_topk(q, db, k)) for name, (q, k) in cases.items()}
+    ms["torch_sum_over_db"] = time_ms(lambda: torch.sum(db, dim=0))
+    emit("topk_anatomy", shape=[N, D], dtype="bf16", kernel_ms=ms)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phases", nargs="*", metavar="phase",
+                    help=f"any of {', '.join(PHASES)} (default: all)")
+    ap.add_argument("--impl", default=None,
+                    help="directory whose keds_tpu_torch is timed (rank only)")
+    args = ap.parse_args()
+    phases = args.phases or list(PHASES)
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phase in {phases}; choose from {PHASES}")
+    if not torch.cuda.is_available():
+        print("kernel_sweeps: no CUDA device", file=sys.stderr)
+        return 1
+    impl = os.path.abspath(args.impl) if args.impl else os.path.dirname(os.path.abspath(__file__))
+    if args.impl:
+        if phases != ["rank"]:
+            ap.error("--impl times the rank phase only")
+        sys.path.insert(0, impl)
+    import keds_tpu_torch
+
+    if not keds_tpu_torch.__file__.startswith(impl):
+        raise RuntimeError(f"imported {keds_tpu_torch.__file__}, not the one under {impl}")
+    for phase in phases:
+        if phase == "rank":
+            rank(impl)
+        else:
+            globals()[phase]()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

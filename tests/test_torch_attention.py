@@ -15,7 +15,7 @@ from keds_tpu_torch.ops.attention import attention, attention_reference
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("s", [10, 60, 77, 257])
+@pytest.mark.parametrize("s", [10, 60, 77, 257, 1, 32])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_matches_jax(s, causal):
     rng = np.random.default_rng(s)

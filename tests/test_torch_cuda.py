@@ -1,5 +1,5 @@
 """keds_tpu_torch's CUDA kernels against their plain PyTorch versions on the
-card: edge shapes, exact ties, the launch counters and a tiny composed query
+card: tile edges, exact ties, the launch counters and a tiny composed query
 on the card vs the CPU.
 
 These tests need a CUDA device and nvcc; elsewhere they skip.  They import
@@ -14,7 +14,7 @@ import torch
 
 from keds_tpu_torch.ops import attention as att_mod, topk as topk_mod
 from keds_tpu_torch.ops.attention import attention, attention_reference
-from keds_tpu_torch.ops.topk import mips_topk, mips_topk_plain
+from keds_tpu_torch.ops.topk import mips_topk, mips_topk_plain, split_plan
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 # mantissa) and a probability may round the other way.
 ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOPK_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+VARIANT = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
 
 
 @pytest.fixture
@@ -37,19 +38,44 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+def _qkv(dev, b, h, s, dtype, seed):
+    """Strided q/k/v views of one (B, S, 3, H, Dh) buffer, as the towers pass them."""
+    qkv = torch.randn((b, s, 3, h, 64), generator=_gen(dev, seed), device=dev).to(dtype)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("s", [1, 16, 33, 77, 257])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 33, 63, 64, 65, 77, 197, 257, 288])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_kernel_matches_plain(cuda, dtype, s, causal):
-    B, H, Dh = 3, 4, 64
-    qkv = torch.randn((B, s, 3, H, Dh), generator=_gen(cuda, s), device=cuda).to(dtype)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    before = att_mod.KERNEL.launches
+    B, H, Dh = 3, 5, 64        # B*H = 15: not a multiple of any tile
+    q, k, v = _qkv(cuda, B, H, s, dtype, s)
+    before = att_mod.KERNEL.launches[VARIANT[dtype]]
     out = attention(q, k, v, causal)
     torch.cuda.synchronize()
-    assert att_mod.KERNEL.launches == before + 1
+    assert att_mod.KERNEL.launches[VARIANT[dtype]] == before + 1
     assert out.shape == (B, H, s, Dh) and out.dtype == dtype
     ref = attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATT_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_strided_views_match_contiguous(cuda, dtype, causal):
+    q, k, v = _qkv(cuda, 2, 3, 77, dtype, 9)
+    out = attention(q, k, v, causal)
+    ref = attention(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_attention_many_batch_heads(cuda, dtype):
+    """B*H above 65535 (a large encode batch in one call) fits the grid."""
+    q, k, v = _qkv(cuda, 4097, 16, 1, dtype, 7)
+    out = attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention_reference(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATT_TOL[dtype], rtol=0)
 
 
@@ -58,17 +84,17 @@ def _unit(n, d, dtype, dev, seed):
     return (a / a.norm(dim=1, keepdim=True)).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("b,n,k", [(1, 1, 1), (7, 1000, 16), (33, 3001, 10),
-                                   (65, 20_000, 32), (130, 129, 16)])
-def test_topk_kernel_matches_plain(cuda, dtype, b, n, k):
-    db, q = _unit(n, 64, dtype, cuda, n), _unit(b, 64, dtype, cuda, b + 1)
-    before = topk_mod.KERNEL.launches
+def _check_topk(q, db, k, dtype):
+    tiling, _ = split_plan(q.shape[0], db.shape[0],
+                           torch.cuda.get_device_properties(q.device).multi_processor_count,
+                           dtype)
+    before = topk_mod.KERNEL.launches[tiling.variant]
     vals, idx = mips_topk(q, db, k)
     torch.cuda.synchronize()
-    assert topk_mod.KERNEL.launches == before + 1
+    assert tiling.variant == VARIANT[dtype]
+    assert topk_mod.KERNEL.launches[tiling.variant] == before + 1
     assert vals.dtype == torch.float32 and idx.dtype == torch.int32
-    kk = min(k + 1, n)
+    kk = min(k + 1, db.shape[0])
     pv, pi = mips_topk_plain(q, db, kk)
     tol = TOPK_TOL[dtype]
     torch.testing.assert_close(vals, pv[:, :k], atol=tol, rtol=0)
@@ -79,6 +105,44 @@ def test_topk_kernel_matches_plain(cuda, dtype, b, n, k):
     sep[:, :gaps.shape[1]] &= gaps[:, :k] > tol
     sep[:, 1:] &= gaps[:, :k - 1] > tol
     assert bool(((idx == pi[:, :k]) | ~sep).all())
+    return tiling
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n,k", [(1, 1, 1), (7, 1000, 16), (33, 3001, 10),
+                                   (65, 20_000, 32), (130, 129, 16)])
+def test_topk_kernel_matches_plain(cuda, dtype, b, n, k):
+    _check_topk(_unit(b, 64, dtype, cuda, b + 1), _unit(n, 64, dtype, cuda, n), k, dtype)
+
+
+# N at and one past a chunk (32 rows for small f32 tiles, 128 otherwise) and
+# a slice boundary (132 slices of 2 chunks at B <= 64 in bf16); every B from
+# one query to four tiles; k cycling through 1, 16 and 32.
+_EDGES = [(b, n, (1, 16, 32)[i % 3]) for i, (b, n) in enumerate(
+    (b, n) for b in (1, 63, 64, 65, 129, 256)
+    for n in (32, 33, 128, 129, 33_792, 33_793))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n,k", _EDGES)
+def test_topk_kernel_tile_edges(cuda, dtype, b, n, k):
+    _check_topk(_unit(b, 64, dtype, cuda, b + 3), _unit(n, 64, dtype, cuda, n + 1), k, dtype)
+
+
+def test_topk_bf16_main_path_width(cuda):
+    """D = 768 and a DB of many slices through the tensor-core kernel."""
+    db, q = _unit(60_001, 768, torch.bfloat16, cuda, 1), _unit(64, 768, torch.bfloat16, cuda, 2)
+    _check_topk(q, db, 16, torch.bfloat16)
+
+
+def test_topk_f32_small_rank_shape(cuda):
+    """The corpus ranking (64, 256, 768) k=10 takes the small f32 tiles and
+    stays exact f32."""
+    db, q = _unit(256, 768, torch.float32, cuda, 11), _unit(64, 768, torch.float32, cuda, 12)
+    assert _check_topk(q, db, 10, torch.float32) is topk_mod.F32_SMALL
+    vals, _ = mips_topk(q, db, 10)
+    pv, _ = mips_topk_plain(q, db, 10)
+    assert (vals - pv).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -88,12 +152,23 @@ def test_topk_kernel_ties_go_to_lower_index(cuda, dtype):
     base = _unit(700, 64, dtype, cuda, 5)
     db = torch.cat([base, base, base]).contiguous()
     q = _unit(70, 64, dtype, cuda, 6)
+    before = topk_mod.KERNEL.launches[VARIANT[dtype]]
     vals, idx = mips_topk(q, db, 30)
     pv, pi = mips_topk_plain(q, db, 30)
     torch.cuda.synchronize()
+    assert topk_mod.KERNEL.launches[VARIANT[dtype]] == before + 1
     torch.testing.assert_close(idx, pi, atol=0, rtol=0)
     torch.testing.assert_close(vals, pv, atol=TOPK_TOL[dtype], rtol=0)
     assert bool((idx[:, 0::3] < idx[:, 1::3]).all() and (idx[:, 1::3] < idx[:, 2::3]).all())
+
+
+def test_python_mirrors_match_the_library(cuda):
+    lib = topk_mod.KERNEL.lib()
+    assert lib.keds_topk_max_k() == topk_mod.MAX_K
+    assert lib.keds_topk_tc_max_dim() == topk_mod.TC_MAX_DIM
+    for t in topk_mod.TILINGS:
+        assert (lib.keds_topk_query_tile(t.code), lib.keds_topk_chunk_rows(t.code)) == (
+            t.query_tile, t.chunk_rows)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -104,9 +179,15 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         mips_topk(q, torch.zeros((50, 64), device=cuda), 33)
     with pytest.raises(ValueError, match="one dtype"):
         mips_topk(q, torch.zeros((50, 64), device=cuda, dtype=torch.bfloat16), 3)
+    qb = torch.zeros((2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="divisible by 64"):
+        mips_topk(qb, torch.zeros((50, 96), device=cuda, dtype=torch.bfloat16), 3)
     x = torch.zeros((1, 1, 300, 64), device=cuda)
     with pytest.raises(ValueError, match="S <= "):
         attention(x, x, x)
+    y = torch.zeros((1, 1, 10, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh = 64"):
+        attention(y, y, y)
 
 
 def test_tiny_composed_query_card_matches_cpu(cuda):
@@ -143,3 +224,10 @@ def test_tiny_composed_query_card_matches_cpu(cuda):
     np.testing.assert_allclose(gpu[0], cpu[0], atol=1e-4)
     np.testing.assert_allclose(gpu[1], cpu[1], atol=1e-4)
     np.testing.assert_array_equal(gpu[2][1], cpu[2][1])
+
+
+def test_topk_bf16_widest_db(cuda):
+    """D = 1024 (ViT-H-14's width): the bf16 kernel's 16-slice instantiation
+    (query fragments for 1024 depths in registers) on its 8-stage ring."""
+    db, q = _unit(5_000, 1024, torch.bfloat16, cuda, 21), _unit(65, 1024, torch.bfloat16, cuda, 22)
+    _check_topk(q, db, 32, torch.bfloat16)

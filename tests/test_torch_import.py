@@ -32,7 +32,8 @@ def test_import_loads_no_jax_and_no_keds_tpu():
     assert len(MODULES) >= 14
 
 
-@pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
+                                  REPO / "kernel_sweeps.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_neither_jax_nor_keds_tpu(path):
     src = path.read_text()

@@ -1,5 +1,6 @@
 """Port exact top-k (plain version, CPU) vs the JAX Pallas kernel in
-interpret mode and the JAX XLA search, including exact ties."""
+interpret mode and the JAX XLA search, including exact ties; the kernel's
+split plan at the main-path shapes."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import jax.numpy as jnp
 from keds_tpu.ops.pallas_topk import mips_topk_pallas
 from keds_tpu.ops.topk import mips_topk as jax_mips_topk
 
+from keds_tpu_torch.ops import topk as topk_mod
 from keds_tpu_torch.ops.topk import mips_topk
 
 torch.set_num_threads(1)
@@ -51,3 +53,31 @@ def test_topk_ties_go_to_lower_index():
 def test_topk_rejects_k_above_n():
     with pytest.raises(ValueError, match="k <= N"):
         mips_topk(torch.zeros(2, 32), torch.zeros(5, 32), 6)
+
+
+# split_plan needs no library and no card: its tiles mirror csrc/topk.cu.
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,n,dtype", [(64, 500_000, torch.bfloat16),    # retrieval
+                                       (256, 500_000, torch.bfloat16),
+                                       (1, 1, torch.bfloat16),
+                                       (64, 256, torch.float32),           # ranking
+                                       (64, 10_000, torch.float32),
+                                       (130, 129, torch.float32)])
+def test_split_plan_fills_the_card(b, n, dtype):
+    tiling, n_splits = topk_mod.split_plan(b, n, H100_SMS, dtype)
+    n_chunks = -(-n // tiling.chunk_rows)
+    blocks = -(-b // tiling.query_tile) * n_splits
+    assert tiling.variant == ("bf16_tc" if dtype == torch.bfloat16 else "f32")
+    assert 1 <= n_splits <= n_chunks                     # no empty slice
+    if n_chunks >= H100_SMS:
+        assert blocks >= tiling.blocks_per_sm * H100_SMS
+
+
+def test_split_plan_main_path_shapes():
+    tiling, n_splits = topk_mod.split_plan(64, 500_000, H100_SMS, torch.bfloat16)
+    assert tiling is topk_mod.TC and n_splits == topk_mod.TC.blocks_per_sm * H100_SMS
+    # the 256-row ranking spreads over tens of blocks, not the two of 64x128 tiles
+    tiling, n_splits = topk_mod.split_plan(64, 256, H100_SMS, torch.float32)
+    assert tiling is topk_mod.F32_SMALL and 4 * n_splits == 32
