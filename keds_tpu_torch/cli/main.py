@@ -1,0 +1,198 @@
+"""Training CLI (counterpart of ``keds_tpu/cli/main.py``), features mode,
+image stream.
+
+Trains IM2TEXT and the two CrossFormers against a frozen CLIP on
+precomputed feature pairs, with the knowledge DB resident on the card:
+
+    python -m keds_tpu_torch.cli.main \\
+        --train-data /path/to/features --dataset-type directory \\
+        --clip-weights /path/to/ViT-L-14.pt --database-path /path/to/db \\
+        --batch-size 128 --epochs 30 --warmup 10000 --lr 1e-4 --wd 0.1 \\
+        --stream image
+
+Checkpoints go to ``<logs>/<name>/checkpoints/epoch_N.pt`` in the
+reference layout; ``--resume auto`` continues from the newest one.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _experiment_name(cfg) -> str:
+    if cfg.name:
+        return cfg.name
+    name = (f"lr={cfg.lr}_wd={cfg.wd}_model={cfg.model}"
+            f"_batchsize={cfg.batch_size}_workers={cfg.workers}")
+    if cfg.time_suffix:
+        name += time.strftime("_date=%Y-%m-%d-%H-%M-%S", time.gmtime())
+    return name.replace("/", "-")
+
+
+def _load_clip(cfg, device: torch.device):
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import MODEL_CONFIGS
+    from keds_tpu_torch.models.convert import clip_from_state_dict
+
+    if not cfg.clip_weights:
+        clip_cfg = MODEL_CONFIGS[cfg.model]
+        logging.info("initialized %s from scratch (no --clip-weights)", cfg.model)
+        return synth.init_clip(clip_cfg, cfg.seed, device, torch.float32), clip_cfg
+    # torch.load hands a TorchScript archive (the OpenAI release) to
+    # torch.jit.load; a plain checkpoint is a state dict
+    obj = torch.load(cfg.clip_weights, map_location="cpu", weights_only=False)
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    sd = sd.get("state_dict", sd)
+    return clip_from_state_dict(sd, device=device)
+
+
+def _load_neighbors(cfg, dataset, db, device: torch.device) -> None:
+    """Attach a precomputed-neighbour pack after checking its fingerprint
+    against this DB, this feature set, the precision and the platform."""
+    import hashlib
+
+    from keds_tpu_torch.retrieval.database import db_fingerprint
+
+    path = (os.path.join(cfg.train_data, "neighbors.npz") if cfg.neighbors == "auto"
+            else cfg.neighbors)
+    if not os.path.isfile(path):
+        raise SystemExit(f"--neighbors: no pack at {path}")
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["meta_json"]).decode())
+        img_idx, txt_idx = z["img_idx"], z["txt_idx"]
+    want = dict(db_fingerprint(db), k=meta.get("k"),
+                precision="fp32" if cfg.precision == "fp32" else "bf16",
+                backend=device.type, dataset_len=len(dataset.names),
+                dataset_names_sha1=hashlib.sha1("\n".join(dataset.names).encode()).hexdigest())
+    if meta != want:
+        raise SystemExit(f"--neighbors: {path} is stale for this DB/feature set "
+                         f"(fingerprint {meta} vs {want}); rebuild it")
+    if meta["k"] < cfg.db_topk:
+        raise SystemExit(f"--neighbors: pack holds top-{meta['k']} rows but "
+                         f"--db-topk is {cfg.db_topk}")
+    # the pack's caption neighbours (cap2_idx) belong to the text stream
+    dataset.attach_neighbors((img_idx[:, :cfg.db_topk], txt_idx[:, :cfg.db_topk]))
+    logging.info("precomputed neighbours: %s (k=%d); the step gathers instead of "
+                 "searching", path, meta["k"])
+
+
+def main(argv: Optional[list] = None) -> None:
+    from keds_tpu_torch.config import parse_args
+
+    cfg = parse_args(argv)
+    if cfg.stream != "image":
+        raise SystemExit("--stream text is not ported yet (ROADMAP.md section A item 8)")
+    dataset_type = cfg.dataset_type
+    if dataset_type == "auto" and cfg.train_data and os.path.isdir(cfg.train_data):
+        dataset_type = "directory"
+    if dataset_type != "directory":
+        raise SystemExit(f"--dataset-type {cfg.dataset_type}: only precomputed features "
+                         "(--dataset-type directory) are ported; raw csv/webdataset "
+                         "training is ROADMAP.md section A item 11")
+    if not cfg.database_path:
+        raise SystemExit("--database-path is required")
+
+    cfg.name = _experiment_name(cfg)
+    log_dir = os.path.join(cfg.logs, cfg.name)
+    log_path = os.path.join(log_dir, "out.log")
+    if cfg.resume is None and os.path.exists(log_path):
+        raise SystemExit(f"Error. Experiment already exists at {log_dir}. "
+                         "Use --name for a new one.")
+    checkpoint_path = cfg.checkpoint_path or os.path.join(log_dir, "checkpoints")
+    os.makedirs(checkpoint_path, exist_ok=True)
+    handler = logging.FileHandler(log_path)
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        with open(os.path.join(log_dir, "params.txt"), "w") as f:
+            for k, v in sorted(vars(cfg).items()):
+                f.write(f"{k}: {v}\n")
+        _train(cfg, checkpoint_path, log_dir)
+    finally:
+        logging.getLogger().removeHandler(handler)
+        handler.close()
+
+
+def _train(cfg, checkpoint_path: str, log_dir: str) -> None:
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.data.datasets import FeaturePairDataset
+    from keds_tpu_torch.data.loader import DataLoader
+    from keds_tpu_torch.io.checkpoint import (load_checkpoint, load_heads_checkpoint,
+                                              resolve_resume, restore_optimizer,
+                                              save_train_checkpoint)
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+    from keds_tpu_torch.runtime import resolve_device
+    from keds_tpu_torch.train.losses import TrainBatch
+    from keds_tpu_torch.train.trainer import make_optimizer, make_train_step, train_epoch
+
+    device = resolve_device(cfg.device)
+    dtype = torch.float32 if cfg.precision == "fp32" else torch.bfloat16
+    clip_params, clip_cfg = _load_clip(cfg, device)
+    heads = synth.init_heads(clip_cfg.embed_dim, cfg.seed + 1, device, torch.float32)
+    db = KnowledgeDB.from_directory(cfg.database_path, dtype, device)
+    dataset = FeaturePairDataset(cfg.train_data)
+    if cfg.neighbors:
+        _load_neighbors(cfg, dataset, db, device)
+    loader = DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                        drop_last=True, num_workers=cfg.workers)
+    steps_per_epoch = loader.num_batches
+    if steps_per_epoch == 0:
+        raise SystemExit(f"{len(dataset)} samples make no batch of {cfg.batch_size}")
+
+    start_epoch = 0
+    resume = resolve_resume(cfg.resume, checkpoint_path)
+    ckpt = None
+    if resume and os.path.exists(resume):
+        ckpt = load_checkpoint(resume)
+        heads, start_epoch = load_heads_checkpoint(resume, device, ckpt)
+    optimizer, schedule = make_optimizer(cfg, steps_per_epoch * cfg.epochs, heads)
+    if ckpt is not None:
+        restore_optimizer(optimizer, ckpt, heads)
+        logging.info("resumed from %s at epoch %d", resume, start_epoch)
+
+    step_fn = make_train_step(clip_params, clip_cfg, Retriever(db), optimizer, schedule,
+                              stream=cfg.stream, prompt_tokens=np.asarray([cfg.prompt_tokens]),
+                              split_id=cfg.split_id, seed=cfg.seed, dropout=cfg.droprate,
+                              db_topk=cfg.db_topk, compute_dtype=dtype, device=device)
+    scalars = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+
+    def write_scalars(values: dict, step: int) -> None:
+        scalars.write(json.dumps({"step": step, **values}) + "\n")
+        scalars.flush()
+
+    def batches():
+        for row in loader:
+            nb = {}
+            if len(row) > 2:   # precomputed-neighbour index rows
+                nb = dict(img_idx=torch.as_tensor(row[2], device=device),
+                          txt_idx=torch.as_tensor(row[3], device=device))
+            yield TrainBatch(image_features=torch.as_tensor(row[0], device=device),
+                             caption_features=torch.as_tensor(row[1], device=device), **nb)
+
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            logging.info("Start epoch %d", epoch)
+            loader.set_epoch(epoch)
+            train_epoch(step_fn, heads, batches(), epoch, steps_per_epoch,
+                        schedule=schedule, writers=(write_scalars,))
+            save = dict(epoch=epoch + 1, name=cfg.name, clip_params=clip_params,
+                        clip_cfg=clip_cfg, heads=heads, optimizer=optimizer)
+            if (epoch + 1) == cfg.epochs or (
+                    cfg.save_frequency > 0 and (epoch + 1) % cfg.save_frequency == 0):
+                save_train_checkpoint(os.path.join(checkpoint_path, f"epoch_{epoch + 1}.pt"),
+                                      **save)
+            if cfg.save_most_recent:
+                save_train_checkpoint(os.path.join(checkpoint_path, "epoch_latest.pt"), **save)
+    finally:
+        scalars.close()
+
+
+if __name__ == "__main__":
+    main()

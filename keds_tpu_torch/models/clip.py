@@ -182,6 +182,20 @@ def splice_tokens(embeds: torch.Tensor, pseudo: torch.Tensor, insert_pos,
     return torch.where(in_pseudo[:, :, None], pseudo_vals, base)
 
 
+def encode_text_img(params: dict, cfg: ClipConfig, text: torch.Tensor,
+                    img_tokens: torch.Tensor) -> torch.Tensor:
+    """Insert K pseudo-tokens immediately before the EOT of a fixed prompt
+    (the image-stream train prompt "a photo of"): the splice point is row
+    0's EOT, nothing is replaced, and each row pools at its EOT + K.
+    Gradients reach ``img_tokens`` through the splice and the tower."""
+    K = img_tokens.shape[1]
+    text = text.long()
+    x = params["text"]["tok_emb"][text]
+    eot = eot_indices(text, cfg.eot_id)
+    x = splice_tokens(x, img_tokens, eot[0], n_replace=0)
+    return _text_tail_pooled(params, cfg, x, eot + K)
+
+
 def encode_text_img_retrieval(params: dict, cfg: ClipConfig, text: torch.Tensor,
                               img_tokens: torch.Tensor, split_id: int) -> torch.Tensor:
     """Replace the ``*`` placeholder (``split_id``; its position is taken from

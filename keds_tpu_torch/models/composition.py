@@ -1,5 +1,5 @@
 """Dual-stream knowledge-fusion composition (counterpart of
-``keds_tpu/models/composition.py``), eval mode:
+``keds_tpu/models/composition.py``):
 
     mapped = IM2TEXT(image_embedding)
     fused  = retrieval_fuse(mapped[:, None], IM2TEXT(topk_image_neighbours))
@@ -10,7 +10,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,14 +27,18 @@ class FusionHeads(NamedTuple):
 
 def compose_pseudo_tokens(heads: FusionHeads, image_features: torch.Tensor,
                           topk_image: torch.Tensor, topk_text: torch.Tensor,
-                          use_text_condition: bool = True) -> torch.Tensor:
+                          use_text_condition: bool = True,
+                          generator: Optional[torch.Generator] = None,
+                          train: bool = False, dropout: float = 0.1) -> torch.Tensor:
     """(B, D) features and (B, k, D) neighbours -> pseudo tokens (B, 3, D),
-    or (B, 2, D) without the text condition."""
-    q = im2text_apply(heads.img2text, image_features)[:, None, :]
-    ti = im2text_apply(heads.img2text, topk_image)
+    or (B, 2, D) without the text condition.  With ``train`` and a
+    ``generator``, IM2TEXT drops at rate ``dropout``; the CrossFormers drop
+    nothing (their rate is 0.0 in the reference)."""
+    q = im2text_apply(heads.img2text, image_features, generator, train, dropout)[:, None, :]
+    ti = im2text_apply(heads.img2text, topk_image, generator, train, dropout)
     parts = [crossformer_apply(heads.retrieval_fuse, q, ti, ti)]
     if use_text_condition:
-        tt = im2text_apply(heads.img2text, topk_text)
+        tt = im2text_apply(heads.img2text, topk_text, generator, train, dropout)
         parts.append(crossformer_apply(heads.text_condition, q, tt, tt))
     parts.append(q)
     return torch.cat(parts, dim=1)

@@ -36,9 +36,11 @@ def _map(tree, fn):
 
 
 def _tensor(a, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    # contiguous: a transposed (out, in) weight must not keep transposed
+    # strides, or its products round differently from a freshly made one's
     if isinstance(a, torch.Tensor):
-        return a.detach().to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(a, np.float32)).to(device=device, dtype=dtype)
+        return a.detach().to(device=device, dtype=dtype).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device=device, dtype=dtype)
 
 
 def cast_floating(tree, dtype: torch.dtype, device: DeviceLike = None):
@@ -213,3 +215,96 @@ def heads_from_checkpoint(ckpt: dict, device: DeviceLike = None,
          crossformer_from_state_dict(ckpt["state_dict_retrieval_fuse"]),
          crossformer_from_state_dict(ckpt["state_dict_text_condition"])),
         device, dtype)
+
+
+# --------------------------------------------------------------------------
+# Port parameters -> reference state dicts (for writing checkpoints)
+# --------------------------------------------------------------------------
+
+HEAD_MODULES = ("img2text", "retrieval_fuse", "text_condition")
+
+
+def head_parameters(heads: FusionHeads):
+    """``(module, torch name, tensor)`` of every head parameter in the
+    reference's ``named_parameters`` order: the optimizer sees img2text,
+    retrieval_fuse, text_condition; IM2TEXT registers ``fc_out`` before
+    ``layers``; each CrossAttention ``to_q, to_k, to_v, to_out.0``.  The
+    tensors are the port's, so weights are (in, out): the reference's are
+    their transposes."""
+    out = [("img2text", f"fc_out.{n}", heads.img2text["fc_out"][p])
+           for n, p in (("weight", "w"), ("bias", "b"))]
+    for i, layer in enumerate(heads.img2text["layers"]):
+        out += [("img2text", f"layers.{i}.0.{n}", layer[p])
+                for n, p in (("weight", "w"), ("bias", "b"))]
+    for mod in HEAD_MODULES[1:]:
+        for i, layer in enumerate(getattr(heads, mod)):
+            for part, torch_part in (("to_q", "to_q"), ("to_k", "to_k"),
+                                     ("to_v", "to_v"), ("to_out", "to_out.0")):
+                out += [(mod, f"cross_layers.{i}.{torch_part}.{n}", layer[part][p])
+                        for n, p in (("weight", "w"), ("bias", "b"))]
+    return out
+
+
+def weight_decay_mask(params):
+    """True for matrix-shaped weights, False for biases and gains (the
+    reference's bn/ln/bias/logit_scale exclusion)."""
+    return _map(params, lambda a: a.ndim >= 2)
+
+
+def head_parameter_groups(heads: FusionHeads):
+    """The reference optimizer's two param groups as ``(module, torch name,
+    tensor)`` lists: group 0 the biases and gains (no weight decay,
+    :func:`weight_decay_mask` False), group 1 the weights, each in
+    :func:`head_parameters` order.  An optimizer's state ids number group
+    0's parameters, then group 1's."""
+    params = head_parameters(heads)
+    decay = [weight_decay_mask(t) for _, _, t in params]
+    return ([p for p, d in zip(params, decay) if not d],
+            [p for p, d in zip(params, decay) if d])
+
+
+def heads_to_state_dicts(heads: FusionHeads) -> Dict[str, StateDict]:
+    """Inverse of :func:`heads_from_checkpoint`: the three heads as
+    reference-layout state dicts of CPU f32 tensors (weights (out, in)),
+    keyed ``state_dict_img2text``, ``state_dict_retrieval_fuse`` and
+    ``state_dict_text_condition``."""
+    sds: Dict[str, StateDict] = {f"state_dict_{m}": {} for m in HEAD_MODULES}
+    for mod, name, t in head_parameters(heads):
+        t = t.detach().to("cpu", torch.float32)
+        sds[f"state_dict_{mod}"][name] = (t.T if t.ndim == 2 else t).contiguous()
+    return sds
+
+
+def clip_to_state_dict(params: dict, cfg: ClipConfig) -> StateDict:
+    """Inverse of :func:`clip_from_state_dict`: port CLIP parameters as a
+    reference-layout state dict of CPU f32 tensors.  ViT towers only."""
+    if not cfg.is_vit:
+        raise NotImplementedError("ModifiedResNet image towers are not ported yet")
+
+    def cpu(a: torch.Tensor) -> torch.Tensor:
+        return a.detach().to("cpu", torch.float32).contiguous()
+
+    def blocks(tree: dict, prefix: str, sd: StateDict) -> None:
+        for name, ours, transpose in _BLOCK_KEYS:
+            for i, a in enumerate(tree[ours]):
+                sd[f"{prefix}.resblocks.{i}.{name}"] = cpu(a.T if transpose else a)
+
+    v, t = params["visual"], params["text"]
+    P = cfg.vision_patch_size
+    sd: StateDict = {
+        "visual.conv1.weight": cpu(v["patch_w"].reshape(P, P, 3, cfg.vision_width)
+                                   .permute(3, 2, 0, 1)),
+        "visual.class_embedding": cpu(v["cls"]),
+        "visual.positional_embedding": cpu(v["pos"]),
+        "visual.ln_pre.weight": cpu(v["ln_pre_g"]), "visual.ln_pre.bias": cpu(v["ln_pre_b"]),
+        "visual.ln_post.weight": cpu(v["ln_post_g"]), "visual.ln_post.bias": cpu(v["ln_post_b"]),
+        "visual.proj": cpu(v["proj"]),
+        "token_embedding.weight": cpu(t["tok_emb"]),
+        "positional_embedding": cpu(t["pos"]),
+        "ln_final.weight": cpu(t["ln_final_g"]), "ln_final.bias": cpu(t["ln_final_b"]),
+        "text_projection": cpu(t["proj"]),
+        "logit_scale": cpu(params["logit_scale"]),
+    }
+    blocks(v["blocks"], "visual.transformer", sd)
+    blocks(t["blocks"], "transformer", sd)
+    return sd

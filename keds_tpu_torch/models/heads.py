@@ -1,16 +1,21 @@
-"""Trainable heads, eval mode (counterpart of ``keds_tpu/models/heads.py``).
+"""Trainable heads (counterpart of ``keds_tpu/models/heads.py``).
 
-* ``IM2TEXT``: n x [Linear -> ReLU] + output Linear, mapping a CLIP image
-  embedding into the text-token space.
+* ``IM2TEXT``: n x [Linear -> Dropout -> ReLU] + output Linear, mapping a
+  CLIP image embedding into the text-token space.
 * ``CrossAttention``: q/k/v linears into heads * dim_head, scaled
-  dot-product, output projection; no residual, no LayerNorm, no FFN.
+  dot-product, output projection; no residual, no LayerNorm, no FFN.  (The
+  reference follows ``to_out`` with a dropout whose rate is 0.0 on every
+  path, so none is applied here.)
 * ``CrossFormer``: a stack of CrossAttention layers with the query re-fed.
 
 Parameters are the JAX pytree layout: ``{"w": (in, out), "b": (out,)}``
-linears.  Dropout waits for the training slice.
+linears.  Dropout is explicit: it runs only with ``train=True`` and a
+``torch.Generator`` on the tensors' device, which draws the masks.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,10 +24,23 @@ def _proj(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, p["w"].to(x.dtype)) + p["b"].to(x.dtype)
 
 
-def im2text_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: each element is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate); a no-op unless ``train`` with a generator."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def im2text_apply(params: dict, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, train: bool = False,
+                  rate: float = 0.1) -> torch.Tensor:
     """(..., embed_dim) -> (..., output_dim)."""
     for layer in params["layers"]:
-        x = torch.relu(_proj(layer, x))
+        x = torch.relu(dropout(_proj(layer, x), rate, generator, train))
     return _proj(params["fc_out"], x)
 
 
@@ -47,5 +65,5 @@ def crossattention_apply(params: dict, q: torch.Tensor, k: torch.Tensor,
 def crossformer_apply(params: list, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, dim_head: int = 64) -> torch.Tensor:
     for layer in params:
-        q = crossattention_apply(layer, q, k, v, dim_head=dim_head)
+        q = crossattention_apply(layer, q, k, v, dim_head)
     return q

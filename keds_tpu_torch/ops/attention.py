@@ -7,14 +7,22 @@ Pallas ``flash_attention``) or raises: bf16 runs the tensor-core kernel
 (variant ``bf16_tc``, Dh = 64), f32 the exact-f32 CUDA-core kernel
 (variant ``f32``).  On a CPU tensor it runs the plain version
 :func:`attention_reference`.  Keys at or past the real sequence length
-never enter a softmax, so no sequence padding is needed.  Forward only: the
-backward arrives with the training slice.
+never enter a softmax, so no sequence padding is needed.
+
+Gradients (the counterpart of the JAX op's ``custom_vjp``): when grad mode
+is on and q, k or v requires grad, a CUDA call goes through an autograd
+Function whose backward launches ``csrc/attention_bwd.cu``
+(:func:`attention_backward`, variants ``bf16`` and ``f32``); on the CPU
+autograd runs through :func:`attention_reference`.  Otherwise (serving,
+``torch.inference_mode``) the forward kernel runs alone and nothing is
+saved.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -29,6 +37,13 @@ KERNEL = CudaKernel("attention", {
     "keds_attention_tc_head_dim": [],
 }, variants=("bf16_tc", "f32"))
 _VARIANTS = {torch.bfloat16: ("bf16_tc", 1), torch.float32: ("f32", 0)}
+
+BWD_KERNEL = CudaKernel("attention_bwd", {
+    "keds_attention_bwd": [_P] * 7 + [_I] * 5 + [_P, _I, ctypes.c_float, _P],
+    "keds_attention_bwd_max_seq": [],
+    "keds_attention_bwd_head_dim": [],
+}, variants=("bf16", "f32"))
+_BWD_VARIANTS = {torch.bfloat16: ("bf16", 1), torch.float32: ("f32", 0)}
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -49,17 +64,19 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T / sqrt(Dh), optionally causal) v for (B, H, S, Dh)
-    tensors, which may be strided views as long as Dh is contiguous.
+def attention_reference_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 dout: torch.Tensor, causal: bool = False
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward: (dq, dk, dv) by autograd through
+    :func:`attention_reference` (the JAX op's ``_bwd`` is the VJP of the
+    same plain math)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_reference(*leaves, causal)
+        return torch.autograd.grad(out, leaves, dout)
 
-    The CUDA result is a (B, H, S, Dh) view of a (B, S, H, Dh) contiguous
-    buffer, so ``out.transpose(1, 2).reshape(B, S, H * Dh)`` is free."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, causal)
-    require_cuda(q, k, v)
-    B, H, S, Dh = q.shape
+
+def _check_qkv(q, k, v) -> None:
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _VARIANTS:
@@ -67,6 +84,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype} {k.dtype} {v.dtype}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention kernel needs a contiguous head dimension")
+
+
+def _strides(*tensors: torch.Tensor):
+    """(batch, seq, head) element strides of (B, H, S, Dh) tensors, as the
+    C entry points take them."""
+    vals = [st for t in tensors for st in (t.stride(0), t.stride(2), t.stride(1))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> torch.Tensor:
+    require_cuda(q, k, v)
+    B, H, S, Dh = q.shape
+    _check_qkv(q, k, v)
     lib = KERNEL.lib()
     max_seq = lib.keds_attention_max_seq()
     if not 1 <= S <= max_seq:
@@ -84,8 +115,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"f32 attention kernel supports Dh <= "
                          f"{lib.keds_attention_max_head_dim()}, got {Dh}")
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*[
-        st for t in (q, k, v, out) for st in (t.stride(0), t.stride(2), t.stride(1))])
+    strides = _strides(q, k, v, out)
     err = lib.keds_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
         B, H, S, Dh, ctypes.cast(strides, ctypes.c_void_p), int(causal),
@@ -93,3 +123,74 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KERNEL.check(err)
     KERNEL.launches[variant] += 1
     return out
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, causal: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention` for the output gradient ``dout``.
+
+    On CUDA it launches ``csrc/attention_bwd.cu`` (Dh = 64, S <= 128, f32 or
+    bf16) or raises; q, k and v may be strided views, and a ``dout`` whose
+    head dimension is not contiguous is made contiguous here.  The three
+    gradients are views of one (B, S, 3, H, Dh) buffer, laid out as the
+    fused qkv projection's output.  On the CPU it runs
+    :func:`attention_reference_backward`."""
+    if q.device.type == "cpu":
+        return attention_reference_backward(q, k, v, dout, causal)
+    require_cuda(q, k, v, dout)
+    B, H, S, Dh = q.shape
+    _check_qkv(q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"output gradient {dout.shape} {dout.dtype} does not match "
+                         f"q {q.shape} {q.dtype}")
+    lib = BWD_KERNEL.lib()
+    max_seq, head_dim = lib.keds_attention_bwd_max_seq(), lib.keds_attention_bwd_head_dim()
+    if not 1 <= S <= max_seq or Dh != head_dim:
+        raise ValueError(f"attention backward kernel supports Dh = {head_dim} and "
+                         f"1 <= S <= {max_seq}, got Dh={Dh}, S={S}")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    grads = torch.empty((B, S, 3, H, Dh), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    variant, code = _BWD_VARIANTS[q.dtype]
+    strides = _strides(q, k, v, dout, dq, dk, dv)
+    err = lib.keds_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), code, B, H, S, Dh,
+        ctypes.cast(strides, ctypes.c_void_p), int(causal), 1.0 / math.sqrt(Dh),
+        stream_ptr(q))
+    BWD_KERNEL.check(err)
+    BWD_KERNEL.launches[variant] += 1
+    return dq, dk, dv
+
+
+class _AttentionFunction(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient; q, k and
+    v are saved (they are views of the qkv projection, alive anyway) and P
+    is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward_kernel(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, dout, ctx.causal), None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh), optionally causal) v for (B, H, S, Dh)
+    tensors, which may be strided views as long as Dh is contiguous.
+
+    The CUDA result is a (B, H, S, Dh) view of a (B, S, H, Dh) contiguous
+    buffer, so ``out.transpose(1, 2).reshape(B, S, H * Dh)`` is free."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _AttentionFunction.apply(q, k, v, causal)
+    return _forward_kernel(q, k, v, causal)

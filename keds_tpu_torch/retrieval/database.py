@@ -9,6 +9,7 @@ bf16 by default) resident on the device; the neighbour search is
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import os
 from typing import List, Optional, Tuple
@@ -82,12 +83,43 @@ class KnowledgeDB:
         logging.info("Knowledge DB ready: %d rows, dim %d", db.size, db.dim)
         return db
 
+    @classmethod
+    def from_directory(cls, path: str, dtype: torch.dtype = torch.bfloat16,
+                       device: DeviceLike = None) -> "KnowledgeDB":
+        """The ``--database-path`` layout: ``cc_{image,text}_databases.pt``
+        (or ``{image,text}_db.npy`` / ``.npz``) and ``database_names.txt``."""
+        def first(stem_pt: str, stem: str) -> str:
+            for name in (stem_pt, f"{stem}.npy", f"{stem}.npz"):
+                if os.path.isfile(os.path.join(path, name)):
+                    return os.path.join(path, name)
+            raise FileNotFoundError(f"knowledge DB: no {stem_pt}, {stem}.npy or "
+                                    f"{stem}.npz in {path}")
+
+        return cls.load(first("cc_image_databases.pt", "image_db"),
+                        first("cc_text_databases.pt", "text_db"),
+                        os.path.join(path, "database_names.txt"), dtype, device)
+
+
+def db_fingerprint(db: KnowledgeDB) -> dict:
+    """Identity of a knowledge DB for staleness checks of precomputed
+    neighbour packs: row count, sha1 of the names, and a sha1 over a 64-row
+    strided subsample of both tables as f32 bytes."""
+    n_rows = len(db.names)
+    sig = hashlib.sha1()
+    idx = np.unique(np.linspace(0, max(n_rows - 1, 0), num=min(64, n_rows)).astype(int))
+    for arr in (db.image_db, db.text_db):
+        rows = arr[torch.as_tensor(idx, device=arr.device)].float().cpu().numpy()
+        sig.update(np.ascontiguousarray(rows).tobytes())
+    return {"rows": n_rows,
+            "names_sha1": hashlib.sha1("\n".join(db.names).encode()).hexdigest(),
+            "db_rows_sha1": sig.hexdigest()}
+
 
 class Retriever:
     """Exact top-k retrieval of both modalities over a :class:`KnowledgeDB`
-    (the reference's ``get_retrieved_features``, eval mode).  The image
+    (the reference's ``get_retrieved_features``).  At eval the image
     neighbours are not shuffled: cross-attention is permutation-invariant
-    over keys and values, so the shuffle changes nothing at eval."""
+    over keys and values, so the shuffle changes nothing there."""
 
     def __init__(self, db: KnowledgeDB):
         self.db = db
@@ -99,15 +131,34 @@ class Retriever:
     def _gather(self, db_array: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return db_array[idx.long().clamp(0, db_array.shape[0] - 1)]   # (B, k, D)
 
-    def retrieve_features(self, feature: torch.Tensor, k: int = 16
+    def retrieve_features(self, feature: torch.Tensor, k: int = 16,
+                          generator: Optional[torch.Generator] = None,
+                          idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k image and caption neighbour rows (B, k, D) for each query, in
         ``feature``'s dtype.  The query is normalised in f32 and cast to the
-        DB dtype before the search."""
+        DB dtype before the search.
+
+        ``idx=(img_idx, txt_idx)``, each (B, k), skips the search and gathers
+        those precomputed rows.  ``generator`` (training) draws one
+        permutation of the k image neighbours for the whole batch; without
+        it (eval, the default) nothing is shuffled.  The gather ->
+        permutation -> cast tail is the same either way."""
         image_db, text_db = self.db.image_db, self.db.text_db
-        q = feature.float()
-        q = (q / q.norm(dim=1, keepdim=True)).to(image_db.dtype)
-        _, img_idx = self.search(q, image_db, k)
-        _, txt_idx = self.search(q, text_db, k)
-        return (self._gather(image_db, img_idx).to(feature.dtype),
+        if idx is not None:
+            img_idx, txt_idx = idx
+            if img_idx.shape[1] != k or txt_idx.shape[1] != k:
+                raise ValueError(
+                    f"precomputed neighbour indices are {img_idx.shape[1]}/"
+                    f"{txt_idx.shape[1]} wide but k={k}; slice the pack to k columns")
+        else:
+            q = feature.float()
+            q = (q / q.norm(dim=1, keepdim=True)).to(image_db.dtype)
+            _, img_idx = self.search(q, image_db, k)
+            _, txt_idx = self.search(q, text_db, k)
+        topk_img = self._gather(image_db, img_idx)
+        if generator is not None:
+            topk_img = topk_img[:, torch.randperm(k, generator=generator,
+                                                  device=generator.device)]
+        return (topk_img.to(feature.dtype),
                 self._gather(text_db, txt_idx).to(feature.dtype))

@@ -4,8 +4,9 @@
 initialisation scheme), the fusion heads of the serving path (IM2TEXT
 D -> 512 -> 512 -> D, two 3-layer CrossFormers) and a unit-norm bf16
 knowledge DB, all generated on the device from ``seed`` with explicit
-``torch.Generator``s.  No weights or data are read: a 0.5M-row DB made on
-the card costs no host-to-device copy.  The random streams differ from
+``torch.Generator``s; :func:`feature_pairs` makes precomputed-feature
+training pairs the same way.  No weights or data are read: a 0.5M-row DB
+made on the card costs no host-to-device copy.  The random streams differ from
 ``jax.random``'s, so tests that compare with the JAX package build their
 parameters with numpy instead.
 """
@@ -115,6 +116,19 @@ def synthetic_db(rows: int, dim: int, seed: int, device: torch.device,
 
     image = table()
     return KnowledgeDB(image, table(), [str(i) for i in range(rows)])
+
+
+def feature_pairs(n: int, dim: int, seed: int,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(image, caption) unit-norm f32 feature pairs (n, dim) made on
+    ``device``, each caption its image plus Gaussian noise of half its norm:
+    stand-ins for precomputed CLIP features."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    image = torch.randn((n, dim), generator=gen, device=device)
+    image = image / image.norm(dim=1, keepdim=True)
+    text = image + 0.5 * dim ** -0.5 * torch.randn((n, dim), generator=gen, device=device)
+    return image, text / text.norm(dim=1, keepdim=True)
 
 
 def build(cfg: ClipConfig = VIT_L_14, db_rows: int = 500_000,

@@ -1,0 +1,181 @@
+"""Training step and epoch loop (counterpart of ``keds_tpu/train/trainer.py``),
+features mode, image stream.
+
+One step runs on the device: the top-k search of both DB modalities (the
+fused kernel on the card), one permutation of the image neighbours, the
+fusion heads in f32 with dropout, the frozen text tower in the compute
+dtype (its attention is the fused kernel, with the backward kernel on the
+gradient path of the pseudo-tokens), InfoNCE, backward and an AdamW update
+of the heads in place.
+
+    opt, schedule = make_optimizer(cfg, total_steps, heads)
+    step = make_train_step(clip_params, clip_cfg, retriever, opt, schedule,
+                           stream="image", prompt_tokens=prompt, split_id=265)
+    loss = step(heads, batch, global_step)
+
+Randomness: the generator of global step ``t`` (updates counted from 0 over
+the whole run) on device ``dev`` is
+``torch.Generator(dev).manual_seed((seed << 32) + t)``, the counterpart of
+``jax.random.fold_in(key(seed), t)``.  It draws the image-neighbour
+permutation first, then the dropout masks.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from keds_tpu_torch.models import clip as mclip
+from keds_tpu_torch.models.composition import FusionHeads
+from keds_tpu_torch.models.convert import cast_floating, head_parameter_groups
+from keds_tpu_torch.retrieval.database import Retriever
+from keds_tpu_torch.runtime import DeviceLike, resolve_device
+from keds_tpu_torch.train.losses import TrainBatch, image_stream_loss, no_mark
+from keds_tpu_torch.train.schedule import cosine_lr
+
+# The pseudo-tokens of the image stream: fused + text-condition + mapped.
+K_PSEUDO = 3
+
+
+def make_optimizer(cfg, total_steps: int,
+                   heads: FusionHeads) -> Tuple[torch.optim.AdamW, Callable[[int], float]]:
+    """torch AdamW over the heads' tensors (made trainable and updated in
+    place) and the LR schedule.  ``cfg`` carries lr, beta1, beta2, eps, wd,
+    warmup and skip_scheduler.
+
+    The param groups are the reference's (:func:`head_parameter_groups`),
+    so that ``state_dict()`` has the reference's layout.  This is optax's adamw:
+    decoupled decay masked to ndim >= 2, eps outside the square root, bias
+    correction on the update count t + 1.  The train step sets each group's
+    LR to ``schedule(t)`` before update t, as optax reads its schedule at
+    the update count."""
+    no_decay, decay = head_parameter_groups(heads)
+    for _, _, t in no_decay + decay:
+        t.requires_grad_(True)
+    groups = [{"params": [t for _, _, t in no_decay], "weight_decay": 0.0},
+              {"params": [t for _, _, t in decay], "weight_decay": cfg.wd}]
+    opt = torch.optim.AdamW(groups, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps)
+    if cfg.skip_scheduler:
+        return opt, lambda step: cfg.lr
+    return opt, cosine_lr(cfg.lr, cfg.warmup, total_steps)
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of global step ``step`` (see the module docstring)."""
+    return torch.Generator(device=device).manual_seed((seed << 32) + step)
+
+
+def truncated_prompt(prompt_tokens, eot_id: int) -> np.ndarray:
+    """The fixed image-stream prompt cut to the next multiple of 8 that
+    covers EOT + K + 1: the splice pools at EOT + K, and a causal tower's
+    pooled output does not depend on later positions (S=8 for "a photo of")."""
+    prompt = np.asarray(prompt_tokens)
+    eot_pos = int(np.argmax(prompt[0] == eot_id))
+    s_t = -(-(eot_pos + K_PSEUDO + 1) // 8) * 8
+    return prompt[:, :s_t] if s_t < prompt.shape[1] else prompt
+
+
+def frozen_clip(clip_params: dict, compute_dtype: torch.dtype, device: torch.device) -> dict:
+    """CLIP as the train step runs it: every tensor in ``compute_dtype`` but
+    ``logit_scale``, which stays f32 (it scales the f32 logits)."""
+    clip_c = cast_floating(clip_params, compute_dtype, device)
+    clip_c["logit_scale"] = clip_params["logit_scale"].to(device, torch.float32)
+    return clip_c
+
+
+def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriever,
+                    optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
+                    *, stream: str, prompt_tokens, split_id: int, seed: int = 0,
+                    dropout: float = 0.1, db_topk: int = 16,
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    device: DeviceLike = None):
+    """The train step of one stream: ``step(heads, batch, t) -> loss``.
+
+    ``heads`` are the optimizer's tensors (f32) and are updated in place;
+    ``t`` is the global update count, which picks the LR and the
+    generator.  CLIP is cast to ``compute_dtype`` once and stays frozen
+    (no tensor of it requires grad); ``logit_scale`` stays f32.  The
+    returned loss is detached and stays on the device.  ``split_id`` is the
+    ``*`` token of the text stream's templates, which the image stream does
+    not read.  ``step(..., mark=f)`` calls ``f(stage)`` as each stage ends
+    (``retrieval``, ``heads_forward``, ``text_tower_forward``, ``backward``,
+    ``optimizer``), for a caller that times them."""
+    if stream != "image":
+        raise NotImplementedError(
+            f"stream={stream!r}: only the image stream is ported; the text stream "
+            "is ROADMAP.md section A item 8 (text_stream_loss, "
+            "encode_text_img_train, retrieve_caption_neighbors)")
+    del split_id
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(truncated_prompt(prompt_tokens, cfg.eot_id), device=dev).long()
+    clip_c = frozen_clip(clip_params, compute_dtype, dev)
+
+    def train_step(heads: FusionHeads, batch: TrainBatch, step: int,
+                   mark: Callable[[str], None] = no_mark) -> torch.Tensor:
+        if not isinstance(batch, TrainBatch):
+            raise NotImplementedError(
+                f"{type(batch).__name__}: only precomputed-feature TrainBatch "
+                "steps are ported; raw image batches are ROADMAP.md section A item 11")
+        gen = step_generator(seed, step, dev)
+        for group in optimizer.param_groups:
+            group["lr"] = schedule(step)
+        precomputed = batch.img_idx is not None
+        if precomputed and batch.txt_idx is None:
+            raise ValueError("precomputed-neighbour batch carries img_idx but not "
+                             "txt_idx; feed the whole pack or none of it")
+        topk_img, topk_txt = retriever.retrieve_features(
+            batch.image_features, k=db_topk, generator=gen,
+            idx=(batch.img_idx, batch.txt_idx) if precomputed else None)
+        mark("retrieval")
+        loss = image_stream_loss(heads, clip_c, cfg, batch, topk_img, topk_txt, prompt,
+                                 generator=gen, train=True, dropout=dropout, mark=mark)
+        mark("text_tower_forward")
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark("backward")
+        optimizer.step()
+        mark("optimizer")
+        return loss.detach()
+
+    return train_step
+
+
+def train_epoch(train_step, heads: FusionHeads, data_iter: Iterable, epoch: int,
+                steps_per_epoch: int, *, log_every: int = 500,
+                schedule: Optional[Callable[[int], float]] = None,
+                writers: Sequence[Callable] = ()) -> Optional[torch.Tensor]:
+    """One epoch with the reference's logging cadence (data time, batch time,
+    loss, LR every ``log_every`` steps).  The card is synchronised only at
+    those log steps (reading the loss).  Returns the last step's loss
+    (on the device), or None for an empty epoch."""
+    loss = None
+    end = time.time()
+    data_time = batch_time = 0.0
+    for i, batch in enumerate(data_iter):
+        if i >= steps_per_epoch:
+            break
+        step = epoch * steps_per_epoch + i
+        data_time = time.time() - end
+        loss = train_step(heads, batch, step)
+        if i % log_every == 0:
+            loss_val = float(loss)
+            now = time.time()
+            batch_time, end = now - end, now
+            lr = schedule(step) if schedule else float("nan")
+            pct = 100.0 * i / max(steps_per_epoch, 1)
+            logging.info(
+                f"Train Epoch: {epoch} [{i * batch.image_features.shape[0]}"
+                f" ({pct:.0f}%)]\tLoss: {loss_val:.6f}\tData (t) {data_time:.3f}"
+                f"\tBatch (t) {batch_time:.3f}\tLR: {lr:5f}")
+            scalars = {"train/loss": loss_val, "train/data_time": data_time,
+                       "train/batch_time": batch_time, "train/lr": lr}
+            for w in writers:
+                w(scalars, step)
+        else:
+            now = time.time()
+            batch_time, end = now - end, now
+    return loss

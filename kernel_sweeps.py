@@ -2,7 +2,7 @@
 """Design measurements of the port's kernels on one CUDA card, kept apart
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
-    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy]
+    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [train_check_controls]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -19,19 +19,33 @@ topk_anatomy      where the bf16 top-k's time goes at the retrieval shape:
                   the running lists, and zero queries (every score ties, so
                   nothing after the first chunk is inserted) isolate the
                   fold's fixed cost.
+train_check_controls
+                  what ``chip_smoke.py``'s train_check reads when the
+                  attention gradient is broken on purpose, beside the sound
+                  reading, on the same ViT-L/14 weights, 0.5M DB and batch:
+                  the attention output with no autograd node (the port before
+                  its backward kernel), and the backward kernel's dq, dk or dv
+                  replaced by zeros.  Each fault is a patch of
+                  ``keds_tpu_torch.ops.attention`` for the duration of one
+                  card step; the CPU f32 step is read once.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
+from types import SimpleNamespace
+from unittest import mock
 
 import torch
 
-from chip_smoke import DB_ROWS, QUERY_BATCH, _unit_rows, emit, time_ms
+from chip_smoke import (DB_ROWS, QUERY_BATCH, _unit_rows, compare_readings, emit,
+                        time_ms, train_check_batch, train_reading)
 
-PHASES = ("rank", "topk_anatomy")
+PHASES = ("rank", "topk_anatomy", "train_check_controls")
+CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
 
 def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -72,6 +86,46 @@ def topk_anatomy(N: int = DB_ROWS, D: int = 768) -> None:
     ms = {name: time_ms(lambda: mips_topk(q, db, k)) for name, (q, k) in cases.items()}
     ms["torch_sum_over_db"] = time_ms(lambda: torch.sum(db, dim=0))
     emit("topk_anatomy", shape=[N, D], dtype="bf16", kernel_ms=ms)
+
+
+def _fault(name: str):
+    """A patch of the attention op that breaks its gradient as ``name`` says."""
+    from keds_tpu_torch.ops import attention as att
+
+    if name == "none":
+        return contextlib.nullcontext()
+    if name == "attention_detached":
+        # the kernel's output written through ctypes, with no autograd node
+        return mock.patch.object(att, "_AttentionFunction",
+                                 SimpleNamespace(apply=att._forward_kernel))
+    which = ("dq_zero", "dk_zero", "dv_zero").index(name)
+    real = att.attention_backward
+
+    def broken(*args):
+        grads = list(real(*args))
+        grads[which] = torch.zeros_like(grads[which])
+        return tuple(grads)
+
+    return mock.patch.object(att, "attention_backward", broken)
+
+
+def train_check_controls() -> None:
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    clip_params, heads, db = synth.build(VIT_L_14, db_rows=DB_ROWS, dtype=torch.bfloat16,
+                                         seed=0)
+    cpu_db = KnowledgeDB(db.image_db.cpu().float(), db.text_db.cpu().float(), db.names)
+    inputs = train_check_batch(db)
+    cpu = train_reading(cast_floating(clip_params, torch.float32, "cpu"),
+                        cast_floating(heads, torch.float32, "cpu"), cpu_db, torch.float32,
+                        inputs)
+    for fault in CONTROL_FAULTS:
+        with _fault(fault):
+            card = train_reading(clip_params, heads, db, torch.bfloat16, inputs)
+        emit("train_check_control", fault=fault, **compare_readings(card, cpu))
 
 
 def main() -> int:

@@ -1,6 +1,8 @@
 """keds_tpu_torch's CUDA kernels against their plain PyTorch versions on the
-card: tile edges, exact ties, the launch counters and a tiny composed query
-on the card vs the CPU.
+card: tile edges, exact ties, the launch counters, the attention backward
+(strided views, non-contiguous output gradients, every text-bucket length),
+and a tiny composed query, text-tower gradient and train step on the card
+vs the CPU.
 
 These tests need a CUDA device and nvcc; elsewhere they skip.  They import
 neither jax nor keds_tpu, so on a machine without JAX they run with
@@ -224,6 +226,163 @@ def test_tiny_composed_query_card_matches_cpu(cuda):
     np.testing.assert_allclose(gpu[0], cpu[0], atol=1e-4)
     np.testing.assert_allclose(gpu[1], cpu[1], atol=1e-4)
     np.testing.assert_array_equal(gpu[2][1], cpu[2][1])
+
+
+def _grad_inputs(dev, b, h, s, dtype, seed):
+    """Strided q/k/v views of one qkv buffer that requires grad, and a
+    non-contiguous output gradient (a (B, H, S, Dh) view of (B, S, H, Dh))."""
+    qkv = torch.randn((b, s, 3, h, 64), generator=_gen(dev, seed), device=dev).to(dtype)
+    qkv.requires_grad_(True)
+    dout = torch.randn((b, s, h, 64), generator=_gen(dev, seed + 1),
+                       device=dev).to(dtype).transpose(1, 2)
+    return qkv, tuple(qkv[:, :, i].transpose(1, 2) for i in range(3)), dout
+
+
+# Backward kernel vs plain version.  f32: sums of up to S*Dh products in
+# another order.  bf16: the gradients are rounded to bf16, and the plain
+# version also rounds dP = dO V^T to bf16, which the kernel keeps in f32.
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}   # (atol, rtol)
+BWD_VARIANT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("s", [1, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 76, 77, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_backward_matches_plain(cuda, dtype, s, causal):
+    qkv, (q, k, v), dout = _grad_inputs(cuda, 3, 5, s, dtype, s)
+    before = dict(att_mod.BWD_KERNEL.launches)
+    out = attention(q, k, v, causal)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert att_mod.BWD_KERNEL.launches[BWD_VARIANT[dtype]] == before[BWD_VARIANT[dtype]] + 1
+    ref = att_mod.attention_reference_backward(q, k, v, dout, causal)
+    atol, rtol = BWD_TOL[dtype]
+    for g, r in zip(grads, ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_attention_backward_many_batch_heads(cuda, dtype):
+    """B*H = 65 552, past grid.y's 65 535."""
+    _, (q, k, v), dout = _grad_inputs(cuda, 4097, 16, 8, dtype, 3)
+    grads = att_mod.attention_backward(q, k, v, dout, True)
+    ref = att_mod.attention_reference_backward(q, k, v, dout, True)
+    torch.cuda.synchronize()
+    atol, rtol = BWD_TOL[dtype]
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol)
+
+
+def test_attention_backward_accumulates_into_qkv(cuda):
+    """The fused qkv buffer's gradient through the three strided views equals
+    the plain version's, contiguous output gradient or not."""
+    qkv, (q, k, v), dout = _grad_inputs(cuda, 2, 3, 33, torch.float32, 5)
+    attention(q, k, v, True).backward(dout)
+    ref_qkv = qkv.detach().clone().requires_grad_(True)
+    rq, rk, rv = (ref_qkv[:, :, i].transpose(1, 2) for i in range(3))
+    attention_reference(rq, rk, rv, True).backward(dout.contiguous())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(qkv.grad, ref_qkv.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_attention_serving_saves_nothing(cuda):
+    """Under inference_mode (and under no_grad with inputs that require
+    grad) the forward kernel runs alone: no graph, no backward launch."""
+    qkv, (q, k, v), _ = _grad_inputs(cuda, 2, 3, 16, torch.bfloat16, 8)
+    fwd0, bwd0 = dict(att_mod.KERNEL.launches), dict(att_mod.BWD_KERNEL.launches)
+    with torch.inference_mode():
+        x = qkv.detach()
+        out = attention(*(x[:, :, i].transpose(1, 2) for i in range(3)), True)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        assert attention(q, k, v, True).grad_fn is None
+    torch.cuda.synchronize()
+    assert att_mod.KERNEL.launches["bf16_tc"] == fwd0["bf16_tc"] + 2
+    assert att_mod.BWD_KERNEL.launches == bwd0
+    assert attention(q, k, v, True).grad_fn is not None
+
+
+def test_attention_backward_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 1, 129, 64), device=cuda)
+    with pytest.raises(ValueError, match="S <= 128"):
+        att_mod.attention_backward(x, x, x, x)
+    y = torch.zeros((1, 1, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="Dh = 64"):
+        att_mod.attention_backward(y, y, y, y)
+    z = torch.zeros((1, 1, 8, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        att_mod.attention_backward(z, z, z, z)
+    w = torch.zeros((1, 1, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="output gradient"):
+        att_mod.attention_backward(w, w, w, w.to(torch.bfloat16))
+
+
+def test_tiny_text_tower_gradients_card_match_cpu(cuda):
+    """Pseudo-token gradients through a 2-layer text tower (the image-stream
+    splice) on the card, through both attention kernels, equal the CPU's."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.convert import cast_floating
+
+    cfg = mclip.ClipConfig(embed_dim=64, image_resolution=32, vision_layers=1,
+                           vision_width=64, vision_patch_size=16, transformer_width=128,
+                           transformer_heads=2, transformer_layers=2)
+    params = synth.init_clip(cfg, 4, torch.device("cpu"), torch.float32)
+    text = torch.zeros((6, 16), dtype=torch.long)
+    text[:, :5] = torch.tensor([49406, 320, 1125, 539, 49407])
+    tok = torch.randn((6, 3, 128), generator=torch.Generator().manual_seed(0))
+    w = torch.randn((6, 64), generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = cast_floating(params, torch.float32, dev)
+        t = tok.to(dev).detach().requires_grad_(True)
+        bwd0 = att_mod.BWD_KERNEL.launches["f32"]
+        out = mclip.encode_text_img(p, cfg, text.to(dev), t)
+        (out * w.to(dev)).sum().backward()
+        grads[str(dev)] = t.grad.cpu()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert att_mod.BWD_KERNEL.launches["f32"] == bwd0 + cfg.transformer_layers
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], atol=1e-4, rtol=1e-4)
+    assert grads["cpu"].abs().max() > 0
+
+
+def test_tiny_train_step_card_matches_cpu(cuda):
+    """One image-stream train step at a tiny size in f32 (dropout 0): loss
+    and updated heads on the card equal the CPU's."""
+    from types import SimpleNamespace
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+    from keds_tpu_torch.train.losses import TrainBatch
+    from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=1,
+                     vision_width=64, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=1, transformer_layers=2)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=5,
+                                    device="cpu")
+    img, cap = synth.feature_pairs(16, 64, 6, torch.device("cpu"))
+    ocfg = SimpleNamespace(lr=1e-3, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.1, warmup=2,
+                           skip_scheduler=False)
+    prompt = np.zeros((1, 77), np.int64)
+    prompt[0, :5] = [49406, 320, 1125, 539, 49407]
+    out = {}
+    for dev in (cuda, "cpu"):   # the CPU run trains `heads` itself, in place
+        h = cast_floating(heads, torch.float32, dev)
+        ddb = KnowledgeDB(db.image_db.to(dev), db.text_db.to(dev), db.names)
+        opt, sched = make_optimizer(ocfg, 10, h)
+        step = make_train_step(params, cfg, Retriever(ddb), opt, sched, stream="image",
+                               prompt_tokens=prompt, split_id=265, dropout=0.0,
+                               db_topk=8, compute_dtype=torch.float32, device=dev)
+        losses = [float(step(h, TrainBatch(img.to(dev), cap.to(dev)), t)) for t in range(2)]
+        out[str(dev)] = (losses, [t.detach().cpu() for t in h.img2text["layers"][0].values()])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
 
 
 def test_topk_bf16_widest_db(cuda):

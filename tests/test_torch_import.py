@@ -29,7 +29,13 @@ def test_import_loads_no_jax_and_no_keds_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 14
+    assert len(MODULES) >= 28
+    # every subpackage is walked, the training slice's included
+    assert {m.split(".")[1] for m in MODULES if m.count(".") >= 2} >= {
+        "models", "ops", "retrieval", "train", "io", "data", "cli"}
+    assert {"keds_tpu_torch.train.trainer", "keds_tpu_torch.io.checkpoint",
+            "keds_tpu_torch.data.loader", "keds_tpu_torch.cli.main",
+            "keds_tpu_torch.config"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
