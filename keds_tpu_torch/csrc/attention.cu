@@ -72,24 +72,6 @@ size_t tc_smem_bytes(int n_keys) {
   return 2 * static_cast<size_t>(tc_key_rows(n_keys)) * kTcPitch * sizeof(bf16);
 }
 
-// s[nt][*] = q.k^T of the warp's 16 rows against keys kb*16 + nt*8 + (0..7).
-__device__ __forceinline__ void qk_tile(float (&s)[2][4], const unsigned (&qf)[4][4],
-                                        const bf16* k_s, int kb, int lane) {
-  const int mi = lane / 8;
-  const bf16* row = k_s + (kb * 16 + (mi / 2) * 8 + lane % 8) * kTcPitch + (mi % 2) * 8;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kTcHeadDim / 16; ++ks) {
-    unsigned kf[4];
-    ldmatrix_x4(kf, row + ks * 16);
-    mma_bf16(s[0], qf[ks], kf);
-    mma_bf16(s[1], qf[ks], kf + 2);
-  }
-}
-
 __global__ void __launch_bounds__(32 * kTcMaxWarps)
 attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S,
@@ -150,7 +132,7 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll 2
     for (int kb = 0; kb < n_kb; ++kb) {
       float s[2][4];
-      qk_tile(s, qf, k_s, kb, lane);
+      mma_abt<kTcPitch>(s, qf, k_s + kb * 16 * kTcPitch, lane);   // keys kb*16..
       const bool masked = (kb + 1) * 16 > lim_warp;     // warp-uniform
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -195,11 +177,10 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < kTcHeadDim / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    const int mi = lane / 8;
 #pragma unroll 2
     for (int kb = 0; kb < n_kb; ++kb) {
       float s[2][4];
-      qk_tile(s, qf, k_s, kb, lane);
+      mma_abt<kTcPitch>(s, qf, k_s + kb * 16 * kTcPitch, lane);   // keys kb*16..
       const bool masked = (kb + 1) * 16 > lim_warp;     // warp-uniform
       float p[2][4];
 #pragma unroll
@@ -213,14 +194,7 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
                               pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-      const bf16* vrow = v_s + (kb * 16 + (mi % 2) * 8 + lane % 8) * kTcPitch + (mi / 2) * 8;
-#pragma unroll
-      for (int np = 0; np < kTcHeadDim / 16; ++np) {
-        unsigned vf[4];
-        ldmatrix_x4_trans(vf, vrow + np * 16);
-        mma_bf16(acc[2 * np], pa, vf);
-        mma_bf16(acc[2 * np + 1], pa, vf + 2);
-      }
+      mma_ab<kTcPitch>(acc, pa, v_s + kb * 16 * kTcPitch, lane);
     }
 #pragma unroll
     for (int nt = 0; nt < kTcHeadDim / 8; ++nt) {

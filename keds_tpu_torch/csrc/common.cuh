@@ -60,6 +60,74 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
                : "r"(smem_addr(p)));
 }
 
+// --- bf16 tiles of head dimension 64 in shared memory ----------------------
+//
+// Tiles are row major with a row pitch of kPitch elements; a pitch that is an
+// odd multiple of 16 bytes puts the 8 rows an ldmatrix reads on distinct
+// banks.  Fragments follow mma_bf16's layout.
+
+// A fragment of the 16x16 tile at `tile`.
+template <int kPitch>
+__device__ __forceinline__ void ldmatrix_a(unsigned (&a)[4], const __nv_bfloat16* tile,
+                                           int lane) {
+  const int mi = lane / 8;
+  ldmatrix_x4(a, tile + ((mi % 2) * 8 + lane % 8) * kPitch + (mi / 2) * 8);
+}
+
+// s = A B^T for A (16 x 64, fragments a[k / 16]) and B the 16 x 64 tile at
+// `rows`: s[nt] holds the products with rows nt*8 .. nt*8+7 of B.
+template <int kPitch>
+__device__ __forceinline__ void mma_abt(float (&s)[2][4], const unsigned (&a)[4][4],
+                                        const __nv_bfloat16* rows, int lane) {
+  const int mi = lane / 8;
+  const __nv_bfloat16* row = rows + ((mi / 2) * 8 + lane % 8) * kPitch + (mi % 2) * 8;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    unsigned bf[4];
+    ldmatrix_x4(bf, row + ks * 16);
+    mma_bf16(s[0], a[ks], bf);
+    mma_bf16(s[1], a[ks], bf + 2);
+  }
+}
+
+// acc += A B for A (16 x 16, fragment a) and B the 16 x 64 tile at `rows`:
+// acc[nt] holds columns nt*8 .. nt*8+7.
+template <int kPitch>
+__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const unsigned (&a)[4],
+                                       const __nv_bfloat16* rows, int lane) {
+  const int mi = lane / 8;
+  const __nv_bfloat16* row = rows + ((mi % 2) * 8 + lane % 8) * kPitch + (mi / 2) * 8;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    unsigned bf[4];
+    ldmatrix_x4_trans(bf, row + np * 16);
+    mma_bf16(acc[2 * np], a, bf);
+    mma_bf16(acc[2 * np + 1], a, bf + 2);
+  }
+}
+
+// acc += (A0 + A1) B: mma_ab for two A fragments sharing each B fragment.
+template <int kPitch>
+__device__ __forceinline__ void mma_ab2(float (&acc)[8][4], const unsigned (&a0)[4],
+                                        const unsigned (&a1)[4], const __nv_bfloat16* rows,
+                                        int lane) {
+  const int mi = lane / 8;
+  const __nv_bfloat16* row = rows + ((mi % 2) * 8 + lane % 8) * kPitch + (mi / 2) * 8;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    unsigned bf[4];
+    ldmatrix_x4_trans(bf, row + np * 16);
+    mma_bf16(acc[2 * np], a0, bf);
+    mma_bf16(acc[2 * np + 1], a0, bf + 2);
+    mma_bf16(acc[2 * np], a1, bf);
+    mma_bf16(acc[2 * np + 1], a1, bf + 2);
+  }
+}
+
 // 16-byte global -> shared copy that bypasses L1; zero-fills when !valid
 // (src is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,8 +42,35 @@ BWD_KERNEL = CudaKernel("attention_bwd", {
     "keds_attention_bwd": [_P] * 7 + [_I] * 5 + [_P, _I, ctypes.c_float, _P],
     "keds_attention_bwd_max_seq": [],
     "keds_attention_bwd_head_dim": [],
+    "keds_attention_bwd_plan": [_I, _P],
 }, variants=("bf16", "f32"))
 _BWD_VARIANTS = {torch.bfloat16: ("bf16", 1), torch.float32: ("f32", 0)}
+
+
+class BwdPlan(NamedTuple):
+    """Launch plan of the bf16 backward kernel (``csrc/attention_bwd.cu``)."""
+
+    key_tiles: int      # 16-row tiles of the sequence
+    slices: int         # (batch, head) slices a block takes
+    warps: int          # warps a block
+    smem_bytes: int     # dynamic shared memory a block
+
+    def blocks(self, batch_heads: int) -> int:
+        return -(-batch_heads // self.slices)
+
+
+# Mirror of csrc/attention_bwd.cu's tc_plan (a card test checks it against
+# keds_attention_bwd_plan): q, k, v and dO in 144-byte rows and three f32
+# statistics a row, per slice; S <= 16 packs BWD_SMALL_SLICES slices into a
+# block, one warp each.
+BWD_SMALL_SLICES = 4
+
+
+def bwd_plan(S: int) -> BwdPlan:
+    n = -(-S // 16)
+    slice_bytes = 16 * n * (4 * 144 + 3 * 4)
+    slices = BWD_SMALL_SLICES if n == 1 else 1
+    return BwdPlan(n, slices, BWD_SMALL_SLICES if n == 1 else n, slices * slice_bytes)
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -132,7 +159,8 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On CUDA it launches ``csrc/attention_bwd.cu`` (Dh = 64, S <= 128, f32 or
     bf16) or raises; q, k and v may be strided views, and a ``dout`` whose
-    head dimension is not contiguous is made contiguous here.  The three
+    head dimension is not contiguous is made contiguous here, as is, for
+    bf16, any input whose rows are not 16-byte aligned.  The three
     gradients are views of one (B, S, 3, H, Dh) buffer, laid out as the
     fused qkv projection's output.  On the CPU it runs
     :func:`attention_reference_backward`."""
@@ -151,9 +179,13 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"1 <= S <= {max_seq}, got Dh={Dh}, S={S}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    variant, code = _BWD_VARIANTS[q.dtype]
+    if variant == "bf16":       # 16-byte cp.async rows
+        q, k, v, dout = (t if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                         else torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+                         for t in (q, k, v, dout))
     grads = torch.empty((B, S, 3, H, Dh), dtype=q.dtype, device=q.device)
     dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
-    variant, code = _BWD_VARIANTS[q.dtype]
     strides = _strides(q, k, v, dout, dq, dk, dv)
     err = lib.keds_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),

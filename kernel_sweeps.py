@@ -2,7 +2,8 @@
 """Design measurements of the port's kernels on one CUDA card, kept apart
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
-    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [train_check_controls]
+    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [attention_bwd]
+                             [train_check_controls]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -19,6 +20,11 @@ topk_anatomy      where the bf16 top-k's time goes at the retrieval shape:
                   the running lists, and zero queries (every score ties, so
                   nothing after the first chunk is inserted) isolate the
                   fold's fixed cost.
+attention_bwd     the bf16 attention backward (``attention_backward``,
+                  causal) at the train prompt (128, 12, 8, 64) and the text
+                  buckets (64, 12, {16, 32, 77}, 64), on the inputs and the
+                  graph-replay timing of ``chip_smoke.py``.  Takes ``--impl``
+                  as ``rank`` does: run parent, change, change, parent.
 train_check_controls
                   what ``chip_smoke.py``'s train_check reads when the
                   attention gradient is broken on purpose, beside the sound
@@ -41,10 +47,12 @@ from unittest import mock
 
 import torch
 
-from chip_smoke import (DB_ROWS, QUERY_BATCH, _unit_rows, compare_readings, emit,
-                        time_ms, train_check_batch, train_reading)
+from chip_smoke import (DB_ROWS, QUERY_BATCH, TRAIN_BATCH, _dout, _qkv, _unit_rows,
+                        compare_readings, emit, time_ms, train_check_batch, train_reading)
 
-PHASES = ("rank", "topk_anatomy", "train_check_controls")
+PHASES = ("rank", "topk_anatomy", "attention_bwd", "train_check_controls")
+IMPL_PHASES = ("rank", "attention_bwd")      # the phases --impl times
+BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64), (64, 12, 16, 64), (64, 12, 32, 64), (64, 12, 77, 64))
 CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
 
@@ -86,6 +94,17 @@ def topk_anatomy(N: int = DB_ROWS, D: int = 768) -> None:
     ms = {name: time_ms(lambda: mips_topk(q, db, k)) for name, (q, k) in cases.items()}
     ms["torch_sum_over_db"] = time_ms(lambda: torch.sum(db, dim=0))
     emit("topk_anatomy", shape=[N, D], dtype="bf16", kernel_ms=ms)
+
+
+def attention_bwd(impl: str) -> None:
+    from keds_tpu_torch.ops.attention import attention_backward
+
+    ms = {}
+    for B, H, S, Dh in BWD_SHAPES:
+        q, k, v = _qkv(B, H, S, Dh, torch.bfloat16)
+        dout = _dout(B, H, S, Dh, torch.bfloat16)
+        ms[f"{B}x{H}x{S}x{Dh}"] = time_ms(lambda: attention_backward(q, k, v, dout, True))
+    emit("attention_bwd", impl=impl, dtype="bf16", causal=True, kernel_ms=ms)
 
 
 def _fault(name: str):
@@ -133,7 +152,8 @@ def main() -> int:
     ap.add_argument("phases", nargs="*", metavar="phase",
                     help=f"any of {', '.join(PHASES)} (default: all)")
     ap.add_argument("--impl", default=None,
-                    help="directory whose keds_tpu_torch is timed (rank only)")
+                    help="directory whose keds_tpu_torch is timed "
+                         f"({' and '.join(IMPL_PHASES)} only)")
     args = ap.parse_args()
     phases = args.phases or list(PHASES)
     if set(phases) - set(PHASES):
@@ -143,16 +163,16 @@ def main() -> int:
         return 1
     impl = os.path.abspath(args.impl) if args.impl else os.path.dirname(os.path.abspath(__file__))
     if args.impl:
-        if phases != ["rank"]:
-            ap.error("--impl times the rank phase only")
+        if set(phases) - set(IMPL_PHASES):
+            ap.error(f"--impl times the {' and '.join(IMPL_PHASES)} phases only")
         sys.path.insert(0, impl)
     import keds_tpu_torch
 
     if not keds_tpu_torch.__file__.startswith(impl):
         raise RuntimeError(f"imported {keds_tpu_torch.__file__}, not the one under {impl}")
     for phase in phases:
-        if phase == "rank":
-            rank(impl)
+        if phase in IMPL_PHASES:
+            globals()[phase](impl)
         else:
             globals()[phase]()
     return 0
