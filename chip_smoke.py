@@ -47,12 +47,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            CPU in f32 (same weights and batch, the card's neighbour indices
            fed to both, dropout 0): relative loss difference and cosine of
            the flattened head gradients.
-9. the kernels line, then the card's name and power limit from nvidia-smi,
-   then the result line.
+9. train_text_path
+           the text-stream train step on the same model and DB: neighbour
+           templates "a photo of * * {other}" for all 0.5M DB rows, B=128
+           own templates "a photo of * * * {other}" bucketed as the CLI
+           feeds them (seeded ids, 4 to 20 of them an other caption: the
+           S=32 bucket for both tower calls), 2 warm-up and 10 timed steps
+           through train_epoch (launch counts zeroed just before, read just
+           after: B1 twice a step, at k=16 and k=2), text_condition
+           unchanged, per-stage ms, peak memory and a checkpoint round trip.
+10. profile_train_text
+           torch.profiler over one text-stream step.
+11. train_text_check
+           one text-stream step on the card in bf16 against the CPU's f32
+           step, the card's three index sets fed to both, own templates at
+           the full width 77; train_check's limits over img2text and
+           retrieval_fuse (text_condition has no gradient on either side).
+12. the kernels line (launches of each path beside each variant), then the
+    card's name and power limit from nvidia-smi, then the result line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
 import subprocess
@@ -80,6 +97,7 @@ TRAIN_GRAD_COSINE_MIN = 0.99
 TRAIN_OPT = SimpleNamespace(lr=5e-4, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.2, warmup=2,
                             skip_scheduler=False)   # ViT-L/14 defaults, short warm-up
 TRAIN_PROMPT = np.array([[49406, 320, 1125, 539, 49407] + [0] * 72])   # "a photo of"
+OTHER_LEN = (4, 20)    # ids in a text-stream "other" caption (CC3M: about 10 words)
 VARIANT = {torch.bfloat16: "bf16_tc", torch.float32: "f32"}   # per kernel, by dtype
 SPLIT_ID = 265         # '*' in the CLIP BPE vocab (bench.py's prompt)
 DB_ROWS = 500_000
@@ -381,19 +399,36 @@ def profile_batch(engine, images_u8: np.ndarray, text: np.ndarray, corpus) -> No
 
 
 def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat16,
-                 total_steps=20):
-    """f32 trainable copies of the heads, their optimizer and the train step."""
+                 total_steps=20, stream="image", db_other_tokens=None):
+    """f32 trainable copies of the heads, their optimizer and the train step.
+    The copies are new tensors even where ``heads`` are f32 on ``device``
+    already (the CPU's), which the step would otherwise train in place."""
     from keds_tpu_torch.models.clip import VIT_L_14
     from keds_tpu_torch.models.convert import cast_floating
     from keds_tpu_torch.retrieval.database import Retriever
     from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
 
-    theads = cast_floating(heads, torch.float32, device)
+    theads = cast_floating(copy.deepcopy(heads), torch.float32, device)
     opt, sched = make_optimizer(TRAIN_OPT, total_steps, theads)
     step = make_train_step(clip_params, VIT_L_14, Retriever(db), opt, sched,
-                           stream="image", prompt_tokens=TRAIN_PROMPT, split_id=SPLIT_ID,
-                           dropout=dropout, compute_dtype=dtype, device=device)
+                           stream=stream, prompt_tokens=TRAIN_PROMPT, split_id=SPLIT_ID,
+                           dropout=dropout, db_other_tokens=db_other_tokens,
+                           compute_dtype=dtype, device=device)
     return theads, opt, sched, step
+
+
+def text_templates(rng: np.random.Generator, n: int, n_stars: int) -> np.ndarray:
+    """(n, 77) int32 rows [SOT, a, photo, of, * x n_stars, other, EOT], the
+    other caption ``OTHER_LEN`` seeded ids in 1000-40000."""
+    lo, hi = OTHER_LEN
+    lens = rng.integers(lo, hi + 1, n)
+    other = rng.integers(1000, 40000, (n, hi), dtype=np.int32)
+    out = np.zeros((n, 77), np.int32)
+    out[:, :4] = [49406, 320, 1125, 539]
+    out[:, 4:4 + n_stars] = SPLIT_ID
+    out[:, 4 + n_stars:4 + n_stars + hi] = np.where(np.arange(hi) < lens[:, None], other, 0)
+    out[np.arange(n), 4 + n_stars + lens] = 49407
+    return out
 
 
 def train_stage_times(step, theads, batch, t: int) -> dict:
@@ -416,12 +451,9 @@ def train_path(clip_params, heads, db, kernels) -> tuple:
     """The training main path: make_train_step + train_epoch at B=128 on
     one repeated batch, then a checkpoint round trip."""
     from keds_tpu_torch import synth
-    from keds_tpu_torch.io.checkpoint import (load_checkpoint, load_heads_checkpoint,
-                                              restore_optimizer, save_train_checkpoint)
     from keds_tpu_torch.models.clip import VIT_L_14
-    from keds_tpu_torch.models.convert import head_parameters
     from keds_tpu_torch.train.losses import TrainBatch
-    from keds_tpu_torch.train.trainer import make_optimizer, train_epoch
+    from keds_tpu_torch.train.trainer import train_epoch
 
     dev = db.image_db.device
     img, cap = synth.feature_pairs(TRAIN_BATCH, VIT_L_14.embed_dim, seed=5, device=dev)
@@ -458,7 +490,24 @@ def train_path(clip_params, heads, db, kernels) -> tuple:
     runs = [train_stage_times(step, theads, batch, t) for t in (20, 21, 22)]
     stages = {name: float(np.median([r[name] for r in runs])) for name in runs[0]}
 
-    # checkpoint round trip: heads and AdamW moments come back exactly
+    checkpoint = checkpoint_round_trip(clip_params, theads, opt, dev)
+    emit("train_path", model="ViT-L/14", db_rows=db.size, batch=TRAIN_BATCH, dtype="bf16",
+         timed_steps=10, step_ms=elapsed / 10 * 1e3, samples_per_s=TRAIN_BATCH * 10 / elapsed,
+         stage_ms_one_step=stages, stage_ms_runs=runs, peak_mem_gb=peak_gb,
+         losses=loss_vals, launches=launches, checkpoint=checkpoint)
+    return theads, opt, step, batch, launches
+
+
+def checkpoint_round_trip(clip_params, theads, opt, dev) -> dict:
+    """Save and reload a train checkpoint: the heads and the AdamW moments
+    must come back exactly, and a parameter without state (text_condition
+    in the text stream) must stay without."""
+    from keds_tpu_torch.io.checkpoint import (load_checkpoint, load_heads_checkpoint,
+                                              restore_optimizer, save_train_checkpoint)
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import head_parameters
+    from keds_tpu_torch.train.trainer import make_optimizer
+
     t = time.perf_counter()
     build = pathlib.Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -471,19 +520,19 @@ def train_path(clip_params, heads, db, kernels) -> tuple:
     heads2, epoch = load_heads_checkpoint(path, dev, ckpt)
     opt2, _ = make_optimizer(TRAIN_OPT, 20, heads2)
     restored = restore_optimizer(opt2, ckpt, heads2)
+
+    def same_state(a, b):
+        if (b in opt.state) != (a in opt2.state):
+            return False
+        return b not in opt.state or all(torch.equal(opt.state[b][m], opt2.state[a][m])
+                                         for m in ("exp_avg", "exp_avg_sq"))
+
     exact = restored and epoch == 1 and all(
-        torch.equal(a, b) and all(torch.equal(opt.state[b][m], opt2.state[a][m])
-                                  for m in ("exp_avg", "exp_avg_sq"))
+        torch.equal(a, b) and same_state(a, b)
         for (_, _, a), (_, _, b) in zip(head_parameters(heads2), head_parameters(theads)))
     if not exact:
         raise AssertionError("checkpoint round trip changed the heads or AdamW moments")
-    emit("train_path", model="ViT-L/14", db_rows=db.size, batch=TRAIN_BATCH, dtype="bf16",
-         timed_steps=10, step_ms=elapsed / 10 * 1e3, samples_per_s=TRAIN_BATCH * 10 / elapsed,
-         stage_ms_one_step=stages, stage_ms_runs=runs, peak_mem_gb=peak_gb,
-         losses=loss_vals, launches=launches,
-         checkpoint=dict(exact_round_trip=exact, size_gb=size_gb,
-                         seconds=time.perf_counter() - t))
-    return theads, opt, step, batch, launches
+    return dict(exact_round_trip=exact, size_gb=size_gb, seconds=time.perf_counter() - t)
 
 
 def profile_train(step, theads, batch) -> None:
@@ -507,19 +556,31 @@ def train_check_batch(db):
     return img, cap, [mips_topk(q, a, 16)[1] for a in (db.image_db, db.text_db)]
 
 
-def train_reading(clip_params, heads, db, dtype, inputs) -> tuple:
+def train_reading(clip_params, heads, db, dtype, inputs, stream="image",
+                  db_other_tokens=None) -> tuple:
     """(loss, flattened f64 head gradient) of train step 0 on ``db``'s device
-    in ``dtype``, dropout 0, over ``inputs`` (:func:`train_check_batch`)."""
+    in ``dtype``, dropout 0, over ``inputs`` (:func:`train_check_batch`, or
+    :func:`train_text_check_batch` with the text stream).  In the text
+    stream text_condition must get no gradient, and the gradient covers the
+    other heads."""
     from keds_tpu_torch.models.convert import head_parameters
     from keds_tpu_torch.train.losses import TrainBatch
 
-    img, cap, idx = inputs
+    img, cap, idx = inputs[:3]
     dev = db.image_db.device
-    theads, _, _, step = _train_setup(clip_params, heads, db, dev, dropout=0.0, dtype=dtype)
+    theads, _, _, step = _train_setup(clip_params, heads, db, dev, dropout=0.0, dtype=dtype,
+                                      stream=stream, db_other_tokens=db_other_tokens)
+    extra = {}
+    if stream == "text":
+        extra = dict(cap2_idx=idx[2].to(dev), other_tokens=inputs[3].to(dev))
     loss = float(step(theads, TrainBatch(img.to(dev), cap.to(dev), img_idx=idx[0].to(dev),
-                                         txt_idx=idx[1].to(dev)), 0))
-    return loss, torch.cat([p.grad.flatten().double().cpu()
-                            for _, _, p in head_parameters(theads)])
+                                         txt_idx=idx[1].to(dev), **extra), 0))
+    params = head_parameters(theads)
+    if stream == "text":
+        if any(p.grad is not None for mod, _, p in params if mod == "text_condition"):
+            raise AssertionError("the text stream gave text_condition a gradient")
+        params = [(mod, n, p) for mod, n, p in params if mod != "text_condition"]
+    return loss, torch.cat([p.grad.flatten().double().cpu() for _, _, p in params])
 
 
 def compare_readings(card: tuple, cpu: tuple) -> dict:
@@ -554,6 +615,116 @@ def train_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db) -> None:
                              f"grad cosine {r['head_grad_cosine']}")
 
 
+def train_text_path(clip_params, heads, db, kernels, table: np.ndarray) -> tuple:
+    """The text-stream main path: make_train_step(stream="text") +
+    train_epoch at B=128 on one repeated batch, ``table`` the neighbour
+    templates of every DB row, then a checkpoint round trip."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import head_parameters
+    from keds_tpu_torch.tokenizer import bucket_text
+    from keds_tpu_torch.train.losses import TrainBatch
+    from keds_tpu_torch.train.trainer import train_epoch
+
+    dev = db.image_db.device
+    img, cap = synth.feature_pairs(TRAIN_BATCH, VIT_L_14.embed_dim, seed=8, device=dev)
+    own = bucket_text(text_templates(np.random.default_rng(8), TRAIN_BATCH, 3), n_pseudo=1)
+    batch = TrainBatch(img, cap, other_tokens=torch.as_tensor(own, device=dev))
+    theads, opt, sched, step = _train_setup(clip_params, heads, db, dev, stream="text",
+                                            db_other_tokens=table)
+    condition = [(p, p.detach().clone()) for mod, _, p in head_parameters(theads)
+                 if mod == "text_condition"]
+    losses = []
+
+    def recorded(h, b, t):
+        loss = step(h, b, t)
+        losses.append(loss)
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for t in range(2):                      # warm-up steps t = 0, 1
+        recorded(theads, batch, t)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    train_epoch(recorded, theads, iter([batch] * 10), 1, 10, log_every=10, schedule=sched)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    missing = [f"{n}/{v}" for n, v in (("attention", "bf16_tc"), ("attention_bwd", "bf16"))
+               if launches[n][v] == 0]
+    f32 = [n for n in kernels if launches[n].get("f32")]
+    # B1 twice a step: the image DB at k=16 and the caption DB at k=2 (the
+    # caption neighbours of the image stream are not searched)
+    if missing or f32 or launches["mips_topk"]["bf16_tc"] != 2 * 10:
+        raise AssertionError(f"text train path launches {launches}: missing {missing}, "
+                             f"f32 {f32}, B1 bf16_tc not 20")
+    loss_vals = [float(x) for x in losses]
+    if not (np.isfinite(loss_vals).all() and loss_vals[-1] < loss_vals[0]):
+        raise AssertionError(f"text train losses not finite and falling: {loss_vals}")
+    if not all(torch.equal(p, p0) and p not in opt.state for p, p0 in condition):
+        raise AssertionError("the text stream changed text_condition or gave it AdamW state")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = [train_stage_times(step, theads, batch, t) for t in (20, 21, 22)]
+    stages = {name: float(np.median([r[name] for r in runs])) for name in runs[0]}
+    checkpoint = checkpoint_round_trip(clip_params, theads, opt, dev)
+    emit("train_text_path", model="ViT-L/14", db_rows=db.size, batch=TRAIN_BATCH,
+         dtype="bf16", own_bucket=int(own.shape[1]), timed_steps=10,
+         step_ms=elapsed / 10 * 1e3, samples_per_s=TRAIN_BATCH * 10 / elapsed,
+         stage_ms_one_step=stages, stage_ms_runs=runs, peak_mem_gb=peak_gb,
+         losses=loss_vals, launches=launches, text_condition_unchanged=True,
+         checkpoint=checkpoint)
+    return theads, step, batch, launches
+
+
+def profile_train_text(step, theads, batch) -> None:
+    """Device time of one text-stream step by group."""
+    profile_device("profile_train_text", lambda: step(theads, batch, 23),
+                   [("attention backward (B2')", ("attention_bwd",)),
+                    ("attention forward (B2)", ("attention_tc", "attention_f32")),
+                    ("mips_topk (B1)", ("topk_",))])
+
+
+def train_text_check_batch(db):
+    """The text check's B=128 feature pairs (seed 9), own templates at the
+    full width 77, and the card's image, caption and caption-neighbour rows,
+    searched as the step searches them."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.retrieval.database import Retriever, unit_rows
+
+    img, cap = synth.feature_pairs(TRAIN_BATCH, VIT_L_14.embed_dim, seed=9,
+                                   device=db.image_db.device)
+    retr = Retriever(db)
+    idx = retr.neighbour_indices(img, 16) + (retr.caption_indices(unit_rows(cap), 2),)
+    own = torch.from_numpy(text_templates(np.random.default_rng(9), TRAIN_BATCH, 3))
+    return img, cap, idx, own
+
+
+def train_text_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, table,
+                     kernels) -> None:
+    """One text-stream step on the card (bf16) against the CPU (f32) from
+    the same weights and batch, the card's index triple fed to both,
+    dropout 0; the limits are train_check's.  The card step's launches
+    (its own templates at S=77, the neighbours' at S=32) are counted."""
+    t = time.perf_counter()
+    inputs = train_text_check_batch(db)
+    before = {name: dict(k.launches) for name, k in kernels.items()}
+    card = train_reading(clip_params, heads, db, torch.bfloat16, inputs, "text", table)
+    launches = {name: {v: n - before[name][v] for v, n in k.launches.items()}
+                for name, k in kernels.items()}
+    r = compare_readings(card, train_reading(cpu_clip, cpu_heads, cpu_db, torch.float32,
+                                             inputs, "text", table))
+    emit("train_text_check", **r, own_width=int(inputs[3].shape[1]),
+         text_condition_grad="none on both", launches_card_step=launches,
+         seconds=time.perf_counter() - t)
+    if not r["passes"]:
+        raise AssertionError(f"text train step card vs CPU: loss rel diff "
+                             f"{r['loss_rel_diff']}, grad cosine {r['head_grad_cosine']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -579,17 +750,20 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     att_rows = check_attention([(16, 16, 257, 64, bf16, False),    # vision chunk
                                 (64, 12, 32, 64, bf16, True),      # text, S=32 bucket
-                                (2, 4, 77, 64, f32, True)])
+                                (2, 4, 77, 64, f32, True),
+                                (2 * TRAIN_BATCH, 12, 32, 64, bf16, True)])  # text stream
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
                                     (64, 12, 77, 64, bf16, True),
-                                    (2, 4, 77, 64, f32, True)])
+                                    (2, 4, 77, 64, f32, True),
+                                    (2 * TRAIN_BATCH, 12, 32, 64, bf16, True)])
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
                             (TRAIN_BATCH, DB_ROWS, 768, 16, bf16),   # train-step search
                             (QUERY_BATCH, 10_000, 768, 10, f32),
-                            (QUERY_BATCH, N_CORPUS, 768, 10, f32)])  # ranking
+                            (QUERY_BATCH, N_CORPUS, 768, 10, f32),   # ranking
+                            (TRAIN_BATCH, DB_ROWS, 768, 2, bf16)])   # caption neighbours
 
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
@@ -666,21 +840,33 @@ def main() -> int:
     del theads, opt, step, batch
     train_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db)
 
+    # --- text-stream training path -----------------------------------------
+    table = text_templates(np.random.default_rng(7), DB_ROWS, 2)   # "a photo of * * {other}"
+    theads, step, batch, text_launches = train_text_path(clip_params, heads, db, kernels,
+                                                         table)
+    profile_train_text(step, theads, batch)
+    del theads, step, batch
+    torch.cuda.empty_cache()
+    train_text_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, table, kernels)
+
     att = ("attention", "keds_tpu_torch/csrc/attention.cu", "keds_tpu/ops/attention.py:122")
     bwd = ("attention_bwd", "keds_tpu_torch/csrc/attention_bwd.cu",
            "keds_tpu/ops/attention.py:134")
     top = ("mips_topk", "keds_tpu_torch/csrc/topk.cu", "keds_tpu/ops/pallas_topk.py:93")
-    # launches: the serving main path's, and the training path's for the backward
+    # launches: the serving main path's, and the image-stream training path's
+    # for the backward; each path's beside them
     entries = [(att, "bf16_tc", att_rows[0], launches), (att, "f32", att_rows[2], launches),
                (bwd, "bf16", bwd_rows[0], train_launches),
                (bwd, "f32", bwd_rows[4], train_launches),
                (top, "bf16_tc", topk_rows[1], launches), (top, "f32", topk_rows[4], launches)]
+    paths = {"serving": launches, "train_image": train_launches, "train_text": text_launches}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],
          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "shape": row["shape"], "dtype": row["dtype"]}
+         "shape": row["shape"], "dtype": row["dtype"],
+         "launches_by_path": {p: c[name][variant] for p, c in paths.items()}}
         for (name, src, rep), variant, row, counts in entries]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Train CLI configuration (counterpart of the training subset of
 ``keds_tpu/config.py``): the JAX package's flag names and defaults for
-features-mode training of the image stream, plus the two values the port
-takes as arguments because it reads no BPE vocab (``--split-id``,
-``--prompt-tokens``) and the device."""
+features-mode training, plus the device and the two values the image
+stream takes as arguments so that it needs no BPE vocab (``--split-id``,
+``--prompt-tokens``; the text stream reads both from the vocab)."""
 
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ class Config:
     save_frequency: int = 1
     save_most_recent: bool = False
     resume: Optional[str] = None
-    split_id: int = 265
+    split_id: Optional[int] = None
     prompt_tokens: List[int] = dataclasses.field(
         default_factory=lambda: list(DEFAULT_PROMPT_TOKENS))
     device: Optional[str] = None
@@ -99,7 +99,9 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--save-frequency", type=int, default=1)
     add("--save-most-recent", action="store_true", default=False)
     add("--resume", type=str, default=None)
-    add("--split-id", type=int, default=265, help="token id of '*' in the vocab")
+    add("--split-id", type=int, default=None,
+        help="token id of '*' in the vocab (image stream default 265; the text "
+             "stream reads it from the vocab and refuses another)")
     add("--prompt-tokens", type=lambda s: [int(t) for t in s.split(",")],
         default=list(DEFAULT_PROMPT_TOKENS),
         help="comma-separated token ids of the image-stream prompt, SOT to EOT")

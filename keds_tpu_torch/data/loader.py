@@ -4,7 +4,8 @@ for one process).
 The epoch order is the JAX package's: ``np.random.default_rng(seed +
 epoch).permutation(n)`` when shuffling, reseeded by :meth:`set_epoch`.  A
 batch's samples are read by the calling thread, or by a thread pool of
-``num_workers``, and numpy leaves are stacked.
+``num_workers``; numpy leaves are stacked and strings (the text stream's
+subjects) listed.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ Parameters are the JAX pytree as a nested dict of tensors (see
 matmul) -> CLS -> pos-embed -> pre-LN -> blocks -> post-LN on CLS ->
 projection, the text tower token + pos embed -> causal blocks -> final LN ->
 pool -> projection.  Images are NHWC, tokens (B, S) integers.  The final
-block of both towers runs pooled (:func:`layers.transformer_pooled`).  The
+block of both towers runs pooled (:func:`layers.transformer_pooled`).  Three
+splices put pseudo-tokens into the text: before a fixed prompt's EOT
+(image-stream training), at a ``*`` (composed queries) and in place over
+template stars (text-stream training).  The
 causal mask (``causal_mask`` in the JAX package's clip module) lives with
 the attention op, which applies it itself.
 """
@@ -210,3 +213,17 @@ def encode_text_img_retrieval(params: dict, cfg: ClipConfig, text: torch.Tensor,
     star = torch.argmax((text[0] == split_id).int())
     x = splice_tokens(x, img_tokens, star, n_replace=1)
     return _text_tail_pooled(params, cfg, x, eot + (K - 1))
+
+
+def encode_text_img_train(params: dict, cfg: ClipConfig, text: torch.Tensor,
+                          img_tokens: torch.Tensor, split_id: int) -> torch.Tensor:
+    """Replace K consecutive slots in place, from the first ``*`` of row 0
+    (the text stream's "a photo of * * * {other}" templates); the length and
+    each row's EOT are unchanged and each row pools at its EOT.  A template
+    with more stars than K keeps the rest as tokens."""
+    K = img_tokens.shape[1]
+    text = text.long()
+    x = params["text"]["tok_emb"][text]
+    star = torch.argmax((text[0] == split_id).int())
+    x = splice_tokens(x, img_tokens, star, n_replace=K)
+    return _text_tail_pooled(params, cfg, x, eot_indices(text, cfg.eot_id))

@@ -51,17 +51,18 @@ class KnowledgeDB:
                     dtype: torch.dtype = torch.bfloat16, normalize: bool = True,
                     device: DeviceLike = None) -> "KnowledgeDB":
         """Arrays or tensors -> a DB on ``device``; rows are L2-normalised in
-        f32 before the cast to ``dtype``."""
+        f32 with numpy, as the JAX package does (a norm summed in another
+        order rounds some rows otherwise), before the cast to ``dtype``."""
         dev = resolve_device(device)
 
         def place(a):
             # torch.load gives tensors (possibly bf16, which numpy lacks);
             # numpy arrays are copied out of a read-only .npy memory map
-            a = (a.float() if isinstance(a, torch.Tensor)
-                 else torch.from_numpy(np.array(a, np.float32))).to(dev)
+            a = (a.float().cpu().numpy() if isinstance(a, torch.Tensor)
+                 else np.array(a, np.float32))
             if normalize:
-                a = a / a.norm(dim=1, keepdim=True)
-            return a.to(dtype)
+                a = a / np.linalg.norm(a, axis=1, keepdims=True)
+            return torch.from_numpy(a).to(dev, dtype)
 
         image_t, text_t = place(image), place(text)
         names = names if names is not None else [str(i) for i in range(len(image_t))]
@@ -115,11 +116,17 @@ def db_fingerprint(db: KnowledgeDB) -> dict:
             "db_rows_sha1": sig.hexdigest()}
 
 
+def unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` over its L2 norm along the last axis, in ``x``'s dtype."""
+    return x / x.norm(dim=-1, keepdim=True)
+
+
 class Retriever:
     """Exact top-k retrieval of both modalities over a :class:`KnowledgeDB`
-    (the reference's ``get_retrieved_features``).  At eval the image
-    neighbours are not shuffled: cross-attention is permutation-invariant
-    over keys and values, so the shuffle changes nothing there."""
+    (the reference's ``get_retrieved_features`` and, for the text stream,
+    ``get_extra_cap_features``).  At eval the image neighbours are not
+    shuffled: cross-attention is permutation-invariant over keys and values,
+    so the shuffle changes nothing there."""
 
     def __init__(self, db: KnowledgeDB):
         self.db = db
@@ -131,19 +138,35 @@ class Retriever:
     def _gather(self, db_array: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return db_array[idx.long().clamp(0, db_array.shape[0] - 1)]   # (B, k, D)
 
+    def neighbour_indices(self, feature: torch.Tensor, k: int, text: bool = True
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Top-k rows of the image DB and (with ``text``) of the caption DB
+        for each query: the query is normalised in f32 and cast to the DB
+        dtype.  ``text=False`` skips the caption search (None)."""
+        q = unit_rows(feature.float()).to(self.db.image_db.dtype)
+        img_idx = self.search(q, self.db.image_db, k)[1]
+        return img_idx, self.search(q, self.db.text_db, k)[1] if text else None
+
+    def caption_indices(self, feature: torch.Tensor, k: int = 2) -> torch.Tensor:
+        """Top-k caption-DB rows for caption queries, normalised (again, for
+        the text stream, whose trainer normalises them first) and cast to
+        the DB dtype."""
+        return self.search(unit_rows(feature).to(self.db.text_db.dtype), self.db.text_db, k)[1]
+
     def retrieve_features(self, feature: torch.Tensor, k: int = 16,
                           generator: Optional[torch.Generator] = None,
-                          idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                          text: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Top-k image and caption neighbour rows (B, k, D) for each query, in
-        ``feature``'s dtype.  The query is normalised in f32 and cast to the
-        DB dtype before the search.
+        ``feature``'s dtype (:meth:`neighbour_indices`).
 
         ``idx=(img_idx, txt_idx)``, each (B, k), skips the search and gathers
         those precomputed rows.  ``generator`` (training) draws one
         permutation of the k image neighbours for the whole batch; without
         it (eval, the default) nothing is shuffled.  The gather ->
-        permutation -> cast tail is the same either way."""
+        permutation -> cast tail is the same either way.  ``text=False``
+        (the text stream, which fuses without the caption neighbours)
+        neither searches nor gathers them and returns None for them."""
         image_db, text_db = self.db.image_db, self.db.text_db
         if idx is not None:
             img_idx, txt_idx = idx
@@ -152,13 +175,20 @@ class Retriever:
                     f"precomputed neighbour indices are {img_idx.shape[1]}/"
                     f"{txt_idx.shape[1]} wide but k={k}; slice the pack to k columns")
         else:
-            q = feature.float()
-            q = (q / q.norm(dim=1, keepdim=True)).to(image_db.dtype)
-            _, img_idx = self.search(q, image_db, k)
-            _, txt_idx = self.search(q, text_db, k)
+            img_idx, txt_idx = self.neighbour_indices(feature, k, text)
         topk_img = self._gather(image_db, img_idx)
         if generator is not None:
             topk_img = topk_img[:, torch.randperm(k, generator=generator,
                                                   device=generator.device)]
-        return (topk_img.to(feature.dtype),
-                self._gather(text_db, txt_idx).to(feature.dtype))
+        topk_txt = self._gather(text_db, txt_idx).to(feature.dtype) if text else None
+        return topk_img.to(feature.dtype), topk_txt
+
+    def retrieve_caption_neighbors(self, feature: torch.Tensor, k: int = 2,
+                                   idx: Optional[torch.Tensor] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k caption rows (B, k, D) in ``feature``'s dtype and their
+        indices (B, k) (:meth:`caption_indices`); ``idx`` skips the search
+        and gathers those precomputed rows through the same tail."""
+        if idx is None:
+            idx = self.caption_indices(feature, k)
+        return self._gather(self.db.text_db, idx).to(feature.dtype), idx

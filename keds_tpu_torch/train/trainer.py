@@ -1,17 +1,23 @@
 """Training step and epoch loop (counterpart of ``keds_tpu/train/trainer.py``),
-features mode, image stream.
+features mode, both streams.
 
-One step runs on the device: the top-k search of both DB modalities (the
+One step runs on the device: the top-k search of the knowledge DB (the
 fused kernel on the card), one permutation of the image neighbours, the
 fusion heads in f32 with dropout, the frozen text tower in the compute
 dtype (its attention is the fused kernel, with the backward kernel on the
-gradient path of the pseudo-tokens), InfoNCE, backward and an AdamW update
-of the heads in place.
+gradient path of the pseudo-tokens), the stream's loss, backward and an
+AdamW update of the heads in place.
 
     opt, schedule = make_optimizer(cfg, total_steps, heads)
     step = make_train_step(clip_params, clip_cfg, retriever, opt, schedule,
                            stream="image", prompt_tokens=prompt, split_id=265)
     loss = step(heads, batch, global_step)
+
+The image stream searches both DB modalities at k=16.  The text stream
+searches the image DB at k=16 and the caption DB at k=2 (its fusion reads
+no caption neighbours, so that search is skipped) and gathers the
+neighbours' templates from ``db_other_tokens``; it never updates
+``text_condition``, which gets no gradient, so AdamW keeps no state for it.
 
 Randomness: the generator of global step ``t`` (updates counted from 0 over
 the whole run) on device ``dev`` is
@@ -32,9 +38,10 @@ import torch
 from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads
 from keds_tpu_torch.models.convert import cast_floating, head_parameter_groups
-from keds_tpu_torch.retrieval.database import Retriever
+from keds_tpu_torch.retrieval.database import Retriever, unit_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
-from keds_tpu_torch.train.losses import TrainBatch, image_stream_loss, no_mark
+from keds_tpu_torch.tokenizer import bucket_text
+from keds_tpu_torch.train.losses import TrainBatch, image_stream_loss, no_mark, text_stream_loss
 from keds_tpu_torch.train.schedule import cosine_lr
 
 # The pseudo-tokens of the image stream: fused + text-condition + mapped.
@@ -87,10 +94,25 @@ def frozen_clip(clip_params: dict, compute_dtype: torch.dtype, device: torch.dev
     return clip_c
 
 
+def neighbour_templates(db_other_tokens, n_rows: int, device: torch.device) -> torch.Tensor:
+    """The text stream's (N, 77) neighbour-template table, checked against
+    the DB's ``n_rows`` and trimmed once to the shortest bucket covering
+    every row's EOT (the in-place splice pools there), on ``device``."""
+    if db_other_tokens is None:
+        raise ValueError("stream='text' requires db_other_tokens (the tokenized "
+                         "'a photo of * * {other}' templates for every DB row)")
+    table = np.asarray(db_other_tokens)
+    if table.shape[0] != n_rows:
+        raise ValueError(f"db_other_tokens has {table.shape[0]} rows but the knowledge "
+                         f"DB has {n_rows}; the template cache is stale: rebuild it "
+                         "(delete db_other_tokens.npy)")
+    return torch.as_tensor(bucket_text(table, n_pseudo=1), device=device)
+
+
 def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriever,
                     optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
                     *, stream: str, prompt_tokens, split_id: int, seed: int = 0,
-                    dropout: float = 0.1, db_topk: int = 16,
+                    dropout: float = 0.1, db_topk: int = 16, db_other_tokens=None,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     device: DeviceLike = None):
     """The train step of one stream: ``step(heads, batch, t) -> loss``.
@@ -99,20 +121,23 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
     ``t`` is the global update count, which picks the LR and the
     generator.  CLIP is cast to ``compute_dtype`` once and stays frozen
     (no tensor of it requires grad); ``logit_scale`` stays f32.  The
-    returned loss is detached and stays on the device.  ``split_id`` is the
-    ``*`` token of the text stream's templates, which the image stream does
-    not read.  ``step(..., mark=f)`` calls ``f(stage)`` as each stage ends
-    (``retrieval``, ``heads_forward``, ``text_tower_forward``, ``backward``,
-    ``optimizer``), for a caller that times them."""
-    if stream != "image":
-        raise NotImplementedError(
-            f"stream={stream!r}: only the image stream is ported; the text stream "
-            "is ROADMAP.md section A item 8 (text_stream_loss, "
-            "encode_text_img_train, retrieve_caption_neighbors)")
-    del split_id
+    returned loss is detached and stays on the device.  ``prompt_tokens``
+    is the image stream's prompt; ``split_id`` (the ``*`` token) and
+    ``db_other_tokens`` ((N, 77) "a photo of * * {other}" templates of every
+    DB row, required) are the text stream's.  ``step(..., mark=f)`` calls
+    ``f(stage)`` as each stage ends (``retrieval``, ``heads_forward``,
+    ``text_tower_forward``, ``backward``, ``optimizer``), for a caller that
+    times them."""
+    if stream not in ("image", "text"):
+        raise ValueError(f"unknown stream {stream!r}")
+    text = stream == "text"
     dev = resolve_device(device)
-    prompt = torch.as_tensor(truncated_prompt(prompt_tokens, cfg.eot_id), device=dev).long()
+    if text:
+        db_other = neighbour_templates(db_other_tokens, len(retriever.db.names), dev)
+    else:
+        prompt = torch.as_tensor(truncated_prompt(prompt_tokens, cfg.eot_id), device=dev).long()
     clip_c = frozen_clip(clip_params, compute_dtype, dev)
+    index_fields = ("img_idx", "txt_idx") + (("cap2_idx",) if text else ())
 
     def train_step(heads: FusionHeads, batch: TrainBatch, step: int,
                    mark: Callable[[str], None] = no_mark) -> torch.Tensor:
@@ -120,19 +145,33 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
             raise NotImplementedError(
                 f"{type(batch).__name__}: only precomputed-feature TrainBatch "
                 "steps are ported; raw image batches are ROADMAP.md section A item 11")
+        given = [n for n in index_fields if getattr(batch, n) is not None]
+        if given and len(given) < len(index_fields):
+            raise ValueError(
+                f"precomputed-neighbour batch carries {given} but not "
+                f"{[n for n in index_fields if n not in given]} (stream={stream!r}); a "
+                "pack from tools/precompute_neighbors.py holds them all: feed the "
+                "whole pack or none of it")
+        precomputed = bool(given)
         gen = step_generator(seed, step, dev)
         for group in optimizer.param_groups:
             group["lr"] = schedule(step)
-        precomputed = batch.img_idx is not None
-        if precomputed and batch.txt_idx is None:
-            raise ValueError("precomputed-neighbour batch carries img_idx but not "
-                             "txt_idx; feed the whole pack or none of it")
         topk_img, topk_txt = retriever.retrieve_features(
             batch.image_features, k=db_topk, generator=gen,
-            idx=(batch.img_idx, batch.txt_idx) if precomputed else None)
-        mark("retrieval")
-        loss = image_stream_loss(heads, clip_c, cfg, batch, topk_img, topk_txt, prompt,
-                                 generator=gen, train=True, dropout=dropout, mark=mark)
+            idx=(batch.img_idx, batch.txt_idx) if precomputed else None, text=not text)
+        if text:
+            # normalised here and again in the caption search, as the
+            # reference does: the second rounding can flip near-tie picks
+            top2, top2_idx = retriever.retrieve_caption_neighbors(
+                unit_rows(batch.caption_features), k=2, idx=batch.cap2_idx)
+            mark("retrieval")
+            loss = text_stream_loss(heads, clip_c, cfg, batch, topk_img, topk_txt, top2,
+                                    db_other[top2_idx.long()], split_id, generator=gen,
+                                    train=True, dropout=dropout, mark=mark)
+        else:
+            mark("retrieval")
+            loss = image_stream_loss(heads, clip_c, cfg, batch, topk_img, topk_txt, prompt,
+                                     generator=gen, train=True, dropout=dropout, mark=mark)
         mark("text_tower_forward")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()

@@ -17,7 +17,6 @@ from keds_tpu.io.checkpoint import restore_opt_state
 from keds_tpu.models.convert import clip_pytree_to_state_dict
 from keds_tpu.train.trainer import make_optimizer as jmake_optimizer
 
-from keds_tpu_torch.cli.main import main as train_main
 from keds_tpu_torch.io.checkpoint import (load_checkpoint, load_heads_checkpoint,
                                           restore_optimizer, save_train_checkpoint)
 from keds_tpu_torch.models.convert import head_parameters
@@ -26,6 +25,8 @@ from keds_tpu_torch.train.losses import TrainBatch
 from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 from torch_port_helpers import D, JCFG, TCFG, jax_models, port_models, to_numpy
+from torch_port_helpers import run_cli as _cli
+from torch_port_helpers import tiny_run_dir as _tiny_run_dir
 
 torch.set_num_threads(1)
 OPT = dict(lr=1e-3, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.1, warmup=2)
@@ -116,40 +117,10 @@ def test_resume_equals_uninterrupted(tmp_path):
                                    atol=0, rtol=0)
 
 
-def _tiny_run_dir(tmp_path):
-    rng = np.random.default_rng(0)
-    data, dbdir = tmp_path / "features", tmp_path / "db"
-    data.mkdir()
-    dbdir.mkdir()
-    n = 24
-    img = rng.standard_normal((n, D)).astype(np.float32)
-    np.save(data / "image_features.npy", img)
-    np.save(data / "text_features.npy",
-            (img + 0.3 * rng.standard_normal((n, D))).astype(np.float32))
-    (data / "names.json").write_text(json.dumps([f"s{i}" for i in range(n)]))
-    np.save(dbdir / "image_db.npy", rng.standard_normal((50, D)).astype(np.float32))
-    np.save(dbdir / "text_db.npy", rng.standard_normal((50, D)).astype(np.float32))
-    (dbdir / "database_names.txt").write_text("\n".join(f"r{i}" for i in range(50)))
-    params, _ = jax_models()
-    clip_path = tmp_path / "clip.pt"
-    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
-                clip_pytree_to_state_dict(to_numpy(params), JCFG).items()}, clip_path)
-    return data, dbdir, clip_path
-
-
-def _cli(tmp_path, data, dbdir, clip_path, name, epochs, *extra):
-    train_main(["--train-data", str(data), "--dataset-type", "directory",
-                "--clip-weights", str(clip_path), "--database-path", str(dbdir),
-                "--batch-size", "8", "--epochs", str(epochs), "--lr", "1e-3",
-                "--warmup", "2", "--skip-scheduler", "--db-topk", "8",
-                "--precision", "fp32", "--logs", str(tmp_path / "logs"), "--name", name,
-                "--device", "cpu", "--seed", "3", *extra])
-    return tmp_path / "logs" / name / "checkpoints"
-
-
-def test_cli_trains_and_resumes(tmp_path, caplog):
+def test_cli_trains_and_resumes(tmp_path, caplog, monkeypatch):
     """Two epochs, then --resume auto to a third, equal the heads of three
-    uninterrupted epochs; the checkpoints load into the JAX package."""
+    uninterrupted epochs; the checkpoints load into the JAX package.  The
+    text stream without a BPE vocab and raw csv data are refused."""
     data, dbdir, clip_path = _tiny_run_dir(tmp_path)
     ck_a = _cli(tmp_path, data, dbdir, clip_path, "a", 3)
     ck_b = _cli(tmp_path, data, dbdir, clip_path, "b", 2)
@@ -166,7 +137,11 @@ def test_cli_trains_and_resumes(tmp_path, caplog):
     assert epoch == 3
     for a, b in zip(jax.tree.leaves(heads_a), jax.tree.leaves(heads_b)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    from keds_tpu_torch import tokenizer
+
+    monkeypatch.delenv("KEDS_TPU_BPE_VOCAB", raising=False)
+    monkeypatch.setattr(tokenizer, "_VOCAB_SEARCH_PATHS", ())
+    with pytest.raises(SystemExit, match="BPE vocab"):
         _cli(tmp_path, data, dbdir, clip_path, "c", 1, "--stream", "text")
     with pytest.raises(SystemExit, match="ROADMAP"):
         _cli(tmp_path, data, dbdir, clip_path, "d", 1, "--dataset-type", "csv")

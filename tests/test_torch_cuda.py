@@ -497,3 +497,173 @@ def test_topk_bf16_widest_db(cuda):
     (query fragments for 1024 depths in registers) on its 8-stage ring."""
     db, q = _unit(5_000, 1024, torch.bfloat16, cuda, 21), _unit(65, 1024, torch.bfloat16, cuda, 22)
     _check_topk(q, db, 32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b", [1, 128, 256])
+def test_topk_k2_main_path_width(cuda, dtype, b):
+    """k=2, the text stream's caption neighbours: D = 768 over a DB of many
+    slices."""
+    db, q = _unit(60_001, 768, dtype, cuda, 31), _unit(b, 768, dtype, cuda, b + 32)
+    _check_topk(q, db, 2, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n", sorted({(b, n) for b, n, _ in _EDGES}))
+def test_topk_k2_tile_edges(cuda, dtype, b, n):
+    _check_topk(_unit(b, 64, dtype, cuda, b + 5), _unit(n, 64, dtype, cuda, n + 2), 2, dtype)
+
+
+def _templates(rng, n, n_stars):
+    """(n, 77) "a photo of" + stars + 1 to 12 seeded ids + EOT."""
+    out = np.zeros((n, 77), np.int64)
+    for r in range(n):
+        row = ([49406, 320, 1125, 539] + [265] * n_stars
+               + rng.integers(1000, 40000, int(rng.integers(1, 13))).tolist() + [49407])
+        out[r, :len(row)] = row
+    return out
+
+
+_TEXT_CFG = dict(embed_dim=128, image_resolution=32, vision_layers=1, vision_width=64,
+                 vision_patch_size=16, transformer_width=128, transformer_heads=2,
+                 transformer_layers=2)
+
+
+def _tiny_text(db_rows=500, b=16):
+    """Tiny CLIP, heads and DB (f32, CPU), the DB rows' neighbour templates,
+    and a batch: feature pairs and own templates."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import ClipConfig
+
+    cfg = ClipConfig(**_TEXT_CFG)
+    params, heads, db = synth.build(cfg, db_rows=db_rows, dtype=torch.float32, seed=7,
+                                    device="cpu")
+    rng = np.random.default_rng(7)
+    img, cap = synth.feature_pairs(b, cfg.embed_dim, 8, torch.device("cpu"))
+    return cfg, params, heads, db, _templates(rng, db_rows, 2), (img, cap, _templates(rng, b, 3))
+
+
+def _text_step(cfg, params, heads, db, table, dev, dtype, dropout=0.0, seed=0):
+    import copy
+    from types import SimpleNamespace
+
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+    from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    h = cast_floating(copy.deepcopy(heads), torch.float32, dev)   # trained in place
+    ddb = KnowledgeDB(db.image_db.to(dev, dtype), db.text_db.to(dev, dtype), db.names)
+    ocfg = SimpleNamespace(lr=1e-3, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.1, warmup=2,
+                           skip_scheduler=False)
+    opt, sched = make_optimizer(ocfg, 10, h)
+    step = make_train_step(cast_floating(params, dtype, dev), cfg, Retriever(ddb), opt, sched,
+                           stream="text", prompt_tokens=np.zeros((1, 77), np.int64),
+                           split_id=265, dropout=dropout, seed=seed, db_topk=8,
+                           db_other_tokens=table, compute_dtype=dtype, device=dev)
+    return h, opt, step, Retriever(ddb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_tiny_text_train_step_card_matches_cpu(cuda, dtype):
+    """One text-stream step on the card (the tensor-core kernels in bf16)
+    against the CPU's f32 step, the card's index triple fed to both,
+    dropout 0: loss within 1 %, head-gradient cosine >= 0.99 over img2text
+    and retrieval_fuse (chip_smoke.py's train_check limits); text_condition
+    gets no gradient on either side."""
+    from keds_tpu_torch.models.convert import head_parameters
+    from keds_tpu_torch.retrieval.database import unit_rows
+    from keds_tpu_torch.train.losses import TrainBatch
+
+    cfg, params, heads, db, table, (img, cap, own) = _tiny_text()
+    _, _, _, retr = _text_step(cfg, params, heads, db, table, cuda, dtype)
+    idx = (retr.neighbour_indices(img.to(cuda), 8)
+           + (retr.caption_indices(unit_rows(cap.to(cuda)), 2),))
+    readings = {}
+    for dev, dt in ((cuda, dtype), ("cpu", torch.float32)):
+        h, _, step, _ = _text_step(cfg, params, heads, db, table, dev, dt)
+        batch = TrainBatch(img.to(dev), cap.to(dev), *(i.to(dev) for i in idx[:2]),
+                           other_tokens=torch.from_numpy(own).to(dev),
+                           cap2_idx=idx[2].to(dev))
+        loss = float(step(h, batch, 0))
+        params_ = head_parameters(h)
+        assert all(p.grad is None for mod, _, p in params_ if mod == "text_condition")
+        readings[str(dev)] = (loss, torch.cat([p.grad.flatten().double().cpu()
+                                               for mod, _, p in params_
+                                               if mod != "text_condition"]))
+    (l_card, g_card), (l_cpu, g_cpu) = readings["cuda"], readings["cpu"]
+    assert abs(l_card - l_cpu) <= 0.01 * abs(l_cpu)
+    assert float(g_card @ g_cpu) / float(g_card.norm() * g_cpu.norm()) >= 0.99
+    if dtype == torch.float32:
+        assert l_card == pytest.approx(l_cpu, rel=1e-5)
+
+
+def test_text_condition_unchanged_after_card_steps(cuda):
+    """Three bf16 text-stream steps on the card (dropout on): text_condition
+    bit-equal to its initial values and without AdamW state, IM2TEXT and the
+    retrieval CrossFormer moved (a key bias shifts every score of a softmax
+    alike and gets no gradient to speak of, so not every tensor moves), and
+    B1 launched twice a step (k=8 image DB, k=2 captions)."""
+    from keds_tpu_torch.models.convert import head_parameters
+    from keds_tpu_torch.train.losses import TrainBatch
+
+    cfg, params, heads, db, table, (img, cap, own) = _tiny_text()
+    h, opt, step, _ = _text_step(cfg, params, heads, db, table, cuda, torch.bfloat16,
+                                 dropout=0.1)
+    before = [(mod, p, p.detach().clone()) for mod, _, p in head_parameters(h)]
+    b1 = topk_mod.KERNEL.launches["bf16_tc"]
+    bwd = att_mod.BWD_KERNEL.launches["bf16"]
+    batch = TrainBatch(img.to(cuda), cap.to(cuda), other_tokens=torch.from_numpy(own).to(cuda))
+    losses = [float(step(h, batch, t)) for t in range(3)]
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all()
+    assert topk_mod.KERNEL.launches["bf16_tc"] == b1 + 2 * 3
+    assert att_mod.BWD_KERNEL.launches["bf16"] > bwd
+    moved = {}
+    for mod, p, p0 in before:
+        if mod == "text_condition":
+            assert torch.equal(p, p0) and p not in opt.state
+        moved.setdefault(mod, []).append(not torch.equal(p, p0))
+    assert all(moved["img2text"]) and any(moved["retrieval_fuse"])
+    assert not any(moved["text_condition"])
+
+
+def test_neighbour_tool_on_card_matches_in_step_search(cuda, tmp_path):
+    """The port's tool on the card (bf16) writes the rows the in-step search
+    finds: the step fed its pack gives the searched step's loss and heads
+    bit for bit at the same generator, dropout on."""
+    import json
+
+    from keds_tpu_torch.models.convert import head_parameters
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+    from keds_tpu_torch.tools import precompute_neighbors as tool
+    from keds_tpu_torch.train.losses import TrainBatch
+
+    cfg, params, heads, db, table, (img, cap, own) = _tiny_text()
+    data, dbdir = tmp_path / "features", tmp_path / "db"
+    data.mkdir()
+    dbdir.mkdir()
+    np.save(data / "image_features.npy", img.numpy())
+    np.save(data / "text_features.npy", cap.numpy())
+    (data / "names.json").write_text(json.dumps([f"s{i}" for i in range(len(img))]))
+    np.save(dbdir / "image_db.npy", db.image_db.numpy())
+    np.save(dbdir / "text_db.npy", db.text_db.numpy())
+    tool.main(["--train-data", str(data), "--database-path", str(dbdir), "--db-topk", "8",
+               "--batch", "5", "--device", "cuda"])
+    img_idx, txt_idx, cap2_idx, meta = tool.load_neighbors(str(data / "neighbors.npz"))
+    assert meta["backend"] == "cuda" and meta["precision"] == "bf16"
+    loaded = KnowledgeDB.from_directory(str(dbdir), torch.float32, "cpu")
+    runs = []
+    for pack in (None, (img_idx, txt_idx, cap2_idx)):
+        h, _, step, _ = _text_step(cfg, params, heads, loaded, table, cuda, torch.bfloat16,
+                                   dropout=0.1, seed=3)
+        idx = {}
+        if pack is not None:
+            idx = {n: torch.from_numpy(a).to(cuda)
+                   for n, a in zip(("img_idx", "txt_idx", "cap2_idx"), pack)}
+        loss = step(h, TrainBatch(img.to(cuda), cap.to(cuda),
+                                  other_tokens=torch.from_numpy(own).to(cuda), **idx), 2)
+        runs.append((loss, [p for _, _, p in head_parameters(h)]))
+    (l0, h0), (l1, h1) = runs
+    assert torch.equal(l0, l1)
+    for a, b in zip(h0, h1):
+        assert torch.equal(a, b)

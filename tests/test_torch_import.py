@@ -1,4 +1,5 @@
-"""keds_tpu_torch stands alone: no jax, no keds_tpu, CUDA unless asked."""
+"""keds_tpu_torch stands alone: no jax, no keds_tpu (nor the tokenizer's
+regex and ftfy), CUDA unless asked."""
 
 import pathlib
 import re
@@ -22,7 +23,8 @@ def test_import_loads_no_jax_and_no_keds_tpu():
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'keds_tpu' or m.startswith('keds_tpu.') or m == 'triton']\n"
+        " or m == 'keds_tpu' or m.startswith('keds_tpu.')"
+        " or m.split('.')[0] in ('triton', 'regex', 'ftfy')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -35,7 +37,8 @@ def test_import_loads_no_jax_and_no_keds_tpu():
         "models", "ops", "retrieval", "train", "io", "data", "cli"}
     assert {"keds_tpu_torch.train.trainer", "keds_tpu_torch.io.checkpoint",
             "keds_tpu_torch.data.loader", "keds_tpu_torch.cli.main",
-            "keds_tpu_torch.config"} <= set(MODULES)
+            "keds_tpu_torch.config", "keds_tpu_torch.tokenizer",
+            "keds_tpu_torch.tools.precompute_neighbors"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
@@ -45,6 +48,7 @@ def test_sources_import_neither_jax_nor_keds_tpu(path):
     src = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+keds_tpu(\.|\s|$)", src, re.M)
+    assert not re.search(r"^\s*(import|from)\s+(regex|ftfy)\b", src, re.M)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -167,9 +167,6 @@ def test_train_step_refuses_what_is_not_ported():
     tdb = KnowledgeDB.from_arrays(np.eye(D, dtype=np.float32), np.eye(D, dtype=np.float32),
                                   dtype=torch.float32, device="cpu")
     opt, sched = make_optimizer(_port_opt_cfg(), 10, theads)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(tparams, TCFG, Retriever(tdb), opt, sched, stream="text",
-                        prompt_tokens=PROMPT, split_id=265, device="cpu")
     step = make_train_step(tparams, TCFG, Retriever(tdb), opt, sched, stream="image",
                            prompt_tokens=PROMPT, split_id=265, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
