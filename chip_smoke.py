@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the keds_tpu_torch serving and training paths on one CUDA
-card.
+"""Smoke run of the keds_tpu_torch serving, training and evaluation paths
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -63,8 +63,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            step, the card's three index sets fed to both, own templates at
            the full width 77; train_check's limits over img2text and
            retrieval_fuse (text_condition has no gradient on either side).
-12. the kernels line (launches of each path beside each variant), then the
+12. eval_path
+           evaluate_cirr on the same model and DB over a CIRR-val-sized split
+           (2297 uint8 224x224 corpus images and 4181 queries made from a seed,
+           prompts in the S=32 bucket, in-memory loaders of 64) and two
+           branches of heads-only checkpoints epoch_1..3 under build/: three
+           sweep epochs with device ranking (launch counts zeroed just before,
+           read just after: B1 f32 at k=101 three times an epoch, B1 bf16_tc
+           twice a query batch), then with host ranking; phase walls, corpus
+           images/s, queries/s, peak memory, and the gate: the two runs' recall
+           tables are equal but for queries whose rankings differ only between
+           entries whose scores lie within 1e-5 (counted and printed).
+13. profile_eval
+           torch.profiler over one device-ranked sweep epoch.
+14. the kernels line (launches of each path beside each variant), then the
     card's name and power limit from nvidia-smi, then the result line.
+
+The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
+rankings (k=101, 100, 200) and a --db-topk of 64.
 """
 
 from __future__ import annotations
@@ -104,6 +120,10 @@ DB_ROWS = 500_000
 QUERY_BATCH = 64
 N_QUERY_BATCHES = 3
 N_CORPUS = 256
+EVAL_CORPUS = 2297     # the CIRR val corpus and queries (keds_tpu/evalkit/metrics.py:113)
+EVAL_QUERIES = 4181
+EVAL_EPOCHS = 3
+NEAR_TIE = 1e-5        # eval gate: scores this close may rank either way
 
 
 def emit(phase: str, **fields) -> None:
@@ -255,14 +275,15 @@ def _unit_rows(n: int, d: int, dtype, seed: int) -> torch.Tensor:
 
 
 def check_topk(cases):
-    from keds_tpu_torch.ops.topk import KERNEL, mips_topk, mips_topk_plain
+    from keds_tpu_torch.ops.topk import KERNEL, mips_topk, mips_topk_plain, split_plan
 
     rows = []
     for B, N, D, k, dtype in cases:
-        variant = VARIANT[dtype]
-        launches0 = KERNEL.launches[variant]
         db = _unit_rows(N, D, dtype, seed=N)
         q = _unit_rows(B, D, dtype, seed=B + 1)
+        variant = split_plan(B, N, torch.cuda.get_device_properties(0).multi_processor_count,
+                             dtype, k)[0].variant
+        launches0 = KERNEL.launches[variant]
         vals, idx = mips_topk(q, db, k)
         pv, pi = mips_topk_plain(q, db, k + 1)
         torch.cuda.synchronize()
@@ -725,6 +746,263 @@ def train_text_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, table,
                              f"{r['loss_rel_diff']}, grad cosine {r['head_grad_cosine']}")
 
 
+class Batches:
+    """An in-memory loader: ``n`` batches, batch ``i`` made by ``make(i)``
+    each time the loader is iterated."""
+
+    def __init__(self, n: int, make):
+        self.n, self.make = n, make
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        return (self.make(i) for i in range(self.n))
+
+
+def cirr_split(seed: int) -> SimpleNamespace:
+    """A CIRR-val-shaped split from ``seed``: EVAL_CORPUS uint8 224x224
+    corpus images named ``dev/NNNN.png`` and EVAL_QUERIES queries, each a
+    corpus image as its reference, another as its target (every name once
+    in the corpus, so check_cirr_gt_unique holds) and a prompt "a photo of
+    * , <14 seeded ids>" (the S=32 bucket).  Loaders of QUERY_BATCH yield
+    the CIRR val tuples."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (EVAL_CORPUS, 224, 224, 3), dtype=np.uint8)
+    names = [f"{i:04d}.png" for i in range(EVAL_CORPUS)]
+    ref = rng.integers(0, EVAL_CORPUS, EVAL_QUERIES)
+    target = (ref + rng.integers(1, EVAL_CORPUS, EVAL_QUERIES)) % EVAL_CORPUS
+    text = prompt_batch(rng, EVAL_QUERIES)
+    caption = np.zeros_like(text)
+    caption[:, 0], caption[:, 1:15], caption[:, 15] = 49406, text[:, 6:20], 49407
+
+    def corpus_batch(i):
+        sl = slice(i * QUERY_BATCH, (i + 1) * QUERY_BATCH)
+        return images[sl], [f"dev/{n}" for n in names[sl]]
+
+    def query_batch(i):
+        sl = slice(i * QUERY_BATCH, (i + 1) * QUERY_BATCH)
+        r, t = ref[sl], target[sl]
+        return (images[r], text[sl], caption[sl], [names[j] for j in r],
+                [names[j] for j in t], ["a photo of * , <ids>"] * len(r), ["<ids>"] * len(r))
+
+    return SimpleNamespace(
+        ref=ref, target=target, names=names,
+        corpus=Batches(-(-EVAL_CORPUS // QUERY_BATCH), corpus_batch),
+        queries=Batches(-(-EVAL_QUERIES // QUERY_BATCH), query_batch))
+
+
+def write_branches(root: pathlib.Path, device: torch.device) -> list:
+    """Heads-only reference-layout checkpoints epoch_1..EVAL_EPOCHS of an
+    image and a text branch, each epoch's heads from synth with a seed of
+    its own."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import heads_to_state_dicts
+
+    branches = []
+    for b, name in enumerate(("image_branch", "text_branch")):
+        (root / name).mkdir()
+        for j in range(1, EVAL_EPOCHS + 1):
+            heads = synth.init_heads(VIT_L_14.embed_dim, 1000 * (b + 1) + j, device,
+                                     torch.float32)
+            torch.save({"epoch": j, **heads_to_state_dicts(heads)},
+                       root / name / f"epoch_{j}.pt")
+        branches.append(str(root / name))
+    return branches
+
+
+def target_positions(split, idx: np.ndarray, order: np.ndarray) -> tuple:
+    """Each query's target position after its reference is removed, capped
+    at 100 (what R@1..R@100 read): from the device's top-101 indices
+    ``idx`` (absent: 100), and from the host's full ascending-distance order
+    ``order``."""
+    r, t = split.ref[:, None], split.target[:, None]
+    hit = idx == t
+    col = hit.argmax(axis=1)
+    ref_before = ((idx == r) & (np.arange(idx.shape[1]) < col[:, None])).any(axis=1)
+    pos_d = np.where(hit.any(axis=1), col - ref_before, 100)
+    rank = np.empty_like(order)
+    rank[np.arange(order.shape[0])[:, None], order] = np.arange(order.shape[1])
+    pos_t = np.take_along_axis(rank, t, 1)[:, 0]
+    pos_r = np.take_along_axis(rank, r, 1)[:, 0]
+    return np.minimum(pos_d, 100), np.minimum(pos_t - (pos_r < pos_t), 100)
+
+
+def recall_table(pos: np.ndarray) -> dict:
+    """get_metrics_cirr's table from target positions."""
+    return {f"recall_R@{k}": float(np.sum(pos < k) / len(pos)) * 100
+            for k in (1, 5, 10, 50, 100)}
+
+
+def near_tie_gate(split, runs: dict) -> dict:
+    """Host and device recall tables must be equal, but for queries whose two
+    rankings differ only between entries whose host scores lie within
+    NEAR_TIE of the target's (a tie to within f32 summation order).  The
+    host positions are recomputed from the host run's features with its
+    formula and must give its tables; the device positions come from the
+    device run's top-101 indices."""
+    host, dev = runs["host"], runs["device"]
+    corpus = host["corpus"]
+    near, bad, moved = 0, [], []
+    feat_diff = max(float(np.abs(a - b).max()) for fa, fb in zip(host["feats"], dev["feats"])
+                    for a, b in zip(fa, fb))
+    for e, j in enumerate(range(1, EVAL_EPOCHS + 1)):
+        a, b = host["feats"][e]
+        mixture = a * 0.5 + b * 0.5
+        mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
+        for key, f, idx in zip(("composed", "image", "mixture"), (a, b, mixture),
+                               dev["topk"][e]):
+            scores = f @ corpus.T
+            order = np.argsort(1 - scores, axis=-1, kind="stable")
+            pos_d, pos_h = target_positions(split, idx, order)
+            if recall_table(pos_h) != host["tables"][(j, key)]:
+                raise AssertionError(f"eval gate: host positions do not give the host "
+                                     f"table at {(j, key)}")
+            if recall_table(pos_d) != dev["tables"][(j, key)]:
+                raise AssertionError(f"eval gate: device positions do not give the "
+                                     f"device table at {(j, key)}")
+            for q in np.nonzero(pos_d != pos_h)[0]:
+                kept = order[q][order[q] != split.ref[q]]
+                lo, hi = sorted((pos_d[q], pos_h[q]))
+                window = kept[lo:hi + 1]
+                if np.abs(scores[q, window] - scores[q, split.target[q]]).max() <= NEAR_TIE:
+                    near += 1
+                else:
+                    bad.append(dict(epoch=j, key=key, query=int(q), host_pos=int(pos_h[q]),
+                                    device_pos=int(pos_d[q])))
+            moved += [f"{j}/{key}/{m}" for m, v in host["tables"][(j, key)].items()
+                      if dev["tables"][(j, key)][m] != v]
+    return dict(near_tie_queries=near, cells_moved=moved, other_differences=bad[:10],
+                n_other=len(bad), tables_equal=host["tables"] == dev["tables"],
+                composed_feature_max_diff=feat_diff, near_tie=NEAR_TIE,
+                passes=not bad)
+
+
+def check_eval_launches(launches: dict, n_batches: int) -> None:
+    """The device-ranked sweep's launches: B1 f32 at k=101 three times an
+    epoch, B1 bf16_tc twice a query batch (image and caption DB), B2
+    bf16_tc in both towers, nothing else."""
+    want = {("mips_topk", "f32"): 3 * EVAL_EPOCHS, ("mips_topk", "bf16_tc"): 2 * n_batches,
+            ("mips_topk", "bf16"): 0, ("attention", "f32"): 0}
+    got = {key: launches[key[0]][key[1]] for key in want}
+    if (got != want or launches["attention"]["bf16_tc"] == 0
+            or any(launches["attention_bwd"].values())):
+        raise AssertionError(f"eval path launches {launches}; want {want}, B2 bf16_tc > 0, "
+                             "no backward")
+
+
+def eval_path(clip_params, db, kernels, root: pathlib.Path) -> tuple:
+    """The evaluation main path: evaluate_cirr over EVAL_EPOCHS sweep epochs
+    of a CIRR-val-sized split, device ranking and then host ranking, with
+    the main path's ViT-L/14 and DB, the head branches written under
+    ``root``, and the gate between the two."""
+    from keds_tpu_torch.evalkit import evaluators as ev
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.retrieval.database import Retriever
+
+    t = time.perf_counter()
+    split = cirr_split(11)
+    gen_s = time.perf_counter() - t
+    runs = {}
+    real = (ev._encode_corpus, ev._compose_all, ev._rank_topk)
+    run = {}
+
+    def encode_corpus(ctx, loader):
+        corpus, names = real[0](ctx, loader)
+        run["corpus"] = corpus
+        return corpus, names
+
+    def compose_all(ctx, compose, hi, ht, cache, texts=None):
+        out = real[1](ctx, compose, hi, ht, cache, texts)
+        run["feats"].append(out)                     # kept on the card until the end
+        run["profile"] = (ctx, compose, cache)
+        return out
+
+    def rank_topk(feats, corpus_dev, k):
+        out = real[2](feats, corpus_dev, k)
+        run["topk"].append(out)
+        run["corpus_dev"] = corpus_dev
+        return out
+
+    branches = write_branches(root, db.image_db.device)
+    ev._encode_corpus, ev._compose_all, ev._rank_topk = encode_corpus, compose_all, rank_topk
+    try:
+        for ranking in ("device", "host"):
+            run = dict(feats=[], topk=[])
+            ctx = ev.EvalContext(clip_params, VIT_L_14, Retriever(db),
+                                 image_branch=branches[0], text_branch=branches[1],
+                                 compute_dtype=torch.bfloat16,
+                                 eval_ranking=ranking, split_id=SPLIT_ID)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels.values():
+                k.reset()
+            t0 = time.perf_counter()
+            tables = ev.evaluate_cirr(ctx, split.queries, split.corpus,
+                                      epochs=range(1, EVAL_EPOCHS + 1))
+            torch.cuda.synchronize()
+            run.update(tables=tables, seconds=time.perf_counter() - t0,
+                       walls=dict(ev.last_cirr_walls),
+                       launches={n: dict(k.launches) for n, k in kernels.items()},
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            runs[ranking] = run
+    finally:
+        ev._encode_corpus, ev._compose_all, ev._rank_topk = real
+    for r in runs.values():
+        r["feats"] = [tuple(f.cpu().numpy() for f in pair) for pair in r["feats"]]
+    launches = runs["device"]["launches"]
+    check_eval_launches(launches, len(split.queries))
+    for r in runs.values():
+        ok = set(r["tables"]) == {(j, k) for j in range(1, EVAL_EPOCHS + 1)
+                                  for k in ("composed", "image", "mixture")}
+        if not ok or not all(0 <= v <= 100 for m in r["tables"].values() for v in m.values()):
+            raise AssertionError(f"eval tables malformed: {r['tables']}")
+    t = time.perf_counter()
+    gate = near_tie_gate(split, runs)
+    gate["seconds"] = time.perf_counter() - t
+
+    def summary(r):
+        w = r["walls"]
+        return dict(seconds=r["seconds"], walls=w, peak_mem_gb=r["peak_mem_gb"],
+                    corpus_images_per_s=EVAL_CORPUS / w["corpus_s"],
+                    queries_per_s=EVAL_QUERIES / w["queries_s"],
+                    per_epoch_s={k: w[f"sweep_{k}_s"] / w["epochs"]
+                                 for k in ("load", "compose", "metrics")},
+                    last_epoch={k: r["tables"][(EVAL_EPOCHS, k)]
+                                for k in ("composed", "image", "mixture")})
+
+    emit("eval_path", model="ViT-L/14", db_rows=db.size, dtype="bf16",
+         corpus_images=EVAL_CORPUS, queries=EVAL_QUERIES, query_batch=QUERY_BATCH,
+         epochs=EVAL_EPOCHS, split_made_s=gen_s, device=summary(runs["device"]),
+         host=summary(runs["host"]), launches=launches, gate=gate)
+    if not gate["passes"]:
+        raise AssertionError(f"eval gate: host and device rankings differ beyond near-ties "
+                             f"at {gate['n_other']} queries: {gate['other_differences']}")
+    return split, runs["device"]["profile"], runs["device"]["corpus_dev"], launches
+
+
+def profile_eval(split, profile, corpus_dev) -> None:
+    """Device time of one device-ranked sweep epoch (heads loaded, both
+    branches composed, three rankings and their tables) by group."""
+    from keds_tpu_torch.evalkit import evaluators as ev, metrics as M
+
+    ctx, compose, cache = profile
+    refs = [split.names[i] for i in split.ref]
+    targets = [split.names[i] for i in split.target]
+
+    def epoch():
+        with torch.inference_mode():
+            hi = ctx.load_heads(ctx.image_branch, 1)
+            ht = ctx.load_heads(ctx.text_branch, 1)
+            a, b = ev._compose_all(ctx, compose, hi, ht, cache)
+            for ti in ev._rank_topk((a, b, ev._mix(a, b, 0.5, 0.5)), corpus_dev, 101):
+                M.get_metrics_cirr_from_topk(ti, split.names, refs, targets, EVAL_CORPUS)
+
+    profile_device("profile_eval", epoch, [("attention (B2)", ("attention_tc", "attention_f32")),
+                                           ("mips_topk (B1)", ("topk_",))])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -763,7 +1041,11 @@ def main() -> int:
                             (TRAIN_BATCH, DB_ROWS, 768, 16, bf16),   # train-step search
                             (QUERY_BATCH, 10_000, 768, 10, f32),
                             (QUERY_BATCH, N_CORPUS, 768, 10, f32),   # ranking
-                            (TRAIN_BATCH, DB_ROWS, 768, 2, bf16)])   # caption neighbours
+                            (TRAIN_BATCH, DB_ROWS, 768, 2, bf16),    # caption neighbours
+                            (EVAL_QUERIES, EVAL_CORPUS, 768, 101, f32),   # CIRR ranking
+                            (2048, 4096, 768, 100, f32),             # Fashion-IQ-like
+                            (1024, 10_000, 768, 200, f32),           # ImageNet-like
+                            (QUERY_BATCH, DB_ROWS, 768, 64, bf16)])  # --db-topk 64
 
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
@@ -848,18 +1130,33 @@ def main() -> int:
     del theads, step, batch
     torch.cuda.empty_cache()
     train_text_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, table, kernels)
+    del table, cpu_clip, cpu_heads, cpu_db
+    torch.cuda.empty_cache()
+
+    # --- evaluation path ------------------------------------------------------
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        split, profile, corpus_dev, eval_launches = eval_path(clip_params, db, kernels,
+                                                              pathlib.Path(d))
+        profile_eval(split, profile, corpus_dev)
+    del profile, corpus_dev
 
     att = ("attention", "keds_tpu_torch/csrc/attention.cu", "keds_tpu/ops/attention.py:122")
     bwd = ("attention_bwd", "keds_tpu_torch/csrc/attention_bwd.cu",
            "keds_tpu/ops/attention.py:134")
     top = ("mips_topk", "keds_tpu_torch/csrc/topk.cu", "keds_tpu/ops/pallas_topk.py:93")
-    # launches: the serving main path's, and the image-stream training path's
-    # for the backward; each path's beside them
+    # launches: the serving main path's, the image-stream training path's for
+    # the backward and the evaluation path's for the f32 ranking at k = 101;
+    # each path's beside them
     entries = [(att, "bf16_tc", att_rows[0], launches), (att, "f32", att_rows[2], launches),
                (bwd, "bf16", bwd_rows[0], train_launches),
                (bwd, "f32", bwd_rows[4], train_launches),
-               (top, "bf16_tc", topk_rows[1], launches), (top, "f32", topk_rows[4], launches)]
-    paths = {"serving": launches, "train_image": train_launches, "train_text": text_launches}
+               (top, "bf16_tc", topk_rows[1], launches),
+               (top, "f32", topk_rows[6], eval_launches),
+               (top, "bf16", topk_rows[9], launches)]
+    paths = {"serving": launches, "train_image": train_launches, "train_text": text_launches,
+             "eval": eval_launches}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],

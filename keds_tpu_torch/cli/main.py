@@ -22,11 +22,12 @@ longer matches the DB).  Checkpoints go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -42,21 +43,43 @@ def _experiment_name(cfg) -> str:
     return name.replace("/", "-")
 
 
+@contextlib.contextmanager
+def run_logging(cfg, require_fresh: bool = True) -> Iterator[str]:
+    """Name the run and log it to ``<logs>/<name>/out.log`` at INFO, with
+    every setting in ``params.txt``; yields the run directory.  With
+    ``require_fresh`` (training without ``--resume``) an existing run of
+    that name is refused."""
+    cfg.name = _experiment_name(cfg)
+    log_dir = os.path.join(cfg.logs, cfg.name)
+    log_path = os.path.join(log_dir, "out.log")
+    if require_fresh and cfg.resume is None and os.path.exists(log_path):
+        raise SystemExit(f"Error. Experiment already exists at {log_dir}. "
+                         "Use --name for a new one.")
+    os.makedirs(log_dir, exist_ok=True)
+    handler = logging.FileHandler(log_path)
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        with open(os.path.join(log_dir, "params.txt"), "w") as f:
+            for k, v in sorted(vars(cfg).items()):
+                f.write(f"{k}: {v}\n")
+        yield log_dir
+    finally:
+        logging.getLogger().removeHandler(handler)
+        handler.close()
+
+
 def _load_clip(cfg, device: torch.device):
     from keds_tpu_torch import synth
     from keds_tpu_torch.models.clip import MODEL_CONFIGS
     from keds_tpu_torch.models.convert import clip_from_state_dict
+    from keds_tpu_torch.models.loader import state_dict_from_file
 
     if not cfg.clip_weights:
         clip_cfg = MODEL_CONFIGS[cfg.model]
         logging.info("initialized %s from scratch (no --clip-weights)", cfg.model)
         return synth.init_clip(clip_cfg, cfg.seed, device, torch.float32), clip_cfg
-    # torch.load hands a TorchScript archive (the OpenAI release) to
-    # torch.jit.load; a plain checkpoint is a state dict
-    obj = torch.load(cfg.clip_weights, map_location="cpu", weights_only=False)
-    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
-    sd = sd.get("state_dict", sd)
-    return clip_from_state_dict(sd, device=device)
+    return clip_from_state_dict(state_dict_from_file(cfg.clip_weights), device=device)
 
 
 def _load_neighbors(cfg, dataset, db, device: torch.device) -> None:
@@ -160,25 +183,10 @@ def main(argv: Optional[list] = None) -> None:
     if not cfg.database_path:
         raise SystemExit("--database-path is required")
 
-    cfg.name = _experiment_name(cfg)
-    log_dir = os.path.join(cfg.logs, cfg.name)
-    log_path = os.path.join(log_dir, "out.log")
-    if cfg.resume is None and os.path.exists(log_path):
-        raise SystemExit(f"Error. Experiment already exists at {log_dir}. "
-                         "Use --name for a new one.")
-    checkpoint_path = cfg.checkpoint_path or os.path.join(log_dir, "checkpoints")
-    os.makedirs(checkpoint_path, exist_ok=True)
-    handler = logging.FileHandler(log_path)
-    logging.getLogger().addHandler(handler)
-    logging.getLogger().setLevel(logging.INFO)
-    try:
-        with open(os.path.join(log_dir, "params.txt"), "w") as f:
-            for k, v in sorted(vars(cfg).items()):
-                f.write(f"{k}: {v}\n")
+    with run_logging(cfg) as log_dir:
+        checkpoint_path = cfg.checkpoint_path or os.path.join(log_dir, "checkpoints")
+        os.makedirs(checkpoint_path, exist_ok=True)
         _train(cfg, checkpoint_path, log_dir)
-    finally:
-        logging.getLogger().removeHandler(handler)
-        handler.close()
 
 
 def _train(cfg, checkpoint_path: str, log_dir: str) -> None:

@@ -1,8 +1,9 @@
-"""Train CLI configuration (counterpart of the training subset of
+"""CLI configuration (counterpart of the training and evaluation subset of
 ``keds_tpu/config.py``): the JAX package's flag names and defaults for
-features-mode training, plus the device and the two values the image
-stream takes as arguments so that it needs no BPE vocab (``--split-id``,
-``--prompt-tokens``; the text stream reads both from the vocab)."""
+features-mode training and the evaluation CLI, plus the device and the two
+values the image stream takes as arguments so that it needs no BPE vocab
+(``--split-id``, ``--prompt-tokens``; the text stream reads both from the
+vocab, and so does evaluation unless ``--split-id`` is given)."""
 
 from __future__ import annotations
 
@@ -27,8 +28,17 @@ class Config:
     train_data: Optional[str] = None
     dataset_type: str = "auto"
     workers: int = 1
+    root_data: str = "./data"
+    source_data: Optional[str] = None
+    target_pad: bool = False
+    eval_mode: str = "coco"
     database_path: Optional[str] = None
+    db_image_file: Optional[str] = None
+    db_text_file: Optional[str] = None
+    db_names_file: Optional[str] = None
     db_topk: int = 16
+    retrieval_backend: str = "auto"
+    eval_ranking: str = "host"
     neighbors: Optional[str] = None
     model: str = "ViT-L/14"
     clip_weights: Optional[str] = None
@@ -45,6 +55,8 @@ class Config:
     precision: str = "amp"
     seed: int = 0
     stream: str = "image"
+    image_branch: str = "./image_branch/checkpoints"
+    text_branch: str = "./text_branch/checkpoints"
     logs: str = "./logs/"
     name: Optional[str] = None
     time_suffix: bool = True
@@ -71,8 +83,25 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
         choices=["webdataset", "csv", "inet", "auto", "directory",
                  "fashion-iq", "cirr", "imgnet_r"])
     add("--workers", type=int, default=1)
+    add("--root-data", type=str, default="./data")
+    add("--source-data", type=str, default=None,
+        help="Fashion-IQ cloth type: dress, shirt or toptee")
+    add("--target-pad", action="store_true", default=False)
+    add("--eval-mode", type=str, default="coco",
+        choices=["coco", "cirr", "cirr_test", "fashion", "imgnet"])
     add("--database-path", type=str, default=None)
+    add("--db-image-file", type=str, default=None)
+    add("--db-text-file", type=str, default=None)
+    add("--db-names-file", type=str, default=None)
     add("--db-topk", type=int, default=16)
+    add("--retrieval-backend", type=str, default="auto",
+        choices=["auto", "xla", "pallas", "int8", "approx"],
+        help="auto, xla and pallas all run the exact fused top-k kernel; int8 "
+             "and approx are not ported yet (ROADMAP.md section A item 14)")
+    add("--eval-ranking", type=str, default="host", choices=["host", "device"],
+        help="device: the sweeps' mixtures and rankings on the device (the fused "
+             "top-k kernel in f32), only the indices fetched; host: the numpy "
+             "formulas (default)")
     add("--neighbors", type=str, default=None,
         help="precomputed-neighbour pack, or 'auto' for <train-data>/neighbors.npz")
     add("--model", type=str, default="ViT-L/14", choices=MODEL_CHOICES)
@@ -91,6 +120,8 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--precision", type=str, default="amp", choices=["amp", "fp16", "fp32", "bf16"])
     add("--seed", type=int, default=0)
     add("--stream", type=str, default="image", choices=["image", "text"])
+    add("--image-branch", type=str, default="./image_branch/checkpoints")
+    add("--text-branch", type=str, default="./text_branch/checkpoints")
     add("--logs", type=str, default="./logs/")
     add("--name", type=str, default=None)
     add("--no-time-suffix", dest="time_suffix", action="store_false", default=True)
@@ -110,7 +141,8 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
              "plain versions of the kernels)")
 
 
-def parse_args(argv: Optional[List[str]] = None) -> Config:
-    parser = argparse.ArgumentParser(prog="keds_tpu_torch.cli.main")
+def parse_args(argv: Optional[List[str]] = None,
+               prog: str = "keds_tpu_torch.cli.main") -> Config:
+    parser = argparse.ArgumentParser(prog=prog)
     _add_flags(parser)
     return Config(**vars(parser.parse_args(argv))).finalize()

@@ -54,6 +54,22 @@
 // database (the 256-row ranking) the wrapper picks 16 x 32 tiles, so the
 // search spreads over tens of blocks instead of two.  Both tile sizes sum
 // each score in the same order.
+//
+// k > 32 (the evaluators' rankings at k = 100, 101 and 200, a large
+// --topn or --db-topk): each lane holds L = 2, 4 or 8 entries of the running
+// list, entry e at lane e % 32 and slot e / 32 (offer_wide); an insertion
+// shifts every slot up one lane and carries lane 31 of slot s into lane 0
+// of slot s + 1.  Both dtypes then take topk_f32 with 32-query x 128-row
+// tiles; bf16 inputs are widened to f32 as they are staged (products of
+// bf16 values are exact in f32).  Between chunks a warp's four lists live
+// in shared memory (up to 64 KB a block); each comes into registers while
+// its query's scores are folded.  The bound is the products on CUDA cores
+// (0.22 ms at the CIRR ranking); the 32-query tiles read shared memory
+// more often per product than 64-query ones, and the insertions take about
+// as long again.  The k <= 32 instantiations (L = 1) are unchanged.
+// Nothing calls the bf16 wide path on a hot loop (the shipped --db-topk is
+// 16), so it runs on CUDA cores: the tensor-core kernel's registers and
+// shared memory hold no room for eight-slot lists.
 
 #include "common.cuh"
 
@@ -62,10 +78,12 @@ namespace {
 using namespace keds;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxK = 32;        // one lane per running entry
+constexpr int kLaneK = 32;       // k of lists with one entry a lane
+constexpr int kMaxK = 256;       // eight entries a lane
 
-// Variant codes of the C interface (mirrored in ops/topk.py).
-enum Variant : int { kF32 = 0, kF32Small = 1, kBf16Tc = 2 };
+// Variant codes of the C interface (mirrored in ops/topk.py).  The wide
+// variants take any k <= kMaxK, the others k <= kLaneK.
+enum Variant : int { kF32 = 0, kF32Small = 1, kBf16Tc = 2, kF32Wide = 3, kBf16Wide = 4 };
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   if (bi < 0) return ai >= 0;
@@ -98,6 +116,84 @@ __device__ __forceinline__ void offer(float& sv, int& si, float cv, int ci,
     }
     tv = __shfl_sync(kFullMask, sv, k - 1);
     ti = __shfl_sync(kFullMask, si, k - 1);
+  }
+}
+
+// Entry e (warp-uniform) of a list of L entries a lane, on every lane: each
+// slot is shuffled and the shuffled values are selected.  (Selecting between
+// slots before the shuffle is compiled into a load from a computed address,
+// which puts the whole list in local memory: kernel_sweeps.py wide_k.)
+template <int L>
+__device__ __forceinline__ void list_entry(const float (&sv)[L], const int (&si)[L], int e,
+                                           float& v, int& i) {
+  v = __shfl_sync(kFullMask, sv[0], e % 32);
+  i = __shfl_sync(kFullMask, si[0], e % 32);
+#pragma unroll
+  for (int s = 1; s < L; ++s) {
+    const float x = __shfl_sync(kFullMask, sv[s], e % 32);
+    const int y = __shfl_sync(kFullMask, si[s], e % 32);
+    if (s == e / 32) {
+      v = x;
+      i = y;
+    }
+  }
+}
+
+// offer() for lists of L entries a lane (entry e at lane e % 32, slot
+// e / 32).  The insertion position counts the better entries of every slot;
+// slots shift from the top down, each taking lane 31 of the slot below into
+// its lane 0 before that slot is rewritten.
+template <int L>
+__device__ __forceinline__ void offer_wide(float (&sv)[L], int (&si)[L], float cv, int ci,
+                                           bool valid, int k, int lane) {
+  float tv;
+  int ti;
+  list_entry<L>(sv, si, k - 1, tv, ti);
+  unsigned pending = __ballot_sync(kFullMask, valid && better(cv, ci, tv, ti));
+  while (pending) {
+    const int src = __ffs(pending) - 1;
+    pending &= pending - 1;
+    const float bv = __shfl_sync(kFullMask, cv, src);
+    const int bi = __shfl_sync(kFullMask, ci, src);
+    if (!better(bv, bi, tv, ti)) continue;       // threshold rose meanwhile
+    int pos = 0;
+#pragma unroll
+    for (int s = 0; s < L; ++s)
+      pos += __popc(__ballot_sync(kFullMask, s * 32 + lane < k && better(sv[s], si[s], bv, bi)));
+#pragma unroll
+    for (int s = L - 1; s >= 0; --s) {
+      float pv = __shfl_up_sync(kFullMask, sv[s], 1);
+      int pi = __shfl_up_sync(kFullMask, si[s], 1);
+      if (s > 0) {
+        const float cv31 = __shfl_sync(kFullMask, sv[s > 0 ? s - 1 : 0], 31);
+        const int ci31 = __shfl_sync(kFullMask, si[s > 0 ? s - 1 : 0], 31);
+        if (lane == 0) {
+          pv = cv31;
+          pi = ci31;
+        }
+      }
+      const int e = s * 32 + lane;
+      if (e == pos) {
+        sv[s] = bv;
+        si[s] = bi;
+      } else if (e > pos) {
+        sv[s] = pv;
+        si[s] = pi;
+      }
+    }
+    list_entry<L>(sv, si, k - 1, tv, ti);
+  }
+}
+
+// One candidate per lane into a list of L entries a lane: offer() itself
+// for L = 1.
+template <int L>
+__device__ __forceinline__ void fold(float (&sv)[L], int (&si)[L], float cv, int ci,
+                                     bool valid, int k, int lane) {
+  if constexpr (L == 1) {
+    offer(sv[0], si[0], cv, ci, valid, k, lane);
+  } else {
+    offer_wide<L>(sv, si, cv, ci, valid, k, lane);
   }
 }
 
@@ -298,10 +394,31 @@ topk_tc(const bf16* __restrict__ q, const bf16* __restrict__ db,
 constexpr int kThreads = 256;
 constexpr int kDK = 32;          // depth of one staged slice of D
 
+// Eight consecutive elements as f32: two 16-byte loads of f32, or one of
+// bf16 widened exactly.
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+
 // Stage rows [row0, row0 + kRows) x [d0, d0 + kDK) of a row-major (rows, D)
-// f32 matrix into dst[d][row] (transposed), zero-filling rows >= limit.
-template <int kRows>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int row0, int limit,
+// f32 or bf16 matrix into dst[d][row] as f32 (transposed), zero-filling
+// rows >= limit.
+template <int kRows, typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int row0, int limit,
                                       int D, int d0, float* dst) {
   constexpr int kVecs = kRows * (kDK / 8);
 #pragma unroll
@@ -311,11 +428,7 @@ __device__ __forceinline__ void stage(const float* __restrict__ src, int row0, i
     const int row = e / (kDK / 8), dd = (e % (kDK / 8)) * 8;
     float x[8];
     if (row0 + row < limit) {
-      const float* p = src + static_cast<size_t>(row0 + row) * D + d0 + dd;
-      const float4 a = *reinterpret_cast<const float4*>(p);
-      const float4 b = *reinterpret_cast<const float4*>(p + 4);
-      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-      x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+      load8(src + static_cast<size_t>(row0 + row) * D + d0 + dd, x);
     } else {
 #pragma unroll
       for (int u = 0; u < 8; ++u) x[u] = 0.f;
@@ -326,10 +439,15 @@ __device__ __forceinline__ void stage(const float* __restrict__ src, int row0, i
 }
 
 // kBQ queries x kBN rows per tile; thread (ty, tx) of a 16 x 16 grid owns
-// queries ty * kBQ/16 + i and rows tx + 16 j.
-template <int kBQ, int kBN>
+// queries ty * kBQ/16 + i and rows tx + 16 j.  Each warp folds kBQ/8
+// queries into lists of L entries a lane.  With L = 1 the lists stay in
+// registers.  With L > 1 they live in dynamic shared memory (wide_list_bytes;
+// query i's entry e of a warp at [(i * L + e / 32) * 32 + e % 32]): each
+// query's list is loaded into registers while its chunk is folded, since
+// registers indexed by the query loop would land in local memory.
+template <typename T, int kBQ, int kBN, int L>
 __global__ void __launch_bounds__(kThreads)
-topk_f32(const float* __restrict__ q, const float* __restrict__ db,
+topk_f32(const T* __restrict__ q, const T* __restrict__ db,
          float* __restrict__ cand_v, int* __restrict__ cand_i, int B, int N, int D,
          int k, int n_splits) {
   constexpr int kQPT = kBQ / 16, kRPT = kBN / 16;
@@ -350,12 +468,27 @@ topk_f32(const float* __restrict__ q, const float* __restrict__ db,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float sv[kQueriesPerWarp];
-  int si[kQueriesPerWarp];
+  constexpr bool kRegLists = L == 1;
+  constexpr int kRegQueries = kRegLists ? kQueriesPerWarp : 1;
+  float sv[kRegQueries][L];
+  int si[kRegQueries][L];
 #pragma unroll
-  for (int i = 0; i < kQueriesPerWarp; ++i) {
-    sv[i] = -CUDART_INF_F;
-    si[i] = -1;
+  for (int i = 0; i < kRegQueries; ++i)
+#pragma unroll
+    for (int s = 0; s < L; ++s) {
+      sv[i][s] = -CUDART_INF_F;
+      si[i][s] = -1;
+    }
+  extern __shared__ __align__(16) unsigned char list_smem[];
+  constexpr int kWarpEntries = kQueriesPerWarp * L * 32;
+  float* lv = reinterpret_cast<float*>(list_smem) + warp * kWarpEntries;
+  int* li = reinterpret_cast<int*>(list_smem + sizeof(float) * kBQ * L * 32) +
+            warp * kWarpEntries;
+  if constexpr (!kRegLists) {
+    for (int x = lane; x < kWarpEntries; x += 32) {
+      lv[x] = -CUDART_INF_F;
+      li[x] = -1;
+    }
   }
 
   for (int c = c_begin; c < c_end; ++c) {
@@ -396,28 +529,72 @@ topk_f32(const float* __restrict__ q, const float* __restrict__ db,
       for (int j = 0; j < kRPT; ++j) sc[(ty * kQPT + i) * kScoreLd + tx + 16 * j] = acc[i][j];
     __syncthreads();
 
+    if constexpr (kRegLists) {
 #pragma unroll
-    for (int i = 0; i < kQueriesPerWarp; ++i) {
-      const float* row = sc + (warp * kQueriesPerWarp + i) * kScoreLd;
+      for (int i = 0; i < kQueriesPerWarp; ++i) {
+        const float* row = sc + (warp * kQueriesPerWarp + i) * kScoreLd;
 #pragma unroll
-      for (int u = 0; u < kBN / 32; ++u) {
-        const int col = lane + 32 * u;
-        offer(sv[i], si[i], row[col], n0 + col, n0 + col < N, k, lane);
+        for (int u = 0; u < kBN / 32; ++u) {
+          const int col = lane + 32 * u;
+          offer(sv[i][0], si[i][0], row[col], n0 + col, n0 + col < N, k, lane);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < kQueriesPerWarp; ++i) {
+        const float* row = sc + (warp * kQueriesPerWarp + i) * kScoreLd;
+        float* qv = lv + i * L * 32 + lane;
+        int* qx = li + i * L * 32 + lane;
+#pragma unroll
+        for (int s = 0; s < L; ++s) {
+          sv[0][s] = qv[32 * s];
+          si[0][s] = qx[32 * s];
+        }
+#pragma unroll
+        for (int u = 0; u < kBN / 32; ++u) {
+          const int col = lane + 32 * u;
+          offer_wide<L>(sv[0], si[0], row[col], n0 + col, n0 + col < N, k, lane);
+        }
+#pragma unroll
+        for (int s = 0; s < L; ++s) {
+          qv[32 * s] = sv[0][s];
+          qx[32 * s] = si[0][s];
+        }
       }
     }
   }
 
+  if constexpr (kRegLists) {
 #pragma unroll
-  for (int i = 0; i < kQueriesPerWarp; ++i) {
-    const int qi = q0 + warp * kQueriesPerWarp + i;
-    if (qi < B && lane < k) {
-      const size_t o = (static_cast<size_t>(qi) * n_splits + split) * k + lane;
-      cand_v[o] = sv[i];
-      cand_i[o] = si[i];
+    for (int i = 0; i < kQueriesPerWarp; ++i) {
+      const int qi = q0 + warp * kQueriesPerWarp + i;
+      if (qi < B && lane < k) {
+        const size_t o = (static_cast<size_t>(qi) * n_splits + split) * k + lane;
+        cand_v[o] = sv[i][0];
+        cand_i[o] = si[i][0];
+      }
+    }
+  } else {
+    for (int i = 0; i < kQueriesPerWarp; ++i) {
+      const int qi = q0 + warp * kQueriesPerWarp + i;
+      if (qi >= B) break;
+      const size_t o = (static_cast<size_t>(qi) * n_splits + split) * k;
+      for (int e = lane; e < k; e += 32) {
+        cand_v[o + e] = lv[i * L * 32 + e];
+        cand_i[o + e] = li[i * L * 32 + e];
+      }
     }
   }
 }
 
+// Dynamic shared memory of topk_f32's lists: none for L = 1.
+constexpr int wide_list_bytes(int bq, int slots) {
+  return slots == 1 ? 0 : bq * slots * 32 * static_cast<int>(sizeof(float) + sizeof(int));
+}
+
+// One warp per query folds its n_cand candidates; a slice of fewer than k
+// rows left -1 slots, which are never offered.
+template <int L>
 __global__ void __launch_bounds__(128)
 topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
            float* __restrict__ out_v, int* __restrict__ out_i, int B,
@@ -427,31 +604,74 @@ topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
   if (qi >= B) return;   // whole warp leaves together
   const float* cv = cand_v + static_cast<size_t>(qi) * n_cand;
   const int* ci = cand_i + static_cast<size_t>(qi) * n_cand;
-  float sv = -CUDART_INF_F;
-  int si = -1;
+  float sv[L];
+  int si[L];
+#pragma unroll
+  for (int s = 0; s < L; ++s) {
+    sv[s] = -CUDART_INF_F;
+    si[s] = -1;
+  }
   for (int base = 0; base < n_cand; base += 32) {
     const int c = base + lane;
     const bool in = c < n_cand;
     const float v = in ? cv[c] : -CUDART_INF_F;
     const int i = in ? ci[c] : -1;
-    offer(sv, si, v, i, in && i >= 0, k, lane);
+    fold<L>(sv, si, v, i, in && i >= 0, k, lane);
   }
-  if (lane < k) {
-    out_v[static_cast<size_t>(qi) * k + lane] = sv;
-    out_i[static_cast<size_t>(qi) * k + lane] = si;
+#pragma unroll
+  for (int s = 0; s < L; ++s) {
+    const int e = s * 32 + lane;
+    if (e < k) {
+      out_v[static_cast<size_t>(qi) * k + e] = sv[s];
+      out_i[static_cast<size_t>(qi) * k + e] = si[s];
+    }
   }
 }
 
 // Per variant: query tile, chunk rows.
-constexpr int kTiles[3][2] = {{64, 128}, {16, 32}, {kTcBQ, kTcBN}};
+constexpr int kWideBQ = 32, kWideBN = 128;
+constexpr int kTiles[5][2] = {{64, 128}, {16, 32}, {kTcBQ, kTcBN}, {kWideBQ, kWideBN},
+                              {kWideBQ, kWideBN}};
 
-template <int kBQ, int kBN>
+template <typename T, int kBQ, int kBN, int L>
 cudaError_t launch_f32(const void* q, const void* db, float* cv, int* ci, int B, int N,
                        int D, int k, int n_splits, cudaStream_t st) {
+  constexpr int kListBytes = wide_list_bytes(kBQ, L);
+  if constexpr (kListBytes > 0) {
+    static int smem_set[64];
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(topk_f32<T, kBQ, kBN, L>),
+                                 kListBytes, smem_set);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid((B + kBQ - 1) / kBQ, n_splits);
-  topk_f32<kBQ, kBN><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(db), cv, ci, B, N, D, k,
-      n_splits);
+  topk_f32<T, kBQ, kBN, L><<<grid, kThreads, kListBytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(db), cv, ci, B, N, D, k, n_splits);
+  return cudaGetLastError();
+}
+
+// Slots a lane for a list of k entries: 1 up to 32, else 2, 4 or 8.
+inline int list_slots(int k) { return k <= kLaneK ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8; }
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* db, float* cv, int* ci, int B, int N,
+                        int D, int k, int n_splits, cudaStream_t st) {
+  switch (list_slots(k)) {
+    case 1:
+    case 2: return launch_f32<T, kWideBQ, kWideBN, 2>(q, db, cv, ci, B, N, D, k, n_splits, st);
+    case 4: return launch_f32<T, kWideBQ, kWideBN, 4>(q, db, cv, ci, B, N, D, k, n_splits, st);
+    default: return launch_f32<T, kWideBQ, kWideBN, 8>(q, db, cv, ci, B, N, D, k, n_splits, st);
+  }
+}
+
+cudaError_t launch_merge(const float* cv, const int* ci, float* out_v, int* out_i, int B,
+                         int n_cand, int k, cudaStream_t st) {
+  const int blocks = (B + 3) / 4;
+  switch (list_slots(k)) {
+    case 1: topk_merge<1><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k); break;
+    case 2: topk_merge<2><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k); break;
+    case 4: topk_merge<4><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k); break;
+    default: topk_merge<8><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k);
+  }
   return cudaGetLastError();
 }
 
@@ -485,13 +705,16 @@ extern "C" int keds_topk_chunk_rows(int variant) { return kTiles[variant][1]; }
 // Largest D of the bf16 kernel (its queries' fragments live in registers).
 extern "C" int keds_topk_tc_max_dim() { return kTcMaxDim; }
 
-// q (B, D) and db (N, D) row-major, 16-byte aligned; D % 32 == 0 (f32) or
-// D % 64 == 0 (bf16).  cand_v / cand_i: scratch of B * n_splits * k entries.  n_splits <= the number of chunks.
+// q (B, D) and db (N, D) row-major, 16-byte aligned; D % 64 == 0 for
+// bf16_tc, D % 32 == 0 otherwise.  k <= 32, or k <= 256 for the wide
+// variants.  cand_v / cand_i: scratch of B * n_splits * k entries.
+// n_splits <= the number of chunks.
 extern "C" int keds_mips_topk(const void* q, const void* db, void* cand_v,
                               void* cand_i, void* out_v, void* out_i, int variant,
                               int B, int N, int D, int k, int n_splits, void* stream) {
-  if (k < 1 || k > kMaxK || k > N || B < 1 || n_splits < 1 || variant < kF32 ||
-      variant > kBf16Tc)
+  const bool wide = variant == kF32Wide || variant == kBf16Wide;
+  if (k < 1 || k > (wide ? kMaxK : kLaneK) || k > N || B < 1 || n_splits < 1 ||
+      variant < kF32 || variant > kBf16Wide)
     return cudaErrorInvalidValue;
   float* cv = static_cast<float*>(cand_v);
   int* ci = static_cast<int*>(cand_i);
@@ -502,12 +725,14 @@ extern "C" int keds_mips_topk(const void* q, const void* db, void* cand_v,
     err = launch_tc(q, db, cv, ci, B, N, D, k, n_splits, st);
   } else {
     if (D % kDK) return cudaErrorInvalidValue;
-    err = variant == kF32 ? launch_f32<64, 128>(q, db, cv, ci, B, N, D, k, n_splits, st)
-                          : launch_f32<16, 32>(q, db, cv, ci, B, N, D, k, n_splits, st);
+    switch (variant) {
+      case kF32: err = launch_f32<float, 64, 128, 1>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
+      case kF32Small: err = launch_f32<float, 16, 32, 1>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
+      case kF32Wide: err = launch_wide<float>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
+      default: err = launch_wide<bf16>(q, db, cv, ci, B, N, D, k, n_splits, st);
+    }
   }
   if (err != cudaSuccess) return err;
-  topk_merge<<<(B + 3) / 4, 128, 0, st>>>(cv, ci, static_cast<float*>(out_v),
-                                         static_cast<int*>(out_i), B,
-                                         n_splits * k, k);
-  return cudaGetLastError();
+  return launch_merge(cv, ci, static_cast<float*>(out_v), static_cast<int*>(out_i), B,
+                      n_splits * k, k, st);
 }

@@ -1,8 +1,12 @@
-"""Precomputed CC3M feature pairs, the training dataset (counterpart of
-``FeaturePairDataset`` and ``build_other_tokens`` in
-``keds_tpu/data/datasets.py``).
+"""Datasets (counterpart of ``keds_tpu/data/datasets.py``): the evaluation
+benchmarks and the precomputed CC3M feature pairs of training.
 
-Two layouts: packed (``image_features.npy`` (N, D), ``text_features.npy``
+The benchmarks (``CIRR``, ``FashionIQ``, ``CsvCOCO``, ``ImageList``) read the
+reference's directory layouts and return the JAX package's tuples in its
+order: images through the given transform (PIL, imported when an image is
+opened), prompts tokenized by the port's BPE.
+
+``FeaturePairDataset`` (training) reads two layouts: packed (``image_features.npy`` (N, D), ``text_features.npy``
 (N, D) and ``names.json`` in one directory, memory-mapped) and the
 reference's per-file one (``cc_image_feature_folder_clipl/*.pt`` and
 ``cc_text_feature_folder_clipl/*.pt``, read with ``torch.load``).  A sample
@@ -17,15 +21,215 @@ templates are tokenized.
 
 from __future__ import annotations
 
+import csv
 import json
 import logging
 import os
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from keds_tpu_torch.tokenizer import tokenize
+
+
+def _open_image(path: str):
+    from PIL import Image
+
+    img = Image.open(path)
+    img.load()
+    return img
+
+
+class CIRR:
+    """CIRR val/test (reference src/data.py:233-333): ``mode="caps"`` gives
+    composed-query samples, ``mode="imgs"`` the target corpus."""
+
+    def __init__(self, transforms: Callable, mode: str = "caps",
+                 vis_mode: bool = False, test: bool = False, root: str = "./data"):
+        self.mode = mode
+        self.transforms = transforms
+        self.vis_mode = vis_mode
+        self.test = test
+        self.root = os.path.join(root, "CIRR")
+        self.root_img = os.path.join(self.root, "test1" if test else "dev")
+        split = "test1" if test else "val"
+        if mode == "caps":
+            path = os.path.join(self.root, f"captions/cap.rc2.{split}.json")
+        else:
+            path = os.path.join(self.root, f"image_splits/split.rc2.{split}.json")
+        with open(path) as f:
+            data = json.load(f)
+        self.ref_imgs: List[str] = []
+        self.target_imgs: List[str] = []
+        self.target_caps: List[str] = []
+        self.pairids: List[int] = []
+        if mode == "caps":
+            for d in data:
+                self.ref_imgs.append(d["reference"] + ".png")
+                self.target_caps.append(d["caption"])
+                if test:
+                    self.pairids.append(d["pairid"])
+                    self.target_imgs.append("dummy")
+                else:
+                    self.target_imgs.append(d["target_hard"] + ".png")
+        else:
+            self.target_imgs = [k + ".png" for k in data]
+        if vis_mode:
+            self.target_imgs = sorted(set(self.target_imgs))
+        logging.info("CIRR: %d samples", len(self))
+
+    def __len__(self):
+        return len(self.target_imgs)
+
+    def __getitem__(self, idx: int):
+        if self.mode != "caps" or self.vis_mode:
+            tar = str(self.target_imgs[idx])
+            img = self.transforms(_open_image(os.path.join(self.root_img, tar)))
+            # the val corpus gives the full path, the test corpus the name
+            path = tar if self.test else os.path.join(self.root_img, tar)
+            return img, path
+        ref = str(self.ref_imgs[idx])
+        ref_img = self.transforms(_open_image(os.path.join(self.root_img, ref)))
+        cap = self.target_caps[idx]
+        text_with_blank = f"a photo of * , {cap}"
+        if self.test:
+            return (ref_img, tokenize(text_with_blank)[0], tokenize(cap)[0],
+                    ref, self.pairids[idx], text_with_blank)
+        return (ref_img, tokenize(text_with_blank)[0], tokenize(cap)[0],
+                ref, str(self.target_imgs[idx]), text_with_blank, cap)
+
+
+class FashionIQ:
+    """Fashion-IQ per cloth type (reference src/data.py:339-427); the two
+    captions are joined "a photo of * , {cap2} and {cap1}"."""
+
+    def __init__(self, cloth: str, transforms: Callable, mode: str = "caps",
+                 is_return_target_path: bool = False, vis_mode: bool = False,
+                 root: str = "./data"):
+        base = os.path.join(root, "fashion-iq")
+        self.root_img = os.path.join(base, "images")
+        self.mode = mode
+        self.vis_mode = vis_mode
+        self.is_return_target_path = is_return_target_path
+        self.transforms = transforms
+        self.ref_imgs: List[str] = []
+        self.target_imgs: List[str] = []
+        self.ref_caps: List = []
+        if mode == "imgs":
+            path = os.path.join(base, "image_splits", f"split.{cloth}.val.json")
+            with open(path) as f:
+                self.target_imgs = [k + ".png" for k in json.load(f)]
+        else:
+            path = os.path.join(base, "json", f"cap.{cloth}.val.json")
+            with open(path) as f:
+                data = json.load(f)
+            for d in data:
+                ref = os.path.join(self.root_img, d["candidate"] + ".png")
+                tar = os.path.join(self.root_img, d["target"] + ".png")
+                if os.path.isfile(ref) and os.path.isfile(tar):
+                    self.ref_imgs.append(ref)
+                    self.target_imgs.append(tar)
+                    self.ref_caps.append((d["captions"][0], d["captions"][1]))
+                else:
+                    logging.warning("cannot load %s", d["candidate"])
+        logging.info("FashionIQ %s: %d samples", cloth, len(self))
+
+    def __len__(self):
+        return len(self.ref_imgs) if self.mode == "caps" else len(self.target_imgs)
+
+    def __getitem__(self, idx: int):
+        if self.mode == "imgs" or self.vis_mode:
+            tar = str(self.target_imgs[idx])
+            path = tar if self.vis_mode else os.path.join(self.root_img, tar)
+            return self.transforms(_open_image(path)), path
+        ref_img = self.transforms(_open_image(str(self.ref_imgs[idx])))
+        tar_img = self.transforms(_open_image(str(self.target_imgs[idx])))
+        cap1, cap2 = self.ref_caps[idx]
+        text_with_blank = f"a photo of * , {cap2} and {cap1}"
+        tokens = tokenize(text_with_blank)[0]
+        if self.is_return_target_path:
+            return (ref_img, tar_img, tokens, tokens,
+                    str(self.target_imgs[idx]), str(self.ref_imgs[idx]), text_with_blank)
+        return ref_img, tar_img, text_with_blank
+
+
+class CsvCOCO:
+    """COCO composed-region queries (reference src/data.py:433-509): the
+    query is a masked-region crop; prompts are built from the query class
+    and the other classes in the target."""
+
+    def __init__(self, transforms: Callable, transforms_region: Callable,
+                 root: str = "./data", sep: str = ","):
+        self.transforms = transforms
+        self.transforms_region = transforms_region
+        self.root = os.path.join(root, "coco")
+        self.root_img = os.path.join(self.root, "val2017")
+        with open(os.path.join(self.root, "coco_eval.csv")) as f:
+            rows = list(csv.DictReader(f, delimiter=sep))
+        self.images = [r["id"] for r in rows]
+        self.regions = []
+        for r in rows:
+            x1, y1, x2, y2 = (int(float(v)) for v in r["query_regions"].split(";"))
+            self.regions.append((x1, y1, x2, y2))
+        self.query_classes = [r["query_class"] for r in rows]
+        self.classes = [r["classes"].split(";") if r.get("classes") else [""] for r in rows]
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx: int):
+        name = str(self.images[idx])
+        img_path = os.path.join(self.root_img, name)
+        basename = os.path.basename(img_path).split(".")[0]
+        image = _open_image(img_path)
+        masked = _open_image(os.path.join(self.root_img.replace("val2017", "val2017_masked"),
+                                          name))
+        region = masked.crop(self.regions[idx])
+        image_t = self.transforms(image)
+        region_t = self.transforms_region(region)
+        qc = self.query_classes[idx]
+        others = " and ".join(self.classes[idx])
+        text_with_blank = f"a photo of * and {others}"
+        text_with_queryclass = f"a photo of * and {qc} and {others}"
+        text_full = f"a photo of {qc} and {others}"
+        return (image_t, region_t, tokenize(text_full)[0], tokenize(text_with_blank)[0],
+                tokenize(text_with_queryclass)[0], name, text_with_queryclass, basename)
+
+
+class ImageList:
+    """Images from a txt listing, optionally "path label" pairs (reference
+    src/data.py:512-546), for the ImageNet domain-transfer evaluation."""
+
+    def __init__(self, input_filename: str, transforms: Callable,
+                 root: Optional[str] = None, is_labels: bool = False,
+                 return_filename: bool = False):
+        with open(input_filename) as f:
+            lines = [line.strip() for line in f if line.strip()]
+        if is_labels:
+            self.images = [ln.split(" ")[0] for ln in lines]
+            self.labels = [int(ln.split(" ")[1]) for ln in lines]
+        else:
+            self.images = lines
+            self.labels = None
+        self.transforms = transforms
+        self.root = root
+        self.return_filename = return_filename
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx: int):
+        path = str(self.images[idx])
+        if self.root is not None:
+            path = os.path.join(self.root, path)
+        img = self.transforms(_open_image(path))
+        basename = os.path.basename(path).split(".")[0]
+        if self.return_filename:
+            return img, path
+        if self.labels is not None:
+            return img, self.labels[idx], basename
+        return img
 
 
 def _load_json_maybe(folder: str, name: str) -> dict:

@@ -5,9 +5,12 @@
 ranking.  On CUDA tensors it launches the hand-written fused kernel
 ``csrc/topk.cu`` (which replaces the Pallas ``mips_topk_pallas``) or
 raises: bf16 runs the tensor-core kernel (variant ``bf16_tc``), f32 the
-exact-f32 CUDA-core kernel (variant ``f32``).  On CPU tensors it runs the
-plain version :func:`mips_topk_plain`.  Both order equal scores by lower
-row index first.
+exact-f32 CUDA-core kernel (variant ``f32``).  Above k = 32 both dtypes
+take the CUDA-core kernel with lists of up to eight entries a lane (f32
+counts as ``f32``, bf16 as ``bf16``), up to k = 256; the Pallas kernel has
+no cap on k, and a larger k raises here.  On CPU tensors it runs the plain
+version :func:`mips_topk_plain`.  Both order equal scores by lower row
+index first.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ KERNEL = CudaKernel("topk", {
     "keds_topk_query_tile": [_I],
     "keds_topk_chunk_rows": [_I],
     "keds_topk_tc_max_dim": [],
-}, variants=("bf16_tc", "f32"))
+}, variants=("bf16_tc", "f32", "bf16"))
 
 
 class Tiling(NamedTuple):
@@ -42,12 +45,16 @@ class Tiling(NamedTuple):
 # Mirrors of csrc/topk.cu's constants (a card test in tests/test_torch_cuda.py
 # checks them against the library).  The bf16 kernel holds 210 KB of shared
 # memory, so one block fits an SM; the f32 kernel's 33 KB let several run
-# together.
+# together.  k above LANE_K takes the wide tilings: 32-query tiles on CUDA
+# cores, whose lists hold up to eight entries a lane.
 TC = Tiling(2, "bf16_tc", 64, 128, 1)
 F32 = Tiling(0, "f32", 64, 128, 4)
 F32_SMALL = Tiling(1, "f32", 16, 32, 4)
-TILINGS = (F32, F32_SMALL, TC)
-MAX_K = 32
+F32_WIDE = Tiling(3, "f32", 32, 128, 4)
+BF16_WIDE = Tiling(4, "bf16", 32, 128, 4)
+TILINGS = (F32, F32_SMALL, TC, F32_WIDE, BF16_WIDE)
+LANE_K = 32           # one list entry a lane
+MAX_K = 256
 TC_MAX_DIM = 1024     # the queries' fragments live in registers
 
 
@@ -67,19 +74,24 @@ def mips_topk_plain(queries: torch.Tensor, db: torch.Tensor,
 
 
 def split_plan(n_queries: int, n_rows: int, n_sms: int,
-               dtype: torch.dtype) -> Tuple[Tiling, int]:
+               dtype: torch.dtype, k: int = 1) -> Tuple[Tiling, int]:
     """(tiling, number of database slices) for the fused kernel.
 
-    bf16 takes the tensor-core tiling.  f32 takes the 64 x 128 tiling
-    unless its grid would leave three quarters of the SMs idle (a small
-    database, such as a ranked corpus of a few hundred rows); then the
-    16 x 32 one.  The slices are sized so that the grid has
-    ``blocks_per_sm`` blocks per SM where the database has chunks enough,
-    and no slice is empty."""
-    tiling = TC if dtype == torch.bfloat16 else F32
-    big_blocks = -(-n_queries // F32.query_tile) * -(-n_rows // F32.chunk_rows)
-    if tiling is F32 and big_blocks < n_sms // 4:
-        tiling = F32_SMALL
+    k above ``LANE_K`` takes the wide tiling of its dtype.  Otherwise bf16
+    takes the tensor-core tiling, and f32 the 64 x 128 tiling unless its
+    grid would leave three quarters of the SMs idle (a small database, such
+    as a ranked corpus of a few hundred rows); then the 16 x 32 one.  The
+    slices are sized so that the grid has ``blocks_per_sm`` blocks per SM
+    where the database has chunks enough, and no slice is empty.  A slice
+    may hold fewer than k rows: the merge skips the empty slots it leaves."""
+    bf16 = dtype == torch.bfloat16
+    if k > LANE_K:
+        tiling = BF16_WIDE if bf16 else F32_WIDE
+    else:
+        tiling = TC if bf16 else F32
+        big_blocks = -(-n_queries // F32.query_tile) * -(-n_rows // F32.chunk_rows)
+        if tiling is F32 and big_blocks < n_sms // 4:
+            tiling = F32_SMALL
     n_chunks = -(-n_rows // tiling.chunk_rows)
     q_tiles = -(-n_queries // tiling.query_tile)
     want = -(-tiling.blocks_per_sm * n_sms // q_tiles)
@@ -98,20 +110,30 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     N = db.shape[0]
     _check_k(k, N)
     if k > MAX_K:
-        raise ValueError(f"top-k kernel supports k <= {MAX_K}, got {k}")
+        raise ValueError(f"top-k kernel supports k <= {MAX_K} (eight list entries "
+                         f"a lane), got {k}")
     if queries.dtype != db.dtype or queries.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"top-k kernel takes f32 or bf16 inputs of one dtype, "
                          f"got {queries.dtype} and {db.dtype}")
-    step = 64 if queries.dtype == torch.bfloat16 else 32
-    if db.shape[1] != D or D % step or (step == 64 and D > TC_MAX_DIM):
+    tiling, n_splits = split_plan(B, N, sm_count(queries), queries.dtype, k)
+    step = 64 if tiling is TC else 32
+    if db.shape[1] != D or D % step or (tiling is TC and D > TC_MAX_DIM):
         raise ValueError(f"top-k kernel needs matching D divisible by {step}"
-                         f"{f' and at most {TC_MAX_DIM}' if step == 64 else ''}, "
+                         f"{f' and at most {TC_MAX_DIM}' if tiling is TC else ''}, "
                          f"got {queries.shape} and {db.shape}")
     if not (queries.is_contiguous() and db.is_contiguous()):
         raise ValueError("top-k kernel needs contiguous queries and database")
     if queries.data_ptr() % 16 or db.data_ptr() % 16:
         raise ValueError("top-k kernel needs 16-byte aligned inputs")
-    tiling, n_splits = split_plan(B, N, sm_count(queries), queries.dtype)
+    return launch(queries, db, k, tiling, n_splits)
+
+
+def launch(queries: torch.Tensor, db: torch.Tensor, k: int, tiling: Tiling,
+           n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One search through ``tiling`` over ``n_splits`` database slices, on
+    inputs :func:`mips_topk` has checked (the card tests also call it with a
+    plan of their own)."""
+    (B, D), N = queries.shape, db.shape[0]
     dev = queries.device
     cand_v = torch.empty((B, n_splits, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((B, n_splits, k), dtype=torch.int32, device=dev)

@@ -89,16 +89,38 @@ class KnowledgeDB:
                        device: DeviceLike = None) -> "KnowledgeDB":
         """The ``--database-path`` layout: ``cc_{image,text}_databases.pt``
         (or ``{image,text}_db.npy`` / ``.npz``) and ``database_names.txt``."""
-        def first(stem_pt: str, stem: str) -> str:
-            for name in (stem_pt, f"{stem}.npy", f"{stem}.npz"):
-                if os.path.isfile(os.path.join(path, name)):
-                    return os.path.join(path, name)
-            raise FileNotFoundError(f"knowledge DB: no {stem_pt}, {stem}.npy or "
-                                    f"{stem}.npz in {path}")
+        files = [_first_existing(path, modality) for modality in ("image", "text")]
+        for f, modality in zip(files, ("image", "text")):
+            if f is None:
+                raise FileNotFoundError(f"knowledge DB: no cc_{modality}_databases.pt, "
+                                        f"{modality}_db.npy or {modality}_db.npz in {path}")
+        return cls.load(*files, os.path.join(path, "database_names.txt"), dtype, device)
 
-        return cls.load(first("cc_image_databases.pt", "image_db"),
-                        first("cc_text_databases.pt", "text_db"),
-                        os.path.join(path, "database_names.txt"), dtype, device)
+    @classmethod
+    def from_config(cls, cfg, dtype: torch.dtype = torch.bfloat16,
+                    device: DeviceLike = None) -> "KnowledgeDB":
+        """The DB files of a config: ``--database-path``'s layout
+        (:meth:`from_directory`), each file overridden by ``--db-image-file``,
+        ``--db-text-file`` or ``--db-names-file``."""
+        img, txt, names = cfg.db_image_file, cfg.db_text_file, cfg.db_names_file
+        if cfg.database_path:
+            base = cfg.database_path
+            img = img or _first_existing(base, "image")
+            txt = txt or _first_existing(base, "text")
+            names = names or os.path.join(base, "database_names.txt")
+        if not (img and txt):
+            raise FileNotFoundError("knowledge database not found; pass --database-path "
+                                    "or --db-image-file/--db-text-file")
+        return cls.load(img, txt, names, dtype, device)
+
+
+def _first_existing(base: str, modality: str) -> Optional[str]:
+    """``cc_<modality>_databases.pt``, ``<modality>_db.npy`` or ``.npz`` in
+    ``base``, the first that exists."""
+    for name in (f"cc_{modality}_databases.pt", f"{modality}_db.npy", f"{modality}_db.npz"):
+        if os.path.isfile(os.path.join(base, name)):
+            return os.path.join(base, name)
+    return None
 
 
 def db_fingerprint(db: KnowledgeDB) -> dict:

@@ -1,12 +1,128 @@
-"""On-device image normalisation (counterpart of
-``keds_tpu.transforms.device_normalize``)."""
+"""Image preprocessing (counterpart of ``keds_tpu/transforms.py``).
+
+Host path, with PIL as the JAX package decodes and resizes (parity with the
+reference torchvision pipeline, ``src/model/clip.py:107-123`` and
+``src/utils.py:20-42``):
+
+* val: Resize(shorter -> n_px, BICUBIC) -> CenterCrop(n_px) -> RGB ->
+  [0, 1] -> CLIP mean/std, or uint8 without the last two steps
+  (``normalize=False``: :func:`device_normalize` does them on the device);
+* optional TargetPad(1.25) aspect-ratio padding (``--target-pad``);
+* COCO region queries: resize to (n_px, n_px), no crop.
+
+The train-time random crop is not ported yet (ROADMAP.md section A item
+11).  PIL is imported inside the functions that need it, so importing this
+module loads no PIL.  Arrays are NHWC.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
+import numpy as np
 import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _bicubic():
+    from PIL import Image
+
+    return Image.BICUBIC
+
+
+def _to_array(img) -> np.ndarray:
+    arr = np.asarray(img.convert("RGB"), np.float32) / 255.0
+    return (arr - np.array(CLIP_MEAN, np.float32)) / np.array(CLIP_STD, np.float32)
+
+
+def _to_u8(img) -> np.ndarray:
+    """RGB uint8 HWC, the wire format that :func:`device_normalize` takes."""
+    return np.asarray(img.convert("RGB"), np.uint8)
+
+
+def _resize_shorter(img, n_px: int):
+    w, h = img.size
+    if w <= h:
+        new = (n_px, max(1, round(h * n_px / w)))
+    else:
+        new = (max(1, round(w * n_px / h)), n_px)
+    return img.resize(new, _bicubic())
+
+
+def _center_crop(img, n_px: int):
+    w, h = img.size
+    left = (w - n_px) // 2
+    top = (h - n_px) // 2
+    return img.crop((left, top, left + n_px, top + n_px))
+
+
+class TargetPad:
+    """Pad images whose aspect ratio exceeds ``target_ratio`` out to that
+    ratio (combiner's padding augmentation, reference src/utils.py:20-42)."""
+
+    def __init__(self, target_ratio: float = 1.25):
+        self.target_ratio = target_ratio
+
+    def __call__(self, img):
+        from PIL import Image
+
+        w, h = img.size
+        actual = max(w, h) / min(w, h)
+        if actual < self.target_ratio:
+            return img
+        scaled = max(w, h) / self.target_ratio
+        hp = max(int((scaled - w) / 2), 0)
+        vp = max(int((scaled - h) / 2), 0)
+        out = Image.new(img.mode, (w + 2 * hp, h + 2 * vp), 0)
+        out.paste(img, (hp, vp))
+        return out
+
+
+class _ImageTransform:
+    """Picklable PIL-image transform."""
+
+    def __init__(self, n_px: int, is_train: bool, target_pad: Optional[float],
+                 normalize: bool):
+        self.n_px = n_px
+        self.is_train = is_train
+        self.pad = TargetPad(target_pad) if target_pad else None
+        self.normalize = normalize
+
+    def __call__(self, img):
+        if self.is_train:
+            raise NotImplementedError("the train-time random crop is ROADMAP.md section A "
+                                      "item 11, not ported yet")
+        if self.pad is not None:
+            img = self.pad(img)
+        img = _center_crop(_resize_shorter(img, self.n_px), self.n_px)
+        return _to_array(img) if self.normalize else _to_u8(img)
+
+
+def image_transform(n_px: int, is_train: bool = False,
+                    target_pad: Optional[float] = None,
+                    normalize: bool = True) -> Callable:
+    """PIL image -> normalised float32 HWC array, or (``normalize=False``)
+    the resized and cropped uint8 HWC image.  ``is_train`` transforms raise
+    when called: the train crop waits for ROADMAP.md section A item 11."""
+    return _ImageTransform(n_px, is_train, target_pad, normalize)
+
+
+class _RegionTransform:
+    def __init__(self, n_px: int, normalize: bool):
+        self.n_px = n_px
+        self.normalize = normalize
+
+    def __call__(self, img):
+        img = img.resize((self.n_px, self.n_px), _bicubic())
+        return _to_array(img) if self.normalize else _to_u8(img)
+
+
+def region_transform(n_px: int, normalize: bool = True) -> Callable:
+    """COCO region-query transform: resize to (n_px, n_px) directly, no crop
+    (reference src/eval_retrieval.py:311-314)."""
+    return _RegionTransform(n_px, normalize)
 
 
 def device_normalize(images: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,8 @@
 """Design measurements of the port's kernels on one CUDA card, kept apart
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
-    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [attention_bwd]
-                             [train_check_controls]
+    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k]
+                             [attention_bwd] [train_check_controls]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -20,6 +20,16 @@ topk_anatomy      where the bf16 top-k's time goes at the retrieval shape:
                   the running lists, and zero queries (every score ties, so
                   nothing after the first chunk is inserted) isolate the
                   fold's fixed cost.
+narrow_k          the top-k at the k <= 32 rows of chip_smoke.py: bf16 at
+                  (64 and 128, 500 000, 768) k=16 and (128, 500 000, 768) k=2,
+                  f32 at (64, 256 and 10 000, 768) k=10.  Takes ``--impl``.
+wide_k            the top-k above k=32 at the evaluators' rankings (4181,
+                  2297, 768) k=101, (2048, 4096, 768) k=100 and (1024, 10 000,
+                  768) k=200 in f32, and (64, 500 000, 768) k=64 in bf16; the
+                  k=101 ranking also with zero queries (every score ties, so
+                  nothing after the first chunk is inserted: the products and
+                  the fixed cost of the fold) and at k=32 (the one-entry lists
+                  of the f32 kernel).  Takes ``--impl`` as ``rank`` does.
 attention_bwd     the bf16 attention backward (``attention_backward``,
                   causal) at the train prompt (128, 12, 8, 64) and the text
                   buckets (64, 12, {16, 32, 77}, 64), on the inputs and the
@@ -50,8 +60,14 @@ import torch
 from chip_smoke import (DB_ROWS, QUERY_BATCH, TRAIN_BATCH, _dout, _qkv, _unit_rows,
                         compare_readings, emit, time_ms, train_check_batch, train_reading)
 
-PHASES = ("rank", "topk_anatomy", "attention_bwd", "train_check_controls")
-IMPL_PHASES = ("rank", "attention_bwd")      # the phases --impl times
+PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "attention_bwd",
+          "train_check_controls")
+IMPL_PHASES = ("rank", "narrow_k", "wide_k", "attention_bwd")   # the phases --impl times
+NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
+                 (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
+                 (QUERY_BATCH, 10_000, 10, torch.float32))
+WIDE_SHAPES = ((4181, 2297, 101, torch.float32), (2048, 4096, 100, torch.float32),
+               (1024, 10_000, 200, torch.float32), (QUERY_BATCH, DB_ROWS, 64, torch.bfloat16))
 BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64), (64, 12, 16, 64), (64, 12, 32, 64), (64, 12, 77, 64))
 CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
@@ -94,6 +110,31 @@ def topk_anatomy(N: int = DB_ROWS, D: int = 768) -> None:
     ms = {name: time_ms(lambda: mips_topk(q, db, k)) for name, (q, k) in cases.items()}
     ms["torch_sum_over_db"] = time_ms(lambda: torch.sum(db, dim=0))
     emit("topk_anatomy", shape=[N, D], dtype="bf16", kernel_ms=ms)
+
+
+def narrow_k(impl: str) -> None:
+    _time_topk("narrow_k", impl, NARROW_SHAPES)
+
+
+def wide_k(impl: str) -> None:
+    _time_topk("wide_k", impl, WIDE_SHAPES)
+
+
+def _time_topk(phase: str, impl: str, shapes, D: int = 768) -> None:
+    from keds_tpu_torch.ops.topk import mips_topk
+
+    ms = {}
+    for B, N, k, dtype in shapes:
+        db = _unit_rows(N, D, dtype, seed=N)
+        q = _unit_rows(B, D, dtype, seed=B + 1)
+        ms[f"{B}x{N}_k{k}_{str(dtype)[6:]}"] = time_ms(lambda: mips_topk(q, db, k))
+        if k == 101:
+            ms[f"{B}x{N}_k{k}_zero_queries"] = time_ms(lambda: mips_topk(torch.zeros_like(q),
+                                                                         db, k))
+            ms[f"{B}x{N}_k32"] = time_ms(lambda: mips_topk(q, db, 32))
+        del db, q
+        torch.cuda.empty_cache()
+    emit(phase, impl=impl, D=D, kernel_ms=ms)
 
 
 def attention_bwd(impl: str) -> None:

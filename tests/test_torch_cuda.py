@@ -27,6 +27,7 @@ torch.set_num_threads(1)
 ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOPK_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 VARIANT = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
+WIDE_VARIANT = {torch.float32: "f32", torch.bfloat16: "bf16"}    # k > 32
 
 
 @pytest.fixture
@@ -89,25 +90,30 @@ def _unit(n, d, dtype, dev, seed):
 def _check_topk(q, db, k, dtype):
     tiling, _ = split_plan(q.shape[0], db.shape[0],
                            torch.cuda.get_device_properties(q.device).multi_processor_count,
-                           dtype)
+                           dtype, k)
     before = topk_mod.KERNEL.launches[tiling.variant]
     vals, idx = mips_topk(q, db, k)
     torch.cuda.synchronize()
-    assert tiling.variant == VARIANT[dtype]
+    assert tiling.variant == (VARIANT if k <= topk_mod.LANE_K else WIDE_VARIANT)[dtype]
     assert topk_mod.KERNEL.launches[tiling.variant] == before + 1
+    _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
+    return tiling
+
+
+def _assert_topk_agrees(vals, idx, q, db, k, tol):
+    """Values within ``tol`` of the plain version's; an index must agree
+    wherever its plain score is apart from both neighbours (the (k+1)-th
+    included) by more than ``tol``."""
+    assert vals.shape == idx.shape == (q.shape[0], k)
     assert vals.dtype == torch.float32 and idx.dtype == torch.int32
     kk = min(k + 1, db.shape[0])
     pv, pi = mips_topk_plain(q, db, kk)
-    tol = TOPK_TOL[dtype]
     torch.testing.assert_close(vals, pv[:, :k], atol=tol, rtol=0)
-    # an index must agree wherever its plain score is apart from both
-    # neighbours (the (k+1)-th included) by more than the value tolerance
     gaps = pv[:, :-1] - pv[:, 1:]
     sep = torch.ones_like(idx, dtype=torch.bool)
     sep[:, :gaps.shape[1]] &= gaps[:, :k] > tol
     sep[:, 1:] &= gaps[:, :k - 1] > tol
     assert bool(((idx == pi[:, :k]) | ~sep).all())
-    return tiling
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -164,6 +170,60 @@ def test_topk_kernel_ties_go_to_lower_index(cuda, dtype):
     assert bool((idx[:, 0::3] < idx[:, 1::3]).all() and (idx[:, 1::3] < idx[:, 2::3]).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("k", [33, 64, 100, 101, 200, 256])
+@pytest.mark.parametrize("b,n", [(1, 300), (33, 3001), (70, 20_011)])
+def test_topk_wide_k_matches_plain(cuda, dtype, k, b, n):
+    """k above 32 (lists of 2, 4 and 8 entries a lane) at ragged N and B
+    off the 32-query tile."""
+    _check_topk(_unit(b, 64, dtype, cuda, b + 7), _unit(n, 64, dtype, cuda, n + 2), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("k", [33, 100, 256])
+def test_topk_wide_k_whole_db(cuda, dtype, k):
+    """N = k: every row comes back, in order."""
+    _check_topk(_unit(5, 64, dtype, cuda, 3), _unit(k, 64, dtype, cuda, k), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n,k", [(300, 2297, 101), (64, 60_001, 64)])
+def test_topk_wide_k_main_path_width(cuda, dtype, b, n, k):
+    """D = 768: the CIRR ranking's k = 101 and a --db-topk of 64."""
+    _check_topk(_unit(b, 768, dtype, cuda, b), _unit(n, 768, dtype, cuda, n), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("k", [99, 240])
+def test_topk_wide_k_ties_go_to_lower_index(cuda, dtype, k):
+    """Every row three times, far apart: equal scores across slots, slices
+    and both passes keep the lower index first."""
+    base = _unit(700, 64, dtype, cuda, 15)
+    db = torch.cat([base, base, base]).contiguous()
+    q = _unit(45, 64, dtype, cuda, 16)
+    vals, idx = mips_topk(q, db, k)
+    pv, pi = mips_topk_plain(q, db, k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(idx, pi, atol=0, rtol=0)
+    torch.testing.assert_close(vals, pv, atol=TOPK_TOL[dtype], rtol=0)
+    assert bool((idx[:, 0::3] < idx[:, 1::3]).all() and (idx[:, 1::3] < idx[:, 2::3]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("k", [16, 200])
+def test_topk_slices_shorter_than_k(cuda, dtype, k):
+    """One slice per chunk: at k = 200 every slice is shorter than k, at
+    k = 16 the f32 plan's last (8 rows); the merge skips the empty slots
+    they leave."""
+    q, db = _unit(40, 64, dtype, cuda, 21), _unit(1000, 64, dtype, cuda, 22)
+    tiling = topk_mod.split_plan(40, 1000, 132, dtype, k)[0]
+    n_chunks = -(-1000 // tiling.chunk_rows)
+    vals, idx = topk_mod.launch(q, db, k, tiling, n_chunks)
+    torch.cuda.synchronize()
+    assert bool((idx >= 0).all())
+    _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
+
+
 def test_python_mirrors_match_the_library(cuda):
     lib = topk_mod.KERNEL.lib()
     assert lib.keds_topk_max_k() == topk_mod.MAX_K
@@ -177,8 +237,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((2, 64), device=cuda)
     with pytest.raises(ValueError, match="k <= N"):
         mips_topk(q, torch.zeros((5, 64), device=cuda), 6)
-    with pytest.raises(ValueError, match="k <= 32"):
-        mips_topk(q, torch.zeros((50, 64), device=cuda), 33)
+    with pytest.raises(ValueError, match="k <= 256"):
+        mips_topk(q, torch.zeros((300, 64), device=cuda), 257)
     with pytest.raises(ValueError, match="one dtype"):
         mips_topk(q, torch.zeros((50, 64), device=cuda, dtype=torch.bfloat16), 3)
     qb = torch.zeros((2, 96), device=cuda, dtype=torch.bfloat16)
@@ -226,6 +286,69 @@ def test_tiny_composed_query_card_matches_cpu(cuda):
     np.testing.assert_allclose(gpu[0], cpu[0], atol=1e-4)
     np.testing.assert_allclose(gpu[1], cpu[1], atol=1e-4)
     np.testing.assert_array_equal(gpu[2][1], cpu[2][1])
+
+
+def test_engine_ranks_topn_above_32_on_card(cuda):
+    """ComposedQueryEngine.rank and search with topn = 50 over a device
+    corpus: the card's ranking of the CPU's composed features equals the
+    CPU's, and search returns 50 descending entries per query."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=2,
+                     vision_width=128, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=1, transformer_layers=2)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=4,
+                                    device="cpu")
+    rng = np.random.default_rng(1)
+    corpus_images = [rng.integers(0, 256, (16, 32, 32, 3), dtype=np.uint8) for _ in range(5)]
+    images = [rng.integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)]
+    text = np.zeros((6, 77), np.int32)
+    text[:, :6] = [49406, 320, 1125, 539, 265, 267]
+    text[:, 6:12] = rng.integers(1000, 40000, (6, 6))
+    text[:, 12] = 49407
+    engines = {}
+    for dev in ("cpu", cuda):
+        ddb = KnowledgeDB(db.image_db.to(dev), db.text_db.to(dev), db.names)
+        engines[str(dev)] = ComposedQueryEngine(
+            cast_floating(params, torch.float32, dev), cfg,
+            cast_floating(heads, torch.float32, dev), ddb, split_id=265,
+            compute_dtype=torch.float32, db_topk=8, encode_chunk=2, device=dev)
+    cpu, gpu = engines["cpu"], engines["cuda"]
+    corpus = cpu.encode_corpus(corpus_images)
+    q = cpu.compose(images, [text])
+    s_cpu, i_cpu = cpu.rank(torch.from_numpy(q), cpu.corpus_to_device(corpus), 50)
+    s_gpu, i_gpu = gpu.rank(torch.from_numpy(q).to(cuda), gpu.corpus_to_device(corpus), 50)
+    scores, idx = gpu.search(images, [text], gpu.corpus_to_device(corpus), topn=50)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(i_gpu.cpu().numpy(), i_cpu.numpy())
+    np.testing.assert_allclose(s_gpu.cpu().numpy(), s_cpu.numpy(), atol=1e-5)
+    assert scores.shape == idx.shape == (6, 50)
+    assert (np.diff(scores, axis=1) <= 0).all() and ((idx >= 0) & (idx < 80)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_retriever_k48_on_card_matches_plain(cuda, dtype):
+    """Retriever.retrieve_features at k = 48 (a --db-topk above 32): the
+    neighbour rows of the card's search are the plain search's."""
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever, unit_rows
+
+    rng = np.random.default_rng(2)
+    db = KnowledgeDB.from_arrays(rng.standard_normal((3001, 64)),
+                                 rng.standard_normal((3001, 64)), dtype=dtype, device=cuda)
+    f = torch.from_numpy(rng.standard_normal((10, 64)).astype(np.float32)).to(cuda)
+    retr = Retriever(db)
+    ti, tt = retr.retrieve_features(f, k=48)
+    img_idx, txt_idx = retr.neighbour_indices(f, 48)
+    torch.cuda.synchronize()
+    q = unit_rows(f).to(dtype)
+    for table, got, rows in ((db.image_db, img_idx, ti), (db.text_db, txt_idx, tt)):
+        vals = (q.float() @ table.float().T).gather(1, got.long())
+        _assert_topk_agrees(vals, got, q, table, 48, TOPK_TOL[dtype])
+        torch.testing.assert_close(rows, table[got.long()].to(f.dtype), atol=0, rtol=0)
 
 
 def _grad_inputs(dev, b, h, s, dtype, seed):

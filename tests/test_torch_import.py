@@ -1,5 +1,6 @@
 """keds_tpu_torch stands alone: no jax, no keds_tpu (nor the tokenizer's
-regex and ftfy), CUDA unless asked."""
+regex and ftfy), no PIL at import time (the image datasets open it when
+they read an image), CUDA unless asked."""
 
 import pathlib
 import re
@@ -24,21 +25,24 @@ def test_import_loads_no_jax_and_no_keds_tpu():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keds_tpu' or m.startswith('keds_tpu.')"
-        " or m.split('.')[0] in ('triton', 'regex', 'ftfy')]\n"
+        " or m.split('.')[0] in ('triton', 'regex', 'ftfy', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 28
-    # every subpackage is walked, the training slice's included
+    assert len(MODULES) >= 33
+    # every subpackage is walked, the training and evaluation slices' included
     assert {m.split(".")[1] for m in MODULES if m.count(".") >= 2} >= {
-        "models", "ops", "retrieval", "train", "io", "data", "cli"}
+        "models", "ops", "retrieval", "train", "io", "data", "cli", "evalkit"}
     assert {"keds_tpu_torch.train.trainer", "keds_tpu_torch.io.checkpoint",
             "keds_tpu_torch.data.loader", "keds_tpu_torch.cli.main",
             "keds_tpu_torch.config", "keds_tpu_torch.tokenizer",
-            "keds_tpu_torch.tools.precompute_neighbors"} <= set(MODULES)
+            "keds_tpu_torch.tools.precompute_neighbors",
+            "keds_tpu_torch.evalkit.metrics", "keds_tpu_torch.evalkit.evaluators",
+            "keds_tpu_torch.cli.eval_retrieval", "keds_tpu_torch.models.loader",
+            "keds_tpu_torch.data.datasets", "keds_tpu_torch.transforms"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
@@ -49,6 +53,8 @@ def test_sources_import_neither_jax_nor_keds_tpu(path):
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+keds_tpu(\.|\s|$)", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+(regex|ftfy)\b", src, re.M)
+    # PIL only inside functions (indented), never at module level
+    assert not re.search(r"^(import|from)\s+PIL\b", src, re.M)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -81,3 +81,19 @@ def test_split_plan_main_path_shapes():
     # the 256-row ranking spreads over tens of blocks, not the two of 64x128 tiles
     tiling, n_splits = topk_mod.split_plan(64, 256, H100_SMS, torch.float32)
     assert tiling is topk_mod.F32_SMALL and 4 * n_splits == 32
+
+
+@pytest.mark.parametrize("b,n,k,dtype", [(4181, 2297, 101, torch.float32),    # CIRR ranking
+                                         (2048, 4096, 100, torch.float32),
+                                         (1024, 10_000, 200, torch.float32),
+                                         (64, 500_000, 64, torch.bfloat16),
+                                         (5, 33, 33, torch.bfloat16)])
+def test_split_plan_wide_k(b, n, k, dtype):
+    """Above k = 32 both dtypes take the 32-query CUDA-core tiling, counted
+    as f32 or bf16; slices stay non-empty."""
+    tiling, n_splits = topk_mod.split_plan(b, n, H100_SMS, dtype, k)
+    assert tiling is (topk_mod.BF16_WIDE if dtype == torch.bfloat16 else topk_mod.F32_WIDE)
+    assert tiling.variant == ("bf16" if dtype == torch.bfloat16 else "f32")
+    assert 1 <= n_splits <= -(-n // tiling.chunk_rows)
+    assert topk_mod.split_plan(b, n, H100_SMS, dtype, 32)[0] in (topk_mod.TC, topk_mod.F32,
+                                                                topk_mod.F32_SMALL)

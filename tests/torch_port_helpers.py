@@ -125,3 +125,107 @@ def run_cli(tmp_path, data, dbdir, clip_path, name, epochs, *extra):
                 "--precision", "fp32", "--logs", str(tmp_path / "logs"), "--name", name,
                 "--device", "cpu", "--seed", "3", *extra])
     return tmp_path / "logs" / name / "checkpoints"
+
+
+# --- evaluation ----------------------------------------------------------------
+
+N_IMGS = 12
+N_QUERIES = 6
+
+
+def _rand_png(path, rng):
+    from PIL import Image
+
+    Image.fromarray(rng.integers(0, 255, (40, 48, 3), dtype=np.uint8)).save(path)
+
+
+def write_eval_tree(root) -> str:
+    """The tiny on-disk CIRR val and test, Fashion-IQ (dress), COCO-csv and
+    ImageNet-list trees of tests/test_eval_integration.py, under one data
+    root; returns it."""
+    import csv
+    import json
+
+    rng = np.random.default_rng(1)
+    cirr = root / "CIRR"
+    for d in ("dev", "test1", "captions", "image_splits"):
+        (cirr / d).mkdir(parents=True)
+    names = [f"img{i}" for i in range(N_IMGS)]
+    for n in names:
+        _rand_png(cirr / "dev" / f"{n}.png", rng)
+    caps = [{"reference": names[q], "target_hard": names[(q + 1) % N_IMGS],
+             "caption": f"make it more colorful {q}"} for q in range(N_QUERIES)]
+    (cirr / "captions" / "cap.rc2.val.json").write_text(json.dumps(caps))
+    (cirr / "image_splits" / "split.rc2.val.json").write_text(
+        json.dumps({n: f"dev/{n}.png" for n in names}))
+    tnames = [f"t{i}" for i in range(60)]   # the test output lists 50 names
+    for n in tnames:
+        _rand_png(cirr / "test1" / f"{n}.png", rng)
+    tcaps = [{"reference": tnames[q], "caption": f"modify {q}", "pairid": 1000 + q}
+             for q in range(4)]
+    (cirr / "captions" / "cap.rc2.test1.json").write_text(json.dumps(tcaps))
+    (cirr / "image_splits" / "split.rc2.test1.json").write_text(
+        json.dumps({n: f"test1/{n}.png" for n in tnames}))
+
+    fiq = root / "fashion-iq"
+    for d in ("images", "json", "image_splits"):
+        (fiq / d).mkdir(parents=True)
+    fnames = [f"d{i}" for i in range(N_IMGS)]
+    for n in fnames:
+        _rand_png(fiq / "images" / f"{n}.png", rng)
+    fcaps = [{"candidate": fnames[q], "target": fnames[(q + 2) % N_IMGS],
+              "captions": [f"is red {q}", f"has stripes {q}"]} for q in range(N_QUERIES)]
+    (fiq / "json" / "cap.dress.val.json").write_text(json.dumps(fcaps))
+    (fiq / "image_splits" / "split.dress.val.json").write_text(json.dumps(fnames))
+
+    coco = root / "coco"
+    for d in ("val2017", "val2017_masked", "annotations"):
+        (coco / d).mkdir(parents=True)
+    rows = []
+    for i in range(6):
+        name = f"{i:012d}.jpg"
+        _rand_png(coco / "val2017" / name, rng)
+        _rand_png(coco / "val2017_masked" / name, rng)
+        rows.append({"id": name, "query_regions": "2;2;30;30", "query_class": "dog",
+                     "classes": "cat;tree"})
+    with open(coco / "coco_eval.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+
+    imgdir = root / "imgnet" / "imgs"
+    imgdir.mkdir(parents=True)
+    q_lines, t_lines = [], []
+    for i in range(6):
+        _rand_png(imgdir / f"q{i}.png", rng)
+        q_lines.append(f"imgnet/imgs/q{i}.png {i % 3}")
+    for i in range(10):
+        _rand_png(imgdir / f"t{i}.png", rng)
+        t_lines.append(f"imgnet/imgs/t{i}.png {i % 3}")
+    (root / "imgnet" / "imgnet_real_query.txt").write_text("\n".join(q_lines))
+    (root / "imgnet" / "imgnet_targets.txt").write_text("\n".join(t_lines))
+    return str(root)
+
+
+def write_branches(root, epochs=(1, 2)):
+    """Head checkpoints ``epoch_j.pt`` of an image and a text branch, each
+    epoch its own heads, written by keds_tpu's save_train_checkpoint with
+    the tiny CLIP of :func:`jax_models`; returns (image_branch, text_branch)."""
+    import os
+
+    from keds_tpu.io.checkpoint import save_train_checkpoint
+
+    params, _ = jax_models()
+    branches = (str(root / "image_branch"), str(root / "text_branch"))
+    for b, branch in enumerate(branches):
+        for epoch in epochs:
+            _, heads = jax_models(10 * (b + 1) + epoch)
+            save_train_checkpoint(os.path.join(branch, f"epoch_{epoch}.pt"), epoch=epoch,
+                                  name="t", clip_params=params, clip_cfg=JCFG, heads=heads)
+    return branches
+
+
+def eval_db_arrays(rows: int = 128):
+    """The evaluation tests' knowledge DB (image, caption) as f32 arrays."""
+    rng = np.random.default_rng(0)
+    return rng.standard_normal((rows, D)), rng.standard_normal((rows, D))
