@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the keds_tpu_torch serving, training and evaluation paths
-on one CUDA card.
+and of its serve, demo and train command lines on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -76,15 +76,50 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            entries whose scores lie within 1e-5 (counted and printed).
 13. profile_eval
            torch.profiler over one device-ranked sweep epoch.
-14. the kernels line (launches of each path beside each variant), then the
+14. smoke_files
+           the files the CLIs read, under build/ (removed at the end): a
+           synthetic BPE merges file (KEDS_TPU_BPE_VOCAB; '*' = 265), the
+           main path's weights as reference-layout ViT-L/14 checkpoints with
+           an MLP and with a CrossFormer img2text, its 0.5M DB in f32 and a
+           1000-row one, 4096 256 px JPEGs with CC3M-length captions,
+           queries.jsonl, two csvs and four tar shards of 384 of the JPEGs.
+15. serve_path
+           keds_tpu_torch.cli.serve.main in this process: 512 queries over
+           the 4096-image folder at --topn 10 (ranked on the card: B1 f32),
+           then the first 128 at --topn 300 ranked on the card (B1's passes,
+           f32_multi) and on the host; launch counts zeroed just before and
+           read just after each card run; corpus images/s, queries/s with
+           decode, peak memory; the gate (the two --topn 300 files name the
+           same images in the same order but for near-ties within 1e-5,
+           counted); 4 queries composed on the card in bf16 against the CPU
+           in f32 from the same files (cosine).
+16. demo_path
+           keds_tpu_torch.cli.demo.main, MLP and CrossFormer intents, one
+           query and two prompts over a 256-image csv: index.html and the
+           feature cache written, each prompt's top-10 equal to a ranking
+           recomputed apart on the host but for near-ties; no B1 launch.
+17. raw_train_path, profile_train_raw, raw_train_check, raw_train_cli
+           the image stream on raw images: the shards through
+           TarShardDataset (train crop, 8 decode threads), B=128, 2 warm-up
+           and 10 timed steps (launch counts zeroed just before, read just
+           after), stage ms with the frozen encode, the profile of one step;
+           the card's bf16 encode of 8 images against the CPU's f32 one
+           (cosine >= 0.995), and the card's bf16 raw step against the CPU's
+           f32 step on the card's features, with the card's neighbours fed
+           to both (train_check's limits; raw_train_check says why); then
+           `python -m keds_tpu_torch.cli.main --dataset-type webdataset` and
+           a csv run in this process, one epoch each and a --resume auto.
+18. the kernels line (launches of each path beside each variant), then the
     card's name and power limit from nvidia-smi, then the result line.
 
 The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
-rankings (k=101, 100, 200) and a --db-topk of 64.
+rankings (k=101, 100, 200), a --db-topk of 64 and, above 256 (passes of the
+wide kernel), k=300 over 10 000, 4096 and 0.5M rows and k = N = 1000.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import pathlib
@@ -275,26 +310,28 @@ def _unit_rows(n: int, d: int, dtype, seed: int) -> torch.Tensor:
 
 
 def check_topk(cases):
-    from keds_tpu_torch.ops.topk import KERNEL, mips_topk, mips_topk_plain, split_plan
+    from keds_tpu_torch.ops.topk import KERNEL, MAX_K, mips_topk, mips_topk_plain, split_plan
 
     rows = []
     for B, N, D, k, dtype in cases:
         db = _unit_rows(N, D, dtype, seed=N)
         q = _unit_rows(B, D, dtype, seed=B + 1)
         variant = split_plan(B, N, torch.cuda.get_device_properties(0).multi_processor_count,
-                             dtype, k)[0].variant
+                             dtype, k)[0].variant + ("_multi" if k > MAX_K else "")
         launches0 = KERNEL.launches[variant]
         vals, idx = mips_topk(q, db, k)
-        pv, pi = mips_topk_plain(q, db, k + 1)
+        pv, pi = mips_topk_plain(q, db, min(k + 1, N))
         torch.cuda.synchronize()
         err = (vals - pv[:, :k]).abs().max().item()
         if not err <= TOPK_TOL:
             raise AssertionError(f"mips_topk {B, N, D, k} {dtype}: max_abs_err {err}")
         # an index must match wherever its plain score is separated from both
-        # neighbours (the (k+1)-th included) by more than the value tolerance
-        gaps = (pv[:, :-1] - pv[:, 1:]).abs()
-        sep = gaps[:, :k] > TOPK_TOL
-        sep[:, 1:] &= gaps[:, :k - 1] > TOPK_TOL
+        # neighbours (the (k+1)-th included, where N has one) by more than the
+        # value tolerance
+        gaps = (pv[:, :-1] - pv[:, 1:]).abs() > TOPK_TOL
+        sep = torch.ones_like(idx, dtype=torch.bool)
+        sep[:, :gaps.shape[1]] &= gaps[:, :k]
+        sep[:, 1:] &= gaps[:, :k - 1]
         agree = (idx == pi[:, :k]) | ~sep
         if not bool(agree.all()):
             raise AssertionError(f"mips_topk {B, N, D, k} {dtype}: indices differ at "
@@ -420,10 +457,11 @@ def profile_batch(engine, images_u8: np.ndarray, text: np.ndarray, corpus) -> No
 
 
 def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat16,
-                 total_steps=20, stream="image", db_other_tokens=None):
-    """f32 trainable copies of the heads, their optimizer and the train step.
-    The copies are new tensors even where ``heads`` are f32 on ``device``
-    already (the CPU's), which the step would otherwise train in place."""
+                 total_steps=20, stream="image", db_other_tokens=None, retriever=None):
+    """f32 trainable copies of the heads, their optimizer and the train step
+    (over ``retriever``, by default a Retriever of ``db``).  The copies are
+    new tensors even where ``heads`` are f32 on ``device`` already (the
+    CPU's), which the step would otherwise train in place."""
     from keds_tpu_torch.models.clip import VIT_L_14
     from keds_tpu_torch.models.convert import cast_floating
     from keds_tpu_torch.retrieval.database import Retriever
@@ -431,7 +469,7 @@ def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat
 
     theads = cast_floating(copy.deepcopy(heads), torch.float32, device)
     opt, sched = make_optimizer(TRAIN_OPT, total_steps, theads)
-    step = make_train_step(clip_params, VIT_L_14, Retriever(db), opt, sched,
+    step = make_train_step(clip_params, VIT_L_14, retriever or Retriever(db), opt, sched,
                            stream=stream, prompt_tokens=TRAIN_PROMPT, split_id=SPLIT_ID,
                            dropout=dropout, db_other_tokens=db_other_tokens,
                            compute_dtype=dtype, device=device)
@@ -1003,6 +1041,572 @@ def profile_eval(split, profile, corpus_dev) -> None:
                                            ("mips_topk (B1)", ("topk_",))])
 
 
+# --- the serve and demo CLIs and raw-image training ----------------------------
+
+# A copy of tests/torch_port_helpers.py:SYNTHETIC_MERGES: the card's machine
+# has no CLIP BPE vocab.  '*' keeps its id 265; SOT and EOT keep theirs.
+SYNTHETIC_MERGES = """t h|th e</w>|o f</w>|p h|ph o|pho t|phot o</w>|a n|an d</w>|i n|in g</w>
+e r|e s|o n|o r|r e|a t|e n|h a|ha t</w>|d o|do g</w>|c a|ca t</w>|w e|a r|t o|s t
+l l</w>|b a|ba ll</w>|c h|ch a|cha s|chas ing</w>|r ed</w>|e d</w>|Ã ©|Ã ©</w>
+ca f|caf Ã©</w>|n u|nu m|num b|numb er|number s</w>|1 2</w>|w or|wor ld</w>|l d</w>
+x x|xx xx|xxxx xxxx|! !|!! !</w>|' s</w>""".replace("\n", "|").split("|")
+WORDS = ("the dog cat ball red hat chasing and of world numbers cafe a on in with "
+         "street man woman blue green near tree car house water people").split()
+SERVE_CORPUS = 4096    # the serve CLI ranks a corpus this large on the device
+SERVE_QUERIES = 512
+SERVE_WIDE_TOPN = 300  # above 256: the multi-pass top-k
+SERVE_WIDE_QUERIES = 128
+SERVE_CHECK_QUERIES = 4
+DEMO_CORPUS = 256
+RAW_SHARDS, RAW_PER_SHARD = 4, 384
+RAW_CHECK_BATCH = 8    # small enough for the CPU's f32 ViT-L/14 encode
+CLI_ROWS = 16          # the CLI runs: 2 steps of 8 an epoch over a 1000-row DB
+
+
+DEV = "cuda"
+
+
+def check_path_launches(path: str, launches: dict, want: dict, positive=()) -> None:
+    """A path's launch counts: each (kernel, variant) of ``want`` exactly,
+    each of ``positive`` at least once."""
+    got = {key: launches[key[0]][key[1]] for key in want}
+    zero = [key for key in positive if launches[key[0]][key[1]] == 0]
+    if got != want or zero:
+        raise AssertionError(f"{path} launches {launches}: want {want}, none of {zero}")
+
+
+def caption(rng: np.random.Generator) -> str:
+    """A CC3M-length caption (8-14 words)."""
+    return " ".join(rng.choice(WORDS, int(rng.integers(8, 15))))
+
+
+def jpeg_bytes(rng: np.random.Generator, px: int = 256) -> bytes:
+    """A smooth px x px JPEG: 16 x 16 noise upsampled (tens of KB)."""
+    import io
+
+    from PIL import Image
+
+    small = Image.fromarray(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8))
+    buf = io.BytesIO()
+    small.resize((px, px), Image.BILINEAR).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def write_smoke_files(root: pathlib.Path, clip_params, heads, db) -> SimpleNamespace:
+    """The files the CLIs read, under ``root``: the synthetic vocab (set in
+    KEDS_TPU_BPE_VOCAB), reference-layout ViT-L/14 checkpoints with an MLP
+    and a CrossFormer img2text, the 0.5M DB in f32 and a 1000-row one,
+    SERVE_CORPUS 256 px JPEGs, queries.jsonl, csvs of DEMO_CORPUS and
+    CLI_ROWS images, tar shards of the first RAW_SHARDS x RAW_PER_SHARD
+    images and their caption map."""
+    import gzip
+    import io
+    import os
+    import tarfile
+
+    from keds_tpu_torch.io.checkpoint import save_train_checkpoint
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import heads_to_state_dicts
+
+    t = time.perf_counter()
+    f = SimpleNamespace(root=root)
+    f.vocab = root / "merges.txt.gz"
+    with gzip.open(f.vocab, "wt", encoding="utf-8") as fh:
+        fh.write("#version: synthetic\n" + "\n".join(SYNTHETIC_MERGES) + "\n")
+    os.environ["KEDS_TPU_BPE_VOCAB"] = str(f.vocab)
+    f.mlp = root / "mlp.pt"
+    save_train_checkpoint(str(f.mlp), epoch=1, name="chip_smoke", clip_params=clip_params,
+                          clip_cfg=VIT_L_14, heads=heads)
+    ckpt = torch.load(f.mlp, map_location="cpu", weights_only=False)
+    ckpt["state_dict_img2text"] = heads_to_state_dicts(heads)["state_dict_retrieval_fuse"]
+    f.cross = root / "cross.pt"
+    torch.save(ckpt, f.cross)
+    del ckpt
+    f.db, f.tiny_db = root / "db", root / "tiny_db"
+    for d, rows in ((f.db, db.size), (f.tiny_db, 1000)):
+        d.mkdir()
+        np.save(d / "image_db.npy", db.image_db[:rows].float().cpu().numpy())
+        np.save(d / "text_db.npy", db.text_db[:rows].float().cpu().numpy())
+        (d / "database_names.txt").write_text("\n".join(db.names[:rows]))
+    rng = np.random.default_rng(21)
+    f.corpus = root / "corpus"
+    f.corpus.mkdir()
+    caps, paths = {}, []
+    for i in range(SERVE_CORPUS):
+        key = f"img{i:05d}"
+        paths.append(f.corpus / f"{key}.jpg")
+        paths[-1].write_bytes(jpeg_bytes(rng))
+        caps[key] = caption(rng)
+    f.queries = root / "queries.jsonl"
+    f.queries.write_text("\n".join(json.dumps(
+        {"image": str(paths[int(rng.integers(SERVE_CORPUS))]),
+         "text": f"a photo of * , {caption(rng)}"}) for _ in range(SERVE_QUERIES)))
+    f.wide_queries = root / "wide_queries.jsonl"
+    f.wide_queries.write_text("\n".join(f.queries.read_text().splitlines()[:SERVE_WIDE_QUERIES]))
+    for name, n in (("demo.csv", DEMO_CORPUS), ("train.csv", CLI_ROWS)):
+        setattr(f, name.split(".")[0] + "_csv", root / name)
+        (root / name).write_text("filepath\ttitle\n" + "\n".join(
+            f"{paths[i]}\t{caps[paths[i].stem]}" for i in range(n)))
+    f.shards = []
+    for s in range(RAW_SHARDS):
+        f.shards.append(str(root / f"cc-{s:05d}.tar"))
+        with tarfile.open(f.shards[-1], "w") as tf:
+            for p in paths[s * RAW_PER_SHARD:(s + 1) * RAW_PER_SHARD]:
+                data = p.read_bytes()
+                info = tarfile.TarInfo(f"{p.stem}.image_byte")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    f.captions = root / "caps.json"
+    f.captions.write_text(json.dumps(caps))
+    f.seconds = time.perf_counter() - t
+    return f
+
+
+def _serve_args(f, out: pathlib.Path, queries, topn: int) -> list:
+    return ["--resume", str(f.mlp), "--database-path", str(f.db), "--target-data",
+            str(f.corpus), "--query_file", str(queries), "--demo-out", str(out),
+            "--batch-size", str(QUERY_BATCH), "--topn", str(topn), "--workers", "8",
+            "--logs", str(f.root / "logs"), "--name", out.stem]
+
+
+def served_results(path) -> list:
+    return [json.loads(x) for x in open(path)]
+
+
+def serve_gate(device_rows: list, host_rows: list) -> dict:
+    """Device- and host-ranked result files: the same names in the same
+    order, but where the two names' host scores lie within NEAR_TIE of each
+    other (a tie to within f32 summation order; counted)."""
+    near, bad, score_diff = 0, [], 0.0
+    for qi, (d, h) in enumerate(zip(device_rows, host_rows)):
+        dn, hn = [r["name"] for r in d["results"]], [r["name"] for r in h["results"]]
+        ds = np.array([r["score"] for r in d["results"]])
+        hs = np.array([r["score"] for r in h["results"]])
+        if len(dn) != len(hn):
+            bad.append(dict(query=qi, lengths=(len(dn), len(hn))))
+            continue
+        score_diff = max(score_diff, float(np.abs(ds - hs).max()))
+        host_score = dict(zip(hn, hs))
+        for r in np.nonzero(np.array(dn) != np.array(hn))[0]:
+            other = host_score.get(dn[r], hs[-1])
+            if abs(other - hs[r]) <= NEAR_TIE:
+                near += 1
+            else:
+                bad.append(dict(query=qi, rank=int(r), device=dn[r], host=hn[r]))
+    return dict(queries=len(device_rows), near_tie_positions=near, other_differences=bad[:10],
+                n_other=len(bad), max_score_diff=score_diff, near_tie=NEAR_TIE,
+                passes=not bad and len(device_rows) == len(host_rows) > 0)
+
+
+def serve_check(f) -> dict:
+    """SERVE_CHECK_QUERIES queries composed on the card in bf16 against the
+    CPU in f32, each engine built from the files as the serve CLI builds
+    it: the cosine of each pair."""
+    from keds_tpu_torch.cli import serve
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.io.checkpoint import load_heads_checkpoint
+    from keds_tpu_torch.models.loader import load_clip
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    t = time.perf_counter()
+    rows = [json.loads(x) for x in f.queries.read_text().splitlines()[:SERVE_CHECK_QUERIES]]
+    feats = {}
+    for dev, dtype in ((DEV, torch.bfloat16), ("cpu", torch.float32)):
+        clip_params, cfg, _, t_val = load_clip(str(f.mlp), normalize_on_host=False, device=dev)
+        heads, _ = load_heads_checkpoint(str(f.mlp), dev)
+        db = KnowledgeDB.from_directory(str(f.db), dtype, dev)
+        engine = ComposedQueryEngine(clip_params, cfg, heads, db, compute_dtype=dtype,
+                                     device=dev)
+        ds = serve._QueryDataset(rows, t_val)
+        images, text = zip(*(ds[i] for i in range(len(ds))))
+        feats[dev] = engine.compose([np.stack(images)], [np.stack(text)])
+        del engine, db, clip_params, heads
+    torch.cuda.empty_cache()
+    a, b = feats[DEV], feats["cpu"]
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    return dict(cosine=cos.tolist(), min_cosine=float(cos.min()), threshold=COSINE_MIN,
+                seconds=time.perf_counter() - t)
+
+
+def serve_path(f, kernels) -> dict:
+    """The serve CLI in this process: SERVE_QUERIES queries over the
+    SERVE_CORPUS-image folder at --topn 10 (ranked on the device), then the
+    first SERVE_WIDE_QUERIES at --topn 300 ranked on the device and on the
+    host, the gate between the two, and the card-vs-CPU check.  Launch
+    counts are zeroed just before and read just after each device run."""
+    from keds_tpu_torch.cli import serve
+
+    def run(out_name, queries, topn):
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):   # the CLI prints its output path
+            out = serve.main(_serve_args(f, f.root / out_name, queries, topn))
+        torch.cuda.synchronize()
+        out.update(wall_s=time.perf_counter() - t,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={n: dict(k.launches) for n, k in kernels.items()})
+        return out
+
+    main = run("served.jsonl", f.queries, 10)
+    n_batches = -(-SERVE_QUERIES // QUERY_BATCH)
+    rows = served_results(main["out_path"])
+    if not (main["device_ranking"] and len(rows) == SERVE_QUERIES
+            and all(len(r["results"]) == 10 for r in rows)
+            and all(np.isfinite([x["score"] for x in r["results"]]).all() for r in rows)):
+        raise AssertionError(f"serve CLI output malformed: {main}")
+    la = main["launches"]
+    # B1 bf16_tc twice a query batch (both DB modalities), B1 f32 once (the
+    # ranking at --topn 10), B2 in both towers; no backward
+    check_path_launches("serve", la, {
+        ("mips_topk", "bf16_tc"): 2 * n_batches, ("mips_topk", "f32"): n_batches,
+        ("mips_topk", "f32_multi"): 0, ("attention", "f32"): 0,
+        ("attention_bwd", "bf16"): 0, ("attention_bwd", "f32"): 0},
+        [("attention", "bf16_tc")])
+    wide = run("served_wide.jsonl", f.wide_queries, SERVE_WIDE_TOPN)
+    n_wide = -(-SERVE_WIDE_QUERIES // QUERY_BATCH)
+    passes = -(-SERVE_WIDE_TOPN // 256)
+    check_path_launches("serve --topn 300", wide["launches"], {
+        ("mips_topk", "f32_multi"): passes * n_wide, ("mips_topk", "f32"): 0,
+        ("mips_topk", "bf16_tc"): 2 * n_wide})
+    real_min = serve.DEVICE_RANK_MIN_ROWS
+    serve.DEVICE_RANK_MIN_ROWS = SERVE_CORPUS + 1
+    try:
+        host = run("served_host.jsonl", f.wide_queries, SERVE_WIDE_TOPN)
+    finally:
+        serve.DEVICE_RANK_MIN_ROWS = real_min
+    if host["device_ranking"] or not wide["device_ranking"]:
+        raise AssertionError("serve ranking placement not as asked")
+    gate = serve_gate(served_results(wide["out_path"]), served_results(host["out_path"]))
+    check = serve_check(f)
+
+    def summary(r):
+        return dict(corpus_images=r["corpus_images"], corpus_s=r["corpus_s"],
+                    corpus_images_per_s=r["corpus_images"] / r["corpus_s"],
+                    queries=r["queries"], queries_s=r["queries_s"],
+                    queries_per_s=r["queries"] / r["queries_s"], wall_s=r["wall_s"],
+                    peak_mem_gb=r["peak_mem_gb"], device_ranking=r["device_ranking"])
+
+    emit("serve_path", model="ViT-L/14", db_rows=DB_ROWS, dtype="bf16", batch=QUERY_BATCH,
+         workers=8, main=summary(main), topn_300_device=summary(wide),
+         topn_300_host=summary(host), launches=la, launches_topn_300=wide["launches"],
+         gate=gate, check=check)
+    if not gate["passes"]:
+        raise AssertionError(f"serve gate: device and host rankings differ beyond near-ties "
+                             f"at {gate['n_other']} positions: {gate['other_differences']}")
+    if not check["min_cosine"] >= COSINE_MIN:
+        raise AssertionError(f"serve card bf16 vs CPU f32 cosine {check['cosine']}")
+    return dict(serve=la, serve_topn300=wide["launches"])
+
+
+def demo_reference_top10(f, ckpt, query: str, prompts: list, cache: dict) -> list:
+    """The demo's ranking recomputed apart from the CLI: the composed query
+    from the checkpoint's files through the model functions, ranked on the
+    host against the demo's feature cache as the engine's host branch ranks
+    (stable descending sort of f32 products)."""
+    from PIL import Image
+
+    from keds_tpu_torch.io.checkpoint import load_checkpoint
+    from keds_tpu_torch.models import clip as mclip, heads as mheads
+    from keds_tpu_torch.models.convert import (cast_floating, crossformer_from_state_dict,
+                                               im2text_from_state_dict, params_from_numpy)
+    from keds_tpu_torch.models.loader import load_clip
+    from keds_tpu_torch.tokenizer import star_token_id, tokenize
+
+    clip_params, cfg, _, t_val = load_clip(str(ckpt), normalize_on_host=False, device=DEV)
+    clip_c = cast_floating(clip_params, torch.bfloat16, DEV)
+    sd = load_checkpoint(str(ckpt))["state_dict_img2text"]
+    cross = any(k.startswith("cross_layers") for k in sd)
+    img2text = params_from_numpy(crossformer_from_state_dict(sd) if cross
+                                 else im2text_from_state_dict(sd), DEV)
+    text = torch.as_tensor(tokenize(prompts), device=DEV)
+    with torch.inference_mode():
+        im = torch.as_tensor(t_val(Image.open(query))[None], device=DEV)
+        feat = mclip.encode_image_chunked(clip_c, cfg, im)
+        if cross:
+            seq, _ = mclip.get_text_tokens(clip_c, cfg, text)
+            q = feat[:, None].expand(len(prompts), 1, feat.shape[-1])
+            out = mheads.crossformer_apply(img2text, q, seq, seq)[:, 0] @ \
+                clip_c["text"]["proj"].to(feat.dtype)
+        else:
+            tok = mheads.im2text_apply(img2text, feat)[:, None].expand(len(prompts), 1, -1)
+            out = mclip.encode_text_img_retrieval(clip_c, cfg, text, tok, star_token_id())
+        out = (out / out.norm(dim=-1, keepdim=True)).float().cpu().numpy()
+    sims = out @ np.asarray(cache["feats"], np.float32).T
+    order = np.argsort(-sims, axis=1, kind="stable")[:, :10]
+    return [[cache["path"][j] for j in row] for row in order], sims
+
+
+def demo_path(f, kernels) -> dict:
+    """The demo CLI on the card, in a working directory of its own, once per
+    intent: a query image and two prompts against the DEMO_CORPUS-image csv;
+    index.html and the cache are written, and each prompt's top-10 equals
+    the ranking recomputed apart (:func:`demo_reference_top10`) but for
+    swaps within NEAR_TIE."""
+    import os
+    import pickle
+
+    from keds_tpu_torch.cli import demo
+
+    prompts = ["a cartoon of *", "a photo of * on the street"]
+    query = json.loads(f.queries.read_text().splitlines()[0])["image"]
+    out, launches = {}, {}
+    cwd = os.getcwd()
+    for intent, ckpt in (("mlp", f.mlp), ("crossformer", f.cross)):
+        work = f.root / f"demo_{intent}"
+        work.mkdir()
+        for k in kernels.values():
+            k.reset()
+        t = time.perf_counter()
+        os.chdir(work)
+        try:
+            r = demo.main(["--retrieval-data", str(f.demo_csv), "--query_file", query,
+                           "--prompts", ",".join(prompts), "--resume", str(ckpt),
+                           "--demo-out", str(work / "demo"), "--batch-size", str(QUERY_BATCH),
+                           "--workers", "8", "--logs", str(work / "logs"), "--name", intent])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches[intent] = {n: dict(k.launches) for n, k in kernels.items()}
+        cache_file = work / r["cache"]
+        html = (work / "demo" / "index.html").read_text()
+        with open(cache_file, "rb") as fh:
+            cache = pickle.load(fh)
+        want, sims = demo_reference_top10(f, ckpt, query, prompts, cache)
+        near, bad = 0, []
+        for p, (got_row, want_row) in enumerate(zip(r["top10"][0], want)):
+            score = dict(zip(cache["path"], sims[p]))
+            for i, (g, w) in enumerate(zip(got_row, want_row)):
+                if g != w:
+                    if abs(score[g] - score[w]) <= NEAR_TIE:
+                        near += 1
+                    else:
+                        bad.append(dict(prompt=p, rank=i, demo=g, reference=w))
+        # no B1: the demo ranks on the host and its MLP intent retrieves nothing
+        check_path_launches(f"demo {intent}", launches[intent],
+                            {("mips_topk", v): 0 for v in launches[intent]["mips_topk"]},
+                            [("attention", "bf16_tc")])
+        ok = (r["late_fusion"] == (intent == "crossformer") and html.count("<table>") == 2
+              and len(cache["path"]) == DEMO_CORPUS and cache["feats"].shape[0] == DEMO_CORPUS
+              and np.isfinite(cache["feats"]).all() and not bad)
+        out[intent] = dict(seconds=seconds, late_fusion=r["late_fusion"],
+                           cache=os.path.basename(r["cache"]), near_tie_swaps=near,
+                           differences=bad[:5], passes=ok)
+        if not ok:
+            raise AssertionError(f"demo {intent}: {out[intent]}, launches {launches[intent]}")
+    emit("demo_path", model="ViT-L/14", corpus_images=DEMO_CORPUS, prompts=prompts, **out,
+         launches=launches)
+    return launches
+
+
+class FedNeighbours:
+    """A Retriever whose searches return given (img_idx, txt_idx): the raw
+    check's card and CPU steps take the card's neighbours, so near-ties in
+    the bf16 search do not decide it."""
+
+    def __init__(self, db, idx):
+        from keds_tpu_torch.retrieval.database import Retriever
+
+        self.retriever = Retriever(db)
+        self.db, self.idx = db, idx
+
+    def retrieve_features(self, feature, k=16, generator=None, idx=None, text=True):
+        dev = self.db.image_db.device
+        return self.retriever.retrieve_features(
+            feature, k, generator, (self.idx[0].to(dev), self.idx[1].to(dev)), text)
+
+
+def raw_batches(f, dev, rng_seed: int = 0, batch: int = 0, workers: int = 8):
+    """RawBatch stream of the tar shards (batches of ``batch``, by default
+    TRAIN_BATCH): TarShardDataset with the train crop's PIL decode (uint8,
+    normalised on the card), the caption map's captions tokenized and
+    bucketed."""
+    import random
+
+    from keds_tpu_torch.data.tarstream import TarShardDataset, load_caption_map, pil_jpeg_decoder
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.tokenizer import bucket_text, tokenize
+    from keds_tpu_torch.train.losses import RawBatch
+
+    ds = TarShardDataset(f.shards, batch_size=batch or TRAIN_BATCH,
+                         decode_image=pil_jpeg_decoder(VIT_L_14.image_resolution, is_train=True,
+                                                       normalize=False,
+                                                       rng=random.Random(rng_seed)),
+                         caption_map=load_caption_map(str(f.captions)), tokenize=tokenize,
+                         seed=rng_seed, train_num_samples=RAW_SHARDS * RAW_PER_SHARD,
+                         workers=workers)
+    try:
+        for images, caps in ds:
+            yield RawBatch(torch.as_tensor(images, device=dev),
+                           torch.as_tensor(bucket_text(caps, n_pseudo=1), device=dev))
+    finally:
+        ds.close()
+
+
+def raw_train_path(f, clip_params, heads, db, kernels) -> tuple:
+    """Image-stream training on raw images: the tar shards decoded on 8
+    threads while the card steps, B=128, 2 warm-up and 10 timed steps
+    through train_epoch (launch counts zeroed just before, read just
+    after), per-stage ms of a further batch."""
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.train.trainer import train_epoch
+
+    dev = db.image_db.device
+    theads, opt, sched, step = _train_setup(clip_params, heads, db, dev)
+    losses = []
+
+    def recorded(h, b, t):
+        loss = step(h, b, t)
+        losses.append(loss)
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stream = raw_batches(f, dev)
+    t = time.perf_counter()
+    for s in range(2):                      # warm-up steps t = 0, 1 (the buffer fills)
+        recorded(theads, next(stream), s)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    train_epoch(recorded, theads, stream, 1, 10, log_every=10, schedule=sched)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    # B1 twice a step (both modalities), B2 in the frozen image tower and the
+    # prompt's text tower, B2' in every text layer's backward
+    check_path_launches("raw train", launches, {
+        ("mips_topk", "bf16_tc"): 20, ("mips_topk", "f32"): 0,
+        ("attention_bwd", "bf16"): 10 * VIT_L_14.transformer_layers,
+        ("attention", "f32"): 0, ("attention_bwd", "f32"): 0}, [("attention", "bf16_tc")])
+    loss_vals = [float(x) for x in losses]
+    if not (len(loss_vals) == 12 and np.isfinite(loss_vals).all()):
+        raise AssertionError(f"raw train losses: {loss_vals}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = next(raw_batches(f, dev, rng_seed=1))
+    runs = [train_stage_times(step, theads, batch, t) for t in (20, 21, 22)]
+    stages = {name: float(np.median([r[name] for r in runs])) for name in runs[0]}
+    emit("raw_train_path", model="ViT-L/14", db_rows=db.size, batch=TRAIN_BATCH, dtype="bf16",
+         shards=RAW_SHARDS, per_shard=RAW_PER_SHARD, decode_threads=8, warm_up_s=warm_s,
+         timed_steps=10, step_ms=elapsed / 10 * 1e3, samples_per_s=TRAIN_BATCH * 10 / elapsed,
+         stage_ms_one_step=stages, stage_ms_runs=runs, peak_mem_gb=peak_gb,
+         caption_bucket=int(batch.caption_tokens.shape[1]), losses=loss_vals,
+         launches=launches)
+    return theads, step, batch, launches
+
+
+def profile_train_raw(step, theads, batch) -> None:
+    profile_device("profile_train_raw", lambda: step(theads, batch, 23),
+                   [("attention backward (B2')", ("attention_bwd",)),
+                    ("attention forward (B2)", ("attention_tc", "attention_f32")),
+                    ("mips_topk (B1)", ("topk_",))])
+
+
+def raw_reading(clip_params, heads, db, dtype, batch, idx) -> tuple:
+    """(loss, flattened f64 head gradient) of one image-stream step on
+    ``db``'s device in ``dtype``, dropout 0, the neighbours ``idx`` fed;
+    ``batch`` a RawBatch (encoded in the step) or a TrainBatch of features."""
+    from keds_tpu_torch.models.convert import head_parameters
+
+    dev = db.image_db.device
+    theads, _, _, step = _train_setup(clip_params, heads, db, dev, dropout=0.0, dtype=dtype,
+                                      retriever=FedNeighbours(db, idx))
+    batch = type(batch)(*(None if t is None else t.to(dev) for t in batch))
+    loss = float(step(theads, batch, 0))
+    return loss, torch.cat([p.grad.flatten().double().cpu() for _, _, p in head_parameters(theads)])
+
+
+def raw_train_check(f, clip_params, heads, db, cpu_clip, cpu_heads, cpu_db) -> None:
+    """The raw step on the card in bf16 against the CPU in f32, in two
+    gates.  The frozen encode: the card's bf16 image features of
+    RAW_CHECK_BATCH train-cropped images against the CPU's f32 ones (cosine
+    >= COSINE_MIN, e2e_check's limit).  The step: the card's whole bf16
+    raw step (its own encode included) against the CPU's f32 step on the
+    card's features, the same weights and the card's neighbours
+    (train_check's limits).  The CPU step takes the card's features
+    because random ViT-L/14 weights map every image to nearly the same
+    feature (cosine about 0.996 between two images), so bf16 rounding in
+    the encode, about 1 % of a feature, is a large share of what tells the
+    images apart and turns the InfoNCE gradient by itself: the CPU's own
+    bf16 step reads a gradient cosine of 0.82-0.92 against its f32 step,
+    and the card's f32 raw step reads 1.0000 (``kernel_sweeps.py
+    raw_check_controls``)."""
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.retrieval.database import Retriever
+    from keds_tpu_torch.train.losses import TrainBatch, encode_raw_batch
+    from keds_tpu_torch.train.trainer import frozen_clip
+
+    t = time.perf_counter()
+    batch = next(raw_batches(f, DEV, rng_seed=2, batch=RAW_CHECK_BATCH, workers=0))
+    feats = {}
+    for dev, dtype, clip in ((DEV, torch.bfloat16, clip_params), ("cpu", torch.float32, cpu_clip)):
+        raw = type(batch)(*(x.to(dev) for x in batch))
+        feats[dev] = encode_raw_batch(frozen_clip(clip, dtype, torch.device(dev)), VIT_L_14,
+                                      raw, captions=False).image_features.cpu()
+    a, b = feats[DEV].double(), feats["cpu"].double()
+    cos = ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).tolist()
+    idx = Retriever(db).neighbour_indices(feats[DEV].to(DEV), 16)
+    r = compare_readings(raw_reading(clip_params, heads, db, torch.bfloat16, batch, idx),
+                         raw_reading(cpu_clip, cpu_heads, cpu_db, torch.float32,
+                                     TrainBatch(feats[DEV], None), idx))
+    emit("raw_train_check", encode_cosine=cos, encode_cosine_min=COSINE_MIN, **r,
+         batch=RAW_CHECK_BATCH, seconds=time.perf_counter() - t)
+    if not (min(cos) >= COSINE_MIN and r["passes"]):
+        raise AssertionError(f"raw train step card vs CPU: encode cosine {cos}, loss rel diff "
+                             f"{r['loss_rel_diff']}, grad cosine {r['head_grad_cosine']}")
+
+
+def raw_cli_runs(f) -> None:
+    """The train CLI on raw images on the card: webdataset through
+    ``python -m keds_tpu_torch.cli.main`` and csv in this process, each one
+    epoch of 2 steps of 8 over a 1000-row DB, then --resume auto to a
+    second epoch; checkpoints in the reference layout, scalars.jsonl, and
+    the resume logged."""
+    import os
+
+    from keds_tpu_torch.cli.main import main as train_main
+    from keds_tpu_torch.io.checkpoint import load_checkpoint
+
+    modes = {"webdataset": ["--train-data", "::".join(f.shards[:2]), "--dataset-type",
+                            "webdataset", "--caption-map", str(f.captions),
+                            "--train-num-samples", str(CLI_ROWS)],
+             "csv": ["--train-data", str(f.train_csv), "--dataset-type", "csv"]}
+    keys = {"epoch", "name", "state_dict", "state_dict_img2text", "state_dict_retrieval_fuse",
+            "state_dict_text_condition", "optimizer"}
+    out = {}
+    for mode, data in modes.items():
+        t = time.perf_counter()
+        base = [*data, "--clip-weights", str(f.mlp), "--database-path", str(f.tiny_db),
+                "--batch-size", "8", "--workers", "4", "--warmup", "2",
+                "--logs", str(f.root / "logs"), "--name", f"cli_{mode}"]
+        for epochs, extra in ((1, []), (2, ["--resume", "auto"])):
+            args = base + ["--epochs", str(epochs), *extra]
+            if mode == "webdataset":
+                subprocess.run([sys.executable, "-m", "keds_tpu_torch.cli.main", *args],
+                               check=True, timeout=600, cwd=pathlib.Path(__file__).parent,
+                               env=dict(os.environ), stdout=sys.stderr)
+            else:
+                train_main(args)
+        run = f.root / "logs" / f"cli_{mode}"
+        ck = [load_checkpoint(str(run / "checkpoints" / f"epoch_{e}.pt")) for e in (1, 2)]
+        scalars = [json.loads(x) for x in (run / "scalars.jsonl").read_text().splitlines()]
+        log = (run / "out.log").read_text()
+        ok = (all(set(c) == keys for c in ck) and [c["epoch"] for c in ck] == [1, 2]
+              and bool(ck[1]["optimizer"].get("state")) and len(scalars) == 2
+              and all(np.isfinite(s["train/loss"]) for s in scalars) and "resumed from" in log)
+        out[mode] = dict(seconds=time.perf_counter() - t, steps=[s["step"] for s in scalars],
+                         losses=[s["train/loss"] for s in scalars], passes=ok)
+        del ck
+        if not ok:
+            raise AssertionError(f"train CLI {mode}: {out[mode]}")
+    emit("raw_train_cli", **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1045,7 +1649,11 @@ def main() -> int:
                             (EVAL_QUERIES, EVAL_CORPUS, 768, 101, f32),   # CIRR ranking
                             (2048, 4096, 768, 100, f32),             # Fashion-IQ-like
                             (1024, 10_000, 768, 200, f32),           # ImageNet-like
-                            (QUERY_BATCH, DB_ROWS, 768, 64, bf16)])  # --db-topk 64
+                            (QUERY_BATCH, DB_ROWS, 768, 64, bf16),   # --db-topk 64
+                            (QUERY_BATCH, 10_000, 768, 300, f32),    # k > 256: passes
+                            (QUERY_BATCH, DB_ROWS, 768, 300, bf16),
+                            (8, 1000, 768, 1000, f32),               # k = N
+                            (QUERY_BATCH, SERVE_CORPUS, 768, SERVE_WIDE_TOPN, f32)])  # serve
 
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
@@ -1130,7 +1738,7 @@ def main() -> int:
     del theads, step, batch
     torch.cuda.empty_cache()
     train_text_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, table, kernels)
-    del table, cpu_clip, cpu_heads, cpu_db
+    del table
     torch.cuda.empty_cache()
 
     # --- evaluation path ------------------------------------------------------
@@ -1140,23 +1748,45 @@ def main() -> int:
         split, profile, corpus_dev, eval_launches = eval_path(clip_params, db, kernels,
                                                               pathlib.Path(d))
         profile_eval(split, profile, corpus_dev)
-    del profile, corpus_dev
+    del split, profile, corpus_dev
+    torch.cuda.empty_cache()
+
+    # --- the serve and demo CLIs and raw-image training -----------------------
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        files = write_smoke_files(pathlib.Path(d), clip_params, heads, db)
+        emit("smoke_files", seconds=files.seconds, corpus_jpegs=SERVE_CORPUS,
+             shards=len(files.shards), vocab="synthetic merges, '*' = 265")
+        serve_launches = serve_path(files, kernels)
+        demo_launches = demo_path(files, kernels)
+        theads, step, batch, raw_launches = raw_train_path(files, clip_params, heads, db,
+                                                           kernels)
+        profile_train_raw(step, theads, batch)
+        del theads, step, batch
+        torch.cuda.empty_cache()
+        raw_train_check(files, clip_params, heads, db, cpu_clip, cpu_heads, cpu_db)
+        del cpu_clip, cpu_heads, cpu_db
+        raw_cli_runs(files)
 
     att = ("attention", "keds_tpu_torch/csrc/attention.cu", "keds_tpu/ops/attention.py:122")
     bwd = ("attention_bwd", "keds_tpu_torch/csrc/attention_bwd.cu",
            "keds_tpu/ops/attention.py:134")
     top = ("mips_topk", "keds_tpu_torch/csrc/topk.cu", "keds_tpu/ops/pallas_topk.py:93")
     # launches: the serving main path's, the image-stream training path's for
-    # the backward and the evaluation path's for the f32 ranking at k = 101;
-    # each path's beside them
+    # the backward, the evaluation path's for the f32 ranking at k = 101 and
+    # the serve CLI's --topn 300 run for the passes; each path's beside them
     entries = [(att, "bf16_tc", att_rows[0], launches), (att, "f32", att_rows[2], launches),
                (bwd, "bf16", bwd_rows[0], train_launches),
                (bwd, "f32", bwd_rows[4], train_launches),
                (top, "bf16_tc", topk_rows[1], launches),
                (top, "f32", topk_rows[6], eval_launches),
-               (top, "bf16", topk_rows[9], launches)]
+               (top, "bf16", topk_rows[9], launches),
+               (top, "f32_multi", topk_rows[13], serve_launches["serve_topn300"]),
+               (top, "bf16_multi", topk_rows[11], serve_launches["serve_topn300"])]
     paths = {"serving": launches, "train_image": train_launches, "train_text": text_launches,
-             "eval": eval_launches}
+             "eval": eval_launches, "serve_cli": serve_launches["serve"],
+             "serve_cli_topn300": serve_launches["serve_topn300"],
+             "demo_mlp": demo_launches["mlp"], "demo_crossformer": demo_launches["crossformer"],
+             "train_raw": raw_launches}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],

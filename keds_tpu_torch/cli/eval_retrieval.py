@@ -25,14 +25,10 @@ from typing import Optional
 
 
 def main(argv: Optional[list] = None) -> None:
-    from keds_tpu_torch.cli.main import run_logging
+    from keds_tpu_torch.cli.common import run_logging
     from keds_tpu_torch.config import parse_args
 
     cfg = parse_args(argv, prog="keds_tpu_torch.cli.eval_retrieval")
-    if cfg.retrieval_backend in ("int8", "approx"):
-        raise SystemExit(f"--retrieval-backend {cfg.retrieval_backend}: the int8 and "
-                         "approximate searches are ROADMAP.md section A item 14, not "
-                         "ported yet (auto, xla and pallas run the exact search)")
     if cfg.eval_mode == "fashion" and cfg.source_data not in ("dress", "shirt", "toptee"):
         raise SystemExit(f"--eval-mode fashion needs --source-data dress, shirt or "
                          f"toptee, got {cfg.source_data!r}")
@@ -41,8 +37,7 @@ def main(argv: Optional[list] = None) -> None:
 
 
 def _evaluate(cfg) -> None:
-    import torch
-
+    from keds_tpu_torch.cli.common import compute_dtype, load_database, setup_runtime
     from keds_tpu_torch.data.datasets import CIRR, CsvCOCO, FashionIQ, ImageList
     from keds_tpu_torch.data.loader import DataLoader
     from keds_tpu_torch.evalkit.evaluators import (EvalContext, evaluate_cirr,
@@ -50,20 +45,16 @@ def _evaluate(cfg) -> None:
                                                    evaluate_fashion,
                                                    evaluate_imgnet_retrieval)
     from keds_tpu_torch.models.loader import load_clip
-    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
-    from keds_tpu_torch.runtime import resolve_device
     from keds_tpu_torch.transforms import region_transform
 
-    device = resolve_device(cfg.device)
-    dtype = torch.float32 if cfg.precision == "fp32" else torch.bfloat16
+    device = setup_runtime(cfg)
     clip_params, clip_cfg, _, t_val = load_clip(
         cfg.resume or cfg.clip_weights or cfg.model,
         target_pad=1.25 if cfg.target_pad else None, normalize_on_host=False,
         device=device)
-    db = KnowledgeDB.from_config(cfg, dtype, device)
-    ctx = EvalContext(clip_params=clip_params, cfg=clip_cfg, retriever=Retriever(db),
+    ctx = EvalContext(clip_params=clip_params, cfg=clip_cfg, retriever=load_database(cfg, device),
                       image_branch=cfg.image_branch, text_branch=cfg.text_branch,
-                      db_topk=cfg.db_topk, compute_dtype=dtype,
+                      db_topk=cfg.db_topk, compute_dtype=compute_dtype(cfg),
                       eval_ranking=cfg.eval_ranking, split_id=cfg.split_id, device=device)
     root = cfg.root_data
 

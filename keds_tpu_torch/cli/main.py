@@ -1,8 +1,7 @@
-"""Training CLI (counterpart of ``keds_tpu/cli/main.py``), features mode,
-both streams.
+"""Training CLI (counterpart of ``keds_tpu/cli/main.py``), one process.
 
-Trains IM2TEXT and the two CrossFormers against a frozen CLIP on
-precomputed feature pairs, with the knowledge DB resident on the card:
+Trains IM2TEXT and the two CrossFormers against a frozen CLIP, with the
+knowledge DB resident on the card, on precomputed feature pairs:
 
     python -m keds_tpu_torch.cli.main \\
         --train-data /path/to/features --dataset-type directory \\
@@ -10,63 +9,34 @@ precomputed feature pairs, with the knowledge DB resident on the card:
         --batch-size 128 --epochs 30 --warmup 10000 --lr 1e-4 --wd 0.1 \\
         --stream image
 
-``--stream text`` trains the text stream.  It needs the CLIP BPE vocab
-(``KEDS_TPU_BPE_VOCAB``), from which it takes the ``*`` id, and
-``cc_other.json`` in the feature folder: the own templates are tokenized
-per sample, the neighbour templates of every DB row once into
-``<train-data>/db_other_tokens.npy`` (rebuilt when its fingerprint no
-longer matches the DB).  Checkpoints go to
+or, image stream only, on raw images whose features the frozen CLIP
+computes in each step: ``--dataset-type csv`` (a csv/tsv of image paths
+and captions, ``--csv-img-key``/``--csv-caption-key``/``--csv-separator``)
+or ``--dataset-type webdataset`` (tar shards ``cc-{00000..00331}.tar`` of
+``<key>.image_byte`` JPEGs, captions from ``--caption-map``, an epoch of
+``--train-num-samples``).  ``auto`` takes csv for a .csv/.tsv file and
+directory for a folder.  Raw images are decoded with PIL, train-cropped
+and sent as uint8; the captions and the "a photo of" prompt are tokenized
+with the CLIP BPE vocab (``KEDS_TPU_BPE_VOCAB``).
+
+``--stream text`` trains the text stream on features.  It needs the vocab,
+from which it takes the ``*`` id, and ``cc_other.json`` in the feature
+folder: the own templates are tokenized per sample, the neighbour templates
+of every DB row once into ``<train-data>/db_other_tokens.npy`` (rebuilt when
+its fingerprint no longer matches the DB).  Checkpoints go to
 ``<logs>/<name>/checkpoints/epoch_N.pt`` in the reference layout;
 ``--resume auto`` continues from the newest one.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import os
-import time
-from typing import Iterator, Optional
+from typing import Optional
 
 import numpy as np
 import torch
-
-
-def _experiment_name(cfg) -> str:
-    if cfg.name:
-        return cfg.name
-    name = (f"lr={cfg.lr}_wd={cfg.wd}_model={cfg.model}"
-            f"_batchsize={cfg.batch_size}_workers={cfg.workers}")
-    if cfg.time_suffix:
-        name += time.strftime("_date=%Y-%m-%d-%H-%M-%S", time.gmtime())
-    return name.replace("/", "-")
-
-
-@contextlib.contextmanager
-def run_logging(cfg, require_fresh: bool = True) -> Iterator[str]:
-    """Name the run and log it to ``<logs>/<name>/out.log`` at INFO, with
-    every setting in ``params.txt``; yields the run directory.  With
-    ``require_fresh`` (training without ``--resume``) an existing run of
-    that name is refused."""
-    cfg.name = _experiment_name(cfg)
-    log_dir = os.path.join(cfg.logs, cfg.name)
-    log_path = os.path.join(log_dir, "out.log")
-    if require_fresh and cfg.resume is None and os.path.exists(log_path):
-        raise SystemExit(f"Error. Experiment already exists at {log_dir}. "
-                         "Use --name for a new one.")
-    os.makedirs(log_dir, exist_ok=True)
-    handler = logging.FileHandler(log_path)
-    logging.getLogger().addHandler(handler)
-    logging.getLogger().setLevel(logging.INFO)
-    try:
-        with open(os.path.join(log_dir, "params.txt"), "w") as f:
-            for k, v in sorted(vars(cfg).items()):
-                f.write(f"{k}: {v}\n")
-        yield log_dir
-    finally:
-        logging.getLogger().removeHandler(handler)
-        handler.close()
 
 
 def _load_clip(cfg, device: torch.device):
@@ -150,74 +120,136 @@ def _neighbour_templates(cfg, dataset, db) -> np.ndarray:
     return table    # make_train_step refuses a row count other than the DB's
 
 
-def _stream_tokens(cfg):
-    """(prompt tokens (1, S), ``*`` id) of the stream: the image stream's
-    come from ``--prompt-tokens`` and ``--split-id`` (no vocab needed); the
-    text stream takes both from the BPE vocab and refuses a ``--split-id``
-    that disagrees."""
-    if cfg.stream == "image":
+def _stream_tokens(cfg, raw: bool):
+    """(prompt tokens (1, S), ``*`` id).  The image stream on features takes
+    them from ``--prompt-tokens`` and ``--split-id`` (no vocab needed); the
+    text stream and raw images take both from the BPE vocab (their
+    captions need it too) and refuse a ``--split-id`` that disagrees."""
+    if cfg.stream == "image" and not raw:
         return np.asarray([cfg.prompt_tokens]), 265 if cfg.split_id is None else cfg.split_id
     from keds_tpu_torch.tokenizer import star_token_id, tokenize
 
     try:
         star, prompt = star_token_id(), tokenize("a photo of")
     except FileNotFoundError as e:
-        raise SystemExit(f"--stream text: {e}") from e
+        raise SystemExit(f"--stream {cfg.stream} on {'raw images' if raw else 'features'}: "
+                         f"{e}") from e
     if cfg.split_id is not None and cfg.split_id != star:
         raise SystemExit(f"--split-id {cfg.split_id} disagrees with the vocab's '*' "
                          f"token {star}")
     return prompt, star
 
 
+def resolve_dataset_type(cfg) -> str:
+    """``--dataset-type``, with ``auto`` taking csv for a .csv/.tsv file and
+    directory for a folder, and refusing anything else."""
+    if cfg.dataset_type != "auto":
+        return cfg.dataset_type
+    if not cfg.train_data:
+        raise SystemExit("--train-data is required for training")
+    ext = cfg.train_data.rsplit(".", 1)[-1].lower()
+    if ext in ("csv", "tsv"):
+        return "csv"
+    if os.path.isdir(cfg.train_data):
+        return "directory"
+    raise SystemExit(f"--dataset-type auto: cannot infer dataset type from extension "
+                     f"{ext!r}; pass --dataset-type directory/webdataset/csv explicitly")
+
+
 def main(argv: Optional[list] = None) -> None:
+    from keds_tpu_torch.cli.common import run_logging
     from keds_tpu_torch.config import parse_args
 
     cfg = parse_args(argv)
-    dataset_type = cfg.dataset_type
-    if dataset_type == "auto" and cfg.train_data and os.path.isdir(cfg.train_data):
-        dataset_type = "directory"
-    if dataset_type != "directory":
-        raise SystemExit(f"--dataset-type {cfg.dataset_type}: only precomputed features "
-                         "(--dataset-type directory) are ported; raw csv/webdataset "
-                         "training is ROADMAP.md section A item 11")
+    dataset_type = resolve_dataset_type(cfg)
+    if dataset_type not in ("directory", "csv", "webdataset"):
+        raise SystemExit(f"--dataset-type {dataset_type}: training reads directory "
+                         "(features), csv or webdataset")
+    raw = dataset_type != "directory"
+    if cfg.neighbors and raw:
+        raise SystemExit("--neighbors requires precomputed features (the raw-image modes "
+                         "compute features on the fly, so neighbors cannot be "
+                         "precomputed); use --dataset-type directory")
+    if cfg.stream == "text" and raw:
+        raise SystemExit("--stream text requires precomputed features (subject/other "
+                         "templates); use --dataset-type directory")
     if not cfg.database_path:
         raise SystemExit("--database-path is required")
 
     with run_logging(cfg) as log_dir:
         checkpoint_path = cfg.checkpoint_path or os.path.join(log_dir, "checkpoints")
         os.makedirs(checkpoint_path, exist_ok=True)
-        _train(cfg, checkpoint_path, log_dir)
+        _train(cfg, dataset_type, checkpoint_path, log_dir)
 
 
-def _train(cfg, checkpoint_path: str, log_dir: str) -> None:
+def _raw_loader(cfg, dataset_type: str, clip_cfg):
+    """The csv or tar-stream loader of (uint8 train-cropped images, caption
+    tokens) batches."""
+    from keds_tpu_torch.tokenizer import tokenize
+    from keds_tpu_torch.transforms import image_transform
+
+    n_px = clip_cfg.image_resolution
+    if dataset_type == "webdataset":
+        from keds_tpu_torch.data.tarstream import (TarShardDataset, load_caption_map,
+                                                   pil_jpeg_decoder)
+
+        return TarShardDataset(
+            cfg.train_data, batch_size=cfg.batch_size,
+            decode_image=pil_jpeg_decoder(n_px, is_train=True, normalize=False),
+            caption_map=load_caption_map(cfg.caption_map), tokenize=tokenize,
+            seed=cfg.seed, train_num_samples=cfg.train_num_samples or 2_803_766,
+            resampled=cfg.dataset_resampled,
+            upsampling_factors=cfg.train_data_upsampling_factors, workers=cfg.workers)
+    from keds_tpu_torch.data.datasets import CsvDataset
+    from keds_tpu_torch.data.loader import DataLoader
+
+    dataset = CsvDataset(cfg.train_data, image_transform(n_px, is_train=True, normalize=False),
+                         img_key=cfg.csv_img_key, caption_key=cfg.csv_caption_key,
+                         sep=cfg.csv_separator)
+    return DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed, drop_last=True,
+                      num_workers=cfg.workers)
+
+
+def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
     from keds_tpu_torch import synth
-    from keds_tpu_torch.data.datasets import FeaturePairDataset
+    from keds_tpu_torch.cli.common import ScalarWriters, compute_dtype, setup_runtime
+    from keds_tpu_torch.data.datasets import CsvDataset, FeaturePairDataset
     from keds_tpu_torch.data.loader import DataLoader
     from keds_tpu_torch.io.checkpoint import (load_checkpoint, load_heads_checkpoint,
                                               resolve_resume, restore_optimizer,
                                               save_train_checkpoint)
     from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
-    from keds_tpu_torch.runtime import resolve_device
     from keds_tpu_torch.tokenizer import bucket_text
-    from keds_tpu_torch.train.losses import TrainBatch
+    from keds_tpu_torch.train.losses import RawBatch, TrainBatch
     from keds_tpu_torch.train.trainer import make_optimizer, make_train_step, train_epoch
 
     text = cfg.stream == "text"
-    prompt, split_id = _stream_tokens(cfg)
-    device = resolve_device(cfg.device)
-    dtype = torch.float32 if cfg.precision == "fp32" else torch.bfloat16
+    raw = dataset_type != "directory"
+    prompt, split_id = _stream_tokens(cfg, raw)
+    device = setup_runtime(cfg)
+    dtype = compute_dtype(cfg)
     clip_params, clip_cfg = _load_clip(cfg, device)
     heads = synth.init_heads(clip_cfg.embed_dim, cfg.seed + 1, device, torch.float32)
     db = KnowledgeDB.from_directory(cfg.database_path, dtype, device)
-    dataset = FeaturePairDataset(cfg.train_data, templates=text)
-    if cfg.neighbors:
-        _load_neighbors(cfg, dataset, db, device)
-    db_other_tokens = _neighbour_templates(cfg, dataset, db) if text else None
-    loader = DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                        drop_last=True, num_workers=cfg.workers)
+    db_other_tokens = None
+    if raw:
+        loader = _raw_loader(cfg, dataset_type, clip_cfg)
+    else:
+        dataset = FeaturePairDataset(cfg.train_data, templates=text)
+        if cfg.neighbors:
+            _load_neighbors(cfg, dataset, db, device)
+        db_other_tokens = _neighbour_templates(cfg, dataset, db) if text else None
+        loader = DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                            drop_last=True, num_workers=cfg.workers)
+    if cfg.val_data:
+        # the reference's one use of --val-data: its sample count in the log
+        n_val = len(CsvDataset(cfg.val_data, None, img_key=cfg.csv_img_key,
+                               caption_key=cfg.csv_caption_key, sep=cfg.csv_separator))
+        logging.info("val data (%s, type %s): %d samples", cfg.val_data,
+                     cfg.dataset_type_val, n_val)
     steps_per_epoch = loader.num_batches
     if steps_per_epoch == 0:
-        raise SystemExit(f"{len(dataset)} samples make no batch of {cfg.batch_size}")
+        raise SystemExit(f"the training data make no batch of {cfg.batch_size}")
 
     start_epoch = 0
     resume = resolve_resume(cfg.resume, checkpoint_path)
@@ -235,26 +267,27 @@ def _train(cfg, checkpoint_path: str, log_dir: str) -> None:
                               seed=cfg.seed, dropout=cfg.droprate, db_topk=cfg.db_topk,
                               db_other_tokens=db_other_tokens, compute_dtype=dtype,
                               device=device)
-    scalars = open(os.path.join(log_dir, "scalars.jsonl"), "a")
-
-    def write_scalars(values: dict, step: int) -> None:
-        scalars.write(json.dumps({"step": step, **values}) + "\n")
-        scalars.flush()
-
+    writers = ScalarWriters(cfg, log_dir)
     seen_buckets = set()
+
+    def bucketed(tokens) -> torch.Tensor:
+        """Causal-prefix bucket of a batch's own templates or captions (the
+        tower pools at each row's EOT), logged once per width."""
+        tokens = bucket_text(np.asarray(tokens), n_pseudo=1)
+        if tokens.shape[1] not in seen_buckets:
+            seen_buckets.add(tokens.shape[1])
+            logging.info("causal-prefix bucket S=%d (text program width)", tokens.shape[1])
+        return torch.as_tensor(tokens, device=device)
 
     def batches():
         for row in loader:
+            if raw:
+                yield RawBatch(images=torch.as_tensor(row[0], device=device),
+                               caption_tokens=bucketed(row[1]))
+                continue
             extra = {}
             if text:
-                # causal-prefix bucket of the own templates: the in-place
-                # splice pools at each row's EOT
-                own = bucket_text(row[3], n_pseudo=1)
-                if own.shape[1] not in seen_buckets:
-                    seen_buckets.add(own.shape[1])
-                    logging.info("causal-prefix bucket S=%d (text program width)",
-                                 own.shape[1])
-                extra["other_tokens"] = torch.as_tensor(own, device=device)
+                extra["other_tokens"] = bucketed(row[3])
             # precomputed-neighbour index rows follow the sample's fields
             idx = row[4:] if text else row[2:]
             extra.update(zip(("img_idx", "txt_idx", "cap2_idx"),
@@ -268,7 +301,7 @@ def _train(cfg, checkpoint_path: str, log_dir: str) -> None:
             logging.info("Start epoch %d", epoch)
             loader.set_epoch(epoch)
             train_epoch(step_fn, heads, batches(), epoch, steps_per_epoch,
-                        schedule=schedule, writers=(write_scalars,))
+                        schedule=schedule, writers=(writers,))
             save = dict(epoch=epoch + 1, name=cfg.name, clip_params=clip_params,
                         clip_cfg=clip_cfg, heads=heads, optimizer=optimizer)
             if (epoch + 1) == cfg.epochs or (
@@ -278,7 +311,9 @@ def _train(cfg, checkpoint_path: str, log_dir: str) -> None:
             if cfg.save_most_recent:
                 save_train_checkpoint(os.path.join(checkpoint_path, "epoch_latest.pt"), **save)
     finally:
-        scalars.close()
+        writers.close()
+        if dataset_type == "webdataset":
+            loader.close()
 
 
 if __name__ == "__main__":

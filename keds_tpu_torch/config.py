@@ -1,9 +1,13 @@
-"""CLI configuration (counterpart of the training and evaluation subset of
-``keds_tpu/config.py``): the JAX package's flag names and defaults for
-features-mode training and the evaluation CLI, plus the device and the two
+"""CLI configuration (counterpart of ``keds_tpu/config.py``): the JAX
+package's flag names and defaults for training (features, csv and
+webdataset), evaluation, serving and the demo, plus the device and the two
 values the image stream takes as arguments so that it needs no BPE vocab
-(``--split-id``, ``--prompt-tokens``; the text stream reads both from the
-vocab, and so does evaluation unless ``--split-id`` is given)."""
+(``--split-id``, ``--prompt-tokens``; the text stream, raw-image training,
+serving and the demo read both from the vocab, and so does evaluation
+unless ``--split-id`` is given).
+
+Flags of parts that are not ported yet parse, and :func:`parse_args`
+refuses them with the ROADMAP.md item that ports them."""
 
 from __future__ import annotations
 
@@ -26,8 +30,23 @@ def get_default_params(model_name: str) -> dict:
 @dataclasses.dataclass
 class Config:
     train_data: Optional[str] = None
+    val_data: Optional[str] = None
     dataset_type: str = "auto"
+    dataset_type_val: str = "auto"
+    csv_separator: str = "\t"
+    csv_img_key: str = "filepath"
+    csv_caption_key: str = "title"
+    train_num_samples: Optional[int] = None
+    dataset_resampled: bool = False
+    caption_map: Optional[str] = None
+    train_data_upsampling_factors: Optional[str] = None
     workers: int = 1
+    prompts: Optional[str] = None
+    retrieval_data: Optional[str] = None
+    demo_out: str = "demo"
+    query_file: Optional[str] = None
+    topn: int = 10
+    target_data: Optional[str] = None
     root_data: str = "./data"
     source_data: Optional[str] = None
     target_pad: bool = False
@@ -37,7 +56,10 @@ class Config:
     db_text_file: Optional[str] = None
     db_names_file: Optional[str] = None
     db_topk: int = 16
+    db_shard: bool = False
     retrieval_backend: str = "auto"
+    quant_towers: str = "none"
+    worker_processes: bool = False
     eval_ranking: str = "host"
     neighbors: Optional[str] = None
     model: str = "ViT-L/14"
@@ -64,6 +86,10 @@ class Config:
     save_frequency: int = 1
     save_most_recent: bool = False
     resume: Optional[str] = None
+    report_to: str = ""
+    wandb_notes: str = ""
+    debug: bool = False
+    distributed: bool = False
     split_id: Optional[int] = None
     prompt_tokens: List[int] = dataclasses.field(
         default_factory=lambda: list(DEFAULT_PROMPT_TOKENS))
@@ -78,11 +104,42 @@ class Config:
 
 def _add_flags(parser: argparse.ArgumentParser) -> None:
     add = parser.add_argument
-    add("--train-data", type=str, default=None)
+    add("--train-data", type=str, default=None,
+        help="feature directory, csv/tsv file, or tar shards ('{00000..00331}.tar', "
+             "several sources joined by '::')")
+    add("--val-data", type=str, default=None,
+        help="a csv whose samples are counted into the run's log")
     add("--dataset-type", type=str, default="auto",
         choices=["webdataset", "csv", "inet", "auto", "directory",
                  "fashion-iq", "cirr", "imgnet_r"])
-    add("--workers", type=int, default=1)
+    add("--dataset-type-val", type=str, default="auto")
+    add("--csv-separator", type=str, default="\t")
+    add("--csv-img-key", type=str, default="filepath")
+    add("--csv-caption-key", type=str, default="title")
+    add("--train-num-samples", type=int, default=None,
+        help="webdataset: samples in an epoch (default CC3M's 2,803,766)")
+    add("--dataset-resampled", action="store_true", default=False,
+        help="webdataset: draw shards with replacement, per (seed, epoch)")
+    add("--caption-map", type=str, default=None,
+        help="webdataset: {key: caption} .json, or a .pkl list of "
+             "{'filename', 'text'} records")
+    add("--train-data-upsampling-factors", type=str, default=None,
+        help="webdataset: '::'-separated shard weights per source; needs "
+             "--dataset-resampled")
+    add("--workers", type=int, default=1,
+        help="decode threads of the image loaders")
+    add("--prompts", type=str, default=None,
+        help="demo: comma-separated prompts with '*' (default 'a photo of *')")
+    add("--retrieval-data", type=str, default=None,
+        help="demo corpus: a csv path, imgnet, cirr, dress, shirt, toptee or coco")
+    add("--demo-out", type=str, default="demo",
+        help="demo: output directory; serve: results file (.jsonl added)")
+    add("--query_file", type=str, default=None,
+        help="demo: comma-separated query images; serve: queries.jsonl")
+    add("--topn", type=int, default=10,
+        help="results returned per query (serve CLI ranking depth)")
+    add("--target-data", type=str, default=None,
+        help="serve: the folder of corpus images")
     add("--root-data", type=str, default="./data")
     add("--source-data", type=str, default=None,
         help="Fashion-IQ cloth type: dress, shirt or toptee")
@@ -94,6 +151,12 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--db-text-file", type=str, default=None)
     add("--db-names-file", type=str, default=None)
     add("--db-topk", type=int, default=16)
+    add("--db-shard", action="store_true", default=False,
+        help="not ported yet (ROADMAP.md section A item 10)")
+    add("--quant-towers", type=str, default="none", choices=["none", "int8"],
+        help="int8 is not ported yet (ROADMAP.md section A item 15)")
+    add("--worker-processes", action="store_true", default=False,
+        help="not ported yet (ROADMAP.md section A item 10): --workers are threads")
     add("--retrieval-backend", type=str, default="auto",
         choices=["auto", "xla", "pallas", "int8", "approx"],
         help="auto, xla and pallas all run the exact fused top-k kernel; int8 "
@@ -130,6 +193,12 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--save-frequency", type=int, default=1)
     add("--save-most-recent", action="store_true", default=False)
     add("--resume", type=str, default=None)
+    add("--report-to", type=str, default="",
+        help="tensorboard, wandb or all, beside scalars.jsonl")
+    add("--wandb-notes", type=str, default="")
+    add("--debug", action="store_true", default=False, help="log at DEBUG")
+    add("--distributed", action="store_true", default=False,
+        help="not ported yet (ROADMAP.md section A item 10)")
     add("--split-id", type=int, default=None,
         help="token id of '*' in the vocab (image stream default 265; the text "
              "stream reads it from the vocab and refuses another)")
@@ -141,8 +210,25 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
              "plain versions of the kernels)")
 
 
+# Flags of parts not ported yet: (field, value that asks for them, item).
+UNPORTED = (("db_shard", True, "ROADMAP.md section A item 10 (multi-device)"),
+            ("worker_processes", True, "ROADMAP.md section A item 10 (multi-process)"),
+            ("distributed", True, "ROADMAP.md section A item 10 (multi-process)"),
+            ("quant_towers", "int8", "ROADMAP.md section A item 15 (W8A8 towers)"),
+            ("retrieval_backend", "int8", "ROADMAP.md section A item 14 (auto, xla and "
+             "pallas run the exact search)"),
+            ("retrieval_backend", "approx", "ROADMAP.md section A item 14 (auto, xla and "
+             "pallas run the exact search)"))
+
+
 def parse_args(argv: Optional[List[str]] = None,
                prog: str = "keds_tpu_torch.cli.main") -> Config:
     parser = argparse.ArgumentParser(prog=prog)
     _add_flags(parser)
-    return Config(**vars(parser.parse_args(argv))).finalize()
+    cfg = Config(**vars(parser.parse_args(argv))).finalize()
+    for field, value, item in UNPORTED:
+        if getattr(cfg, field) == value:
+            flag = "--" + field.replace("_", "-")
+            raise SystemExit(f"{flag}{'' if value is True else ' ' + str(value)}: not "
+                             f"ported yet, {item}")
+    return cfg

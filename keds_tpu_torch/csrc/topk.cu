@@ -70,6 +70,20 @@
 // Nothing calls the bf16 wide path on a hot loop (the shipped --db-topk is
 // 16), so it runs on CUDA cores: the tensor-core kernel's registers and
 // shared memory hold no room for eight-slot lists.
+//
+// k > 256 (a --topn of 300 over a served corpus; the Pallas kernel has no
+// cap on k): the wrapper runs the wide kernel in ceil(k / 256) passes with
+// no host round trip between them.  Pass p finds the best <= 256 rows among
+// those that come strictly after the previous pass's last entry (s_b, i_b)
+// in the total order (score desc, index asc): a row is offered only if
+// s < s_b, or s == s_b and i > i_b.  The bound is read straight from the
+// previous pass's slice of the output (column 256 p - 1, row stride k), and
+// each pass's merge writes its own 256 columns.  This is exact because every
+// pass takes the same wide tiling (32 x 128, the same D-loop order), so each
+// (query, row) score is bit-identical across passes; a short final pass
+// keeps the wide tiling instead of the k <= 32 kernels, whose sums round
+// differently.  Each pass reads the whole database again: k / 256 times the
+// single-pass cost.
 
 #include "common.cuh"
 
@@ -79,7 +93,7 @@ using namespace keds;
 using bf16 = __nv_bfloat16;
 
 constexpr int kLaneK = 32;       // k of lists with one entry a lane
-constexpr int kMaxK = 256;       // eight entries a lane
+constexpr int kMaxK = 256;       // eight entries a lane: one pass of the search
 
 // Variant codes of the C interface (mirrored in ops/topk.py).  The wide
 // variants take any k <= kMaxK, the others k <= kLaneK.
@@ -449,7 +463,8 @@ template <typename T, int kBQ, int kBN, int L>
 __global__ void __launch_bounds__(kThreads)
 topk_f32(const T* __restrict__ q, const T* __restrict__ db,
          float* __restrict__ cand_v, int* __restrict__ cand_i, int B, int N, int D,
-         int k, int n_splits) {
+         int k, int n_splits, const float* __restrict__ bound_v,
+         const int* __restrict__ bound_i, int bound_ld) {
   constexpr int kQPT = kBQ / 16, kRPT = kBN / 16;
   constexpr int kScoreLd = kBN + 1;
   constexpr int kQueriesPerWarp = kBQ / (kThreads / 32);
@@ -545,6 +560,12 @@ topk_f32(const T* __restrict__ q, const T* __restrict__ db,
         const float* row = sc + (warp * kQueriesPerWarp + i) * kScoreLd;
         float* qv = lv + i * L * 32 + lane;
         int* qx = li + i * L * 32 + lane;
+        // a later pass of a k > 256 search offers only the rows after its
+        // bound (the previous pass's last entry) in the total order
+        const int qi = q0 + warp * kQueriesPerWarp + i;
+        const bool bounded = bound_v != nullptr && qi < B;
+        const float bv = bounded ? bound_v[static_cast<size_t>(qi) * bound_ld] : CUDART_INF_F;
+        const int bi = bounded ? bound_i[static_cast<size_t>(qi) * bound_ld] : -1;
 #pragma unroll
         for (int s = 0; s < L; ++s) {
           sv[0][s] = qv[32 * s];
@@ -553,7 +574,9 @@ topk_f32(const T* __restrict__ q, const T* __restrict__ db,
 #pragma unroll
         for (int u = 0; u < kBN / 32; ++u) {
           const int col = lane + 32 * u;
-          offer_wide<L>(sv[0], si[0], row[col], n0 + col, n0 + col < N, k, lane);
+          const float x = row[col];
+          const bool after = x < bv || (x == bv && n0 + col > bi);
+          offer_wide<L>(sv[0], si[0], x, n0 + col, n0 + col < N && after, k, lane);
         }
 #pragma unroll
         for (int s = 0; s < L; ++s) {
@@ -592,13 +615,13 @@ constexpr int wide_list_bytes(int bq, int slots) {
   return slots == 1 ? 0 : bq * slots * 32 * static_cast<int>(sizeof(float) + sizeof(int));
 }
 
-// One warp per query folds its n_cand candidates; a slice of fewer than k
-// rows left -1 slots, which are never offered.
+// One warp per query folds its n_cand candidates into row qi * ldo of the
+// output; a slice of fewer than k rows left -1 slots, which are never offered.
 template <int L>
 __global__ void __launch_bounds__(128)
 topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
            float* __restrict__ out_v, int* __restrict__ out_i, int B,
-           int n_cand, int k) {
+           int n_cand, int k, int ldo) {
   const int qi = blockIdx.x * 4 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (qi >= B) return;   // whole warp leaves together
@@ -622,8 +645,8 @@ topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
   for (int s = 0; s < L; ++s) {
     const int e = s * 32 + lane;
     if (e < k) {
-      out_v[static_cast<size_t>(qi) * k + e] = sv[s];
-      out_i[static_cast<size_t>(qi) * k + e] = si[s];
+      out_v[static_cast<size_t>(qi) * ldo + e] = sv[s];
+      out_i[static_cast<size_t>(qi) * ldo + e] = si[s];
     }
   }
 }
@@ -633,9 +656,16 @@ constexpr int kWideBQ = 32, kWideBN = 128;
 constexpr int kTiles[5][2] = {{64, 128}, {16, 32}, {kTcBQ, kTcBN}, {kWideBQ, kWideBN},
                               {kWideBQ, kWideBN}};
 
+// A search's bound: none, or the previous pass's last entries (row stride ld).
+struct Bound {
+  const float* v = nullptr;
+  const int* i = nullptr;
+  int ld = 0;
+};
+
 template <typename T, int kBQ, int kBN, int L>
 cudaError_t launch_f32(const void* q, const void* db, float* cv, int* ci, int B, int N,
-                       int D, int k, int n_splits, cudaStream_t st) {
+                       int D, int k, int n_splits, cudaStream_t st, Bound bound = {}) {
   constexpr int kListBytes = wide_list_bytes(kBQ, L);
   if constexpr (kListBytes > 0) {
     static int smem_set[64];
@@ -645,32 +675,38 @@ cudaError_t launch_f32(const void* q, const void* db, float* cv, int* ci, int B,
   }
   dim3 grid((B + kBQ - 1) / kBQ, n_splits);
   topk_f32<T, kBQ, kBN, L><<<grid, kThreads, kListBytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(db), cv, ci, B, N, D, k, n_splits);
+      static_cast<const T*>(q), static_cast<const T*>(db), cv, ci, B, N, D, k, n_splits,
+      bound.v, bound.i, bound.ld);
   return cudaGetLastError();
 }
 
 // Slots a lane for a list of k entries: 1 up to 32, else 2, 4 or 8.
 inline int list_slots(int k) { return k <= kLaneK ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8; }
 
+// The wide tiling at any k <= kMaxK: a short final pass of a k > 256 search
+// (k <= 32) takes the L = 2 lists, not the k <= 32 kernels.
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* db, float* cv, int* ci, int B, int N,
-                        int D, int k, int n_splits, cudaStream_t st) {
+                        int D, int k, int n_splits, cudaStream_t st, Bound bound) {
   switch (list_slots(k)) {
     case 1:
-    case 2: return launch_f32<T, kWideBQ, kWideBN, 2>(q, db, cv, ci, B, N, D, k, n_splits, st);
-    case 4: return launch_f32<T, kWideBQ, kWideBN, 4>(q, db, cv, ci, B, N, D, k, n_splits, st);
-    default: return launch_f32<T, kWideBQ, kWideBN, 8>(q, db, cv, ci, B, N, D, k, n_splits, st);
+    case 2:
+      return launch_f32<T, kWideBQ, kWideBN, 2>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
+    case 4:
+      return launch_f32<T, kWideBQ, kWideBN, 4>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
+    default:
+      return launch_f32<T, kWideBQ, kWideBN, 8>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
   }
 }
 
 cudaError_t launch_merge(const float* cv, const int* ci, float* out_v, int* out_i, int B,
-                         int n_cand, int k, cudaStream_t st) {
+                         int n_cand, int k, int ldo, cudaStream_t st) {
   const int blocks = (B + 3) / 4;
   switch (list_slots(k)) {
-    case 1: topk_merge<1><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k); break;
-    case 2: topk_merge<2><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k); break;
-    case 4: topk_merge<4><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k); break;
-    default: topk_merge<8><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k);
+    case 1: topk_merge<1><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo); break;
+    case 2: topk_merge<2><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo); break;
+    case 4: topk_merge<4><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo); break;
+    default: topk_merge<8><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo);
   }
   return cudaGetLastError();
 }
@@ -708,17 +744,25 @@ extern "C" int keds_topk_tc_max_dim() { return kTcMaxDim; }
 // q (B, D) and db (N, D) row-major, 16-byte aligned; D % 64 == 0 for
 // bf16_tc, D % 32 == 0 otherwise.  k <= 32, or k <= 256 for the wide
 // variants.  cand_v / cand_i: scratch of B * n_splits * k entries.
-// n_splits <= the number of chunks.
+// n_splits <= the number of chunks.  The result goes to out_v / out_i with
+// row stride out_ld >= k.  bound_v / bound_i (wide variants only; null for
+// none) point at each query's bound entry, row stride out_ld: one pass of a
+// k > 256 search (see the header).
 extern "C" int keds_mips_topk(const void* q, const void* db, void* cand_v,
                               void* cand_i, void* out_v, void* out_i, int variant,
-                              int B, int N, int D, int k, int n_splits, void* stream) {
+                              int B, int N, int D, int k, int n_splits, int out_ld,
+                              const void* bound_v, const void* bound_i, void* stream) {
   const bool wide = variant == kF32Wide || variant == kBf16Wide;
   if (k < 1 || k > (wide ? kMaxK : kLaneK) || k > N || B < 1 || n_splits < 1 ||
-      variant < kF32 || variant > kBf16Wide)
+      variant < kF32 || variant > kBf16Wide || out_ld < k ||
+      ((bound_v != nullptr || bound_i != nullptr) && !wide) ||
+      ((bound_v == nullptr) != (bound_i == nullptr)))
     return cudaErrorInvalidValue;
   float* cv = static_cast<float*>(cand_v);
   int* ci = static_cast<int*>(cand_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Bound bound{static_cast<const float*>(bound_v), static_cast<const int*>(bound_i),
+                    out_ld};
   cudaError_t err;
   if (variant == kBf16Tc) {
     if (D % kTcDK || D > keds_topk_tc_max_dim()) return cudaErrorInvalidValue;
@@ -728,11 +772,11 @@ extern "C" int keds_mips_topk(const void* q, const void* db, void* cand_v,
     switch (variant) {
       case kF32: err = launch_f32<float, 64, 128, 1>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
       case kF32Small: err = launch_f32<float, 16, 32, 1>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
-      case kF32Wide: err = launch_wide<float>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
-      default: err = launch_wide<bf16>(q, db, cv, ci, B, N, D, k, n_splits, st);
+      case kF32Wide: err = launch_wide<float>(q, db, cv, ci, B, N, D, k, n_splits, st, bound); break;
+      default: err = launch_wide<bf16>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
     }
   }
   if (err != cudaSuccess) return err;
   return launch_merge(cv, ci, static_cast<float*>(out_v), static_cast<int*>(out_i), B,
-                      n_splits * k, k, st);
+                      n_splits * k, k, out_ld, st);
 }

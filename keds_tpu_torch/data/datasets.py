@@ -4,7 +4,11 @@ benchmarks and the precomputed CC3M feature pairs of training.
 The benchmarks (``CIRR``, ``FashionIQ``, ``CsvCOCO``, ``ImageList``) read the
 reference's directory layouts and return the JAX package's tuples in its
 order: images through the given transform (PIL, imported when an image is
-opened), prompts tokenized by the port's BPE.
+opened), prompts tokenized by the port's BPE.  ``CustomFolder`` (a folder
+of images) and ``CsvDataset`` (image paths and captions in a csv) feed the
+serve and demo CLIs and raw-image training.  ``CsvDataset``'s
+``caption_token_needs`` (rank-consistent caption buckets) waits for
+multi-process training, ROADMAP.md section A item 10.
 
 ``FeaturePairDataset`` (training) reads two layouts: packed (``image_features.npy`` (N, D), ``text_features.npy``
 (N, D) and ``names.json`` in one directory, memory-mapped) and the
@@ -230,6 +234,47 @@ class ImageList:
         if self.labels is not None:
             return img, self.labels[idx], basename
         return img
+
+
+class CustomFolder:
+    """All images in one folder, in sorted name order (reference
+    src/data.py:549-571): the serve CLI's corpus and the demo's COCO one."""
+
+    def __init__(self, folder: str, transform: Callable):
+        self.samples = [os.path.join(folder, n) for n in sorted(os.listdir(folder))]
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int):
+        path = self.samples[idx]
+        return self.transform(_open_image(path)), path
+
+
+class CsvDataset:
+    """(image, caption tokens) rows of a csv (reference src/data.py:673-696):
+    raw-image training, and the demo's corpus with ``return_filename``
+    (image, path).  ``transforms`` may be None where no sample is read (the
+    train CLI's ``--val-data`` count)."""
+
+    def __init__(self, input_filename: str, transforms: Optional[Callable], img_key: str,
+                 caption_key: str, sep: str = "\t", return_filename: bool = False):
+        with open(input_filename) as f:
+            rows = list(csv.DictReader(f, delimiter=sep))
+        self.images = [r[img_key] for r in rows]
+        self.captions = [r[caption_key] for r in rows]
+        self.transforms = transforms
+        self.return_filename = return_filename
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, idx: int):
+        img = self.transforms(_open_image(str(self.images[idx])))
+        if self.return_filename:
+            return img, str(self.images[idx])
+        return img, tokenize([str(self.captions[idx])])[0]
 
 
 def _load_json_maybe(folder: str, name: str) -> dict:

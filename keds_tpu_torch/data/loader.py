@@ -64,6 +64,12 @@ class DataLoader:
                 yield default_collate([self.dataset[int(i)] for i in b])
             return
         with ThreadPoolExecutor(self.num_workers) as pool:
-            for b in batches:
-                yield default_collate(list(pool.map(self.dataset.__getitem__,
-                                                    [int(i) for i in b])))
+            def submit(b):
+                return [pool.submit(self.dataset.__getitem__, int(i)) for i in b]
+
+            pending = submit(batches[0]) if batches else []
+            for j in range(len(batches)):
+                current = pending
+                # the next batch decodes while this one is consumed
+                pending = submit(batches[j + 1]) if j + 1 < len(batches) else []
+                yield default_collate([f.result() for f in current])

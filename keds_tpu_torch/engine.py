@@ -6,14 +6,15 @@ retrieves the top-k image and caption neighbours from the knowledge DB,
 fuses them into pseudo tokens, splices those into the prompt at ``*`` and
 runs the causal text tower; a corpus is ranked against the unit-norm result.
 
-    engine = ComposedQueryEngine(clip_params, cfg, heads, db, split_id=265)
+    engine = ComposedQueryEngine(clip_params, cfg, heads, db)
     corpus = engine.encode_corpus(image_batches)          # (N, D) unit-norm
     scores, idx = engine.search(query_images, query_texts, corpus, topn=10)
 
-The ``*`` token id is passed in (``split_id``): the port reads no BPE vocab.
-Everything runs on ``device`` (the CUDA device unless the caller asks for
-the CPU); the tower attention and both searches go through the fused
-kernels there.
+The ``*`` token id (``split_id``) comes from the CLIP BPE vocab
+(``tokenizer.star_token_id``, which raises ``FileNotFoundError`` without
+one) unless the caller passes it.  Everything runs on ``device`` (the CUDA
+device unless the caller asks for the CPU); the tower attention and both
+searches go through the fused kernels there.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from keds_tpu_torch.models.convert import cast_floating
 from keds_tpu_torch.ops.topk import mips_topk
 from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
-from keds_tpu_torch.tokenizer import bucket_text
+from keds_tpu_torch.tokenizer import bucket_text, star_token_id
 
 
 class DeviceCorpus(NamedTuple):
@@ -40,7 +41,7 @@ class DeviceCorpus(NamedTuple):
 
 class ComposedQueryEngine:
     def __init__(self, clip_params: dict, cfg: mclip.ClipConfig, heads: FusionHeads,
-                 db: KnowledgeDB, *, split_id: int, db_topk: int = 16,
+                 db: KnowledgeDB, *, split_id: Optional[int] = None, db_topk: int = 16,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  encode_chunk: Optional[int] = mclip.DEFAULT_ENCODE_CHUNK,
                  device: DeviceLike = None):
@@ -54,7 +55,7 @@ class ComposedQueryEngine:
         self.db = db
         self.retriever = Retriever(db)
         self.db_topk = db_topk
-        self.split_id = int(split_id)
+        self.split_id = int(star_token_id() if split_id is None else split_id)
         self.encode_chunk = encode_chunk
 
     def _to_device(self, a) -> torch.Tensor:

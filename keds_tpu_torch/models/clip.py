@@ -6,7 +6,8 @@ Parameters are the JAX pytree as a nested dict of tensors (see
 matmul) -> CLS -> pos-embed -> pre-LN -> blocks -> post-LN on CLS ->
 projection, the text tower token + pos embed -> causal blocks -> final LN ->
 pool -> projection.  Images are NHWC, tokens (B, S) integers.  The final
-block of both towers runs pooled (:func:`layers.transformer_pooled`).  Three
+block of both towers runs pooled (:func:`layers.transformer_pooled`);
+:func:`get_text_tokens` keeps the whole final-LN sequence instead.  Three
 splices put pseudo-tokens into the text: before a fixed prompt's EOT
 (image-stream training), at a ``*`` (composed queries) and in place over
 template stars (text-stream training).  The
@@ -17,11 +18,11 @@ the attention op, which applies it itself.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from keds_tpu_torch.models.layers import layer_norm, transformer_pooled
+from keds_tpu_torch.models.layers import layer_norm, transformer, transformer_pooled
 from keds_tpu_torch.transforms import device_normalize
 
 
@@ -159,6 +160,20 @@ def encode_text(params: dict, cfg: ClipConfig, text: torch.Tensor) -> torch.Tens
     text = text.long()
     x = params["text"]["tok_emb"][text]
     return _text_tail_pooled(params, cfg, x, eot_indices(text, cfg.eot_id))
+
+
+def get_text_tokens(params: dict, cfg: ClipConfig,
+                    text: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final-LN token sequence (B, S, width) of the causal text tower
+    and each row's EOT index (reference ``get_text_tokens``,
+    model.py:592-605): the keys and values of the demo's late fusion."""
+    t = params["text"]
+    text = text.long()
+    S = text.shape[1]
+    x = t["tok_emb"][text]
+    x = transformer(x + t["pos"][:S].to(x.dtype), t["blocks"], cfg.transformer_heads,
+                    causal=True)
+    return layer_norm(x, t["ln_final_g"], t["ln_final_b"]), eot_indices(text, cfg.eot_id)
 
 
 # --------------------------------------------------------------------------

@@ -54,11 +54,16 @@ def cast_floating(tree, dtype: torch.dtype, device: DeviceLike = None):
     return _map(tree, cast)
 
 
+def params_from_numpy(tree, device: DeviceLike = None, dtype: torch.dtype = torch.float32):
+    """A parameter tree of arrays (nested dicts and lists) as tensors."""
+    dev = resolve_device(device)
+    return _map(tree, lambda a: _tensor(a, dev, dtype))
+
+
 def clip_from_numpy(params: dict, device: DeviceLike = None,
                     dtype: torch.dtype = torch.float32) -> dict:
     """The JAX CLIP pytree (nested dicts of arrays) as port parameters."""
-    dev = resolve_device(device)
-    return _map(params, lambda a: _tensor(a, dev, dtype))
+    return params_from_numpy(params, device, dtype)
 
 
 def heads_from_numpy(heads, device: DeviceLike = None,

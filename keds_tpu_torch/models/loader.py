@@ -34,8 +34,7 @@ def load_clip(name_or_path: str, target_pad: Optional[float] = None,
               ) -> Tuple[dict, ClipConfig, object, object]:
     """(f32 parameters on ``device``, config, train transform, val
     transform).  ``normalize_on_host=False`` gives uint8 transforms whose
-    normalisation runs on the device.  The train transform raises when
-    called until the train crop is ported (ROADMAP.md section A item 11)."""
+    normalisation runs on the device."""
     if not os.path.isfile(name_or_path):
         raise FileNotFoundError(f"CLIP weights {name_or_path!r}: not a local file (the "
                                 "port downloads nothing)")

@@ -7,10 +7,12 @@ ranking.  On CUDA tensors it launches the hand-written fused kernel
 raises: bf16 runs the tensor-core kernel (variant ``bf16_tc``), f32 the
 exact-f32 CUDA-core kernel (variant ``f32``).  Above k = 32 both dtypes
 take the CUDA-core kernel with lists of up to eight entries a lane (f32
-counts as ``f32``, bf16 as ``bf16``), up to k = 256; the Pallas kernel has
-no cap on k, and a larger k raises here.  On CPU tensors it runs the plain
-version :func:`mips_topk_plain`.  Both order equal scores by lower row
-index first.
+counts as ``f32``, bf16 as ``bf16``), up to k = 256 in one pass.  A larger
+k (the Pallas kernel has no cap) runs that kernel in ceil(k / 256) passes,
+each bounded by the previous pass's last entry (``csrc/topk.cu``); each
+pass counts as ``f32_multi`` or ``bf16_multi``.  On CPU tensors it runs the
+plain version :func:`mips_topk_plain`.  Both order equal scores by lower
+row index first.
 """
 
 from __future__ import annotations
@@ -24,12 +26,12 @@ from keds_tpu_torch.ops.cuda_build import CudaKernel, require_cuda, sm_count, st
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("topk", {
-    "keds_mips_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "keds_mips_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "keds_topk_max_k": [],
     "keds_topk_query_tile": [_I],
     "keds_topk_chunk_rows": [_I],
     "keds_topk_tc_max_dim": [],
-}, variants=("bf16_tc", "f32", "bf16"))
+}, variants=("bf16_tc", "f32", "bf16", "f32_multi", "bf16_multi"))
 
 
 class Tiling(NamedTuple):
@@ -54,7 +56,7 @@ F32_WIDE = Tiling(3, "f32", 32, 128, 4)
 BF16_WIDE = Tiling(4, "bf16", 32, 128, 4)
 TILINGS = (F32, F32_SMALL, TC, F32_WIDE, BF16_WIDE)
 LANE_K = 32           # one list entry a lane
-MAX_K = 256
+MAX_K = 256           # one pass of the wide kernel; a larger k takes several
 TC_MAX_DIM = 1024     # the queries' fragments live in registers
 
 
@@ -109,9 +111,6 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     B, D = queries.shape
     N = db.shape[0]
     _check_k(k, N)
-    if k > MAX_K:
-        raise ValueError(f"top-k kernel supports k <= {MAX_K} (eight list entries "
-                         f"a lane), got {k}")
     if queries.dtype != db.dtype or queries.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"top-k kernel takes f32 or bf16 inputs of one dtype, "
                          f"got {queries.dtype} and {db.dtype}")
@@ -130,19 +129,27 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
 
 def launch(queries: torch.Tensor, db: torch.Tensor, k: int, tiling: Tiling,
            n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One search through ``tiling`` over ``n_splits`` database slices, on
+    """A search through ``tiling`` over ``n_splits`` database slices, on
     inputs :func:`mips_topk` has checked (the card tests also call it with a
-    plan of their own)."""
-    (B, D), N = queries.shape, db.shape[0]
-    dev = queries.device
-    cand_v = torch.empty((B, n_splits, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((B, n_splits, k), dtype=torch.int32, device=dev)
+    plan of their own).  A k above MAX_K takes the wide ``tiling`` in
+    passes: pass p fills columns [MAX_K p, MAX_K (p + 1)) of the output with
+    the best rows after the entry in column MAX_K p - 1, in the order
+    (score desc, index asc)."""
+    (B, D), N, dev = queries.shape, db.shape[0], queries.device
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
-    err = KERNEL.lib().keds_mips_topk(
-        queries.data_ptr(), db.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), tiling.code, B, N, D, k, n_splits,
-        stream_ptr(queries))
-    KERNEL.check(err)
-    KERNEL.launches[tiling.variant] += 1
+    width = min(k, MAX_K)
+    cand_v = torch.empty((B, n_splits, width), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((B, n_splits, width), dtype=torch.int32, device=dev)
+    variant = tiling.variant if k <= MAX_K else f"{tiling.variant}_multi"
+    for col in range(0, k, MAX_K):
+        # a later pass is bounded by the previous pass's last entry
+        bound = ((vals.data_ptr() + 4 * (col - 1), idx.data_ptr() + 4 * (col - 1)) if col
+                 else (None, None))
+        err = KERNEL.lib().keds_mips_topk(
+            queries.data_ptr(), db.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
+            vals.data_ptr() + 4 * col, idx.data_ptr() + 4 * col, tiling.code, B, N, D,
+            min(MAX_K, k - col), n_splits, k, *bound, stream_ptr(queries))
+        KERNEL.check(err)
+        KERNEL.launches[variant] += 1
     return vals, idx

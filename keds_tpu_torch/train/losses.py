@@ -1,5 +1,7 @@
 """Training losses of the two streams (counterpart of
-``keds_tpu/train/losses.py``), on precomputed CLIP features.
+``keds_tpu/train/losses.py``), on precomputed CLIP features, and the
+frozen-CLIP encode that turns a raw-image batch into features
+(:func:`encode_raw_batch`).
 
 * The image stream (the reference's ``get_loss_img2text_image``) retrieves
   the top-16 neighbours of each image feature, fuses them into 3
@@ -59,6 +61,35 @@ class TrainBatch(NamedTuple):
     txt_idx: Optional[torch.Tensor] = None    # (B, k) text-DB neighbour rows
     other_tokens: Optional[torch.Tensor] = None   # (B, S) "a photo of * * * {other}"
     cap2_idx: Optional[torch.Tensor] = None   # (B, 2) caption-DB neighbour rows
+
+
+class RawBatch(NamedTuple):
+    """A raw (image, caption) batch of the csv or tar-stream loaders; the
+    train step computes its CLIP features (the reference's webdataset mode,
+    src/data.py:938-953)."""
+
+    images: torch.Tensor          # (B, H, W, 3) uint8 (normalised on the device) or float
+    caption_tokens: torch.Tensor  # (B, S) caption tokens, S a causal-prefix bucket
+
+
+def encode_raw_batch(clip_params: dict, cfg: mclip.ClipConfig, batch: RawBatch,
+                     encode_chunk: Optional[int] = mclip.DEFAULT_ENCODE_CHUNK,
+                     captions: bool = True) -> TrainBatch:
+    """Frozen-CLIP features of a raw batch under ``torch.no_grad()`` (the
+    reference's torch.no_grad, src/trainer.py:48-52): the image tower in
+    ``encode_chunk``-image chunks (uint8 normalised on the device) and the
+    text tower over the captions, both returned in f32.
+
+    The image stream reads no caption feature.  XLA drops the JAX step's
+    caption encode as dead code; here the train step passes
+    ``captions=False`` so that eager PyTorch does not run a text tower each
+    step for nothing, and ``caption_features`` is then None.  The step's
+    results are the same either way."""
+    with torch.no_grad():
+        img = mclip.encode_image_chunked(clip_params, cfg, batch.images, encode_chunk)
+        txt = mclip.encode_text(clip_params, cfg, batch.caption_tokens) if captions else None
+    return TrainBatch(image_features=img.float(),
+                      caption_features=txt.float() if captions else None)
 
 
 def image_stream_loss(heads: FusionHeads, clip_params: dict, cfg: mclip.ClipConfig,

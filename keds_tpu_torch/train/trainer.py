@@ -1,5 +1,5 @@
 """Training step and epoch loop (counterpart of ``keds_tpu/train/trainer.py``),
-features mode, both streams.
+both streams on precomputed features, and the image stream on raw images.
 
 One step runs on the device: the top-k search of the knowledge DB (the
 fused kernel on the card), one permutation of the image neighbours, the
@@ -41,7 +41,8 @@ from keds_tpu_torch.models.convert import cast_floating, head_parameter_groups
 from keds_tpu_torch.retrieval.database import Retriever, unit_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 from keds_tpu_torch.tokenizer import bucket_text
-from keds_tpu_torch.train.losses import TrainBatch, image_stream_loss, no_mark, text_stream_loss
+from keds_tpu_torch.train.losses import (RawBatch, TrainBatch, encode_raw_batch,
+                                         image_stream_loss, no_mark, text_stream_loss)
 from keds_tpu_torch.train.schedule import cosine_lr
 
 # The pseudo-tokens of the image stream: fused + text-condition + mapped.
@@ -114,6 +115,7 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
                     *, stream: str, prompt_tokens, split_id: int, seed: int = 0,
                     dropout: float = 0.1, db_topk: int = 16, db_other_tokens=None,
                     compute_dtype: torch.dtype = torch.bfloat16,
+                    encode_chunk: Optional[int] = mclip.DEFAULT_ENCODE_CHUNK,
                     device: DeviceLike = None):
     """The train step of one stream: ``step(heads, batch, t) -> loss``.
 
@@ -124,10 +126,12 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
     returned loss is detached and stays on the device.  ``prompt_tokens``
     is the image stream's prompt; ``split_id`` (the ``*`` token) and
     ``db_other_tokens`` ((N, 77) "a photo of * * {other}" templates of every
-    DB row, required) are the text stream's.  ``step(..., mark=f)`` calls
-    ``f(stage)`` as each stage ends (``retrieval``, ``heads_forward``,
-    ``text_tower_forward``, ``backward``, ``optimizer``), for a caller that
-    times them."""
+    DB row, required) are the text stream's.  The image stream also takes a
+    :class:`RawBatch`, whose image features the frozen image tower computes
+    first (in ``encode_chunk``-image chunks).  ``step(..., mark=f)`` calls
+    ``f(stage)`` as each stage ends (``encode`` for a raw batch,
+    ``retrieval``, ``heads_forward``, ``text_tower_forward``, ``backward``,
+    ``optimizer``), for a caller that times them."""
     if stream not in ("image", "text"):
         raise ValueError(f"unknown stream {stream!r}")
     text = stream == "text"
@@ -141,10 +145,15 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
 
     def train_step(heads: FusionHeads, batch: TrainBatch, step: int,
                    mark: Callable[[str], None] = no_mark) -> torch.Tensor:
-        if not isinstance(batch, TrainBatch):
-            raise NotImplementedError(
-                f"{type(batch).__name__}: only precomputed-feature TrainBatch "
-                "steps are ported; raw image batches are ROADMAP.md section A item 11")
+        if isinstance(batch, RawBatch):
+            if text:
+                raise ValueError("a RawBatch trains the image stream only: the text "
+                                 "stream needs precomputed features and templates")
+            batch = encode_raw_batch(clip_c, cfg, batch, encode_chunk, captions=False)
+            mark("encode")
+        elif not isinstance(batch, TrainBatch):
+            raise TypeError(f"{type(batch).__name__}: the train step takes a TrainBatch "
+                            "of features or a RawBatch of images")
         given = [n for n in index_fields if getattr(batch, n) is not None]
         if given and len(given) < len(index_fields):
             raise ValueError(
@@ -207,7 +216,7 @@ def train_epoch(train_step, heads: FusionHeads, data_iter: Iterable, epoch: int,
             lr = schedule(step) if schedule else float("nan")
             pct = 100.0 * i / max(steps_per_epoch, 1)
             logging.info(
-                f"Train Epoch: {epoch} [{i * batch.image_features.shape[0]}"
+                f"Train Epoch: {epoch} [{i * batch[0].shape[0]}"
                 f" ({pct:.0f}%)]\tLoss: {loss_val:.6f}\tData (t) {data_time:.3f}"
                 f"\tBatch (t) {batch_time:.3f}\tLR: {lr:5f}")
             scalars = {"train/loss": loss_val, "train/data_time": data_time,

@@ -8,15 +8,20 @@ reference torchvision pipeline, ``src/model/clip.py:107-123`` and
   [0, 1] -> CLIP mean/std, or uint8 without the last two steps
   (``normalize=False``: :func:`device_normalize` does them on the device);
 * optional TargetPad(1.25) aspect-ratio padding (``--target-pad``);
+* train: RandomResizedCrop(n_px, scale=(0.9, 1.0), BICUBIC), then as val;
 * COCO region queries: resize to (n_px, n_px), no crop.
 
-The train-time random crop is not ported yet (ROADMAP.md section A item
-11).  PIL is imported inside the functions that need it, so importing this
-module loads no PIL.  Arrays are NHWC.
+The train crop draws from a ``random.Random`` (``rng``; the module's
+global generator when None, as the JAX package's CLI runs it) in the JAX
+package's order, so one seeded generator gives both packages the same crops.
+PIL is imported inside the functions that need it, so importing this module
+loads no PIL.  Arrays are NHWC.
 """
 
 from __future__ import annotations
 
+import math
+import random
 from typing import Callable, Optional
 
 import numpy as np
@@ -80,33 +85,57 @@ class TargetPad:
         return out
 
 
+def _random_resized_crop(img, n_px: int, scale=(0.9, 1.0),
+                         ratio=(3.0 / 4.0, 4.0 / 3.0),
+                         rng: Optional[random.Random] = None):
+    """torchvision's RandomResizedCrop: up to 10 draws of an area share and
+    a log aspect ratio, then a corner, for a crop inside the image, resized
+    to (n_px, n_px); else the val centre crop."""
+    rng = rng or random
+    w, h = img.size
+    area = w * h
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        aspect = math.exp(rng.uniform(math.log(ratio[0]), math.log(ratio[1])))
+        cw = int(round(math.sqrt(target_area * aspect)))
+        ch = int(round(math.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            left = rng.randint(0, w - cw)
+            top = rng.randint(0, h - ch)
+            return img.crop((left, top, left + cw, top + ch)).resize((n_px, n_px),
+                                                                     _bicubic())
+    return _center_crop(_resize_shorter(img, n_px), n_px)
+
+
 class _ImageTransform:
     """Picklable PIL-image transform."""
 
     def __init__(self, n_px: int, is_train: bool, target_pad: Optional[float],
-                 normalize: bool):
+                 rng: Optional[random.Random], normalize: bool):
         self.n_px = n_px
         self.is_train = is_train
         self.pad = TargetPad(target_pad) if target_pad else None
+        self.rng = rng
         self.normalize = normalize
 
     def __call__(self, img):
-        if self.is_train:
-            raise NotImplementedError("the train-time random crop is ROADMAP.md section A "
-                                      "item 11, not ported yet")
         if self.pad is not None:
             img = self.pad(img)
-        img = _center_crop(_resize_shorter(img, self.n_px), self.n_px)
+        if self.is_train:
+            img = _random_resized_crop(img, self.n_px, rng=self.rng)
+        else:
+            img = _center_crop(_resize_shorter(img, self.n_px), self.n_px)
         return _to_array(img) if self.normalize else _to_u8(img)
 
 
 def image_transform(n_px: int, is_train: bool = False,
                     target_pad: Optional[float] = None,
+                    rng: Optional[random.Random] = None,
                     normalize: bool = True) -> Callable:
     """PIL image -> normalised float32 HWC array, or (``normalize=False``)
-    the resized and cropped uint8 HWC image.  ``is_train`` transforms raise
-    when called: the train crop waits for ROADMAP.md section A item 11."""
-    return _ImageTransform(n_px, is_train, target_pad, normalize)
+    the resized and cropped uint8 HWC image.  ``is_train`` takes the random
+    crop, drawn from ``rng``."""
+    return _ImageTransform(n_px, is_train, target_pad, rng, normalize)
 
 
 class _RegionTransform:

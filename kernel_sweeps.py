@@ -3,7 +3,7 @@
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
     python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k]
-                             [attention_bwd] [train_check_controls]
+                             [attention_bwd] [train_check_controls] [raw_check_controls]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -44,6 +44,16 @@ train_check_controls
                   replaced by zeros.  Each fault is a patch of
                   ``keds_tpu_torch.ops.attention`` for the duration of one
                   card step; the CPU f32 step is read once.
+raw_check_controls
+                  what ``chip_smoke.py``'s raw_train_check reads, and why: on
+                  the same ViT-L/14 weights, 0.5M DB and neighbours, for a
+                  batch of train-cropped smooth JPEGs (the smoke run's) and
+                  one of uniform noise, the image features' spread (the
+                  mean cosine between two images of the batch) and their
+                  card-bf16-vs-CPU-f32 cosine, then the check's reading of
+                  the card in bf16 and in f32, and of the CPU in bf16,
+                  each against the CPU in f32, and of the card in bf16
+                  against the CPU in bf16.
 """
 
 from __future__ import annotations
@@ -55,13 +65,15 @@ import sys
 from types import SimpleNamespace
 from unittest import mock
 
+import numpy as np
 import torch
 
-from chip_smoke import (DB_ROWS, QUERY_BATCH, TRAIN_BATCH, _dout, _qkv, _unit_rows,
-                        compare_readings, emit, time_ms, train_check_batch, train_reading)
+from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, TRAIN_BATCH, _dout, _qkv,
+                        _unit_rows, compare_readings, emit, jpeg_bytes, raw_reading, time_ms,
+                        train_check_batch, train_reading)
 
 PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "attention_bwd",
-          "train_check_controls")
+          "train_check_controls", "raw_check_controls")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "attention_bwd")   # the phases --impl times
 NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
                  (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
@@ -186,6 +198,54 @@ def train_check_controls() -> None:
         with _fault(fault):
             card = train_reading(clip_params, heads, db, torch.bfloat16, inputs)
         emit("train_check_control", fault=fault, **compare_readings(card, cpu))
+
+
+def raw_check_controls() -> None:
+    import random
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.data.tarstream import pil_jpeg_decoder
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+    from keds_tpu_torch.train.losses import RawBatch, encode_raw_batch
+    from keds_tpu_torch.train.trainer import frozen_clip
+
+    clip_params, heads, db = synth.build(VIT_L_14, db_rows=DB_ROWS, dtype=torch.bfloat16,
+                                         seed=0)
+    cpu_clip = cast_floating(clip_params, torch.float32, "cpu")
+    cpu_heads = cast_floating(heads, torch.float32, "cpu")
+    cpu_db = KnowledgeDB(db.image_db.cpu().float(), db.text_db.cpu().float(), db.names)
+    rng = np.random.default_rng(3)
+    decode = pil_jpeg_decoder(224, is_train=True, normalize=False, rng=random.Random(3))
+    caps = np.zeros((RAW_CHECK_BATCH, 16), np.int64)
+    caps[:, :3] = [49406, 320, 49407]
+    batches = {
+        "smooth_jpeg": np.stack([decode(jpeg_bytes(rng)) for _ in range(RAW_CHECK_BATCH)]),
+        "uniform_noise": rng.integers(0, 256, (RAW_CHECK_BATCH, 224, 224, 3), dtype=np.uint8)}
+    for name, images in batches.items():
+        batch = RawBatch(torch.from_numpy(images).cuda(), torch.from_numpy(caps).cuda())
+        feats = {dev: encode_raw_batch(frozen_clip(clip_params, dtype, torch.device(dev)),
+                                       VIT_L_14, RawBatch(batch.images.to(dev),
+                                                          batch.caption_tokens.to(dev)),
+                                       captions=False).image_features.cpu().double()
+                 for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32))}
+        unit = {k: v / v.norm(dim=1, keepdim=True) for k, v in feats.items()}
+        gram = unit["cpu"] @ unit["cpu"].T
+        off = gram[~torch.eye(len(gram), dtype=torch.bool)]
+        idx = Retriever(db).neighbour_indices(feats["cuda"].float().cuda(), 16)
+        cpu = raw_reading(cpu_clip, cpu_heads, cpu_db, torch.float32, batch, idx)
+        readings = {
+            "card_bf16": raw_reading(clip_params, heads, db, torch.bfloat16, batch, idx),
+            "card_f32": raw_reading(clip_params, heads, db, torch.float32, batch, idx),
+            "cpu_bf16": raw_reading(cpu_clip, cpu_heads, cpu_db, torch.bfloat16, batch, idx)}
+        emit("raw_check_control", batch=name, images=RAW_CHECK_BATCH,
+             mean_pairwise_feature_cosine=float(off.mean()),
+             min_pairwise_feature_cosine=float(off.min()),
+             card_bf16_vs_cpu_f32_feature_cosine=(unit["cuda"] * unit["cpu"]).sum(1).tolist(),
+             **{f"{k}_vs_cpu_f32": compare_readings(v, cpu) for k, v in readings.items()},
+             card_bf16_vs_cpu_bf16=compare_readings(readings["card_bf16"],
+                                                    readings["cpu_bf16"]))
 
 
 def main() -> int:

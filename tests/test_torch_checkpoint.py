@@ -120,7 +120,8 @@ def test_resume_equals_uninterrupted(tmp_path):
 def test_cli_trains_and_resumes(tmp_path, caplog, monkeypatch):
     """Two epochs, then --resume auto to a third, equal the heads of three
     uninterrupted epochs; the checkpoints load into the JAX package.  The
-    text stream without a BPE vocab and raw csv data are refused."""
+    text stream and raw csv data (which tokenize with it) are refused
+    without a BPE vocab."""
     data, dbdir, clip_path = _tiny_run_dir(tmp_path)
     ck_a = _cli(tmp_path, data, dbdir, clip_path, "a", 3)
     ck_b = _cli(tmp_path, data, dbdir, clip_path, "b", 2)
@@ -143,7 +144,7 @@ def test_cli_trains_and_resumes(tmp_path, caplog, monkeypatch):
     monkeypatch.setattr(tokenizer, "_VOCAB_SEARCH_PATHS", ())
     with pytest.raises(SystemExit, match="BPE vocab"):
         _cli(tmp_path, data, dbdir, clip_path, "c", 1, "--stream", "text")
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="raw images: CLIP BPE vocab"):
         _cli(tmp_path, data, dbdir, clip_path, "d", 1, "--dataset-type", "csv")
 
 

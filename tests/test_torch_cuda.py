@@ -91,11 +91,13 @@ def _check_topk(q, db, k, dtype):
     tiling, _ = split_plan(q.shape[0], db.shape[0],
                            torch.cuda.get_device_properties(q.device).multi_processor_count,
                            dtype, k)
-    before = topk_mod.KERNEL.launches[tiling.variant]
+    passes = -(-k // topk_mod.MAX_K)
+    variant = tiling.variant + ("_multi" if passes > 1 else "")
+    before = topk_mod.KERNEL.launches[variant]
     vals, idx = mips_topk(q, db, k)
     torch.cuda.synchronize()
     assert tiling.variant == (VARIANT if k <= topk_mod.LANE_K else WIDE_VARIANT)[dtype]
-    assert topk_mod.KERNEL.launches[tiling.variant] == before + 1
+    assert topk_mod.KERNEL.launches[variant] == before + (passes if passes > 1 else 1)
     _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
     return tiling
 
@@ -233,12 +235,53 @@ def test_python_mirrors_match_the_library(cuda):
             t.query_tile, t.chunk_rows)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("k", [257, 300, 512, 513, 800])
+@pytest.mark.parametrize("b,n", [(1, 1000), (33, 3001), (70, 20_011)])
+def test_topk_multi_pass_matches_plain(cuda, dtype, k, b, n):
+    """k above 256: passes of the wide kernel, each after the previous
+    pass's last entry; a short last pass (k = 257, 513) keeps the wide
+    tiling."""
+    _check_topk(_unit(b, 64, dtype, cuda, b + 9), _unit(n, 64, dtype, cuda, n + 4), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n,k", [(64, 10_000, 300), (8, 1000, 1000), (64, 4096, 300)])
+def test_topk_multi_pass_main_path_width(cuda, dtype, b, n, k):
+    """D = 768: a --topn of 300 over a served corpus, and k = N."""
+    _check_topk(_unit(b, 768, dtype, cuda, b + 2), _unit(n, 768, dtype, cuda, n), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("k", [300, 702, 2100])
+def test_topk_multi_pass_ties_cross_passes(cuda, dtype, k):
+    """Every row three times: runs of equal scores straddle the pass
+    boundaries (256 and 512 are not multiples of 3), which must keep the
+    lower index first and drop none; k = 2100 is the whole DB."""
+    base = _unit(700, 64, dtype, cuda, 25)
+    db = torch.cat([base, base, base]).contiguous()
+    q = _unit(45, 64, dtype, cuda, 26)
+    vals, idx = mips_topk(q, db, k)
+    torch.cuda.synchronize()
+    _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
+    assert bool((idx[:, 0::3] < idx[:, 1::3]).all() and (idx[:, 1::3] < idx[:, 2::3]).all())
+    assert bool((idx[:, 0::3] % 700 == idx[:, 2::3] % 700).all())
+    assert bool((vals[:, 0::3] == vals[:, 2::3]).all())
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((2, 64), device=cuda)
     with pytest.raises(ValueError, match="k <= N"):
         mips_topk(q, torch.zeros((5, 64), device=cuda), 6)
-    with pytest.raises(ValueError, match="k <= 256"):
-        mips_topk(q, torch.zeros((300, 64), device=cuda), 257)
+    # k = 257 and k = N take the multi-pass search (its k > 256 refusal is gone)
+    for n, k in ((300, 257), (300, 300)):
+        db = _unit(n, 64, torch.float32, cuda, n + k)
+        qq = _unit(2, 64, torch.float32, cuda, k)
+        vals, idx = mips_topk(qq, db, k)
+        pv, pi = mips_topk_plain(qq, db, k)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(idx, pi, atol=0, rtol=0)
+        torch.testing.assert_close(vals, pv, atol=TOPK_TOL[torch.float32], rtol=0)
     with pytest.raises(ValueError, match="one dtype"):
         mips_topk(q, torch.zeros((50, 64), device=cuda, dtype=torch.bfloat16), 3)
     qb = torch.zeros((2, 96), device=cuda, dtype=torch.bfloat16)
@@ -790,3 +833,112 @@ def test_neighbour_tool_on_card_matches_in_step_search(cuda, tmp_path):
     assert torch.equal(l0, l1)
     for a, b in zip(h0, h1):
         assert torch.equal(a, b)
+
+
+def test_tiny_raw_train_step_card_matches_cpu(cuda):
+    """Two image-stream steps on raw uint8 images at a tiny size in f32
+    (dropout 0): the frozen encode, the search, the loss and the updated
+    heads on the card equal the CPU's; B1 and B2 launch on the card."""
+    from types import SimpleNamespace
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+    from keds_tpu_torch.train.losses import RawBatch
+    from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=2,
+                     vision_width=128, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=1, transformer_layers=2)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=7,
+                                    device="cpu")
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.integers(0, 256, (12, 32, 32, 3), dtype=np.uint8))
+    caps = torch.zeros((12, 16), dtype=torch.int64)
+    caps[:, :3] = torch.tensor([49406, 320, 49407])
+    ocfg = SimpleNamespace(lr=1e-3, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.1, warmup=2,
+                           skip_scheduler=False)
+    prompt = np.zeros((1, 77), np.int64)
+    prompt[0, :5] = [49406, 320, 1125, 539, 49407]
+    out = {}
+    for dev in (cuda, "cpu"):   # the CPU run trains `heads` itself, in place
+        h = cast_floating(heads, torch.float32, dev)
+        ddb = KnowledgeDB(db.image_db.to(dev), db.text_db.to(dev), db.names)
+        opt, sched = make_optimizer(ocfg, 10, h)
+        step = make_train_step(params, cfg, Retriever(ddb), opt, sched, stream="image",
+                               prompt_tokens=prompt, split_id=265, dropout=0.0,
+                               db_topk=8, compute_dtype=torch.float32, encode_chunk=4,
+                               device=dev)
+        before = {k: dict(m.launches) for k, m in (("att", att_mod.KERNEL),
+                                                   ("top", topk_mod.KERNEL))}
+        losses = [float(step(h, RawBatch(images.to(dev), caps.to(dev)), t)) for t in range(2)]
+        if dev != "cpu":
+            assert att_mod.KERNEL.launches["f32"] > before["att"]["f32"]
+            assert topk_mod.KERNEL.launches["f32"] == before["top"]["f32"] + 4
+        out[str(dev)] = (losses, [t.detach().cpu() for t in h.img2text["layers"][0].values()])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+def test_serve_cli_topn_above_256_on_card(cuda, tmp_path, monkeypatch):
+    """The serve CLI at --topn 280 over 300 images, ranked on the device
+    (the multi-pass top-k): the card's results equal the CPU run's, but for
+    swaps between entries within 1e-4 of each other."""
+    import json
+
+    from PIL import Image
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.cli import serve
+    from keds_tpu_torch.io.checkpoint import save_train_checkpoint
+    from keds_tpu_torch.models.clip import ClipConfig
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=2,
+                     vision_width=128, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=1, transformer_layers=2)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=8,
+                                    device="cpu")
+    save_train_checkpoint(str(tmp_path / "ckpt.pt"), epoch=1, name="t", clip_params=params,
+                          clip_cfg=cfg, heads=heads)
+    (tmp_path / "db").mkdir()
+    np.save(tmp_path / "db" / "image_db.npy", db.image_db.numpy())
+    np.save(tmp_path / "db" / "text_db.npy", db.text_db.numpy())
+    rng = np.random.default_rng(4)
+    (tmp_path / "corpus").mkdir()
+    for i in range(300):
+        Image.fromarray(rng.integers(0, 255, (36, 40, 3), np.uint8)).save(
+            tmp_path / "corpus" / f"c{i:03d}.png")
+    (tmp_path / "q.jsonl").write_text("\n".join(
+        json.dumps({"image": str(tmp_path / "corpus" / f"c{i:03d}.png"),
+                    "text": "a photo of * , red"}) for i in range(5)))
+    import gzip
+
+    with gzip.open(tmp_path / "merges.txt.gz", "wt") as f:   # no merges: bytes only
+        f.write("#version: test\n")
+    monkeypatch.setenv("KEDS_TPU_BPE_VOCAB", str(tmp_path / "merges.txt.gz"))
+    monkeypatch.setattr(serve, "DEVICE_RANK_MIN_ROWS", 1)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        before = topk_mod.KERNEL.launches["f32_multi"]
+        out = serve.main(["--resume", str(tmp_path / "ckpt.pt"), "--database-path",
+                          str(tmp_path / "db"), "--target-data", str(tmp_path / "corpus"),
+                          "--query_file", str(tmp_path / "q.jsonl"), "--demo-out",
+                          str(tmp_path / dev), "--batch-size", "4", "--db-topk", "8",
+                          "--topn", "280", "--precision", "fp32", "--device", dev,
+                          "--logs", str(tmp_path / "logs"), "--name", dev])
+        assert out["device_ranking"] and out["topn"] == 280
+        if dev == "cuda":
+            assert topk_mod.KERNEL.launches["f32_multi"] == before + 2 * 2   # 2 batches
+        results[dev] = [json.loads(x) for x in open(out["out_path"])]
+    for g, c in zip(results["cuda"], results["cpu"]):
+        gs = np.array([r["score"] for r in g["results"]])
+        cs = np.array([r["score"] for r in c["results"]])
+        assert len(gs) == len(cs) == 280
+        np.testing.assert_allclose(gs, cs, atol=1e-4, rtol=0)
+        gn = [r["name"] for r in g["results"]]
+        cn = [r["name"] for r in c["results"]]
+        for r in (i for i in range(280) if gn[i] != cn[i]):
+            j = cn.index(gn[r]) if gn[r] in cn else 279
+            assert abs(cs[j] - cs[r]) <= 1e-4

@@ -3,6 +3,7 @@ datasets' samples and the transforms' arrays bit for bit, load_clip's
 parameters, and KnowledgeDB.from_config's rows and names."""
 
 import os
+import random
 from types import SimpleNamespace
 
 import numpy as np
@@ -106,10 +107,23 @@ def test_transforms_equal_jax(size, normalize):
                                atol=1e-6, rtol=0)
 
 
-def test_train_transform_waits_for_the_train_crop():
-    img = Image.new("RGB", (40, 40))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttf.image_transform(32, is_train=True)(img)
+@pytest.mark.parametrize("normalize", [False, True])
+def test_train_transform_waits_for_the_train_crop(normalize):
+    """The train crop (ported now; the name is kept) equals JAX's under one
+    seeded random.Random each: the same draws in the same order, up to the
+    centre-crop fallback of a sliver the ten draws cannot fit."""
+    rng = np.random.default_rng(7)
+    imgs = [Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8))
+            for h, w in ((40, 40), (37, 61), (90, 24), (33, 33), (200, 3))]
+    tr, jr = random.Random(11), random.Random(11)
+    t = ttf.image_transform(32, is_train=True, rng=tr, normalize=normalize)
+    j = jtf.image_transform(32, is_train=True, rng=jr, normalize=normalize)
+    for img in imgs * 3:
+        assert _same(t(img), j(img))
+    assert tr.getstate() == jr.getstate()
+    pad_t = ttf.image_transform(32, is_train=True, target_pad=1.25, rng=tr)
+    pad_j = jtf.image_transform(32, is_train=True, target_pad=1.25, rng=jr)
+    assert _same(pad_t(imgs[2]), pad_j(imgs[2]))
 
 
 @pytest.mark.parametrize("layout", ["state_dict", "train_checkpoint"])

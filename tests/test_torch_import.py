@@ -32,7 +32,7 @@ def test_import_loads_no_jax_and_no_keds_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 33
+    assert len(MODULES) >= 38
     # every subpackage is walked, the training and evaluation slices' included
     assert {m.split(".")[1] for m in MODULES if m.count(".") >= 2} >= {
         "models", "ops", "retrieval", "train", "io", "data", "cli", "evalkit"}
@@ -42,7 +42,10 @@ def test_import_loads_no_jax_and_no_keds_tpu():
             "keds_tpu_torch.tools.precompute_neighbors",
             "keds_tpu_torch.evalkit.metrics", "keds_tpu_torch.evalkit.evaluators",
             "keds_tpu_torch.cli.eval_retrieval", "keds_tpu_torch.models.loader",
-            "keds_tpu_torch.data.datasets", "keds_tpu_torch.transforms"} <= set(MODULES)
+            "keds_tpu_torch.data.datasets", "keds_tpu_torch.transforms",
+            "keds_tpu_torch.cli.serve", "keds_tpu_torch.cli.demo",
+            "keds_tpu_torch.cli.common", "keds_tpu_torch.logging_utils",
+            "keds_tpu_torch.data.tarstream"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
@@ -72,6 +75,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
         KnowledgeDB.from_arrays(torch.ones(4, 32).numpy(), torch.ones(4, 32).numpy())
     params, heads, db = synth.build(cfg, db_rows=8, dtype=torch.float32, device="cpu")
     assert db.image_db.device.type == "cpu" and db.size == 8
+
+
+@pytest.mark.parametrize("cli", ["serve", "demo", "main"])
+def test_command_lines_default_to_cuda(monkeypatch, tmp_path, cli):
+    """Without --device the serve, demo and train CLIs want the CUDA device
+    and raise on a host without one."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "feats").mkdir()
+    args = {"serve": ["--resume", "ckpt.pt", "--target-data", "corpus",
+                      "--query_file", "q.jsonl"],
+            "demo": ["--resume", "ckpt.pt", "--retrieval-data", "coco"],
+            "main": ["--train-data", "feats", "--database-path", "db"]}[cli]
+    main = importlib.import_module(f"keds_tpu_torch.cli.{cli}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(args + ["--logs", str(tmp_path / "logs"), "--name", cli])
 
 
 @pytest.mark.parametrize("arg", [None, "cuda", torch.device("cuda")])

@@ -169,7 +169,8 @@ def test_train_step_refuses_what_is_not_ported():
     opt, sched = make_optimizer(_port_opt_cfg(), 10, theads)
     step = make_train_step(tparams, TCFG, Retriever(tdb), opt, sched, stream="image",
                            prompt_tokens=PROMPT, split_id=265, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # raw images come as a RawBatch now; a batch of neither kind is refused
+    with pytest.raises(TypeError, match="TrainBatch of features or a RawBatch"):
         step(theads, (torch.zeros(2, 32, 32, 3), torch.zeros(2, 77)), 0)
 
 
