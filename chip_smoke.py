@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the keds_tpu_torch serving, training and evaluation paths
-and of its serve, demo and train command lines on one CUDA card.
+"""Smoke run of the keds_tpu_torch serving, training and evaluation paths,
+of its serve, demo and train command lines, and of two ranks of the port
+sharing the card, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -109,8 +110,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            to both (train_check's limits; raw_train_check says why); then
            `python -m keds_tpu_torch.cli.main --dataset-type webdataset` and
            a csv run in this process, one epoch each and a --resume auto.
-18. the kernels line (launches of each path beside each variant), then the
-    card's name and power limit from nvidia-smi, then the result line.
+18. dist_path
+           two ranks of the port on this card (``chip_smoke.py dist-rank``
+           children, RANK/WORLD_SIZE, gloo: NCCL refuses two ranks on one
+           device), each with ViT-L/14 from synth.build(seed=0) and its
+           250 000-row half of the 0.5M DB (KnowledgeDB.shard_over): 3
+           batches of 64 composed queries through ComposedQueryEngine(mesh=)
+           (B1 bf16_tc on each shard, 6 launches a rank), their DB
+           neighbours, a sharded f32 ranking of a 4096-row corpus, the
+           image-stream step over the global batch of 2 x 128 (2 warm-up
+           and 10 timed steps, samples/s, gloo's collective ms a step: the
+           host-staged transport of a shared card, not NCCL), one bf16 and
+           one f32 reading of step 0, and a device-ranked CIRR sweep epoch.
+           This process computes the same on one device first, and the
+           gates hold the ranks to it: composed-feature cosine >= 0.9999,
+           DB neighbours equal but for near-ties (scores within 1e-4),
+           the sharded ranking equal to B1 over the whole corpus but for
+           ties within 1e-5, the step's loss within 1e-3 (bf16) and 1e-5
+           (f32) relative, its head gradient at cosine >= 0.999 and
+           0.99999 and its norm within 1e-3 and 1e-5 relative (the cosine
+           cannot see a gradient off by a factor), and the sweep's epoch-1 tables equal to the one-process
+           device-ranked tables but for near-ties within 1e-5.  Each rank
+           is joined with a timeout; a failed rank fails the phase.
+19. the kernels line (launches of each path beside each variant, the
+    dist path's rank 0 among them), then the card's name and power limit
+    from nvidia-smi, then the result line.
 
 The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
 rankings (k=101, 100, 200), a --db-topk of 64 and, above 256 (passes of the
@@ -121,6 +145,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -457,11 +482,13 @@ def profile_batch(engine, images_u8: np.ndarray, text: np.ndarray, corpus) -> No
 
 
 def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat16,
-                 total_steps=20, stream="image", db_other_tokens=None, retriever=None):
+                 total_steps=20, stream="image", db_other_tokens=None, retriever=None,
+                 grad_scale=1.0, mesh=None):
     """f32 trainable copies of the heads, their optimizer and the train step
-    (over ``retriever``, by default a Retriever of ``db``).  The copies are
-    new tensors even where ``heads`` are f32 on ``device`` already (the
-    CPU's), which the step would otherwise train in place."""
+    (over ``retriever``, by default a Retriever of ``db``; data-parallel
+    over ``mesh``).  The copies are new tensors even where ``heads`` are f32
+    on ``device`` already (the CPU's), which the step would otherwise train
+    in place."""
     from keds_tpu_torch.models.clip import VIT_L_14
     from keds_tpu_torch.models.convert import cast_floating
     from keds_tpu_torch.retrieval.database import Retriever
@@ -472,7 +499,8 @@ def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat
     step = make_train_step(clip_params, VIT_L_14, retriever or Retriever(db), opt, sched,
                            stream=stream, prompt_tokens=TRAIN_PROMPT, split_id=SPLIT_ID,
                            dropout=dropout, db_other_tokens=db_other_tokens,
-                           compute_dtype=dtype, device=device)
+                           compute_dtype=dtype, device=device, grad_scale=grad_scale,
+                           mesh=mesh)
     return theads, opt, sched, step
 
 
@@ -850,21 +878,26 @@ def write_branches(root: pathlib.Path, device: torch.device) -> list:
     return branches
 
 
-def target_positions(split, idx: np.ndarray, order: np.ndarray) -> tuple:
+def device_positions(split, idx: np.ndarray) -> np.ndarray:
     """Each query's target position after its reference is removed, capped
-    at 100 (what R@1..R@100 read): from the device's top-101 indices
-    ``idx`` (absent: 100), and from the host's full ascending-distance order
-    ``order``."""
+    at 100 (what R@1..R@100 read), from top-101 indices ``idx`` (absent: 100)."""
     r, t = split.ref[:, None], split.target[:, None]
     hit = idx == t
     col = hit.argmax(axis=1)
     ref_before = ((idx == r) & (np.arange(idx.shape[1]) < col[:, None])).any(axis=1)
-    pos_d = np.where(hit.any(axis=1), col - ref_before, 100)
+    return np.minimum(np.where(hit.any(axis=1), col - ref_before, 100), 100)
+
+
+def target_positions(split, idx: np.ndarray, order: np.ndarray) -> tuple:
+    """:func:`device_positions` of the device's top-101 indices ``idx``, and
+    the same from the host's full ascending-distance order ``order``."""
+    t, r = split.target[:, None], split.ref[:, None]
+    pos_d = device_positions(split, idx)
     rank = np.empty_like(order)
     rank[np.arange(order.shape[0])[:, None], order] = np.arange(order.shape[1])
     pos_t = np.take_along_axis(rank, t, 1)[:, 0]
     pos_r = np.take_along_axis(rank, r, 1)[:, 0]
-    return np.minimum(pos_d, 100), np.minimum(pos_t - (pos_r < pos_t), 100)
+    return pos_d, np.minimum(pos_t - (pos_r < pos_t), 100)
 
 
 def recall_table(pos: np.ndarray) -> dict:
@@ -959,7 +992,7 @@ def eval_path(clip_params, db, kernels, root: pathlib.Path) -> tuple:
 
     def rank_topk(feats, corpus_dev, k):
         out = real[2](feats, corpus_dev, k)
-        run["topk"].append(out)
+        run["topk"].append([i.cpu().numpy() for i in out])
         run["corpus_dev"] = corpus_dev
         return out
 
@@ -1017,7 +1050,12 @@ def eval_path(clip_params, db, kernels, root: pathlib.Path) -> tuple:
     if not gate["passes"]:
         raise AssertionError(f"eval gate: host and device rankings differ beyond near-ties "
                              f"at {gate['n_other']} queries: {gate['other_differences']}")
-    return split, runs["device"]["profile"], runs["device"]["corpus_dev"], launches
+    # what dist_path holds its 2-rank sweep epoch against
+    ref = SimpleNamespace(tables={k: runs["device"]["tables"][(1, k)]
+                                  for k in ("composed", "image", "mixture")},
+                          topk=runs["device"]["topk"][0], feats=runs["host"]["feats"][0],
+                          corpus=runs["host"]["corpus"], split=split)
+    return split, runs["device"]["profile"], runs["device"]["corpus_dev"], launches, ref
 
 
 def profile_eval(split, profile, corpus_dev) -> None:
@@ -1035,7 +1073,8 @@ def profile_eval(split, profile, corpus_dev) -> None:
             ht = ctx.load_heads(ctx.text_branch, 1)
             a, b = ev._compose_all(ctx, compose, hi, ht, cache)
             for ti in ev._rank_topk((a, b, ev._mix(a, b, 0.5, 0.5)), corpus_dev, 101):
-                M.get_metrics_cirr_from_topk(ti, split.names, refs, targets, EVAL_CORPUS)
+                M.get_metrics_cirr_from_topk(ti.cpu().numpy(), split.names, refs, targets,
+                                             EVAL_CORPUS)
 
     profile_device("profile_eval", epoch, [("attention (B2)", ("attention_tc", "attention_f32")),
                                            ("mips_topk (B1)", ("topk_",))])
@@ -1607,10 +1646,396 @@ def raw_cli_runs(f) -> None:
     emit("raw_train_cli", **out)
 
 
+# --- two ranks on one card -------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_SEED = 21          # the phase's query batches, corpus and train batch
+DIST_CORPUS = 4096
+DIST_TOPN = 10
+DIST_STEPS = 10
+DIST_TIMEOUT_S = 900
+DIST_FEATURE_COSINE_MIN = 0.9999
+# DB neighbours of the 2-rank run against the 1-process run: a differing
+# entry is a near-tie when the two runs' scores at its place agree this
+# closely (queries whose features agree at cosine >= 0.9999)
+DIST_NB_TIE = 1e-4
+# a 2-rank card step against the 1-process card step: (loss rel diff, head-gradient
+# cosine, head-gradient norm rel diff)
+DIST_STEP_LIMITS = {"bf16": (1e-3, 0.999, 1e-3), "f32": (1e-5, 0.99999, 1e-5)}
+DIST_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def dist_inputs() -> tuple:
+    """The phase's 3 batches of 64 query images and S=32 prompts and its
+    4096-row unit-norm f32 corpus, from DIST_SEED."""
+    rng = np.random.default_rng(DIST_SEED)
+    images = [rng.integers(0, 256, (QUERY_BATCH, 224, 224, 3), dtype=np.uint8)
+              for _ in range(N_QUERY_BATCHES)]
+    texts = [prompt_batch(rng, QUERY_BATCH) for _ in range(N_QUERY_BATCHES)]
+    from keds_tpu_torch.models.clip import VIT_L_14
+
+    corpus = rng.standard_normal((DIST_CORPUS, VIT_L_14.embed_dim)).astype(np.float32)
+    return images, texts, corpus / np.linalg.norm(corpus, axis=1, keepdims=True)
+
+
+def dist_batch(dev):
+    """The global train batch, DIST_RANKS x TRAIN_BATCH feature pairs."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.train.losses import TrainBatch
+
+    return TrainBatch(*synth.feature_pairs(DIST_RANKS * TRAIN_BATCH, VIT_L_14.embed_dim,
+                                           seed=DIST_SEED, device=dev))
+
+
+def neighbours(engine, images) -> list:
+    """(scores, rows) of the top db_topk rows of the image and the caption DB
+    for each query image (the global batch's, on every rank), batch by batch."""
+    from keds_tpu_torch.parallel.mesh import fetch_global, shard_global_batch
+    from keds_tpu_torch.retrieval.database import unit_rows
+
+    out = []
+    with torch.inference_mode():
+        for im in images:
+            x, n = shard_global_batch(engine.mesh, im, engine.device)
+            q = unit_rows(engine.encode_features(x).float()).to(engine.db.image_db.dtype)
+            for table in (engine.db.image_db, engine.db.text_db):
+                v, i = engine.retriever.search(q, table, engine.db_topk)
+                out.append(tuple(fetch_global(engine.mesh, a, n).cpu().numpy() for a in (v, i)))
+    return out
+
+
+def step_reading(step, theads, batch) -> tuple:
+    """(loss, flattened f64 head gradient) of train step 0 on ``batch``."""
+    from keds_tpu_torch.models.convert import head_parameters
+
+    loss = float(step(theads, batch, 0))
+    return loss, torch.cat([p.grad.flatten().double().cpu() for _, _, p in
+                            head_parameters(theads)])
+
+
+def dist_rank(workdir: pathlib.Path, url: str) -> None:
+    """One of DIST_RANKS gloo ranks sharing cuda:0 (chip_smoke.py dist-rank
+    <dir> <url>, RANK and WORLD_SIZE set): ViT-L/14 from synth.build(seed=0)
+    with its 0.5M DB split over the ranks; sharded serving and ranking, the
+    image-stream train step (timed, then one bf16 and one f32 reading) and a
+    device-ranked CIRR sweep epoch.  Writes rank<r>.json and rank<r>.npz."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.evalkit import evaluators as ev
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.ops import attention as att_mod, topk as topk_mod
+    from keds_tpu_torch.parallel.mesh import (make_mesh, maybe_init_distributed,
+                                              shard_global_batch, shard_rows)
+    from keds_tpu_torch.retrieval.database import Retriever
+    from keds_tpu_torch.train.losses import TrainBatch
+    from keds_tpu_torch.train.trainer import train_epoch
+
+    maybe_init_distributed(SimpleNamespace(distributed=True, dist_url=url, device=DEV))
+    mesh = make_mesh(device=DEV)
+    dev = mesh.device
+    kernels = {"attention": att_mod.KERNEL, "attention_bwd": att_mod.BWD_KERNEL,
+               "mips_topk": topk_mod.KERNEL}
+
+    def counted(fn):
+        """(fn(), seconds, launches, collectives) of one synchronised run."""
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.reset()
+        mesh.comm.reset()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return (r, time.perf_counter() - t, {n: dict(k.launches) for n, k in kernels.items()},
+                dataclasses.asdict(mesh.comm))
+
+    t = time.perf_counter()
+    clip_params, heads, full = synth.build(VIT_L_14, db_rows=DB_ROWS, dtype=torch.bfloat16,
+                                           seed=0, device=dev)
+    db = full.shard_over(mesh)
+    del full
+    torch.cuda.empty_cache()
+    info = dict(rank=mesh.rank, backend=mesh.backend, device=str(dev), shard_rows=db.size,
+                build_s=time.perf_counter() - t)
+    arrays = {}
+
+    # sharded serving and ranking
+    engine = ComposedQueryEngine(clip_params, VIT_L_14, heads, db, split_id=SPLIT_ID,
+                                 mesh=mesh)
+    images, texts, corpus = dist_inputs()
+    engine.compose_batch(images[0], texts[0])            # warm-up
+    with torch.inference_mode():
+        composed, s, launches, comm = counted(lambda: engine.compose(images, texts))
+    info["serving"] = dict(seconds=s, queries_per_s=len(composed) / s, launches=launches,
+                           collectives=comm)
+    arrays["composed"] = composed
+    for j, (v, i) in enumerate(neighbours(engine, images)):
+        arrays[f"nb{j}_vals"], arrays[f"nb{j}_idx"] = v, i
+    dc = engine.corpus_to_device(corpus)
+
+    def rank_all():
+        with torch.inference_mode():
+            return [engine.rank(shard_global_batch(mesh, composed[b:b + QUERY_BATCH], dev)[0],
+                                dc, DIST_TOPN)
+                    for b in range(0, len(composed), QUERY_BATCH)]
+
+    ranked, s, launches, comm = counted(rank_all)
+    info["ranking"] = dict(seconds=s, corpus_rows_here=int(dc.array.shape[0]),
+                           launches=launches, collectives=comm)
+    arrays["rank_vals"] = torch.cat([v for v, _ in ranked]).cpu().numpy()
+    arrays["rank_idx"] = torch.cat([i for _, i in ranked]).cpu().numpy()
+    del engine, dc, ranked
+    torch.cuda.empty_cache()
+
+    # image-stream training, the rank's block of the global batch
+    batch = dist_batch(dev)
+    local = TrainBatch(shard_rows(mesh, batch.image_features), shard_rows(mesh, batch.caption_features))
+    retr = Retriever(db)
+    theads, _, sched, step = _train_setup(clip_params, heads, db, dev, retriever=retr,
+                                          grad_scale=1 / mesh.size, mesh=mesh)
+    losses = [step(theads, local, t) for t in range(2)]       # warm-up steps t = 0, 1
+
+    def timed_steps():
+        def recorded(h, b, t):
+            losses.append(step(h, b, t))
+            return losses[-1]
+        train_epoch(recorded, theads, iter([local] * DIST_STEPS), 1, DIST_STEPS,
+                    log_every=DIST_STEPS, schedule=sched, world_size=mesh.size)
+
+    _, s, launches, comm = counted(timed_steps)
+    info["train"] = dict(step_ms=s / DIST_STEPS * 1e3,
+                         samples_per_s=mesh.size * TRAIN_BATCH * DIST_STEPS / s,
+                         collective_ms_per_step=comm["seconds"] / DIST_STEPS * 1e3,
+                         collectives_per_step=comm["calls"] / DIST_STEPS,
+                         collective_mb_per_step=comm["bytes"] / DIST_STEPS / 1e6,
+                         losses=[float(x) for x in losses], launches=launches)
+    del theads, step
+    for name, dtype in DIST_DTYPES.items():
+        th, _, _, st = _train_setup(clip_params, heads, db, dev, dtype=dtype, retriever=retr,
+                                    grad_scale=1 / mesh.size, mesh=mesh)
+        loss, grad = step_reading(st, th, local)
+        info[f"reading_{name}_loss"] = loss
+        arrays[f"grad_{name}"] = grad.numpy()
+        del th, st
+        torch.cuda.empty_cache()
+
+    # a device-ranked CIRR sweep epoch, batches split over the ranks
+    split = cirr_split(11)
+    ctx = ev.EvalContext(clip_params, VIT_L_14, retr, image_branch=str(workdir / "image_branch"),
+                         text_branch=str(workdir / "text_branch"),
+                         compute_dtype=torch.bfloat16, eval_ranking="device",
+                         split_id=SPLIT_ID, mesh=mesh)
+    real, topk = ev._ranked, []
+
+    def ranked_kept(*args):
+        topk.extend(real(*args))
+        return topk[-3:]
+
+    ev._ranked = ranked_kept
+    try:
+        tables, s, launches, comm = counted(
+            lambda: ev.evaluate_cirr(ctx, split.queries, split.corpus, epochs=[1]))
+    finally:
+        ev._ranked = real
+    info["eval"] = dict(seconds=s, walls=dict(ev.last_cirr_walls), launches=launches,
+                        collectives=comm,
+                        tables={k: tables[(1, k)] for k in ("composed", "image", "mixture")})
+    for key, idx in zip(("composed", "image", "mixture"), topk):
+        arrays[f"eval_{key}"] = idx
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    np.savez(workdir / f"rank{mesh.rank}.npz", **arrays)
+    (workdir / f"rank{mesh.rank}.json").write_text(json.dumps(info))
+
+
+def run_dist_ranks(workdir: pathlib.Path) -> list:
+    """DIST_RANKS children ``chip_smoke.py dist-rank``, gloo over a free
+    localhost port, each joined with a timeout; a rank that fails or runs
+    past DIST_TIMEOUT_S stops every rank and fails the phase with their
+    output's tail.  Returns each rank's (info, arrays)."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        url = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    procs, logs = [], []
+    for r in range(DIST_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DIST_RANKS), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(DIST_RANKS))
+        logs.append(open(workdir / f"rank{r}.log", "w"))
+        procs.append(subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
+                                       "dist-rank", str(workdir), url], env=env,
+                                      stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        for log in logs:
+            log.close()
+    if any(p.returncode for p in procs):
+        tails = "\n".join(f"--- rank {r} (exit {p.returncode})\n"
+                          f"{(workdir / f'rank{r}.log').read_text()[-4000:]}"
+                          for r, p in enumerate(procs))
+        raise AssertionError(f"dist_path: a rank failed or ran past {DIST_TIMEOUT_S} s\n{tails}")
+    return [(json.loads((workdir / f"rank{r}.json").read_text()),
+             dict(np.load(workdir / f"rank{r}.npz"))) for r in range(DIST_RANKS)]
+
+
+def ties_apart(v1: np.ndarray, i1: np.ndarray, v2: np.ndarray, i2: np.ndarray,
+               tie: float) -> tuple:
+    """(entries whose rows differ between two rankings, how many of them are
+    near-ties: the two rankings' scores at that place within ``tie``)."""
+    diff = i1 != i2
+    return int(diff.sum()), int((diff & (np.abs(v1 - v2) <= tie)).sum())
+
+
+def dist_eval_gate(split, ref, topk2: dict) -> dict:
+    """The 2-rank sweep epoch's tables against the 1-process device-ranked
+    epoch 1: queries whose target position differs must differ only between
+    entries whose (1-process host) scores lie within NEAR_TIE of the
+    target's."""
+    a, b = ref.feats
+    mixture = a * 0.5 + b * 0.5
+    mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
+    near, bad = 0, []
+    for key, f, idx1 in zip(("composed", "image", "mixture"), (a, b, mixture), ref.topk):
+        scores = f @ ref.corpus.T
+        p1, p2 = device_positions(split, idx1), device_positions(split, topk2[key])
+        for q in np.nonzero(p1 != p2)[0]:
+            lo, hi = sorted((p1[q], p2[q]))
+            kept = idx1[q][idx1[q] != split.ref[q]]
+            window = kept[lo:hi + 1]
+            if np.abs(scores[q, window] - scores[q, split.target[q]]).max() <= NEAR_TIE:
+                near += 1
+            else:
+                bad.append(dict(key=key, query=int(q), one_process=int(p1[q]),
+                                two_ranks=int(p2[q])))
+    return dict(near_tie_queries=near, other_differences=bad[:10], n_other=len(bad),
+                passes=not bad)
+
+
+def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
+    """DIST_RANKS gloo ranks sharing cuda:0 (:func:`dist_rank`) against this
+    process's card runs of the same work: the sharded serving's composed
+    features (cosine) and DB neighbours, the sharded f32 ranking, one bf16
+    and one f32 step of the global batch (loss, head-gradient cosine and norm)
+    and the CIRR sweep's epoch-1 tables; the ranks' times, collectives and
+    launches.  Returns rank 0's launches by path."""
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.ops.topk import mips_topk
+
+    t = time.perf_counter()
+    dev = db.image_db.device
+    engine = ComposedQueryEngine(clip_params, VIT_L_14, heads, db, split_id=SPLIT_ID,
+                                 device=dev)
+    images, texts, corpus = dist_inputs()
+    composed1 = engine.compose(images, texts)
+    nb1 = neighbours(engine, images)
+    del engine
+    batch = dist_batch(dev)
+    readings1 = {}
+    for name, dtype in DIST_DTYPES.items():
+        th, _, _, st = _train_setup(clip_params, heads, db, dev, dtype=dtype,
+                                    grad_scale=1 / DIST_RANKS)
+        readings1[name] = step_reading(st, th, batch)
+        del th, st
+    del batch
+    write_branches(root, dev)
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t
+
+    t = time.perf_counter()
+    ranks = run_dist_ranks(root)
+    ranks_s = time.perf_counter() - t
+    (info, arrays), (info1, arrays1) = ranks
+    agree = all(np.array_equal(arrays[k], arrays1[k]) for k in arrays) and (
+        info["eval"]["tables"] == info1["eval"]["tables"])
+
+    composed = arrays["composed"]
+    cos = (composed * composed1).sum(1) / (np.linalg.norm(composed, axis=1)
+                                           * np.linalg.norm(composed1, axis=1))
+    nb = [ties_apart(v, i, arrays[f"nb{j}_vals"], arrays[f"nb{j}_idx"], DIST_NB_TIE)
+          for j, (v, i) in enumerate(nb1)]
+    # the sharded ranking against B1 over the whole corpus, the same queries
+    with torch.inference_mode():
+        v1, i1 = mips_topk(torch.from_numpy(composed).to(dev),
+                           torch.from_numpy(corpus).to(dev), DIST_TOPN)
+    rk = ties_apart(v1.cpu().numpy(), i1.cpu().numpy(), arrays["rank_vals"],
+                    arrays["rank_idx"], NEAR_TIE)
+    steps = {}
+    for name, (l1, g1) in readings1.items():
+        l2, g2 = info[f"reading_{name}_loss"], torch.from_numpy(arrays[f"grad_{name}"])
+        rel, cosine = abs(l2 - l1) / abs(l1), float(g1 @ g2) / float(g1.norm() * g2.norm())
+        # the cosine cannot see the gradient's size (a sum over the ranks
+        # taken twice, a grad_scale lost): the norms' ratio can
+        norm_rel = abs(float(g2.norm() / g1.norm()) - 1)
+        rel_max, cos_min, norm_max = DIST_STEP_LIMITS[name]
+        steps[name] = dict(loss_two_ranks=l2, loss_one_process=l1, loss_rel_diff=rel,
+                           loss_rel_max=rel_max, head_grad_cosine=cosine,
+                           head_grad_cosine_min=cos_min, head_grad_norm_rel_diff=norm_rel,
+                           head_grad_norm_rel_max=norm_max,
+                           passes=rel <= rel_max and cosine >= cos_min and norm_rel <= norm_max)
+    gate = dist_eval_gate(eval_ref.split, eval_ref,
+                          {k: arrays[f"eval_{k}"] for k in ("composed", "image", "mixture")})
+    by_rank = [{p: i[p]["launches"] for p in ("serving", "ranking", "train", "eval")}
+               for i, _ in ranks]
+
+    def launched(c):
+        """Each path's kernels on a rank: B1 bf16_tc twice a query batch on
+        its shard, B1 f32 once a ranked batch, B2 and B2' in the step."""
+        return {"serving": c["serving"]["mips_topk"]["bf16_tc"] == 2 * N_QUERY_BATCHES
+                and c["serving"]["attention"]["bf16_tc"] > 0,
+                "ranking": c["ranking"]["mips_topk"]["f32"] == N_QUERY_BATCHES,
+                "train": c["train"]["mips_topk"]["bf16_tc"] > 0
+                and c["train"]["attention"]["bf16_tc"] > 0
+                and c["train"]["attention_bwd"]["bf16"] > 0,
+                "eval": c["eval"]["mips_topk"]["f32"] == 3
+                and c["eval"]["mips_topk"]["bf16_tc"] == 2 * len(eval_ref.split.queries)}
+
+    want = [launched(c) for c in by_rank]
+    ok = dict(ranks_agree=agree, backend_gloo=info["backend"] == "gloo",
+              shard_rows=info["shard_rows"] == -(-DB_ROWS // DIST_RANKS),
+              feature_cosine=bool(np.isfinite(cos).all() and cos.min() >= DIST_FEATURE_COSINE_MIN),
+              neighbours=all(n == near for n, near in nb), ranking=rk[0] == rk[1],
+              steps=all(r["passes"] for r in steps.values()), eval=gate["passes"],
+              launches=all(all(w.values()) for w in want))
+    emit("dist_path", model="ViT-L/14", ranks=DIST_RANKS, device=info["device"],
+         backend=info["backend"], transport="gloo over the host (shared card), not NCCL",
+         db_rows=DB_ROWS, shard_rows=info["shard_rows"], queries=len(composed),
+         query_batch=QUERY_BATCH, corpus_rows=DIST_CORPUS, train_batch_per_rank=TRAIN_BATCH,
+         timed_steps=DIST_STEPS, reference_s=ref_s, ranks_s=ranks_s,
+         rank_build_s=[i["build_s"] for i, _ in ranks],
+         serving=info["serving"], ranking=info["ranking"],
+         train={k: v for k, v in info["train"].items() if k != "launches"},
+         train_rank1={k: info1["train"][k] for k in ("step_ms", "samples_per_s",
+                                                     "collective_ms_per_step")},
+         eval={k: v for k, v in info["eval"].items() if k != "launches"},
+         peak_mem_gb=[i["peak_mem_gb"] for i, _ in ranks],
+         feature_cosine_min=float(cos.min()), feature_cosine_limit=DIST_FEATURE_COSINE_MIN,
+         neighbour_entries_differing=[n for n, _ in nb], neighbour_near_ties=[x for _, x in nb],
+         ranking_entries_differing=rk[0], ranking_near_ties=rk[1], steps=steps,
+         eval_gate=gate, eval_tables_one_process=eval_ref.tables, launches_by_rank=by_rank,
+         launch_checks=want, checks=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"dist_path checks failed: {ok}")
+    return by_rank[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["dist-rank"]:       # one rank of dist_path
+        dist_rank(pathlib.Path(sys.argv[2]), sys.argv[3])
+        return 0
     from keds_tpu_torch import synth
     from keds_tpu_torch.engine import ComposedQueryEngine
     from keds_tpu_torch.models.clip import VIT_L_14
@@ -1642,6 +2067,7 @@ def main() -> int:
                                     (2 * TRAIN_BATCH, 12, 32, 64, bf16, True)])
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
+                            (QUERY_BATCH, DB_ROWS // DIST_RANKS, 768, 16, bf16),  # a shard
                             (TRAIN_BATCH, DB_ROWS, 768, 16, bf16),   # train-step search
                             (QUERY_BATCH, 10_000, 768, 10, f32),
                             (QUERY_BATCH, N_CORPUS, 768, 10, f32),   # ranking
@@ -1745,8 +2171,8 @@ def main() -> int:
     build = pathlib.Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as d:
-        split, profile, corpus_dev, eval_launches = eval_path(clip_params, db, kernels,
-                                                              pathlib.Path(d))
+        split, profile, corpus_dev, eval_launches, eval_ref = eval_path(
+            clip_params, db, kernels, pathlib.Path(d))
         profile_eval(split, profile, corpus_dev)
     del split, profile, corpus_dev
     torch.cuda.empty_cache()
@@ -1767,6 +2193,11 @@ def main() -> int:
         del cpu_clip, cpu_heads, cpu_db
         raw_cli_runs(files)
 
+    # --- two ranks sharing the card over gloo ----------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        dist_launches = dist_path(clip_params, heads, db, eval_ref, pathlib.Path(d))
+
     att = ("attention", "keds_tpu_torch/csrc/attention.cu", "keds_tpu/ops/attention.py:122")
     bwd = ("attention_bwd", "keds_tpu_torch/csrc/attention_bwd.cu",
            "keds_tpu/ops/attention.py:134")
@@ -1778,15 +2209,16 @@ def main() -> int:
                (bwd, "bf16", bwd_rows[0], train_launches),
                (bwd, "f32", bwd_rows[4], train_launches),
                (top, "bf16_tc", topk_rows[1], launches),
-               (top, "f32", topk_rows[6], eval_launches),
-               (top, "bf16", topk_rows[9], launches),
-               (top, "f32_multi", topk_rows[13], serve_launches["serve_topn300"]),
-               (top, "bf16_multi", topk_rows[11], serve_launches["serve_topn300"])]
+               (top, "f32", topk_rows[7], eval_launches),
+               (top, "bf16", topk_rows[10], launches),
+               (top, "f32_multi", topk_rows[14], serve_launches["serve_topn300"]),
+               (top, "bf16_multi", topk_rows[12], serve_launches["serve_topn300"])]
     paths = {"serving": launches, "train_image": train_launches, "train_text": text_launches,
              "eval": eval_launches, "serve_cli": serve_launches["serve"],
              "serve_cli_topn300": serve_launches["serve_topn300"],
              "demo_mlp": demo_launches["mlp"], "demo_crossformer": demo_launches["crossformer"],
-             "train_raw": raw_launches}
+             "train_raw": raw_launches,
+             **{f"dist_{p}_rank0": c for p, c in dist_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],

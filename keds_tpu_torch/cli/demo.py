@@ -116,7 +116,7 @@ def _demo(cfg) -> dict:
     from keds_tpu_torch.models.loader import load_clip
     from keds_tpu_torch.tokenizer import star_token_id, tokenize
 
-    device = setup_runtime(cfg)
+    device = setup_runtime(cfg)[0]   # the demo runs on one device
     clip_source = cfg.resume or cfg.clip_weights or cfg.model
     clip_params, ccfg, _, t_val = load_clip(clip_source, normalize_on_host=False,
                                             device=device)
@@ -148,11 +148,14 @@ def _demo(cfg) -> dict:
         corpus, filenames = np.asarray(data["feats"], np.float32), data["path"]
     else:
         feats, filenames = [], []
-        for images, names in DataLoader(dataset, cfg.batch_size, num_workers=cfg.workers):
+        loader = DataLoader(dataset, cfg.batch_size, num_workers=cfg.workers,
+                            worker_processes=cfg.worker_processes)
+        for images, names in loader:
             n = len(names)
             f = encode(pad_batch(images, cfg.batch_size))[:n]
             feats.append((f / f.norm(dim=-1, keepdim=True)).float().cpu().numpy())
             filenames.extend(names)
+        loader.close()
         corpus = np.concatenate(feats)
         os.makedirs("./data", exist_ok=True)
         with open(cache, "wb") as f:

@@ -12,8 +12,11 @@ reference ``src/eval_retrieval.py``).
 ``res_cirr/{composed,image,text,mixture}.json`` in the working directory.
 CLIP comes from ``--resume`` (a train checkpoint) or ``--clip-weights``, a
 local file.  The prompts need the CLIP BPE vocab (``KEDS_TPU_BPE_VOCAB``),
-and images are decoded with PIL and normalised on the device.  The run logs
-to ``<logs>/<name>/out.log``.
+and images are decoded with PIL (``--workers`` threads, processes with
+``--worker-processes``) and normalised on the device.  The run logs to
+``<logs>/<name>/out.log``.  With ``--distributed`` every rank reads the same
+data and evaluates its block of each batch (``--db-shard`` splits the DB);
+rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -47,19 +50,20 @@ def _evaluate(cfg) -> None:
     from keds_tpu_torch.models.loader import load_clip
     from keds_tpu_torch.transforms import region_transform
 
-    device = setup_runtime(cfg)
+    device, mesh = setup_runtime(cfg)
     clip_params, clip_cfg, _, t_val = load_clip(
         cfg.resume or cfg.clip_weights or cfg.model,
         target_pad=1.25 if cfg.target_pad else None, normalize_on_host=False,
         device=device)
-    ctx = EvalContext(clip_params=clip_params, cfg=clip_cfg, retriever=load_database(cfg, device),
+    ctx = EvalContext(clip_params=clip_params, cfg=clip_cfg, retriever=load_database(cfg, mesh),
                       image_branch=cfg.image_branch, text_branch=cfg.text_branch,
-                      db_topk=cfg.db_topk, compute_dtype=compute_dtype(cfg),
+                      db_topk=cfg.db_topk, compute_dtype=compute_dtype(cfg), mesh=mesh,
                       eval_ranking=cfg.eval_ranking, split_id=cfg.split_id, device=device)
     root = cfg.root_data
 
     def loader(ds):
-        return DataLoader(ds, cfg.batch_size, num_workers=cfg.workers)
+        return DataLoader(ds, cfg.batch_size, num_workers=cfg.workers,
+                          worker_processes=cfg.worker_processes)
 
     if cfg.eval_mode == "cirr":
         evaluate_cirr(ctx, loader(CIRR(transforms=t_val, root=root)),
@@ -68,6 +72,8 @@ def _evaluate(cfg) -> None:
         results = evaluate_cirr_test(
             ctx, loader(CIRR(transforms=t_val, root=root, test=True)),
             loader(CIRR(transforms=t_val, root=root, mode="imgs", test=True)))
+        if mesh.rank > 0:
+            return
         os.makedirs("res_cirr", exist_ok=True)
         for key, value in results.items():
             with open(os.path.join("res_cirr", key + ".json"), "w") as f:

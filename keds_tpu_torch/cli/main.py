@@ -26,10 +26,22 @@ of every DB row once into ``<train-data>/db_other_tokens.npy`` (rebuilt when
 its fingerprint no longer matches the DB).  Checkpoints go to
 ``<logs>/<name>/checkpoints/epoch_N.pt`` in the reference layout;
 ``--resume auto`` continues from the newest one.
+
+``--distributed`` trains data-parallel, one process per rank (RANK,
+WORLD_SIZE and ``--dist-url``), ``--batch-size`` rows per rank: the step is
+the global batch's (``train/trainer.py``), text widths are the global
+batch's on every rank, ``--db-shard`` splits the DB over the ranks, and
+rank 0 alone writes logs, scalars and checkpoints.  Two ranks on the CPU:
+
+    RANK=0 WORLD_SIZE=2 python -m keds_tpu_torch.cli.main ... --device cpu \
+        --distributed --dist-url tcp://127.0.0.1:29500 &
+    RANK=1 WORLD_SIZE=2 python -m keds_tpu_torch.cli.main ... --device cpu \
+        --distributed --dist-url tcp://127.0.0.1:29500
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -178,13 +190,12 @@ def main(argv: Optional[list] = None) -> None:
 
     with run_logging(cfg) as log_dir:
         checkpoint_path = cfg.checkpoint_path or os.path.join(log_dir, "checkpoints")
-        os.makedirs(checkpoint_path, exist_ok=True)
         _train(cfg, dataset_type, checkpoint_path, log_dir)
 
 
-def _raw_loader(cfg, dataset_type: str, clip_cfg):
-    """The csv or tar-stream loader of (uint8 train-cropped images, caption
-    tokens) batches."""
+def _raw_loader(cfg, dataset_type: str, clip_cfg, mesh):
+    """The csv or tar-stream loader of this rank's (uint8 train-cropped
+    images, caption tokens) batches."""
     from keds_tpu_torch.tokenizer import tokenize
     from keds_tpu_torch.transforms import image_transform
 
@@ -199,7 +210,8 @@ def _raw_loader(cfg, dataset_type: str, clip_cfg):
             caption_map=load_caption_map(cfg.caption_map), tokenize=tokenize,
             seed=cfg.seed, train_num_samples=cfg.train_num_samples or 2_803_766,
             resampled=cfg.dataset_resampled,
-            upsampling_factors=cfg.train_data_upsampling_factors, workers=cfg.workers)
+            upsampling_factors=cfg.train_data_upsampling_factors, workers=cfg.workers,
+            rank=mesh.rank, world_size=mesh.size, worker_processes=cfg.worker_processes)
     from keds_tpu_torch.data.datasets import CsvDataset
     from keds_tpu_torch.data.loader import DataLoader
 
@@ -207,40 +219,64 @@ def _raw_loader(cfg, dataset_type: str, clip_cfg):
                          img_key=cfg.csv_img_key, caption_key=cfg.csv_caption_key,
                          sep=cfg.csv_separator)
     return DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed, drop_last=True,
-                      num_workers=cfg.workers)
+                      num_workers=cfg.workers, rank=mesh.rank, world_size=mesh.size,
+                      worker_processes=cfg.worker_processes)
+
+
+def _sample_needs(cfg, dataset_type: str, loader, mesh) -> Optional[np.ndarray]:
+    """Over several ranks, each sample's text bucket need (own templates of
+    the text stream, csv captions), from the dataset alone, so that every
+    rank takes a step's width from the global batch's samples.  None: each
+    batch takes its own bucket (one rank; the image stream on features), or
+    webdataset over several ranks, whose captions stay at full width (the
+    ranks stream their own samples, so none knows the others' lengths)."""
+    if mesh.size == 1:
+        return None
+    if dataset_type == "csv":
+        return loader.dataset.caption_token_needs(n_pseudo=1)
+    if dataset_type == "webdataset":
+        logging.info("webdataset over several ranks: captions run at full width "
+                     "(rank-local streams)")
+        return None
+    return loader.dataset.own_token_needs(n_pseudo=1) if cfg.stream == "text" else None
 
 
 def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
     from keds_tpu_torch import synth
-    from keds_tpu_torch.cli.common import ScalarWriters, compute_dtype, setup_runtime
+    from keds_tpu_torch.cli.common import (ScalarWriters, compute_dtype, load_database,
+                                           setup_runtime)
     from keds_tpu_torch.data.datasets import CsvDataset, FeaturePairDataset
     from keds_tpu_torch.data.loader import DataLoader
     from keds_tpu_torch.io.checkpoint import (load_checkpoint, load_heads_checkpoint,
                                               resolve_resume, restore_optimizer,
                                               save_train_checkpoint)
-    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
-    from keds_tpu_torch.tokenizer import bucket_text
+    from keds_tpu_torch.tokenizer import bucket_for, bucket_text
     from keds_tpu_torch.train.losses import RawBatch, TrainBatch
     from keds_tpu_torch.train.trainer import make_optimizer, make_train_step, train_epoch
 
     text = cfg.stream == "text"
     raw = dataset_type != "directory"
     prompt, split_id = _stream_tokens(cfg, raw)
-    device = setup_runtime(cfg)
+    device, mesh = setup_runtime(cfg)
+    primary = mesh.rank == 0
+    # a seed of each rank's own, as the reference's seed_everything(rank * 10 + seed)
+    np.random.seed(mesh.rank * 10 + cfg.seed)
     dtype = compute_dtype(cfg)
     clip_params, clip_cfg = _load_clip(cfg, device)
     heads = synth.init_heads(clip_cfg.embed_dim, cfg.seed + 1, device, torch.float32)
-    db = KnowledgeDB.from_directory(cfg.database_path, dtype, device)
+    retriever = load_database(cfg, mesh)
+    db = retriever.db
     db_other_tokens = None
     if raw:
-        loader = _raw_loader(cfg, dataset_type, clip_cfg)
+        loader = _raw_loader(cfg, dataset_type, clip_cfg, mesh)
     else:
         dataset = FeaturePairDataset(cfg.train_data, templates=text)
         if cfg.neighbors:
             _load_neighbors(cfg, dataset, db, device)
         db_other_tokens = _neighbour_templates(cfg, dataset, db) if text else None
         loader = DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                            drop_last=True, num_workers=cfg.workers)
+                            drop_last=True, num_workers=cfg.workers, rank=mesh.rank,
+                            world_size=mesh.size, worker_processes=cfg.worker_processes)
     if cfg.val_data:
         # the reference's one use of --val-data: its sample count in the log
         n_val = len(CsvDataset(cfg.val_data, None, img_key=cfg.csv_img_key,
@@ -262,37 +298,46 @@ def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
         restore_optimizer(optimizer, ckpt, heads)
         logging.info("resumed from %s at epoch %d", resume, start_epoch)
 
-    step_fn = make_train_step(clip_params, clip_cfg, Retriever(db), optimizer, schedule,
+    step_fn = make_train_step(clip_params, clip_cfg, retriever, optimizer, schedule,
                               stream=cfg.stream, prompt_tokens=prompt, split_id=split_id,
                               seed=cfg.seed, dropout=cfg.droprate, db_topk=cfg.db_topk,
                               db_other_tokens=db_other_tokens, compute_dtype=dtype,
-                              device=device)
-    writers = ScalarWriters(cfg, log_dir)
+                              device=device, grad_scale=1.0 / mesh.size, mesh=mesh)
+    writers = [ScalarWriters(cfg, log_dir)] if primary else []
     seen_buckets = set()
 
-    def bucketed(tokens) -> torch.Tensor:
-        """Causal-prefix bucket of a batch's own templates or captions (the
-        tower pools at each row's EOT), logged once per width."""
-        tokens = bucket_text(np.asarray(tokens), n_pseudo=1)
+    def bucketed(tokens, width: Optional[int]) -> torch.Tensor:
+        """A batch's own templates or captions cut to ``width``, or to their
+        own causal-prefix bucket (the tower pools at each row's EOT); each
+        width logged once."""
+        tokens = np.asarray(tokens)
+        tokens = tokens[:, :width] if width else bucket_text(tokens, n_pseudo=1)
         if tokens.shape[1] not in seen_buckets:
             seen_buckets.add(tokens.shape[1])
             logging.info("causal-prefix bucket S=%d (text program width)", tokens.shape[1])
         return torch.as_tensor(tokens, device=device)
 
+    full_width_captions = dataset_type == "webdataset" and mesh.size > 1
+    needs = _sample_needs(cfg, dataset_type, loader, mesh)
+
     def batches():
-        for row in loader:
+        widths = (itertools.repeat(None) if needs is None else
+                  (bucket_for(int(needs[g].max())) for g in loader.global_batch_indices()))
+        for row, width in zip(loader, widths):
+            first = torch.as_tensor(row[0], device=device)
             if raw:
-                yield RawBatch(images=torch.as_tensor(row[0], device=device),
-                               caption_tokens=bucketed(row[1]))
+                caps = (torch.as_tensor(row[1], device=device) if full_width_captions
+                        else bucketed(row[1], width))
+                yield RawBatch(images=first, caption_tokens=caps)
                 continue
             extra = {}
             if text:
-                extra["other_tokens"] = bucketed(row[3])
+                extra["other_tokens"] = bucketed(row[3], width)
             # precomputed-neighbour index rows follow the sample's fields
             idx = row[4:] if text else row[2:]
             extra.update(zip(("img_idx", "txt_idx", "cap2_idx"),
                              (torch.as_tensor(a, device=device) for a in idx)))
-            yield TrainBatch(image_features=torch.as_tensor(row[0], device=device),
+            yield TrainBatch(image_features=first,
                              caption_features=torch.as_tensor(row[1], device=device),
                              **extra)
 
@@ -301,9 +346,12 @@ def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
             logging.info("Start epoch %d", epoch)
             loader.set_epoch(epoch)
             train_epoch(step_fn, heads, batches(), epoch, steps_per_epoch,
-                        schedule=schedule, writers=(writers,))
+                        schedule=schedule, writers=writers, world_size=mesh.size)
+            if not primary:
+                continue
             save = dict(epoch=epoch + 1, name=cfg.name, clip_params=clip_params,
                         clip_cfg=clip_cfg, heads=heads, optimizer=optimizer)
+            os.makedirs(checkpoint_path, exist_ok=True)
             if (epoch + 1) == cfg.epochs or (
                     cfg.save_frequency > 0 and (epoch + 1) % cfg.save_frequency == 0):
                 save_train_checkpoint(os.path.join(checkpoint_path, f"epoch_{epoch + 1}.pt"),
@@ -311,9 +359,9 @@ def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
             if cfg.save_most_recent:
                 save_train_checkpoint(os.path.join(checkpoint_path, "epoch_latest.pt"), **save)
     finally:
-        writers.close()
-        if dataset_type == "webdataset":
-            loader.close()
+        for w in writers:
+            w.close()
+        loader.close()
 
 
 if __name__ == "__main__":

@@ -12,10 +12,16 @@ per line, ``--topn`` results each, written and flushed batch by batch;
 the throughput summary goes to the log (stderr) and the output path to
 stdout.  ``--resume`` is a reference-layout train checkpoint (CLIP and the
 heads).  The prompts need the CLIP BPE vocab (``KEDS_TPU_BPE_VOCAB``).
-Images are decoded with PIL on ``--workers`` threads and sent as uint8;
-the corpus is encoded in ``--batch-size`` batches (the ragged tail padded)
-and ranked on the device once it has ``DEVICE_RANK_MIN_ROWS`` rows, on the
-host below that.  Runs on the CUDA device unless ``--device cpu``.
+Images are decoded with PIL on ``--workers`` threads (processes with
+``--worker-processes``) and sent as uint8; the corpus is encoded in
+``--batch-size`` batches (the ragged tail padded) and ranked on the device
+once it has ``DEVICE_RANK_MIN_ROWS`` rows, on the host below that.  Runs on
+the CUDA device unless ``--device cpu``.
+
+With ``--distributed`` every rank reads the same corpus and queries and
+computes its block of each batch (``--db-shard`` splits the DB, and the
+device-ranked corpus is split too); the results are the same on every rank
+and rank 0 alone writes them.
 """
 
 from __future__ import annotations
@@ -82,20 +88,20 @@ def _serve(cfg) -> dict:
     from keds_tpu_torch.io.checkpoint import load_heads_checkpoint
     from keds_tpu_torch.models.loader import load_clip
 
-    device = setup_runtime(cfg)
+    device, mesh = setup_runtime(cfg)
     clip_params, clip_cfg, _, t_val = load_clip(
         cfg.resume, target_pad=1.25 if cfg.target_pad else None, normalize_on_host=False,
         device=device)
     heads, _ = load_heads_checkpoint(cfg.resume, device)
-    retriever = load_database(cfg, device)
+    retriever = load_database(cfg, mesh)
     engine = ComposedQueryEngine(clip_params, clip_cfg, heads, retriever.db,
                                  db_topk=cfg.db_topk, compute_dtype=compute_dtype(cfg),
-                                 device=device)
+                                 device=device, mesh=mesh)
     del clip_params, heads
 
     # ---- corpus: streamed one batch at a time -------------------------------
     loader = DataLoader(CustomFolder(cfg.target_data, transform=t_val), cfg.batch_size,
-                        num_workers=cfg.workers)
+                        num_workers=cfg.workers, worker_processes=cfg.worker_processes)
     names: list = []
 
     def corpus_batches():
@@ -104,7 +110,10 @@ def _serve(cfg) -> dict:
             yield pad_batch(images, cfg.batch_size)
 
     t0 = time.perf_counter()
-    corpus = engine.encode_corpus(corpus_batches())[:len(names)]   # the padded tail
+    try:
+        corpus = engine.encode_corpus(corpus_batches())[:len(names)]   # the padded tail
+    finally:
+        loader.close()
     corpus_s = time.perf_counter() - t0
     logging.info("corpus: %d images encoded in %.1fs", len(names), corpus_s)
     device_rank = len(names) >= DEVICE_RANK_MIN_ROWS
@@ -116,10 +125,12 @@ def _serve(cfg) -> dict:
     out_path = cfg.demo_out if cfg.demo_out.endswith(".jsonl") else cfg.demo_out + ".jsonl"
     macro = cfg.batch_size
     chunks = [queries[lo:lo + macro] for lo in range(0, len(queries), macro)]
-    q_loader = DataLoader(_QueryDataset(queries, t_val), macro, num_workers=cfg.workers)
+    q_loader = DataLoader(_QueryDataset(queries, t_val), macro, num_workers=cfg.workers,
+                          worker_processes=cfg.worker_processes)
     topn = min(cfg.topn, len(names))
+    primary = mesh.rank == 0
     t0 = time.perf_counter()
-    with open(out_path, "w") as out:
+    with open(out_path if primary else os.devnull, "w") as out:
         for chunk, (imgs, text) in zip(chunks, q_loader):
             scores, idx = engine.search([pad_batch(imgs, macro)], [pad_batch(text, macro)],
                                         ranked, topn)
@@ -129,10 +140,12 @@ def _serve(cfg) -> dict:
                     "results": [{"name": names[j], "score": float(scores[qi][r])}
                                 for r, j in enumerate(idx[qi])]}) + "\n")
             out.flush()
+    q_loader.close()
     queries_s = time.perf_counter() - t0
     logging.info("served %d composed queries in %.2fs (%.1f q/s incl. decode)",
                  len(queries), queries_s, len(queries) / max(queries_s, 1e-9))
-    print(out_path)
+    if primary:
+        print(out_path)
     return dict(corpus_images=len(names), corpus_s=corpus_s, queries=len(queries),
                 queries_s=queries_s, topn=topn, device_ranking=device_rank,
                 out_path=out_path)

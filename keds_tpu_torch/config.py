@@ -90,6 +90,8 @@ class Config:
     wandb_notes: str = ""
     debug: bool = False
     distributed: bool = False
+    dist_url: str = "tcp://127.0.0.1:6100"
+    num_partitions: int = 0
     split_id: Optional[int] = None
     prompt_tokens: List[int] = dataclasses.field(
         default_factory=lambda: list(DEFAULT_PROMPT_TOKENS))
@@ -152,11 +154,12 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--db-names-file", type=str, default=None)
     add("--db-topk", type=int, default=16)
     add("--db-shard", action="store_true", default=False,
-        help="not ported yet (ROADMAP.md section A item 10)")
+        help="split the knowledge DB's rows over the ranks of --distributed "
+             "(each rank searches its block; the candidates are merged)")
     add("--quant-towers", type=str, default="none", choices=["none", "int8"],
         help="int8 is not ported yet (ROADMAP.md section A item 15)")
     add("--worker-processes", action="store_true", default=False,
-        help="not ported yet (ROADMAP.md section A item 10): --workers are threads")
+        help="decode in --workers spawned processes instead of threads")
     add("--retrieval-backend", type=str, default="auto",
         choices=["auto", "xla", "pallas", "int8", "approx"],
         help="auto, xla and pallas all run the exact fused top-k kernel; int8 "
@@ -198,7 +201,15 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--wandb-notes", type=str, default="")
     add("--debug", action="store_true", default=False, help="log at DEBUG")
     add("--distributed", action="store_true", default=False,
-        help="not ported yet (ROADMAP.md section A item 10)")
+        help="one process per rank, from RANK and WORLD_SIZE (LOCAL_RANK, "
+             "LOCAL_WORLD_SIZE) and --dist-url: data parallelism with --batch-size "
+             "rows per rank; gloo on the CPU or where ranks share a CUDA device, "
+             "NCCL where each has its own")
+    add("--dist-url", type=str, default="tcp://127.0.0.1:6100",
+        help="init method of the process group (tcp://host:port)")
+    add("--num-partitions", type=int, default=0,
+        help="ranks on the data axis: 0 or the world size (a subset of the ranks "
+             "is not ported yet, ROADMAP.md section A item 10)")
     add("--split-id", type=int, default=None,
         help="token id of '*' in the vocab (image stream default 265; the text "
              "stream reads it from the vocab and refuses another)")
@@ -211,10 +222,7 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
 
 
 # Flags of parts not ported yet: (field, value that asks for them, item).
-UNPORTED = (("db_shard", True, "ROADMAP.md section A item 10 (multi-device)"),
-            ("worker_processes", True, "ROADMAP.md section A item 10 (multi-process)"),
-            ("distributed", True, "ROADMAP.md section A item 10 (multi-process)"),
-            ("quant_towers", "int8", "ROADMAP.md section A item 15 (W8A8 towers)"),
+UNPORTED = (("quant_towers", "int8", "ROADMAP.md section A item 15 (W8A8 towers)"),
             ("retrieval_backend", "int8", "ROADMAP.md section A item 14 (auto, xla and "
              "pallas run the exact search)"),
             ("retrieval_backend", "approx", "ROADMAP.md section A item 14 (auto, xla and "

@@ -6,9 +6,12 @@ reference's directory layouts and return the JAX package's tuples in its
 order: images through the given transform (PIL, imported when an image is
 opened), prompts tokenized by the port's BPE.  ``CustomFolder`` (a folder
 of images) and ``CsvDataset`` (image paths and captions in a csv) feed the
-serve and demo CLIs and raw-image training.  ``CsvDataset``'s
-``caption_token_needs`` (rank-consistent caption buckets) waits for
-multi-process training, ROADMAP.md section A item 10.
+serve and demo CLIs and raw-image training.
+
+``CsvDataset.caption_token_needs`` and ``FeaturePairDataset.own_token_needs``
+give each sample's causal-prefix bucket need from the dataset alone, so
+that every rank of a multi-process run takes the same bucket for a step
+from the global batch's samples (``DataLoader.global_batch_indices``).
 
 ``FeaturePairDataset`` (training) reads two layouts: packed (``image_features.npy`` (N, D), ``text_features.npy``
 (N, D) and ``names.json`` in one directory, memory-mapped) and the
@@ -26,6 +29,7 @@ templates are tokenized.
 from __future__ import annotations
 
 import csv
+import hashlib
 import json
 import logging
 import os
@@ -34,7 +38,17 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from keds_tpu_torch.tokenizer import tokenize
+from keds_tpu_torch.tokenizer import token_needs, tokenize
+
+
+def _texts_token_needs(texts: Sequence[str], n_pseudo: int,
+                       chunk: int = 65536) -> np.ndarray:
+    """Each text's bucket need (EOT index + ``n_pseudo``), tokenized in
+    chunks, so that no (N, 77) token matrix of a CC3M-sized list is held."""
+    out = np.empty(len(texts), np.int32)
+    for i in range(0, len(texts), chunk):
+        out[i:i + chunk] = token_needs(tokenize(texts[i:i + chunk]), n_pseudo=n_pseudo)
+    return out
 
 
 def _open_image(path: str):
@@ -276,6 +290,13 @@ class CsvDataset:
             return img, str(self.images[idx])
         return img, tokenize([str(self.captions[idx])])[0]
 
+    def caption_token_needs(self, n_pseudo: int = 1) -> np.ndarray:
+        """Each sample's caption bucket need, the same on every rank: one
+        tokenizer pass over the csv at start-up."""
+        logging.info("tokenizing %d captions for rank-consistent bucketing",
+                     len(self.captions))
+        return _texts_token_needs([str(c) for c in self.captions], n_pseudo)
+
 
 def _load_json_maybe(folder: str, name: str) -> dict:
     """``<folder>/<name>``, or {} where there is none."""
@@ -325,6 +346,39 @@ class FeaturePairDataset:
         return tuple(np.stack([_read_pt_feature(os.path.join(d, self.files[i]))
                                for i in range(lo, hi)])
                      for d in (self.image_dir, self.text_dir))
+
+    def own_token_needs(self, n_pseudo: int = 1) -> np.ndarray:
+        """Each sample's bucket need of its own template (the strings
+        ``__getitem__`` tokenizes), the same on every rank.  Cached as
+        ``own_token_needs.npy`` in the folder under a sha1 of the templates
+        (temp file, then rename; the meta lands after its array); a
+        read-only folder recomputes."""
+        h = hashlib.sha1(f"n_pseudo={n_pseudo}".encode())
+        texts = []
+        for name in self.names:
+            t = self.TEMPLATE_PREFIX + self.other.get(name, "*").replace("*", " ")
+            texts.append(t)
+            h.update(t.encode())
+        meta = {"templates_sha1": h.hexdigest(), "rows": len(texts)}
+        cache = os.path.join(self.folder, "own_token_needs.npy")
+        meta_path = cache + ".meta.json"
+        if os.path.isfile(cache) and os.path.isfile(meta_path):
+            with open(meta_path) as f:
+                if json.load(f) == meta:
+                    return np.load(cache)
+        logging.info("tokenizing %d own templates for rank-consistent bucketing", len(texts))
+        needs = _texts_token_needs(texts, n_pseudo)
+        try:
+            tmp = f"{cache}.{os.getpid()}.tmp.npy"
+            np.save(tmp, needs)
+            os.replace(tmp, cache)
+            tmp_m = f"{meta_path}.tmp.{os.getpid()}"
+            with open(tmp_m, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp_m, meta_path)
+        except OSError:
+            logging.info("could not cache %s; it is recomputed next run", cache)
+        return needs
 
     def attach_neighbors(self, neighbors: tuple) -> None:
         """Attach precomputed-neighbour arrays (``(img_idx, txt_idx)`` for

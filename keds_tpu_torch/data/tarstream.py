@@ -1,5 +1,4 @@
-"""Tar-shard streaming dataset (counterpart of ``keds_tpu/data/tarstream.py``),
-for one process.
+"""Tar-shard streaming dataset (counterpart of ``keds_tpu/data/tarstream.py``).
 
 The reference's WebDataset pipeline (``src/data.py:78-231, 875-953``):
 brace-expanded shard lists, a shard shuffle and a 5000-sample shuffle
@@ -8,28 +7,35 @@ suffix starts a new sample), decode with drop-and-log on error, a caption
 looked up by ``__key__`` in a caption map, fixed-size batches and an epoch
 budget of ``train_num_samples // batch_size`` batches.  With ``resampled``
 the shards are drawn with replacement (weighted per source by
-``upsampling_factors``).  The order is the JAX package's at rank 0 of one:
-shards shuffled by ``random.Random(seed + epoch)`` (resampled draws by
-``random.Random(f"{seed}:0:{epoch}")``), and the buffer fills before it yields.
+``upsampling_factors``).  The order is the JAX package's: shards shuffled
+by ``random.Random(seed + epoch)`` and dealt ``rank::world_size`` (resampled
+draws by ``random.Random(f"{seed}:{rank}:{epoch}")``), and the buffer fills
+before it yields.  Over several ranks each rank cycles its shard list, so
+that a rank with fewer samples still makes the epoch's ``num_batches``
+(``train_num_samples // (batch_size * world_size)``) and never leaves the
+others waiting in a collective; some samples repeat on such a rank.
 
-Decode runs in the calling thread, or in a pool of ``workers`` threads with
-an order-preserving window.  Process pools and the multi-rank shard split
-wait for ROADMAP.md section A item 10.
+Decode runs in the calling thread, or in a pool of ``workers`` threads (or,
+with ``worker_processes``, spawned processes that receive the dataset once)
+with an order-preserving window.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import io
 import logging
 import os
 import random
 import re
 import tarfile
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Executor, ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
+
+from keds_tpu_torch.data.loader import spawn_pool, worker_call
 
 
 def braceexpand(pattern: str) -> List[str]:
@@ -122,7 +128,8 @@ class TarShardDataset:
                  shuffle_shards: bool = True, shuffle_buffer: int = 5000, seed: int = 0,
                  train_num_samples: int = 2_803_766,   # reference default, src/data.py:880
                  partial_batches: bool = False, resampled: bool = False,
-                 upsampling_factors=None, workers: int = 0):
+                 upsampling_factors=None, workers: int = 0, rank: int = 0,
+                 world_size: int = 1, worker_processes: bool = False):
         if isinstance(urls, str):
             sources = [braceexpand(u) for u in urls.split("::")]
         else:
@@ -144,6 +151,8 @@ class TarShardDataset:
                     "(weights only apply to the with-replacement shard draw)")
             self.shard_weights = [f for f, src in zip(factors, sources) for _ in src]
         self.resampled = resampled
+        if world_size > 1 and not resampled and len(self.shards) < world_size:
+            raise ValueError("number of shards must be >= number of nodes")
         self.batch_size = batch_size
         self.decode_image = decode_image
         self.caption_map = caption_map or {}
@@ -152,12 +161,22 @@ class TarShardDataset:
         self.shuffle_shards = shuffle_shards
         self.shuffle_buffer = shuffle_buffer
         self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
         self.partial_batches = partial_batches
         self.workers = workers
+        self.worker_processes = worker_processes
         self.epoch = 0
-        self._pool: Optional[ThreadPoolExecutor] = None
-        self.num_batches = train_num_samples // batch_size
-        self.num_samples = self.num_batches * batch_size
+        self._pool: Optional[Executor] = None
+        global_batch = batch_size * world_size
+        self.num_batches = train_num_samples // global_batch
+        self.num_samples = self.num_batches * global_batch
+
+    def __getstate__(self):
+        # a decode process receives a copy of the dataset, without the pool
+        state = dict(self.__dict__)
+        state["_pool"] = None
+        return state
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -165,7 +184,7 @@ class TarShardDataset:
     def _shard_stream(self) -> tuple:
         """(shard iterator, the generator the shuffle buffer then draws from)."""
         if self.resampled:
-            rng = random.Random(f"{self.seed}:0:{self.epoch}")
+            rng = random.Random(f"{self.seed}:{self.rank}:{self.epoch}")
 
             def draws() -> Iterator[str]:
                 while True:
@@ -175,6 +194,12 @@ class TarShardDataset:
         shards = list(self.shards)
         if self.shuffle_shards:
             rng.shuffle(shards)
+        shards = shards[self.rank::self.world_size]
+        if self.world_size > 1 and not self.partial_batches:
+            def cycle() -> Iterator[str]:
+                while True:
+                    yield from shards
+            return cycle(), rng
         return iter(shards), rng
 
     def _samples(self) -> Iterator[dict]:
@@ -204,18 +229,21 @@ class TarShardDataset:
 
     def _decoded(self) -> Iterator[Optional[tuple]]:
         """Decoded samples in stream order; with ``workers`` > 0 a thread
-        pool decodes a bounded window ahead."""
+        (or process) pool decodes a bounded window ahead."""
         if self.workers <= 0:
             for sample in self._samples():
                 yield self._decode(sample)
             return
         if self._pool is None:
-            self._pool = ThreadPoolExecutor(self.workers)
+            self._pool = (spawn_pool(self.workers, self) if self.worker_processes
+                          else ThreadPoolExecutor(self.workers))
+        decode = (functools.partial(worker_call, "_decode") if self.worker_processes
+                  else self._decode)
         window = max(2 * self.batch_size, 4 * self.workers)
         inflight: collections.deque = collections.deque()
         try:
             for sample in self._samples():
-                inflight.append(self._pool.submit(self._decode, sample))
+                inflight.append(self._pool.submit(decode, sample))
                 if len(inflight) >= window:
                     yield inflight.popleft().result()
             while inflight:

@@ -29,6 +29,13 @@ ops on the device.  The head-independent ground-truth contracts are checked
 once, up front.  The two paths agree except on scores tied to within f32
 summation order, or distinct scores that ``1 - s`` rounds into a tie
 (:mod:`.metrics`).
+
+Under a ``mesh`` of several ranks every rank iterates the same loaders (the
+global feed): each rank encodes, retrieves and composes its block of every
+batch, the corpus is gathered to every rank (replicated for device
+ranking), and only the results cross the ranks: the composed features for
+host ranking, the int32 indices for device ranking (COCO's diagonal ranks
+gather the composed features).
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads, compose_pseudo_tokens
 from keds_tpu_torch.models.convert import cast_floating
 from keds_tpu_torch.ops.topk import mips_topk
+from keds_tpu_torch.parallel.mesh import fetch_batches, shard_global_batch
 from keds_tpu_torch.retrieval.database import Retriever, unit_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 from keds_tpu_torch.tokenizer import bucket_text, star_token_id, tokenize
@@ -80,9 +88,9 @@ def _is_orbax_checkpoint(path: str) -> bool:
 class EvalContext:
     """Frozen CLIP, knowledge DB and head-checkpoint branches of an
     evaluation.  ``split_id`` None reads the ``*`` id from the BPE vocab;
-    ``device`` None is the CUDA device.  ``mesh`` and ``quant_towers`` are
-    the JAX package's options for multi-device evaluation and W8A8 towers,
-    not ported yet (refused)."""
+    ``device`` None is the CUDA device.  ``mesh`` splits every batch over
+    the ranks (the module docstring); ``quant_towers`` (W8A8 towers) is not
+    ported yet (refused)."""
 
     clip_params: dict
     cfg: mclip.ClipConfig
@@ -99,16 +107,16 @@ class EvalContext:
     _heads_cache: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("EvalContext(mesh=...): multi-device evaluation is "
-                                      "ROADMAP.md section A item 10, not ported yet")
+        if self.mesh is not None and self.mesh.size == 1:
+            self.mesh = None
         if self.quant_towers != "none":
             raise NotImplementedError(f"quant_towers={self.quant_towers!r}: W8A8 towers are "
                                       "ROADMAP.md section A item 15, not ported yet")
         if self.eval_ranking not in ("host", "device"):
             raise ValueError(f"eval_ranking must be 'host' or 'device', got "
                              f"{self.eval_ranking!r}")
-        self.device = resolve_device(self.device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(self.device))
         if self.retriever.db.image_db.device != self.device:
             raise ValueError(f"knowledge DB is on {self.retriever.db.image_db.device}, "
                              f"evaluation runs on {self.device}")
@@ -120,12 +128,25 @@ class EvalContext:
     def to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def rows(self, a) -> torch.Tensor:
+        """This rank's block of a global batch on the device (the whole
+        batch without a mesh)."""
+        return shard_global_batch(self.mesh, a, self.device)[0]
+
+    def fetch(self, x: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
+        """The global rows, in dataset order, of ``x``: this rank's blocks
+        of batches of ``counts`` rows, concatenated (``x`` without a mesh)."""
+        return fetch_batches(self.mesh, x, counts)
+
     def encode_text(self, text) -> torch.Tensor:
-        return mclip.encode_text(self.clip_c, self.cfg, self.to_device(text))
+        """Text features of this rank's block of a token batch already on
+        the device."""
+        return mclip.encode_text(self.clip_c, self.cfg, text)
 
     # -- cached query-side precomputation -----------------------------------
     def image_features(self, images) -> torch.Tensor:
-        return mclip.encode_image_chunked(self.clip_c, self.cfg, self.to_device(images),
+        """Image features of this rank's block of a global batch."""
+        return mclip.encode_image_chunked(self.clip_c, self.cfg, self.rows(images),
                                           mclip.DEFAULT_ENCODE_CHUNK)
 
     def retrieved(self, feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,13 +193,14 @@ def extract_image_features(ctx: EvalContext, dataset, batch_size: int = 128,
     (reference extract_image_features, eval_utils.py:1138-1173)."""
     from keds_tpu_torch.data.loader import DataLoader
 
-    feats, names = [], []
+    feats, names, counts = [], [], []
     with torch.inference_mode():
         for batch in DataLoader(dataset, batch_size, num_workers=num_workers):
             images, batch_names = batch[0], batch[1]
-            feats.append(ctx.image_features(images).float().cpu().numpy())
+            feats.append(ctx.image_features(images).float())
             names.extend(batch_names)
-    return np.concatenate(feats), names
+            counts.append(len(batch_names))
+    return ctx.fetch(torch.cat(feats), counts).cpu().numpy(), names
 
 
 def _bucket(text) -> np.ndarray:
@@ -189,23 +211,30 @@ def _bucket(text) -> np.ndarray:
 
 
 def _encode_corpus(ctx: EvalContext, target_loader) -> Tuple[np.ndarray, List[str]]:
-    feats, names = [], []
+    feats, names, counts = [], [], []
     for images, paths in target_loader:
         feats.append(unit_rows(ctx.image_features(images).float()))
         names.extend(paths)
-    return torch.cat(feats).cpu().numpy(), names
+        counts.append(len(paths))
+    return ctx.fetch(torch.cat(feats), counts).cpu().numpy(), names
 
 
 def _precompute_queries(ctx: EvalContext, query_loader, unpack) -> List[dict]:
     """The head-independent query side, once: image features, neighbours
-    and whatever per-batch metadata ``unpack`` returns."""
+    and whatever per-batch metadata ``unpack`` returns, and the batch's
+    row count ``n``."""
     cache = []
     for batch in query_loader:
         images, meta = unpack(batch)
         feats = ctx.image_features(images)
         topk_img, topk_txt = ctx.retrieved(feats)
-        cache.append(dict(feats=feats, topk_img=topk_img, topk_txt=topk_txt, **meta))
+        cache.append(dict(feats=feats, topk_img=topk_img, topk_txt=topk_txt,
+                          n=len(images), **meta))
     return cache
+
+
+def _counts(cache: List[dict]) -> List[int]:
+    return [b["n"] for b in cache]
 
 
 def _compose_all(ctx: EvalContext, compose, heads_ib, heads_tb, cache,
@@ -229,10 +258,17 @@ def _mix(a: torch.Tensor, b: torch.Tensor, w_b: float, w_a: float) -> torch.Tens
 
 
 def _rank_topk(feats: Sequence[torch.Tensor], corpus_dev: torch.Tensor,
-               k: int) -> List[np.ndarray]:
+               k: int) -> List[torch.Tensor]:
     """Indices of the top ``k`` corpus rows of each feature set, best first,
-    ties to the lower index: B1's f32 kernel on the card."""
-    return [mips_topk(f.contiguous(), corpus_dev, k)[1].cpu().numpy() for f in feats]
+    ties to the lower index, on the device: B1's f32 kernel on the card."""
+    return [mips_topk(f.contiguous(), corpus_dev, k)[1] for f in feats]
+
+
+def _ranked(ctx: EvalContext, feats: Sequence[torch.Tensor], corpus_dev: torch.Tensor,
+            k: int, counts: Sequence[int]) -> List[np.ndarray]:
+    """:func:`_rank_topk` of this rank's rows, then every rank's indices in
+    dataset order on the host."""
+    return [ctx.fetch(i, counts).cpu().numpy() for i in _rank_topk(feats, corpus_dev, k)]
 
 
 def _f32(x: float) -> float:
@@ -269,7 +305,7 @@ def evaluate_cirr(ctx: EvalContext, query_loader, target_loader,
         # the caption-only tokens are not kept: only evaluate_cirr_test
         # encodes them
         ref_images, text_with_blank, _caption_only, ref_paths, answer_paths, _, _ = batch
-        return ref_images, dict(text=ctx.to_device(_bucket(text_with_blank)),
+        return ref_images, dict(text=ctx.rows(_bucket(text_with_blank)),
                                 ref_paths=list(ref_paths), answer_paths=list(answer_paths))
 
     t1 = time.perf_counter()
@@ -277,6 +313,7 @@ def evaluate_cirr(ctx: EvalContext, query_loader, target_loader,
     walls["queries_s"] = time.perf_counter() - t1
     ref_paths = [p for b in cache for p in b["ref_paths"]]
     answer_paths = [p for b in cache for p in b["answer_paths"]]
+    counts = _counts(cache)
     compose = ctx.composed_fn("retrieval", use_text_condition=True)
 
     device_rank = ctx.eval_ranking == "device"
@@ -295,8 +332,9 @@ def evaluate_cirr(ctx: EvalContext, query_loader, target_loader,
         tb_ = time.perf_counter()
         composed, composed_tb = _compose_all(ctx, compose, heads_ib, heads_tb, cache)
         if device_rank:
-            idx3 = _rank_topk((composed, composed_tb, _mix(composed, composed_tb, 0.5, 0.5)),
-                              corpus_dev, top_k)
+            idx3 = _ranked(ctx, (composed, composed_tb,
+                                 _mix(composed, composed_tb, 0.5, 0.5)),
+                           corpus_dev, top_k, counts)
             tc = time.perf_counter()
             for key, ti in zip(("composed", "image", "mixture"), idx3):
                 m = M.get_metrics_cirr_from_topk(
@@ -304,8 +342,8 @@ def evaluate_cirr(ctx: EvalContext, query_loader, target_loader,
                 _log_metrics(f"CIRR[j={j}]", key, m)
                 results[(j, key)] = m
         else:
-            composed = composed.cpu().numpy()
-            composed_tb = composed_tb.cpu().numpy()
+            composed = ctx.fetch(composed, counts).cpu().numpy()
+            composed_tb = ctx.fetch(composed_tb, counts).cpu().numpy()
             mixture = composed * 0.5 + composed_tb * 0.5
             mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
             tc = time.perf_counter()
@@ -344,9 +382,9 @@ def evaluate_cirr_test(ctx: EvalContext, query_loader, target_loader,
 
     def unpack(batch):
         ref_images, text_with_blank, caption_only, ref_paths, pairids, _ = batch
-        return ref_images, dict(text=ctx.to_device(_bucket(text_with_blank)),
+        return ref_images, dict(text=ctx.rows(_bucket(text_with_blank)),
                                 # encode_text pools at EOT
-                                caption_only=ctx.to_device(_bucket(caption_only)),
+                                caption_only=ctx.rows(_bucket(caption_only)),
                                 ref_paths=list(ref_paths), pairids=list(pairids))
 
     cache = _precompute_queries(ctx, query_loader, unpack)
@@ -355,10 +393,11 @@ def evaluate_cirr_test(ctx: EvalContext, query_loader, target_loader,
     heads_ib = ctx.load_heads(ctx.image_branch, image_epoch)
     heads_tb = ctx.load_heads(ctx.text_branch, text_epoch)
     compose = ctx.composed_fn("retrieval", use_text_condition=True)
-    composed, composed_tb = (c.cpu().numpy() for c in
+    counts = _counts(cache)
+    composed, composed_tb = (ctx.fetch(c, counts).cpu().numpy() for c in
                              _compose_all(ctx, compose, heads_ib, heads_tb, cache))
-    captions = torch.cat([unit_rows(ctx.encode_text(b["caption_only"]).float())
-                          for b in cache]).cpu().numpy()
+    captions = ctx.fetch(torch.cat([unit_rows(ctx.encode_text(b["caption_only"]).float())
+                                    for b in cache]), counts).cpu().numpy()
     mixture = 0.5 * composed_tb + 0.5 * composed
     mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
     out_fn = partial(M.get_cirr_testoutput, corpus, reference_names=ref_paths,
@@ -382,11 +421,12 @@ def evaluate_fashion(ctx: EvalContext, source_loader, target_loader,
 
     def unpack(batch):
         ref_images, _tar, target_caption, _cap, answer_paths, _ref_names, _caps = batch
-        return ref_images, dict(text=ctx.to_device(_bucket(target_caption)),
+        return ref_images, dict(text=ctx.rows(_bucket(target_caption)),
                                 answer_paths=list(answer_paths))
 
     cache = _precompute_queries(ctx, source_loader, unpack)
     answer_paths = [p for b in cache for p in b["answer_paths"]]
+    counts = _counts(cache)
     compose = ctx.composed_fn("train", use_text_condition=False)
 
     device_rank = ctx.eval_ranking == "device"
@@ -405,13 +445,14 @@ def evaluate_fashion(ctx: EvalContext, source_loader, target_loader,
             # host forms (1 - 0.05*j) in f64 before its f32 multiply
             mix = _mix(composed, composed_tb, _f32(0.05 * j), _f32(1 - 0.05 * j))
             for key, ti in zip(("composed", "image", "mixture"),
-                               _rank_topk((composed, composed_tb, mix), corpus_dev, top_k)):
+                               _ranked(ctx, (composed, composed_tb, mix), corpus_dev, top_k,
+                                       counts)):
                 m = M.get_metrics_fashion_from_topk(ti, target_paths, answer_paths)
                 _log_metrics(f"Fashion[j={j}]", key, m)
                 results[(j, key)] = m
             continue
-        composed = composed.cpu().numpy()
-        composed_tb = composed_tb.cpu().numpy()
+        composed = ctx.fetch(composed, counts).cpu().numpy()
+        composed_tb = ctx.fetch(composed_tb, counts).cpu().numpy()
         mixture = 0.05 * j * composed_tb + (1 - 0.05 * j) * composed
         mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
         feats = {"composed": composed, "image": composed_tb, "mixture": mixture}
@@ -456,14 +497,15 @@ def evaluate_coco(ctx: EvalContext, loader, epochs: Sequence[int] = range(1, 26)
         (images, region_images, _text_full, _twb, text_with_queryclass,
          _fn, _raw, _base) = batch
         return region_images, dict(target_images=images,
-                                   text=ctx.to_device(_bucket(text_with_queryclass)))
+                                   text=ctx.rows(_bucket(text_with_queryclass)))
 
     t0 = time.perf_counter()
     cache = _precompute_queries(ctx, loader, unpack)
     walls["queries_s"] = time.perf_counter() - t0
+    counts = _counts(cache)
     t1 = time.perf_counter()
-    corpus = torch.cat([unit_rows(ctx.image_features(b.pop("target_images")).float())
-                        for b in cache]).cpu().numpy()
+    corpus = ctx.fetch(torch.cat([unit_rows(ctx.image_features(b.pop("target_images")).float())
+                                  for b in cache]), counts).cpu().numpy()
     walls["corpus_s"] = time.perf_counter() - t1
     compose = ctx.composed_fn("retrieval", use_text_condition=True)
     logit_scale = ctx.logit_scale
@@ -481,7 +523,8 @@ def evaluate_coco(ctx: EvalContext, loader, epochs: Sequence[int] = range(1, 26)
         # (eval_utils.py:483)
         heads_tb = ctx.load_heads(ctx.image_branch, 2 * j)
         tb_ = time.perf_counter()
-        composed, composed_tb = _compose_all(ctx, compose, heads_ib, heads_tb, cache)
+        composed, composed_tb = (ctx.fetch(c, counts) for c in
+                                 _compose_all(ctx, compose, heads_ib, heads_tb, cache))
         if device_rank:
             mix = _mix(composed, composed_tb, _f32(0.05 * j), _f32(1 - 0.05 * j))
             preds3 = []
@@ -541,7 +584,8 @@ def evaluate_imgnet_retrieval(ctx: EvalContext, prompts: Sequence[str],
     for images, labels, _ in target_loader:
         target_feats.append(unit_rows(ctx.image_features(images).float()))
         target_labels.append(np.asarray(labels))
-    target_feats = torch.cat(target_feats).cpu().numpy()
+    target_feats = ctx.fetch(torch.cat(target_feats),
+                             [len(t) for t in target_labels]).cpu().numpy()
     target_labels = np.concatenate(target_labels)
 
     def unpack(batch):
@@ -549,6 +593,7 @@ def evaluate_imgnet_retrieval(ctx: EvalContext, prompts: Sequence[str],
         return images, dict(labels=np.asarray(labels))
 
     cache = _precompute_queries(ctx, query_loader, unpack)
+    counts = _counts(cache)
     compose = ctx.composed_fn("retrieval", use_text_condition=True)
 
     device_rank = ctx.eval_ranking == "device"
@@ -569,14 +614,14 @@ def evaluate_imgnet_retrieval(ctx: EvalContext, prompts: Sequence[str],
             if device_rank:
                 mix = _mix(composed, composed_tb, _f32(0.1 * j), _f32(1 - 0.1 * j))
                 for key, ti in zip(("composed", "image", "mixture"),
-                                   _rank_topk((composed, composed_tb, mix), target_dev,
-                                              top_k)):
+                                   _ranked(ctx, (composed, composed_tb, mix), target_dev,
+                                           top_k, counts)):
                     m = M.get_metrics_imgnet_from_topk(ti, labels_all, target_labels)
                     _log_metrics(f"ImgNet[j={j}, prompt={p!r}]", key, m)
                     results[(j, p, key)] = m
                 continue
-            composed = composed.cpu().numpy()
-            composed_tb = composed_tb.cpu().numpy()
+            composed = ctx.fetch(composed, counts).cpu().numpy()
+            composed_tb = ctx.fetch(composed_tb, counts).cpu().numpy()
             mixture = 0.1 * j * composed_tb + (1 - 0.1 * j) * composed
             mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
             feats = {"composed": composed, "image": composed_tb, "mixture": mixture}

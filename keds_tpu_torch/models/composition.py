@@ -10,7 +10,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,16 +29,20 @@ def compose_pseudo_tokens(heads: FusionHeads, image_features: torch.Tensor,
                           topk_image: torch.Tensor, topk_text: torch.Tensor,
                           use_text_condition: bool = True,
                           generator: Optional[torch.Generator] = None,
-                          train: bool = False, dropout: float = 0.1) -> torch.Tensor:
+                          train: bool = False, dropout: float = 0.1,
+                          rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(B, D) features and (B, k, D) neighbours -> pseudo tokens (B, 3, D),
     or (B, 2, D) without the text condition.  With ``train`` and a
     ``generator``, IM2TEXT drops at rate ``dropout``; the CrossFormers drop
-    nothing (their rate is 0.0 in the reference)."""
-    q = im2text_apply(heads.img2text, image_features, generator, train, dropout)[:, None, :]
-    ti = im2text_apply(heads.img2text, topk_image, generator, train, dropout)
+    nothing (their rate is 0.0 in the reference).  ``rows=(start, total)``
+    places these rows in a global batch for the masks
+    (:func:`~keds_tpu_torch.models.heads.dropout`)."""
+    q = im2text_apply(heads.img2text, image_features, generator, train, dropout,
+                      rows)[:, None, :]
+    ti = im2text_apply(heads.img2text, topk_image, generator, train, dropout, rows)
     parts = [crossformer_apply(heads.retrieval_fuse, q, ti, ti)]
     if use_text_condition:
-        tt = im2text_apply(heads.img2text, topk_text, generator, train, dropout)
+        tt = im2text_apply(heads.img2text, topk_text, generator, train, dropout, rows)
         parts.append(crossformer_apply(heads.text_condition, q, tt, tt))
     parts.append(q)
     return torch.cat(parts, dim=1)

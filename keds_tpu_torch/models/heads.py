@@ -15,7 +15,7 @@ linears.  Dropout is explicit: it runs only with ``train=True`` and a
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,22 +25,29 @@ def _proj(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            train: bool) -> torch.Tensor:
+            train: bool, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: each element is kept with probability 1 - rate and
-    scaled by 1 / (1 - rate); a no-op unless ``train`` with a generator."""
+    scaled by 1 / (1 - rate); a no-op unless ``train`` with a generator.
+    ``rows=(start, total)`` says that ``x``'s rows are rows start.. of a
+    batch of ``total``: the mask is drawn for the whole batch and this
+    block's rows kept, so that each row's mask follows its global position
+    and W ranks drop what one process drops."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    start, total = rows if rows is not None else (0, x.shape[0])
+    mask = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)[start:start + x.shape[0]] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def im2text_apply(params: dict, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None, train: bool = False,
-                  rate: float = 0.1) -> torch.Tensor:
-    """(..., embed_dim) -> (..., output_dim)."""
+                  rate: float = 0.1, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(..., embed_dim) -> (..., output_dim); ``rows`` places a batch's
+    rows for :func:`dropout`."""
     for layer in params["layers"]:
-        x = torch.relu(dropout(_proj(layer, x), rate, generator, train))
+        x = torch.relu(dropout(_proj(layer, x), rate, generator, train, rows))
     return _proj(params["fc_out"], x)
 
 

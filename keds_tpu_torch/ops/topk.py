@@ -13,6 +13,11 @@ each bounded by the previous pass's last entry (``csrc/topk.cu``); each
 pass counts as ``f32_multi`` or ``bf16_multi``.  On CPU tensors it runs the
 plain version :func:`mips_topk_plain`.  Both order equal scores by lower
 row index first.
+
+:func:`mips_topk_sharded` searches a database whose rows are split over the
+ranks of a mesh (the counterpart of faiss ``index_cpu_to_all_gpus``): each
+rank runs :func:`mips_topk` on its shard, and the candidates are
+all-gathered and merged in plain torch, (B, W·k) values.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from keds_tpu_torch.ops.cuda_build import CudaKernel, require_cuda, sm_count, stream_ptr
+from keds_tpu_torch.parallel.mesh import all_gather
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("topk", {
@@ -153,3 +159,67 @@ def launch(queries: torch.Tensor, db: torch.Tensor, k: int, tiling: Tiling,
         KERNEL.check(err)
         KERNEL.launches[variant] += 1
     return vals, idx
+
+
+def _merge_candidates(vals: torch.Tensor, gidx: torch.Tensor, k: int, mesh,
+                      n_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-gather every rank's (B, kc) candidates and take the global top-k.
+    Candidates on pad rows (``gidx >= n_real``) are masked to -inf first:
+    a zero pad row would outrank negative true scores.  The sort is stable
+    and descending, so equal scores keep the lower position, which is the
+    lower rank and so the lower global row (``lax.top_k``'s order;
+    ``torch.topk`` fixes none)."""
+    vals = torch.where(gidx < n_real, vals, torch.full_like(vals, float("-inf")))
+    all_vals, all_idx = all_gather(mesh, vals), all_gather(mesh, gidx)   # (W, B, kc)
+    W, B, kc = all_vals.shape
+    cand_vals = all_vals.permute(1, 0, 2).reshape(B, W * kc)
+    cand_idx = all_idx.permute(1, 0, 2).reshape(B, W * kc)
+    mvals, mpos = torch.sort(cand_vals, dim=1, descending=True, stable=True)
+    return mvals[:, :k].contiguous(), torch.gather(cand_idx, 1, mpos[:, :k])
+
+
+def _pad_candidates(vals: torch.Tensor, idx: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad the candidate slots up to ``k`` (a shard may hold fewer rows than
+    k) with -inf and index -1."""
+    short = k - vals.shape[1]
+    if short <= 0:
+        return vals, idx
+    B = vals.shape[0]
+    return (torch.cat([vals, vals.new_full((B, short), float("-inf"))], dim=1),
+            torch.cat([idx, idx.new_full((B, short), -1)], dim=1))
+
+
+def _shard_merge_tail(vals: torch.Tensor, idx: torch.Tensor, k: int, k_cand: int, mesh,
+                      n_real: int, n_local: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Offset the local indices to global rows, pad the candidate width to
+    ``k_cand`` (the all-gather needs one width on every rank) and merge."""
+    gidx = idx + mesh.rank * n_local
+    vals, gidx = _pad_candidates(vals, gidx, k_cand)
+    return _merge_candidates(vals, gidx, k, mesh, n_real)
+
+
+def _local_then_merge(queries: torch.Tensor, db_shard: torch.Tensor, k: int, mesh,
+                      n_real: int, n_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1 over this rank's rows at k + n_pad, then the merge.  Zero pad rows
+    score 0.0, which outranks negative true scores, and the merge's mask
+    cannot bring back a true row that a pad row pushed out of the local
+    candidates: ``n_pad`` extra candidates keep at least min(k, true rows
+    of the shard) true ones."""
+    n_local = db_shard.shape[0]
+    k_cand = min(k + n_pad, n_local)
+    vals, idx = mips_topk(queries, db_shard, k_cand)
+    return _shard_merge_tail(vals, idx, k, max(k, k_cand), mesh, n_real, n_local)
+
+
+def mips_topk_sharded(queries: torch.Tensor, db_shard: torch.Tensor, k: int, mesh,
+                      n_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a database whose rows are split over ``mesh``:
+    ``queries`` (B, D) are the same on every rank, ``db_shard`` is this
+    rank's block of the rows padded to a multiple of the world size
+    (:meth:`KnowledgeDB.shard_over`), ``n_real`` the true row count.
+    Returns (values (B, k) f32, global indices (B, k) int32) on every rank,
+    equal to :func:`mips_topk` on the whole database (ties to the lower
+    row)."""
+    n_pad = db_shard.shape[0] * mesh.size - n_real
+    return _local_then_merge(queries, db_shard, k, mesh, n_real, n_pad)

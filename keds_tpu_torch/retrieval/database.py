@@ -4,6 +4,11 @@
 The DB is two unit-normalised (N, D) tensors (image and caption features,
 bf16 by default) resident on the device; the neighbour search is
 :func:`keds_tpu_torch.ops.topk.mips_topk`, the fused kernel on the card.
+
+Under a mesh (``--db-shard``) :meth:`KnowledgeDB.shard_over` keeps only this
+rank's block of the rows, and a :class:`Retriever` over it searches with
+:func:`~keds_tpu_torch.ops.topk.mips_topk_sharded` and gathers neighbour
+rows by global index across the ranks.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from keds_tpu_torch.ops.topk import mips_topk
+from keds_tpu_torch.ops.topk import mips_topk, mips_topk_sharded
+from keds_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce_sum, shard_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 
 
@@ -32,14 +38,18 @@ def _read_array(path: str):
 
 @dataclasses.dataclass
 class KnowledgeDB:
-    """Unit-normalised embedding database for both modalities."""
+    """Unit-normalised embedding database for both modalities.  ``names``
+    hold the true row count; with ``mesh`` the tables are this rank's block
+    of the rows padded to a multiple of the world size."""
 
-    image_db: torch.Tensor   # (N, D)
-    text_db: torch.Tensor    # (N, D)
+    image_db: torch.Tensor   # (N, D), or this rank's (N_padded / W, D)
+    text_db: torch.Tensor
     names: List[str]
+    mesh: Optional[Mesh] = None   # the mesh the rows are split over
 
     @property
     def size(self) -> int:
+        """Rows held on this device."""
         return int(self.image_db.shape[0])
 
     @property
@@ -113,6 +123,16 @@ class KnowledgeDB:
                                     "or --db-image-file/--db-text-file")
         return cls.load(img, txt, names, dtype, device)
 
+    def shard_over(self, mesh: Mesh) -> "KnowledgeDB":
+        """Split the rows over the mesh (the counterpart of faiss
+        ``index_cpu_to_all_gpus``): zero rows pad the tables to a multiple
+        of the world size and this rank keeps its contiguous block on its
+        device.  The unsharded DB may live on the CPU."""
+        def place(a):
+            return shard_rows(mesh, a).to(mesh.device, copy=True)
+
+        return KnowledgeDB(place(self.image_db), place(self.text_db), self.names, mesh)
+
 
 def _first_existing(base: str, modality: str) -> Optional[str]:
     """``cc_<modality>_databases.pt``, ``<modality>_db.npy`` or ``.npz`` in
@@ -131,11 +151,25 @@ def db_fingerprint(db: KnowledgeDB) -> dict:
     sig = hashlib.sha1()
     idx = np.unique(np.linspace(0, max(n_rows - 1, 0), num=min(64, n_rows)).astype(int))
     for arr in (db.image_db, db.text_db):
-        rows = arr[torch.as_tensor(idx, device=arr.device)].float().cpu().numpy()
+        gidx = torch.as_tensor(idx, device=arr.device)
+        rows = (global_rows(db.mesh, arr, gidx) if db.mesh is not None
+                else arr[gidx]).float().cpu().numpy()
         sig.update(np.ascontiguousarray(rows).tobytes())
     return {"rows": n_rows,
             "names_sha1": hashlib.sha1("\n".join(db.names).encode()).hexdigest(),
             "db_rows_sha1": sig.hexdigest()}
+
+
+def global_rows(mesh: Mesh, shard: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """Rows of a row-sharded table by global index (``gidx`` the same on
+    every rank), on every rank: each rank writes the rows it owns and zeros
+    for the rest, then a sum over the ranks, exact because every entry has
+    one nonzero term."""
+    m = shard.shape[0]
+    local = gidx.long().clamp(0, m * mesh.size - 1) - mesh.rank * m
+    owned = ((local >= 0) & (local < m))[..., None]
+    rows = torch.where(owned, shard[local.clamp(0, m - 1)], shard.new_zeros(()))
+    return all_reduce_sum(mesh, rows)
 
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:
@@ -148,16 +182,32 @@ class Retriever:
     (the reference's ``get_retrieved_features`` and, for the text stream,
     ``get_extra_cap_features``).  At eval the image neighbours are not
     shuffled: cross-attention is permutation-invariant over keys and values,
-    so the shuffle changes nothing there."""
+    so the shuffle changes nothing there.
+
+    A DB split by :meth:`~KnowledgeDB.shard_over` is searched and gathered
+    across the ranks of its mesh.  Every rank passes its own rows of one
+    global batch (equal blocks) and gets its own rows back: the queries are
+    all-gathered, searched on every shard and merged
+    (:func:`~keds_tpu_torch.ops.topk.mips_topk_sharded`), and the neighbour
+    rows are read by global index (:func:`global_rows`)."""
 
     def __init__(self, db: KnowledgeDB):
         self.db = db
 
     def search(self, queries: torch.Tensor, db_array: torch.Tensor,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        return mips_topk(queries, db_array, k)
+        mesh = self.db.mesh
+        if mesh is None:
+            return mips_topk(queries, db_array, k)
+        q = all_gather(mesh, queries).flatten(0, 1)
+        vals, idx = mips_topk_sharded(q, db_array, k, mesh, len(self.db.names))
+        return shard_rows(mesh, vals), shard_rows(mesh, idx)
 
     def _gather(self, db_array: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        mesh = self.db.mesh
+        if mesh is not None:   # (B, k, D): rows of the global batch's indices, own block kept
+            gidx = all_gather(mesh, idx).flatten(0, 1)
+            return shard_rows(mesh, global_rows(mesh, db_array, gidx))
         return db_array[idx.long().clamp(0, db_array.shape[0] - 1)]   # (B, k, D)
 
     def neighbour_indices(self, feature: torch.Tensor, k: int, text: bool = True

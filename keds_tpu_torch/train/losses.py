@@ -13,6 +13,14 @@ frozen-CLIP encode that turns a raw-image batch into features
   own "a photo of * * * {other}" template and of its top-2 caption
   neighbours' "a photo of * * {other}" templates, and takes the cosine loss
   against the caption features: own + 0.5 x neighbours.
+
+Under a mesh each rank passes its own rows and gets the GLOBAL batch's
+loss, with a gradient through its own rows only, so that the gradients
+summed over the ranks are the global loss's (the reference all-gathers the
+features, gradient through the local block, then DDP averages; PARITY.md
+"Distributed loss semantics"): the image stream's InfoNCE runs over the
+all-gathered features, the text stream's means add the other ranks' terms
+as constants.  Dropout masks follow each row's global position.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 
 from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads, compose_pseudo_tokens
+from keds_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, batch_rows, gather_with_grad
 
 
 def no_mark(stage: str) -> None:
@@ -97,19 +106,21 @@ def image_stream_loss(heads: FusionHeads, clip_params: dict, cfg: mclip.ClipConf
                       topk_text: torch.Tensor, prompt_tokens: torch.Tensor,
                       generator: Optional[torch.Generator] = None, train: bool = True,
                       dropout: float = 0.1,
-                      mark: Callable[[str], None] = no_mark) -> torch.Tensor:
+                      mark: Callable[[str], None] = no_mark,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """InfoNCE between the image features and the text tower over the
     prompt (``prompt_tokens``, (1, S)) with the fused pseudo-tokens spliced
-    in before its EOT.  ``mark("heads_forward")`` is called once the
-    pseudo-tokens are made."""
-    tokens = compose_pseudo_tokens(heads, batch.image_features, topk_image, topk_text,
-                                   True, generator, train, dropout)
-    mark("heads_forward")
+    in before its EOT, over the features of every rank of ``mesh``.
+    ``mark("heads_forward")`` is called once the pseudo-tokens are made."""
     B = batch.image_features.shape[0]
+    tokens = compose_pseudo_tokens(heads, batch.image_features, topk_image, topk_text,
+                                   True, generator, train, dropout, batch_rows(mesh, B))
+    mark("heads_forward")
     text = prompt_tokens.expand(B, prompt_tokens.shape[1])
     text_features = mclip.encode_text_img(clip_params, cfg, text, tokens)
     scale = torch.exp(clip_params["logit_scale"])
-    return info_nce(_normalize(batch.image_features), _normalize(text_features), scale)
+    return info_nce(gather_with_grad(mesh, _normalize(batch.image_features)),
+                    gather_with_grad(mesh, _normalize(text_features)), scale)
 
 
 def text_stream_loss(heads: FusionHeads, clip_params: dict, cfg: mclip.ClipConfig,
@@ -118,7 +129,8 @@ def text_stream_loss(heads: FusionHeads, clip_params: dict, cfg: mclip.ClipConfi
                      top2_other_tokens: torch.Tensor, split_id: int,
                      generator: Optional[torch.Generator] = None, train: bool = True,
                      dropout: float = 0.1,
-                     mark: Callable[[str], None] = no_mark) -> torch.Tensor:
+                     mark: Callable[[str], None] = no_mark,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Cosine loss of the own templates (``batch.other_tokens``) with the 2
     pseudo-tokens written over their stars against the caption features,
     plus 0.5 x the same over the top-2 neighbours' templates
@@ -130,17 +142,25 @@ def text_stream_loss(heads: FusionHeads, clip_params: dict, cfg: mclip.ClipConfi
 
     The reference weighs the two terms one way in its single-process branch
     and the other in its distributed one; the distributed branch is the
-    trained configuration: own + 0.5 x neighbours."""
+    trained configuration: own + 0.5 x neighbours.  Under ``mesh`` the
+    value is the global batch's (every rank's rows the same count), the
+    gradient this rank's share of it."""
+    B = batch.image_features.shape[0]
     tokens = compose_pseudo_tokens(heads, batch.image_features, topk_image, topk_text,
-                                   False, generator, train, dropout)   # (B, 2, D)
+                                   False, generator, train, dropout,
+                                   batch_rows(mesh, B))   # (B, 2, D)
     mark("heads_forward")
     own = mclip.encode_text_img_train(clip_params, cfg, batch.other_tokens, tokens,
                                       split_id=split_id)
     loss_main = cosine_embedding_loss(own, batch.caption_features)
-    B, L, D = tokens.shape
+    _, L, D = tokens.shape
     rep = tokens[:, None].expand(B, 2, L, D).reshape(2 * B, L, D)
     neigh = mclip.encode_text_img_train(clip_params, cfg,
                                         top2_other_tokens.reshape(2 * B, -1), rep,
                                         split_id=split_id)
     loss_extra = cosine_embedding_loss(neigh, top2_caption_features.reshape(2 * B, D))
-    return loss_main + 0.5 * loss_extra
+    loss = loss_main + 0.5 * loss_extra
+    if batch_rows(mesh, B) is None:
+        return loss
+    total = all_reduce_sum(mesh, loss.detach().clone())   # the ranks' means, summed
+    return (loss + (total - loss.detach())) / mesh.size

@@ -24,6 +24,13 @@ the whole run) on device ``dev`` is
 ``torch.Generator(dev).manual_seed((seed << 32) + t)``, the counterpart of
 ``jax.random.fold_in(key(seed), t)``.  It draws the image-neighbour
 permutation first, then the dropout masks.
+
+Data parallelism (``mesh``): every rank holds the same heads and steps on
+its own rows of the global batch; the loss is the global batch's
+(:mod:`.losses`), the head gradients are summed over the ranks after
+backward and multiplied by ``grad_scale`` (1/world in the CLI), so that the
+update is the JAX package's ``jax.grad(loss * grad_scale)`` of its
+global-batch step, and every rank applies the same AdamW update.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads
 from keds_tpu_torch.models.convert import cast_floating, head_parameter_groups
+from keds_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from keds_tpu_torch.retrieval.database import Retriever, unit_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 from keds_tpu_torch.tokenizer import bucket_text
@@ -116,7 +124,8 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
                     dropout: float = 0.1, db_topk: int = 16, db_other_tokens=None,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     encode_chunk: Optional[int] = mclip.DEFAULT_ENCODE_CHUNK,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, grad_scale: float = 1.0,
+                    mesh: Optional[Mesh] = None):
     """The train step of one stream: ``step(heads, batch, t) -> loss``.
 
     ``heads`` are the optimizer's tensors (f32) and are updated in place;
@@ -131,7 +140,13 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
     first (in ``encode_chunk``-image chunks).  ``step(..., mark=f)`` calls
     ``f(stage)`` as each stage ends (``encode`` for a raw batch,
     ``retrieval``, ``heads_forward``, ``text_tower_forward``, ``backward``,
-    ``optimizer``), for a caller that times them."""
+    ``all_reduce`` under a mesh of several ranks, ``optimizer``), for a
+    caller that times them.
+
+    Under ``mesh`` the batch is this rank's rows (every rank the same
+    count) and the step is the global batch's; ``grad_scale`` multiplies
+    the summed gradients before the update (the returned loss is
+    unscaled).  The gradients stay in ``.grad`` after the step."""
     if stream not in ("image", "text"):
         raise ValueError(f"unknown stream {stream!r}")
     text = stream == "text"
@@ -176,15 +191,29 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
             mark("retrieval")
             loss = text_stream_loss(heads, clip_c, cfg, batch, topk_img, topk_txt, top2,
                                     db_other[top2_idx.long()], split_id, generator=gen,
-                                    train=True, dropout=dropout, mark=mark)
+                                    train=True, dropout=dropout, mark=mark, mesh=mesh)
         else:
             mark("retrieval")
             loss = image_stream_loss(heads, clip_c, cfg, batch, topk_img, topk_txt, prompt,
-                                     generator=gen, train=True, dropout=dropout, mark=mark)
+                                     generator=gen, train=True, dropout=dropout, mark=mark,
+                                     mesh=mesh)
         mark("text_tower_forward")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mark("backward")
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if mesh is not None and mesh.size > 1:
+            # one flat all-reduce: the ranks hold the same parameters, and
+            # the same of them (all but text_condition in the text stream)
+            # have a gradient
+            flat = all_reduce_sum(mesh, torch.cat([g.flatten() for g in grads]))
+            for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(f.view_as(g))
+            mark("all_reduce")
+        if grad_scale != 1.0:
+            for g in grads:
+                g.mul_(grad_scale)
         optimizer.step()
         mark("optimizer")
         return loss.detach()
@@ -195,11 +224,13 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
 def train_epoch(train_step, heads: FusionHeads, data_iter: Iterable, epoch: int,
                 steps_per_epoch: int, *, log_every: int = 500,
                 schedule: Optional[Callable[[int], float]] = None,
-                writers: Sequence[Callable] = ()) -> Optional[torch.Tensor]:
+                writers: Sequence[Callable] = (),
+                world_size: int = 1) -> Optional[torch.Tensor]:
     """One epoch with the reference's logging cadence (data time, batch time,
     loss, LR every ``log_every`` steps).  The card is synchronised only at
-    those log steps (reading the loss).  Returns the last step's loss
-    (on the device), or None for an empty epoch."""
+    those log steps (reading the loss).  The samples seen count global
+    rows: each rank's batch times ``world_size``.  Returns the last step's
+    loss (on the device), or None for an empty epoch."""
     loss = None
     end = time.time()
     data_time = batch_time = 0.0
@@ -216,7 +247,7 @@ def train_epoch(train_step, heads: FusionHeads, data_iter: Iterable, epoch: int,
             lr = schedule(step) if schedule else float("nan")
             pct = 100.0 * i / max(steps_per_epoch, 1)
             logging.info(
-                f"Train Epoch: {epoch} [{i * batch[0].shape[0]}"
+                f"Train Epoch: {epoch} [{i * batch[0].shape[0] * world_size}"
                 f" ({pct:.0f}%)]\tLoss: {loss_val:.6f}\tData (t) {data_time:.3f}"
                 f"\tBatch (t) {batch_time:.3f}\tLR: {lr:5f}")
             scalars = {"train/loss": loss_val, "train/data_time": data_time,

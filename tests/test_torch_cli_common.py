@@ -128,14 +128,23 @@ def test_new_flags_parse_as_in_jax():
         assert {f: getattr(t, f) for f in NEW_FLAGS} == {f: getattr(j, f) for f in NEW_FLAGS}
 
 
-@pytest.mark.parametrize("argv,item", [(["--db-shard"], "item 10"),
-                                       (["--worker-processes"], "item 10"),
-                                       (["--distributed"], "item 10"),
-                                       (["--quant-towers", "int8"], "item 15"),
-                                       (["--retrieval-backend", "approx"], "item 14")])
+@pytest.mark.parametrize("argv,item", [(["--quant-towers", "int8"], "item 15"),
+                                       (["--retrieval-backend", "approx"], "item 14"),
+                                       (["--retrieval-backend", "int8"], "item 14")])
 def test_unported_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match=item):
         tparse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--db-shard"], ["--worker-processes"],
+                                  ["--distributed", "--dist-url", "tcp://127.0.0.1:6200",
+                                   "--num-partitions", "2"]])
+def test_multi_process_flags_parse_as_in_jax(argv):
+    """--distributed, --db-shard and --worker-processes are ported: they parse
+    to the JAX package's values and are no longer refused."""
+    fields = ("db_shard", "worker_processes", "distributed", "dist_url", "num_partitions")
+    t, j = tparse_args(argv), jparse_args(argv)
+    assert {f: getattr(t, f) for f in fields} == {f: getattr(j, f) for f in fields}
 
 
 def test_compute_dtype():

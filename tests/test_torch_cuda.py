@@ -942,3 +942,23 @@ def test_serve_cli_topn_above_256_on_card(cuda, tmp_path, monkeypatch):
         for r in (i for i in range(280) if gn[i] != cn[i]):
             j = cn.index(gn[r]) if gn[r] in cn else 279
             assert abs(cs[j] - cs[r]) <= 1e-4
+
+
+def test_sharded_topk_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one device), each
+    running B1 over its 250 000 rows of a 500 000 x 768 bf16 DB at k=16 and
+    merging the candidates: the result equals B1 over the whole DB, on both
+    ranks, but for entries whose scores lie within 1e-6 of a neighbour's."""
+    from torch_dist_worker import run_ranks
+
+    outs = run_ranks("cuda_topk", tmp_path, timeout=600)
+    for o in outs:
+        assert (str(o["backend"]), str(o["device"])) == ("gloo", "cuda:0")
+        assert int(o["shard_rows"]) == 250_000 and int(o["launches"]) == 1
+    np.testing.assert_array_equal(outs[0]["idx"], outs[1]["idx"])
+    np.testing.assert_array_equal(outs[0]["vals"], outs[1]["vals"])
+    vals, whole = outs[0]["vals"], outs[0]["whole_vals"]
+    np.testing.assert_allclose(vals, whole, rtol=0, atol=TOPK_TOL[torch.bfloat16])
+    apart = np.abs(np.diff(whole, axis=1, prepend=np.inf)) > 1e-6
+    apart &= np.abs(np.diff(whole, axis=1, append=-np.inf)) > 1e-6
+    np.testing.assert_array_equal(outs[0]["idx"][apart], outs[0]["whole_idx"][apart])

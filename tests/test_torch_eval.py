@@ -26,6 +26,7 @@ from keds_tpu import transforms as jtf  # noqa: E402
 from keds_tpu_torch.data import datasets as tds  # noqa: E402
 from keds_tpu_torch.data.loader import DataLoader as TLoader  # noqa: E402
 from keds_tpu_torch.evalkit import evaluators as tev  # noqa: E402
+from keds_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from keds_tpu_torch.retrieval.database import KnowledgeDB as TDB, Retriever as TRetriever  # noqa: E402
 from keds_tpu_torch import transforms as ttf  # noqa: E402
 from torch_port_helpers import (JCFG, TCFG, eval_db_arrays, jax_models, port_models,  # noqa: E402
@@ -139,8 +140,10 @@ def test_eval_context_refuses_what_is_not_ported(tree, tmp_path):
     img, txt = eval_db_arrays()
     retr = TRetriever(TDB.from_arrays(img, txt, dtype=torch.float32, device="cpu"))
     clip = port_models(params, jax_models()[1])[0]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tev.EvalContext(clip, TCFG, retr, mesh=object(), device="cpu", split_id=265)
+    # a mesh is ported now: one of a single rank is no mesh
+    one = tev.EvalContext(clip, TCFG, retr, mesh=make_mesh(device="cpu"), device="cpu",
+                          split_id=265)
+    assert one.mesh is None and one.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         tev.EvalContext(clip, TCFG, retr, quant_towers="int8", device="cpu", split_id=265)
     orbax = tmp_path / "epoch_1.pt"

@@ -35,7 +35,7 @@ def test_import_loads_no_jax_and_no_keds_tpu():
     assert len(MODULES) >= 38
     # every subpackage is walked, the training and evaluation slices' included
     assert {m.split(".")[1] for m in MODULES if m.count(".") >= 2} >= {
-        "models", "ops", "retrieval", "train", "io", "data", "cli", "evalkit"}
+        "models", "ops", "retrieval", "train", "io", "data", "cli", "evalkit", "parallel"}
     assert {"keds_tpu_torch.train.trainer", "keds_tpu_torch.io.checkpoint",
             "keds_tpu_torch.data.loader", "keds_tpu_torch.cli.main",
             "keds_tpu_torch.config", "keds_tpu_torch.tokenizer",
@@ -45,11 +45,12 @@ def test_import_loads_no_jax_and_no_keds_tpu():
             "keds_tpu_torch.data.datasets", "keds_tpu_torch.transforms",
             "keds_tpu_torch.cli.serve", "keds_tpu_torch.cli.demo",
             "keds_tpu_torch.cli.common", "keds_tpu_torch.logging_utils",
-            "keds_tpu_torch.data.tarstream"} <= set(MODULES)
+            "keds_tpu_torch.data.tarstream", "keds_tpu_torch.parallel.mesh"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
-                                  REPO / "kernel_sweeps.py"],
+                                  REPO / "kernel_sweeps.py",
+                                  REPO / "tests" / "torch_dist_worker.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_neither_jax_nor_keds_tpu(path):
     src = path.read_text()

@@ -108,5 +108,6 @@ def test_serve_cli_refuses_what_it_does_not_take(run, tmp_path):
         tserve.main(base + ["--resume", str(tmp_path)])
     with pytest.raises(SystemExit, match="item 14"):
         tserve.main(base + ["--resume", "c.pt", "--retrieval-backend", "int8"])
+    # --db-shard is ported; a mesh over a subset of the ranks is not
     with pytest.raises(SystemExit, match="item 10"):
-        tserve.main(base + ["--resume", "c.pt", "--db-shard"])
+        tserve.main(base + ["--resume", "c.pt", "--device", "cpu", "--num-partitions", "2"])
