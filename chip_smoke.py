@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the keds_tpu_torch serving, training and evaluation paths,
+"""Smoke run of the keds_tpu_torch serving, training and evaluation paths
+(ViT-L/14 and RN50), of the RN family and the rest of the model surface,
 of its serve, demo and train command lines, and of two ranks of the port
 sharing the card, on one CUDA card.
 
@@ -33,6 +34,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 5. e2e_check
            two queries through the same weights on the CPU in f32; cosine of
            the composed features against the card's bf16 output.
+5a. rn_path, profile_rn, rn_check
+           the same serving run, profile and check for RN50 at its published
+           shapes (ModifiedResNet tower of layers (3, 4, 6, 3), width 64,
+           224 px, a 32-head attention pool over 50 tokens, embed 1024; text
+           512 wide, 8 heads, 12 layers; IM2TEXT 1024 -> 512 -> 512 -> 512,
+           CrossFormers at 512; synthetic weights whose BatchNorms hold the
+           statistics of a seeded calibration batch) over a 0.5M x 1024 bf16
+           DB a modality made on the card; the features' spread (mean
+           cosine between two images) beside the gate.
+5b. rn_family
+           RN101, RN50x4 (288 px), RN50x16 (384 px) and RN50x64 (448 px, a
+           pool over 197 tokens), one at a time: bf16 encode images/s at a
+           batch of 64, peak memory, and the card's bf16 encode of 4 images
+           against its own f32 encode (cuDNN TF32 off), cosine >= 0.995,
+           with the cosine after the batch mean is taken out and the spread.
+5c. vit336_check
+           ViT-L/14 at 336 px (577 tokens, B2 streaming K and V): the
+           encode of a 16-image chunk timed, 4 images on the card in bf16
+           against the CPU in f32 (cosine >= 0.995), B2 launches counted.
+5d. surface_path
+           the rest of the model surface at ViT-L/14 full width on the main
+           path's weights, 2 rows each on the card in bf16 and the CPU in
+           f32 (cosine >= 0.995 for each): encode_image_tokens,
+           encode_image_mid_features (24 x 2 x 257 x 1024),
+           get_visual_composed_features at mask_ratio 1 (B2 at S = 1, its
+           launches counted) and 0.75 (the same tokens kept on both),
+           encode_text_img_vis, get_text_mid_cross_feature, clip_forward.
 6. train_path
            the features-mode image-stream train step (make_train_step +
            train_epoch) on the main path's ViT-L/14 and 0.5M DB, heads in
@@ -133,12 +161,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            device-ranked tables but for near-ties within 1e-5.  Each rank
            is joined with a timeout; a failed rank fails the phase.
 19. the kernels line (launches of each path beside each variant, the
-    dist path's rank 0 among them), then the card's name and power limit
-    from nvidia-smi, then the result line.
+    dist path's rank 0 among them; RN50's serving for the D = 1024 top-k
+    rows and its text tower's attention, the 336 px encode for the rows
+    above 288 keys), then the card's name and power limit from
+    nvidia-smi, then the result line.
 
 The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
 rankings (k=101, 100, 200), a --db-topk of 64 and, above 256 (passes of the
-wide kernel), k=300 over 10 000, 4096 and 0.5M rows and k = N = 1000.
+wide kernel), k=300 over 10 000, 4096 and 0.5M rows and k = N = 1000, and
+RN50's retrieval and ranking at D = 1024.  The attention rows cover S
+above 288, where the kernels stream K and V: ViT-L/14 at 336 px (577),
+1025 tokens, and f32 at 577 and 289.
 """
 
 from __future__ import annotations
@@ -470,15 +503,108 @@ def profile_device(phase: str, fn, groups) -> None:
          top=[dict(name=n[:90], ms=ms, count=c, share=ms / total) for n, ms, c in ops[:15]])
 
 
-def profile_batch(engine, images_u8: np.ndarray, text: np.ndarray, corpus) -> None:
-    """Device time of one query batch by kernel."""
+def profile_batch(engine, images_u8: np.ndarray, text: np.ndarray, corpus,
+                  phase: str = "profile", groups=()) -> None:
+    """Device time of one query batch by kernel (``groups`` first, then
+    the kernels' and GEMMs')."""
     def batch():
         with torch.inference_mode():
             f, _ = engine.compose_batch(images_u8, text)
             engine.rank(f, corpus, 10)
 
-    profile_device("profile", batch, [("attention (B2)", ("attention_tc", "attention_f32")),
-                                      ("mips_topk (B1)", ("topk_",))])
+    profile_device(phase, batch, [*groups,
+                                  ("attention (B2)", ("attention_tc", "attention_f32")),
+                                  ("mips_topk (B1)", ("topk_",))])
+
+
+def feature_spread(features) -> float:
+    """Mean cosine between the features of two different rows: near 1, the
+    rows are nearly collinear and a cosine gate against another device
+    reads little of what tells them apart."""
+    f = torch.as_tensor(np.asarray(features), dtype=torch.float64)
+    f = f / f.norm(dim=1, keepdim=True)
+    n = f.shape[0]
+    return float(((f @ f.T).sum() - n) / (n * (n - 1)))
+
+
+def serving_run(phase: str, engine, kernels, seed: int, **fields) -> SimpleNamespace:
+    """ComposedQueryEngine over a path's model and DB: N_CORPUS uint8
+    images at the model's resolution encoded, N_QUERY_BATCHES of 64 composed
+    queries (the S=32 bucket) ranked against them, kernel launch counts
+    zeroed just before and read just after, the outputs checked (shapes,
+    finite, ranks in range and descending, unit-norm corpus), per-stage ms
+    of one batch (median of three) and peak memory; one JSON line."""
+    px = engine.cfg.image_resolution
+    rng = np.random.default_rng(seed)
+    corpus_batches = [rng.integers(0, 256, (QUERY_BATCH, px, px, 3), dtype=np.uint8)
+                      for _ in range(N_CORPUS // QUERY_BATCH)]
+    q_images = [rng.integers(0, 256, (QUERY_BATCH, px, px, 3), dtype=np.uint8)
+                for _ in range(N_QUERY_BATCHES)]
+    q_texts = [prompt_batch(rng, QUERY_BATCH) for _ in range(N_QUERY_BATCHES)]
+    engine.compose_batch(q_images[0], q_texts[0])          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    corpus = engine.encode_corpus(corpus_batches)
+    t1 = time.perf_counter()
+    dcorpus = engine.corpus_to_device(corpus)
+    t2 = time.perf_counter()
+    scores, idx = engine.search(q_images, q_texts, dcorpus, topn=10)
+    t3 = time.perf_counter()
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    # bf16 serving runs both tensor-core kernels and the f32 ranking; no
+    # CUDA-core attention is left on it, and it saves nothing for a backward
+    check_path_launches(phase, launches,
+                        {("attention", "f32"): 0, ("attention_bwd", "bf16"): 0,
+                         ("attention_bwd", "f32"): 0},
+                        [("attention", "bf16_tc"), ("mips_topk", "bf16_tc"),
+                         ("mips_topk", "f32")])
+    n_q = QUERY_BATCH * N_QUERY_BATCHES
+    if scores.shape != (n_q, 10) or idx.shape != (n_q, 10):
+        raise AssertionError(f"search shapes {scores.shape} {idx.shape}")
+    if not (np.isfinite(scores).all() and np.isfinite(corpus).all()):
+        raise AssertionError("non-finite corpus features or scores")
+    if not ((idx >= 0) & (idx < N_CORPUS)).all() or (np.diff(scores, axis=1) > 1e-6).any():
+        raise AssertionError("ranked indices out of range or scores not descending")
+    if not np.allclose(np.linalg.norm(corpus, axis=1), 1.0, atol=1e-2):
+        raise AssertionError("corpus features not unit-norm")
+    runs = [stage_times(engine, q_images[0], q_texts[0], dcorpus) for _ in range(3)]
+    stages = {name: float(np.median([r[name] for r in runs])) for name in runs[0]}
+    emit(phase, **fields, dtype="bf16", corpus_images=N_CORPUS, queries=n_q,
+         query_batch=QUERY_BATCH, encode_corpus_s=t1 - t0,
+         corpus_images_per_s=N_CORPUS / (t1 - t0), search_s=t3 - t2,
+         queries_per_s=n_q / (t3 - t2), stage_ms_one_batch=stages,
+         stage_ms_runs=runs, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         corpus_feature_spread=feature_spread(corpus), launches=launches)
+    return SimpleNamespace(launches=launches, q_images=q_images, q_texts=q_texts,
+                           dcorpus=dcorpus)
+
+
+def compose_check(phase: str, engine, cfg, clip_params, heads, db, q_images, q_texts):
+    """Two queries through the same weights on the CPU in f32 against the
+    card's bf16 composed features (cosine >= COSINE_MIN); returns the CPU's
+    f32 (clip, heads, DB)."""
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    t = time.perf_counter()
+    f32 = torch.float32
+    gpu = engine.compose([q_images[0][:2]], [q_texts[0][:2]])
+    cpu_db = KnowledgeDB(db.image_db.cpu().float(), db.text_db.cpu().float(), db.names)
+    cpu_clip, cpu_heads = cast_floating(clip_params, f32, "cpu"), cast_floating(heads, f32, "cpu")
+    cpu_engine = ComposedQueryEngine(cpu_clip, cfg, cpu_heads, cpu_db, split_id=SPLIT_ID,
+                                     compute_dtype=f32, device="cpu")
+    cpu = cpu_engine.compose([q_images[0][:2]], [q_texts[0][:2]])
+    cos = (gpu * cpu).sum(1) / (np.linalg.norm(gpu, axis=1) * np.linalg.norm(cpu, axis=1))
+    emit(phase, cosine=cos.tolist(), min_cosine=float(cos.min()), threshold=COSINE_MIN,
+         composed_spread=feature_spread(cpu), seconds=time.perf_counter() - t)
+    if not (np.isfinite(cos).all() and cos.min() >= COSINE_MIN):
+        raise AssertionError(f"{phase}: card bf16 vs CPU f32 cosine {cos} < {COSINE_MIN}")
+    return cpu_clip, cpu_heads, cpu_db
 
 
 def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat16,
@@ -870,8 +996,9 @@ def write_branches(root: pathlib.Path, device: torch.device) -> list:
     for b, name in enumerate(("image_branch", "text_branch")):
         (root / name).mkdir()
         for j in range(1, EVAL_EPOCHS + 1):
-            heads = synth.init_heads(VIT_L_14.embed_dim, 1000 * (b + 1) + j, device,
-                                     torch.float32)
+            heads = synth.init_heads(VIT_L_14.embed_dim, 512, VIT_L_14.transformer_width,
+                                     seed=1000 * (b + 1) + j, device=device,
+                                     dtype=torch.float32)
             torch.save({"epoch": j, **heads_to_state_dicts(heads)},
                        root / name / f"epoch_{j}.pt")
         branches.append(str(root / name))
@@ -2029,6 +2156,268 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
     return by_rank[0]
 
 
+# --- the RN towers, ViT-L/14 at 336 px and the rest of the model surface ------
+
+RN_FAMILY = ("RN101", "RN50x4", "RN50x16", "RN50x64")
+RN_FAMILY_BATCH = 64   # encode images/s at this batch, or the largest that fits
+RN_CHECK_IMAGES = 4
+# rn_family: the least centred cosine (bf16 vs f32 with the f32 batch mean
+# taken out of both) a model's sound tower must reach.  Each lies between
+# the sound tower's reading and the control's (its 3x3 kernels transposed):
+# random towers map noise images to nearly one direction, less so the
+# shallower ones, so what tells images apart is a small part of each feature.
+RN_CENTRED_MIN = {"RN101": 0.8, "RN50x4": 0.8, "RN50x16": 0.6, "RN50x64": 0.4}
+VIT336_IMAGES = 4      # the CPU's f32 encode of ViT-L/14 at 577 tokens
+VIT336_CHUNK = 16      # images/s of the card's encode at the serving chunk
+SURFACE_ROWS = 2
+
+
+def rn_path(kernels) -> dict:
+    """RN50 at its published shapes (synthetic weights, BatchNorms
+    calibrated; IM2TEXT 1024 -> 512 -> 512 -> 512, CrossFormers at 512)
+    over a 0.5M x 1024 bf16 DB a modality: the serving run, the profile
+    of one batch and the CPU f32 check of two queries."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+
+    cfg = synth.RN_CONFIGS["RN50"]
+    t = time.perf_counter()
+    clip_params, heads, db = synth.build(cfg, db_rows=DB_ROWS, dtype=torch.bfloat16, seed=30,
+                                         device=DEV)
+    engine = ComposedQueryEngine(clip_params, cfg, heads, db, split_id=SPLIT_ID, device=DEV)
+    torch.cuda.synchronize()
+    run = serving_run("rn_path", engine, kernels, seed=31, model="RN50", db_rows=DB_ROWS,
+                      db_dim=cfg.embed_dim, build_model_s=time.perf_counter() - t,
+                      img2text=[cfg.embed_dim, 512, 512, cfg.transformer_width])
+    profile_batch(engine, run.q_images[1], run.q_texts[1], run.dcorpus, phase="profile_rn",
+                  groups=[("convolution (cuDNN)", ("conv", "fprop", "cudnn", "implicit"))])
+    compose_check("rn_check", engine, cfg, clip_params, heads, db, run.q_images, run.q_texts)
+    return run.launches
+
+
+def _encode_rate(clip_params, cfg, batch: int) -> tuple:
+    """(images/s, ms) of one bf16 encode of ``batch`` uint8 images (normalised
+    on the card), the median of three after a warm-up."""
+    from keds_tpu_torch.models import clip as mclip
+
+    px = cfg.image_resolution
+    gen = torch.Generator(device=DEV).manual_seed(batch)
+    images = torch.randint(0, 256, (batch, px, px, 3), generator=gen, device=DEV,
+                           dtype=torch.uint8)
+    times = []
+    with torch.inference_mode():
+        for i in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mclip.encode_image_chunked(clip_params, cfg, images, None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    ms = float(np.median(times[1:])) * 1e3
+    return batch / ms * 1e3, ms
+
+
+def _cosines(a: torch.Tensor, b: torch.Tensor) -> list:
+    """Row cosines of two (rows, ...) tensors, each row flattened, in f64."""
+    a, b = a.double().flatten(1).cpu(), b.double().flatten(1).cpu()
+    return ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).tolist()
+
+
+def _kernels_transposed(tree):
+    """``tree`` with every convolution kernel's H and W swapped: a converter
+    fault (HWIO read as WHIO) that keeps each weight's statistics."""
+    if isinstance(tree, dict):
+        return {k: _kernels_transposed(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_kernels_transposed(v) for v in tree]
+    return tree.transpose(2, 3) if torch.is_tensor(tree) and tree.dim() == 4 else tree
+
+
+def rn_family() -> None:
+    """RN101, RN50x4, RN50x16 and RN50x64, one at a time (synthetic weights
+    at the published shapes): bf16 encode images/s at RN_FAMILY_BATCH (halved
+    until it fits), peak memory, and the card's bf16 encode of
+    RN_CHECK_IMAGES images against its own f32 encode (cuDNN TF32 off):
+    cosine >= COSINE_MIN, and centred cosine >= RN_CENTRED_MIN[model], a
+    limit the control (the bf16 tower with its kernels transposed) must
+    stay below in the same run."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.runtime import disable_tf32
+
+    disable_tf32()
+    for i, name in enumerate(RN_FAMILY):
+        cfg = synth.RN_CONFIGS[name]
+        t = time.perf_counter()
+        p32 = synth.init_clip(cfg, 40 + i, torch.device(DEV), torch.float32)
+        p16 = cast_floating(p32, torch.bfloat16, DEV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        batch = RN_FAMILY_BATCH
+        while True:
+            try:
+                rate, ms = _encode_rate(p16, cfg, batch)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if batch == 1:
+                    raise
+                batch //= 2
+                torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        px = cfg.image_resolution
+        x = torch.randn((RN_CHECK_IMAGES, px, px, 3),
+                        generator=torch.Generator(device=DEV).manual_seed(i), device=DEV)
+        with torch.inference_mode():
+            f32 = mclip.encode_image(p32, cfg, x)
+            bf16 = mclip.encode_image(p16, cfg, x)
+            control = mclip.encode_image(
+                dict(p16, visual=_kernels_transposed(p16["visual"])), cfg, x)
+        cos = _cosines(bf16, f32)
+        mean = f32.mean(dim=0)
+        centred = _cosines(bf16 - mean, f32 - mean)
+        control_centred = _cosines(control - mean, f32 - mean)
+        limit = RN_CENTRED_MIN[name]
+        emit("rn_family", model=name, resolution=px, vision_layers=list(cfg.vision_layers),
+             vision_width=cfg.vision_width, pool_tokens=(px // 32) ** 2 + 1,
+             embed_dim=cfg.embed_dim, build_s=build_s, batch=batch,
+             encode_images_per_s=rate, encode_ms=ms, peak_mem_gb=peak,
+             cudnn_tf32=torch.backends.cudnn.allow_tf32, bf16_vs_f32_cosine=cos,
+             threshold=COSINE_MIN, centred_cosine=centred, centred_threshold=limit,
+             control_cosine=_cosines(control, f32), control_centred_cosine=control_centred,
+             f32_feature_spread=feature_spread(f32.cpu()))
+        if torch.backends.cudnn.allow_tf32 or not min(cos) >= COSINE_MIN:
+            raise AssertionError(f"rn_family {name}: bf16 vs f32 cosine {cos}")
+        if not min(centred) >= limit > max(control_centred):
+            raise AssertionError(f"rn_family {name}: centred cosine {centred}, control "
+                                 f"{control_centred}, limit {limit}")
+        del p32, p16, x, f32, bf16, control, mean
+        torch.cuda.empty_cache()
+
+
+def vit336_check(kernels) -> dict:
+    """ViT-L/14 at 336 px (577 tokens, synthetic weights): the bf16 encode
+    of a VIT336_CHUNK chunk timed, then VIT336_IMAGES images encoded on the
+    card in bf16 (launch counts zeroed just before and read just after: B2
+    bf16_tc at S = 577, one a block) and on the CPU in f32, cosine >=
+    COSINE_MIN."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.models.convert import cast_floating
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(VIT_L_14, image_resolution=336)
+    params = synth.init_clip(cfg, 50, torch.device(DEV), torch.bfloat16)
+    rate, ms = _encode_rate(params, cfg, VIT336_CHUNK)
+    x = torch.randint(0, 256, (VIT336_IMAGES, 336, 336, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(51))
+    for k in kernels.values():
+        k.reset()
+    with torch.inference_mode():
+        card = mclip.encode_image_chunked(params, cfg, x.to(DEV), None)
+    torch.cuda.synchronize()
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    cpu = mclip.encode_image_chunked(cast_floating(params, torch.float32, "cpu"), cfg, x, None)
+    cos = _cosines(card, cpu)
+    emit("vit336_check", model="ViT-L/14@336px", tokens=cfg.n_patches + 1,
+         encode_images_per_s=rate, encode_ms=ms, chunk=VIT336_CHUNK, cosine=cos,
+         threshold=COSINE_MIN, feature_spread=feature_spread(cpu), launches=launches,
+         seconds=time.perf_counter() - t)
+    check_path_launches("vit336_check", launches,
+                        {("attention", "bf16_tc"): cfg.vision_layers, ("attention", "f32"): 0})
+    if not min(cos) >= COSINE_MIN:
+        raise AssertionError(f"vit336_check: cosine {cos} < {COSINE_MIN}")
+    return launches
+
+
+def surface_path(clip_params, cpu_clip, kernels) -> dict:
+    """The rest of the model surface at ViT-L/14 full width, SURFACE_ROWS
+    rows each, on the card in bf16 (the main path's weights) and on the CPU
+    in f32: each output's row cosine >= COSINE_MIN.  The visual-invert
+    composition at mask_ratio 1 runs the vision blocks over the CLS token
+    alone (B2 at S = 1, one a block); at 0.75 both devices keep the same
+    64 patches (S = 65); the textual-invert feature runs the text blocks at
+    S = 77.  Launch counts are zeroed just before each of these three and
+    read just after."""
+    from unittest import mock
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip, heads as mheads
+    from keds_tpu_torch.models.clip import VIT_L_14 as cfg
+    from keds_tpu_torch.models.convert import cast_floating
+
+    t = time.perf_counter()
+    n, bf16, f32 = SURFACE_ROWS, torch.bfloat16, torch.float32
+    rng = np.random.default_rng(60)
+    px = cfg.image_resolution
+    images = torch.from_numpy(rng.integers(0, 256, (n, px, px, 3), dtype=np.uint8))
+    text = torch.from_numpy(prompt_batch(rng, n)).long()
+    vis_text = text.clone()
+    vis_text[1, 6] = SPLIT_ID          # row 1 has two stars: the token takes the first
+    feats = torch.from_numpy(rng.standard_normal((n, cfg.embed_dim)).astype(np.float32))
+    tokens = torch.from_numpy(rng.standard_normal((n, 5, cfg.transformer_width))
+                              .astype(np.float32))
+    vis_tok = torch.from_numpy(rng.standard_normal((n, cfg.transformer_width))
+                               .astype(np.float32))
+    noise = torch.from_numpy(rng.random((n, cfg.n_patches)))
+    vis_cross = synth.init_crossformer(cfg.vision_width, cfg.embed_dim, 1, seed=61,
+                                       device=torch.device("cpu"), dtype=f32)
+    text_cross = synth.init_crossformer(cfg.transformer_width, cfg.transformer_width, 2,
+                                        seed=62, device=torch.device("cpu"), dtype=f32)
+
+    def masking(gen, x, ratio):        # the same noise on both devices
+        return mclip.masking_from_noise(x, noise.to(x.device), ratio)
+
+    def outputs(dev, dtype, params):
+        vc, tc = cast_floating(vis_cross, dtype, dev), cast_floating(text_cross, dtype, dev)
+        im = mclip.device_normalize(images.to(dev))
+        cross = lambda q, k, v: mheads.crossformer_apply(vc, q, k, v)   # noqa: E731
+        out, launches = {}, {}
+
+        def counted(name, fn):
+            for k in kernels.values():
+                k.reset()
+            out[name] = fn()
+            launches[name] = {kn: dict(k.launches) for kn, k in kernels.items()}
+
+        with torch.inference_mode(), mock.patch.object(mclip, "random_masking", masking):
+            out["encode_image_tokens"] = mclip.encode_image_tokens(params, cfg, im)
+            emb, mids = mclip.encode_image_mid_features(params, cfg, im)
+            out["encode_image_mid_features"] = emb
+            out["mid_features"] = mids.transpose(0, 1)           # rows first
+            for ratio in (1.0, 0.75):
+                counted(f"visual_composed_{ratio}", lambda: mclip.get_visual_composed_features(
+                    params, cfg, feats.to(dev, dtype), im, cross, None, ratio))
+            out["encode_text_img_vis"] = mclip.encode_text_img_vis(
+                params, cfg, vis_text.to(dev), vis_tok.to(dev, dtype), SPLIT_ID)
+            counted("get_text_mid_cross_feature", lambda: mclip.get_text_mid_cross_feature(
+                params, cfg, text.to(dev), tokens.to(dev, dtype), tc, mheads.crossformer_apply))
+            img, txt, _ = mclip.clip_forward(params, cfg, im, text.to(dev))
+            out["clip_forward_image"], out["clip_forward_text"] = img, txt
+        return out, {"mask_ratio_1": launches["visual_composed_1.0"],
+                     "mask_ratio_0.75": launches["visual_composed_0.75"],
+                     "text_mid_cross": launches["get_text_mid_cross_feature"]}
+
+    card, launches = outputs(DEV, bf16, clip_params)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    cpu, _ = outputs("cpu", f32, cpu_clip)
+    cos = {name: _cosines(card[name], cpu[name]) for name in cpu}
+    mins = {name: min(c) for name, c in cos.items()}
+    emit("surface_path", model="ViT-L/14", rows=n, min_cosine=mins, threshold=COSINE_MIN,
+         shapes={name: list(a.shape) for name, a in card.items()},
+         launches=launches, card_s=card_s, seconds=time.perf_counter() - t)
+    for run, layers in (("mask_ratio_1", cfg.vision_layers),
+                        ("mask_ratio_0.75", cfg.vision_layers),
+                        ("text_mid_cross", cfg.transformer_layers)):
+        check_path_launches(f"surface_path {run}", launches[run],
+                            {("attention", "bf16_tc"): layers, ("attention", "f32"): 0})
+    if min(mins.values()) < COSINE_MIN:
+        raise AssertionError(f"surface_path: cosines {mins} < {COSINE_MIN}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2039,10 +2428,8 @@ def main() -> int:
     from keds_tpu_torch import synth
     from keds_tpu_torch.engine import ComposedQueryEngine
     from keds_tpu_torch.models.clip import VIT_L_14
-    from keds_tpu_torch.models.convert import cast_floating
     from keds_tpu_torch.ops import attention as att_mod, topk as topk_mod
     from keds_tpu_torch.ops.cuda_build import build_all
-    from keds_tpu_torch.retrieval.database import KnowledgeDB
 
     kernels = {"attention": att_mod.KERNEL, "attention_bwd": att_mod.BWD_KERNEL,
                "mips_topk": topk_mod.KERNEL}
@@ -2058,7 +2445,18 @@ def main() -> int:
     att_rows = check_attention([(16, 16, 257, 64, bf16, False),    # vision chunk
                                 (64, 12, 32, 64, bf16, True),      # text, S=32 bucket
                                 (2, 4, 77, 64, f32, True),
-                                (2 * TRAIN_BATCH, 12, 32, 64, bf16, True)])  # text stream
+                                (2 * TRAIN_BATCH, 12, 32, 64, bf16, True),  # text stream
+                                # above 288 (K and V streamed): ViT-L/14 at 336 px
+                                (16, 16, 577, 64, bf16, False),
+                                (4, 12, 1025, 64, bf16, False),
+                                (2, 4, 577, 64, f32, False),
+                                (2, 4, 289, 64, f32, False),
+                                (64, 8, 32, 64, bf16, True),       # RN50 text, S=32
+                                # the model surface: the CLS token alone (mask
+                                # ratio 1), 64 patches kept (0.75), text at 77
+                                (2, 16, 1, 64, bf16, False),
+                                (2, 16, 65, 64, bf16, False),
+                                (2, 12, 77, 64, bf16, True)])
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
@@ -2079,78 +2477,34 @@ def main() -> int:
                             (QUERY_BATCH, 10_000, 768, 300, f32),    # k > 256: passes
                             (QUERY_BATCH, DB_ROWS, 768, 300, bf16),
                             (8, 1000, 768, 1000, f32),               # k = N
-                            (QUERY_BATCH, SERVE_CORPUS, 768, SERVE_WIDE_TOPN, f32)])  # serve
+                            (QUERY_BATCH, SERVE_CORPUS, 768, SERVE_WIDE_TOPN, f32),  # serve
+                            (QUERY_BATCH, DB_ROWS, 1024, 16, bf16),  # RN50 retrieval
+                            (QUERY_BATCH, N_CORPUS, 1024, 10, f32)])  # RN50 ranking
 
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
     clip_params, heads, db = synth.build(VIT_L_14, db_rows=DB_ROWS, dtype=bf16, seed=0)
     engine = ComposedQueryEngine(clip_params, VIT_L_14, heads, db, split_id=SPLIT_ID)
     torch.cuda.synchronize()
-    build_model_s = time.perf_counter() - t
-    rng = np.random.default_rng(0)
-    corpus_batches = [rng.integers(0, 256, (QUERY_BATCH, 224, 224, 3), dtype=np.uint8)
-                      for _ in range(N_CORPUS // QUERY_BATCH)]
-    q_images = [rng.integers(0, 256, (QUERY_BATCH, 224, 224, 3), dtype=np.uint8)
-                for _ in range(N_QUERY_BATCHES)]
-    q_texts = [prompt_batch(rng, QUERY_BATCH) for _ in range(N_QUERY_BATCHES)]
-    engine.compose_batch(q_images[0], q_texts[0])          # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    run = serving_run("main_path", engine, kernels, seed=0, model="ViT-L/14",
+                      db_rows=DB_ROWS, build_model_s=time.perf_counter() - t)
+    launches = run.launches
+    profile_batch(engine, run.q_images[1], run.q_texts[1], run.dcorpus)
+    cpu_clip, cpu_heads, cpu_db = compose_check("e2e_check", engine, VIT_L_14, clip_params,
+                                                heads, db, run.q_images, run.q_texts)
+    del engine, run
+    torch.cuda.empty_cache()
 
-    for k in kernels.values():
-        k.reset()
-    t0 = time.perf_counter()
-    corpus = engine.encode_corpus(corpus_batches)
-    t1 = time.perf_counter()
-    dcorpus = engine.corpus_to_device(corpus)
-    t2 = time.perf_counter()
-    scores, idx = engine.search(q_images, q_texts, dcorpus, topn=10)
-    t3 = time.perf_counter()
-    launches = {name: dict(k.launches) for name, k in kernels.items()}
-    # bf16 serving runs both tensor-core kernels and the f32 ranking; no
-    # CUDA-core attention is left on it
-    missing = [f"{n}/{v}" for n, v in (("attention", "bf16_tc"), ("mips_topk", "bf16_tc"),
-                                       ("mips_topk", "f32")) if launches[n][v] == 0]
-    # serving saves nothing for a backward and launches none
-    if missing or launches["attention"]["f32"] or any(launches["attention_bwd"].values()):
-        raise AssertionError(f"main path launches {launches}: missing {missing}")
-    n_q = QUERY_BATCH * N_QUERY_BATCHES
-    if scores.shape != (n_q, 10) or idx.shape != (n_q, 10):
-        raise AssertionError(f"search shapes {scores.shape} {idx.shape}")
-    if not (np.isfinite(scores).all() and np.isfinite(corpus).all()):
-        raise AssertionError("non-finite corpus features or scores")
-    if not ((idx >= 0) & (idx < N_CORPUS)).all() or (np.diff(scores, axis=1) > 1e-6).any():
-        raise AssertionError("ranked indices out of range or scores not descending")
-    if not np.allclose(np.linalg.norm(corpus, axis=1), 1.0, atol=1e-2):
-        raise AssertionError("corpus features not unit-norm")
-    runs = [stage_times(engine, q_images[0], q_texts[0], dcorpus) for _ in range(3)]
-    stages = {name: float(np.median([r[name] for r in runs])) for name in runs[0]}
-    emit("main_path", model="ViT-L/14", db_rows=DB_ROWS, dtype="bf16",
-         corpus_images=N_CORPUS, queries=n_q, query_batch=QUERY_BATCH,
-         build_model_s=build_model_s, encode_corpus_s=t1 - t0,
-         corpus_images_per_s=N_CORPUS / (t1 - t0), search_s=t3 - t2,
-         queries_per_s=n_q / (t3 - t2), stage_ms_one_batch=stages,
-         stage_ms_runs=runs, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches)
-    profile_batch(engine, q_images[1], q_texts[1], dcorpus)
-
-    # --- end-to-end check against the CPU in f32 ----------------------------
-    t = time.perf_counter()
-    gpu = engine.compose([q_images[0][:2]], [q_texts[0][:2]])
-    cpu_db = KnowledgeDB(db.image_db.cpu().float(), db.text_db.cpu().float(), db.names)
-    cpu_clip, cpu_heads = cast_floating(clip_params, f32, "cpu"), cast_floating(heads, f32, "cpu")
-    cpu_engine = ComposedQueryEngine(cpu_clip, VIT_L_14, cpu_heads, cpu_db,
-                                     split_id=SPLIT_ID, compute_dtype=f32, device="cpu")
-    cpu = cpu_engine.compose([q_images[0][:2]], [q_texts[0][:2]])
-    cos = (gpu * cpu).sum(1) / (np.linalg.norm(gpu, axis=1) * np.linalg.norm(cpu, axis=1))
-    emit("e2e_check", cosine=cos.tolist(), min_cosine=float(cos.min()),
-         threshold=COSINE_MIN, seconds=time.perf_counter() - t)
-    if not (np.isfinite(cos).all() and cos.min() >= COSINE_MIN):
-        raise AssertionError(f"card bf16 vs CPU f32 cosine {cos} < {COSINE_MIN}")
+    # --- the RN towers, ViT-L/14 at 336 px, the rest of the model surface ----
+    rn_launches = rn_path(kernels)
+    torch.cuda.empty_cache()
+    rn_family()
+    vit336_launches = vit336_check(kernels)
+    torch.cuda.empty_cache()
+    surface_launches = surface_path(clip_params, cpu_clip, kernels)
+    torch.cuda.empty_cache()
 
     # --- training path ------------------------------------------------------
-    del engine, cpu_engine
-    torch.cuda.empty_cache()
     theads, opt, step, batch, train_launches = train_path(clip_params, heads, db, kernels)
     profile_train(step, theads, batch)
     del theads, opt, step, batch
@@ -2212,8 +2566,20 @@ def main() -> int:
                (top, "f32", topk_rows[7], eval_launches),
                (top, "bf16", topk_rows[10], launches),
                (top, "f32_multi", topk_rows[14], serve_launches["serve_topn300"]),
-               (top, "bf16_multi", topk_rows[12], serve_launches["serve_topn300"])]
-    paths = {"serving": launches, "train_image": train_launches, "train_text": text_launches,
+               (top, "bf16_multi", topk_rows[12], serve_launches["serve_topn300"]),
+               # RN50's serving (the D = 1024 rows) and the streamed
+               # attention above 288 keys (ViT-L/14 at 336 px)
+               (att, "bf16_tc", att_rows[8], rn_launches),
+               (top, "bf16_tc", topk_rows[15], rn_launches),
+               (top, "f32", topk_rows[16], rn_launches),
+               (att, "bf16_tc", att_rows[4], vit336_launches),
+               (att, "f32", att_rows[6], vit336_launches),
+               (att, "bf16_tc", att_rows[9], surface_launches["mask_ratio_1"]),
+               (att, "bf16_tc", att_rows[10], surface_launches["mask_ratio_0.75"]),
+               (att, "bf16_tc", att_rows[11], surface_launches["text_mid_cross"])]
+    paths = {"serving": launches, "rn_serving": rn_launches, "vit336": vit336_launches,
+             **{f"surface_{p}": c for p, c in surface_launches.items()},
+             "train_image": train_launches, "train_text": text_launches,
              "eval": eval_launches, "serve_cli": serve_launches["serve"],
              "serve_cli_topn300": serve_launches["serve_topn300"],
              "demo_mlp": demo_launches["mlp"], "demo_crossformer": demo_launches["crossformer"],

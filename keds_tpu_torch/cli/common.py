@@ -38,7 +38,7 @@ def experiment_name(cfg) -> str:
     """``--name``, or the run's settings with a UTC time suffix."""
     if cfg.name:
         return cfg.name
-    name = (f"lr={cfg.lr}_wd={cfg.wd}_model={cfg.model}"
+    name = (f"lr={cfg.lr}_wd={cfg.wd}_agg={cfg.aggregate}_model={cfg.model}"
             f"_batchsize={cfg.batch_size}_workers={cfg.workers}")
     if cfg.time_suffix:
         name += time.strftime("_date=%Y-%m-%d-%H-%M-%S", time.gmtime())

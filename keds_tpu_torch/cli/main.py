@@ -51,14 +51,32 @@ import numpy as np
 import torch
 
 
+def _copy_codebase(cfg, log_dir: str) -> None:
+    """Copy the package source next to the run's logs (kept when resuming
+    a run that has one)."""
+    import shutil
+
+    import keds_tpu_torch
+
+    dst = os.path.join(log_dir, "code", "keds_tpu_torch")
+    if os.path.exists(dst):
+        if cfg.resume:
+            logging.info("experiment code snapshot already at %s; keeping it", dst)
+            return
+        raise SystemExit(f"Error. Experiment code already exists at {dst}.")
+    shutil.copytree(os.path.dirname(os.path.abspath(keds_tpu_torch.__file__)), dst,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    logging.info("copied codebase to %s", dst)
+
+
 def _load_clip(cfg, device: torch.device):
     from keds_tpu_torch import synth
-    from keds_tpu_torch.models.clip import MODEL_CONFIGS
+    from keds_tpu_torch.models.clip import model_config_for
     from keds_tpu_torch.models.convert import clip_from_state_dict
     from keds_tpu_torch.models.loader import state_dict_from_file
 
     if not cfg.clip_weights:
-        clip_cfg = MODEL_CONFIGS[cfg.model]
+        clip_cfg = model_config_for(cfg.model)
         logging.info("initialized %s from scratch (no --clip-weights)", cfg.model)
         return synth.init_clip(clip_cfg, cfg.seed, device, torch.float32), clip_cfg
     return clip_from_state_dict(state_dict_from_file(cfg.clip_weights), device=device)
@@ -173,6 +191,9 @@ def main(argv: Optional[list] = None) -> None:
     from keds_tpu_torch.config import parse_args
 
     cfg = parse_args(argv)
+    if cfg.load_feature and cfg.dataset_type == "webdataset":
+        raise SystemExit("--load-feature trains on precomputed features (the default "
+                         "path here); it is incompatible with --dataset-type webdataset")
     dataset_type = resolve_dataset_type(cfg)
     if dataset_type not in ("directory", "csv", "webdataset"):
         raise SystemExit(f"--dataset-type {dataset_type}: training reads directory "
@@ -190,6 +211,9 @@ def main(argv: Optional[list] = None) -> None:
 
     with run_logging(cfg) as log_dir:
         checkpoint_path = cfg.checkpoint_path or os.path.join(log_dir, "checkpoints")
+        if cfg.copy_codebase and (not torch.distributed.is_initialized()
+                                  or torch.distributed.get_rank() == 0):
+            _copy_codebase(cfg, log_dir)
         _train(cfg, dataset_type, checkpoint_path, log_dir)
 
 
@@ -263,7 +287,11 @@ def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
     np.random.seed(mesh.rank * 10 + cfg.seed)
     dtype = compute_dtype(cfg)
     clip_params, clip_cfg = _load_clip(cfg, device)
-    heads = synth.init_heads(clip_cfg.embed_dim, cfg.seed + 1, device, torch.float32)
+    # IM2TEXT maps image features (embed_dim) into the text tower's token
+    # space (transformer_width), where the CrossFormers run
+    heads = synth.init_heads(clip_cfg.embed_dim, cfg.middle_dim, clip_cfg.transformer_width,
+                             cfg.n_layer, seed=cfg.seed + 1, device=device,
+                             dtype=torch.float32)
     retriever = load_database(cfg, mesh)
     db = retriever.db
     db_other_tokens = None

@@ -6,8 +6,11 @@ values the image stream takes as arguments so that it needs no BPE vocab
 serving and the demo read both from the vocab, and so does evaluation
 unless ``--split-id`` is given).
 
-Flags of parts that are not ported yet parse, and :func:`parse_args`
-refuses them with the ROADMAP.md item that ports them."""
+Every flag of the JAX parser parses here under its name and default.
+Those that are inert there (read by nothing: the reference's GPU-era and
+open_clip-heritage flags) are inert here too; those of parts that are not
+ported yet, or left out on purpose, are refused by :func:`parse_args` with
+the ROADMAP.md item that ports them or the reason."""
 
 from __future__ import annotations
 
@@ -15,7 +18,10 @@ import argparse
 import dataclasses
 from typing import List, Optional
 
-MODEL_CHOICES = ["ViT-B/16", "ViT-B/32", "ViT-L/14", "ViT-H-14"]
+MODEL_CHOICES = [
+    "RN50", "RN101", "RN50x4", "RN50x64", "RN50x16",
+    "ViT-B/16", "ViT-B/32", "ViT-L/14", "ViT-H-14",
+]
 # tokenize("a photo of") in the CLIP vocab: SOT, a, photo, of, EOT
 DEFAULT_PROMPT_TOKENS = (49406, 320, 1125, 539, 49407)
 
@@ -36,6 +42,8 @@ class Config:
     csv_separator: str = "\t"
     csv_img_key: str = "filepath"
     csv_caption_key: str = "title"
+    imagenet_val: Optional[str] = None      # inert, as in the JAX package
+    imagenet_v2: Optional[str] = None       # inert
     train_num_samples: Optional[int] = None
     dataset_resampled: bool = False
     caption_map: Optional[str] = None
@@ -61,8 +69,12 @@ class Config:
     quant_towers: str = "none"
     worker_processes: bool = False
     eval_ranking: str = "host"
+    device_preprocess: bool = True
     neighbors: Optional[str] = None
     model: str = "ViT-L/14"
+    middle_dim: int = 512
+    n_layer: int = 2
+    openai_pretrained: bool = False
     clip_weights: Optional[str] = None
     droprate: float = 0.1
     batch_size: int = 64
@@ -86,16 +98,38 @@ class Config:
     save_frequency: int = 1
     save_most_recent: bool = False
     resume: Optional[str] = None
+    checkpoint_format: str = "pt"
     report_to: str = ""
     wandb_notes: str = ""
+    profile_dir: Optional[str] = None
     debug: bool = False
+    copy_codebase: bool = False
+    pre_save_feature: bool = False
+    load_feature: bool = False
     distributed: bool = False
+    skip_aggregate: bool = False
     dist_url: str = "tcp://127.0.0.1:6100"
     num_partitions: int = 0
+    # inert, as in the JAX package: the reference's GPU-era distribution
+    # knobs and open_clip-heritage flags that no code path reads
+    dist_backend: str = "ici"
+    gpu: Optional[int] = None
+    dp: bool = False
+    multigpu: Optional[List[int]] = None
+    use_bn_sync: bool = False
+    use_debiased_sampler: bool = False
+    use_prefix: bool = False
+    zeroshot_frequency: int = 2
+    regression_frequency: int = 2
+    C: float = 3.16
     split_id: Optional[int] = None
     prompt_tokens: List[int] = dataclasses.field(
         default_factory=lambda: list(DEFAULT_PROMPT_TOKENS))
     device: Optional[str] = None
+
+    @property
+    def aggregate(self) -> bool:
+        return not self.skip_aggregate
 
     def finalize(self) -> "Config":
         for k, v in get_default_params(self.model).items():
@@ -118,6 +152,8 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--csv-separator", type=str, default="\t")
     add("--csv-img-key", type=str, default="filepath")
     add("--csv-caption-key", type=str, default="title")
+    add("--imagenet-val", type=str, default=None, help="inert, as in the JAX package")
+    add("--imagenet-v2", type=str, default=None, help="inert, as in the JAX package")
     add("--train-num-samples", type=int, default=None,
         help="webdataset: samples in an epoch (default CC3M's 2,803,766)")
     add("--dataset-resampled", action="store_true", default=False,
@@ -168,9 +204,18 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
         help="device: the sweeps' mixtures and rankings on the device (the fused "
              "top-k kernel in f32), only the indices fetched; host: the numpy "
              "formulas (default)")
+    add("--no-device-preprocess", dest="device_preprocess", action="store_false",
+        default=True, help="left out on purpose: the port sends uint8 and normalises "
+                           "on the device")
     add("--neighbors", type=str, default=None,
         help="precomputed-neighbour pack, or 'auto' for <train-data>/neighbors.npz")
-    add("--model", type=str, default="ViT-L/14", choices=MODEL_CHOICES)
+    add("--model", type=str, default="ViT-L/14", choices=MODEL_CHOICES,
+        help="the from-scratch architecture without --clip-weights (ViT only; RN "
+             "towers load from --clip-weights)")
+    add("--middle_dim", type=int, default=512, help="IM2TEXT hidden width")
+    add("--n-layer", type=int, default=2, help="IM2TEXT hidden layers")
+    add("--openai-pretrained", action="store_true", default=False,
+        help="left out on purpose (it downloads); give --clip-weights a local .pt")
     add("--clip-weights", type=str, default=None,
         help="reference-layout CLIP .pt (a state dict or a TorchScript archive)")
     add("--droprate", type=float, default=0.1)
@@ -196,17 +241,41 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--save-frequency", type=int, default=1)
     add("--save-most-recent", action="store_true", default=False)
     add("--resume", type=str, default=None)
+    add("--checkpoint-format", type=str, default="pt", choices=["pt", "orbax"],
+        help="orbax is not ported (ROADMAP.md section A item 16)")
     add("--report-to", type=str, default="",
         help="tensorboard, wandb or all, beside scalars.jsonl")
     add("--wandb-notes", type=str, default="")
+    add("--profile-dir", type=str, default=None,
+        help="not ported yet (ROADMAP.md section A item 16)")
     add("--debug", action="store_true", default=False, help="log at DEBUG")
+    add("--copy-codebase", action="store_true", default=False,
+        help="copy keds_tpu_torch into <logs>/<name>/code before training")
     add("--distributed", action="store_true", default=False,
         help="one process per rank, from RANK and WORLD_SIZE (LOCAL_RANK, "
              "LOCAL_WORLD_SIZE) and --dist-url: data parallelism with --batch-size "
              "rows per rank; gloo on the CPU or where ranks share a CUDA device, "
              "NCCL where each has its own")
+    add("--skip-aggregate", action="store_true", default=False,
+        help="names the run agg=False (the reference's loss aggregation flag)")
     add("--dist-url", type=str, default="tcp://127.0.0.1:6100",
         help="init method of the process group (tcp://host:port)")
+    for flag, kw in (("--dist-backend", dict(type=str, default="ici")),
+                     ("--gpu", dict(type=int, default=None)),
+                     ("--dp", dict(action="store_true", default=False)),
+                     ("--multigpu", dict(type=lambda x: [int(a) for a in x.split(",")],
+                                         default=None)),
+                     ("--use-bn-sync", dict(action="store_true", default=False)),
+                     ("--use-debiased-sampler", dict(action="store_true", default=False)),
+                     ("--use-prefix", dict(action="store_true", default=False)),
+                     ("--zeroshot-frequency", dict(type=int, default=2)),
+                     ("--regression-frequency", dict(type=int, default=2)),
+                     ("--C", dict(type=float, default=3.16))):
+        add(flag, help="inert, as in the JAX package", **kw)
+    add("--pre-save-feature", action="store_true", default=False,
+        help="feature extraction is not ported yet (ROADMAP.md section A item 16)")
+    add("--load-feature", action="store_true", default=False,
+        help="train on precomputed features (the default; refused with webdataset)")
     add("--num-partitions", type=int, default=0,
         help="ranks on the data axis: 0 or the world size (a subset of the ranks "
              "is not ported yet, ROADMAP.md section A item 10)")
@@ -221,8 +290,18 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
              "plain versions of the kernels)")
 
 
-# Flags of parts not ported yet: (field, value that asks for them, item).
+# Flags of parts not ported yet, or left out on purpose: (field, value that
+# asks for them, ROADMAP item or reason).
+_ITEM16 = "ROADMAP.md section A item 16 (tools and harness)"
 UNPORTED = (("quant_towers", "int8", "ROADMAP.md section A item 15 (W8A8 towers)"),
+            ("checkpoint_format", "orbax", _ITEM16),
+            ("profile_dir", None, _ITEM16),
+            ("pre_save_feature", True, _ITEM16 + "; features come from "
+             "python -m keds_tpu.tools.extract_features"),
+            ("openai_pretrained", True, "left out on purpose (ROADMAP.md section A): it "
+             "downloads; give --clip-weights a local .pt"),
+            ("device_preprocess", False, "left out on purpose (ROADMAP.md section A): the "
+             "port sends uint8 and normalises on the device"),
             ("retrieval_backend", "int8", "ROADMAP.md section A item 14 (auto, xla and "
              "pallas run the exact search)"),
             ("retrieval_backend", "approx", "ROADMAP.md section A item 14 (auto, xla and "
@@ -235,8 +314,9 @@ def parse_args(argv: Optional[List[str]] = None,
     _add_flags(parser)
     cfg = Config(**vars(parser.parse_args(argv))).finalize()
     for field, value, item in UNPORTED:
-        if getattr(cfg, field) == value:
-            flag = "--" + field.replace("_", "-")
-            raise SystemExit(f"{flag}{'' if value is True else ' ' + str(value)}: not "
-                             f"ported yet, {item}")
+        got = getattr(cfg, field)
+        if got == value if value is not None else got is not None:
+            flag = "--" + ("no-" if value is False else "") + field.replace("_", "-")
+            arg = "" if isinstance(value, bool) else f" {got}"
+            raise SystemExit(f"{flag}{arg}: not ported, {item}")
     return cfg

@@ -20,6 +20,8 @@ import torch
 
 from keds_tpu_torch.models.clip import ClipConfig
 from keds_tpu_torch.models.composition import FusionHeads
+from keds_tpu_torch.models.resnet import (channels_last, resnet_from_state_dict,
+                                          resnet_to_state_dict)
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 
 StateDict = Dict[str, object]
@@ -40,7 +42,9 @@ def _tensor(a, device: torch.device, dtype: torch.dtype = torch.float32) -> torc
     # strides, or its products round differently from a freshly made one's
     if isinstance(a, torch.Tensor):
         return a.detach().to(device=device, dtype=dtype).contiguous()
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device=device, dtype=dtype)
+    a = np.asarray(a, np.float32)       # ascontiguousarray alone makes a 0-d array 1-d
+    return torch.as_tensor(np.ascontiguousarray(a).reshape(a.shape)).to(device=device,
+                                                                        dtype=dtype)
 
 
 def cast_floating(tree, dtype: torch.dtype, device: DeviceLike = None):
@@ -60,10 +64,26 @@ def params_from_numpy(tree, device: DeviceLike = None, dtype: torch.dtype = torc
     return _map(tree, lambda a: _tensor(a, dev, dtype))
 
 
+def _is_resnet(params: dict) -> bool:
+    return "stem" in params["visual"]
+
+
+def _rn_channels_last(params: dict) -> dict:
+    if _is_resnet(params):
+        params = dict(params, visual=channels_last(params["visual"]))
+    return params
+
+
 def clip_from_numpy(params: dict, device: DeviceLike = None,
                     dtype: torch.dtype = torch.float32) -> dict:
-    """The JAX CLIP pytree (nested dicts of arrays) as port parameters."""
-    return params_from_numpy(params, device, dtype)
+    """The JAX CLIP pytree (nested dicts of arrays; an RN tower's blocks as
+    lists of lists of dicts) as port parameters: an RN tower's HWIO conv
+    kernels become OIHW weights (``channels_last`` memory)."""
+    if _is_resnet(params):
+        params = dict(params, visual=_map(
+            params["visual"], lambda a: np.asarray(a).transpose(3, 2, 0, 1)
+            if np.ndim(a) == 4 else a))
+    return _rn_channels_last(params_from_numpy(params, device, dtype))
 
 
 def heads_from_numpy(heads, device: DeviceLike = None,
@@ -154,15 +174,13 @@ def clip_from_state_dict(sd: StateDict, cfg: Optional[ClipConfig] = None,
                          device: DeviceLike = None,
                          dtype: torch.dtype = torch.float32):
     """A reference-layout CLIP state dict (tensors or arrays) -> (port
-    parameters, config).  ViT towers only."""
+    parameters, config), ViT or ModifiedResNet image tower."""
     sd = strip_module_prefix(sd)
     cfg = cfg or infer_clip_config(sd)
-    if not cfg.is_vit:
-        raise NotImplementedError("ModifiedResNet image towers are not ported yet")
-    P = cfg.vision_patch_size
-    conv = _np(sd["visual.conv1.weight"])                  # (width, 3, P, P)
-    params = {
-        "visual": {
+    if cfg.is_vit:
+        P = cfg.vision_patch_size
+        conv = _np(sd["visual.conv1.weight"])                  # (width, 3, P, P)
+        visual = {
             "patch_w": conv.transpose(2, 3, 1, 0).reshape(P * P * 3, cfg.vision_width),
             "cls": _np(sd["visual.class_embedding"]),
             "pos": _np(sd["visual.positional_embedding"]),
@@ -172,7 +190,11 @@ def clip_from_state_dict(sd: StateDict, cfg: Optional[ClipConfig] = None,
             "ln_post_g": _np(sd["visual.ln_post.weight"]),
             "ln_post_b": _np(sd["visual.ln_post.bias"]),
             "proj": _np(sd["visual.proj"]),
-        },
+        }
+    else:
+        visual = resnet_from_state_dict(sd, lambda key: _np(sd[key]))
+    params = {
+        "visual": visual,
         "text": {
             "tok_emb": _np(sd["token_embedding.weight"]),
             "pos": _np(sd["positional_embedding"]),
@@ -183,7 +205,7 @@ def clip_from_state_dict(sd: StateDict, cfg: Optional[ClipConfig] = None,
         },
         "logit_scale": _np(sd["logit_scale"]),
     }
-    return clip_from_numpy(params, device, dtype), cfg
+    return _rn_channels_last(params_from_numpy(params, device, dtype)), cfg
 
 
 def _linear(sd: StateDict, pre: str) -> dict:
@@ -282,10 +304,9 @@ def heads_to_state_dicts(heads: FusionHeads) -> Dict[str, StateDict]:
 
 def clip_to_state_dict(params: dict, cfg: ClipConfig) -> StateDict:
     """Inverse of :func:`clip_from_state_dict`: port CLIP parameters as a
-    reference-layout state dict of CPU f32 tensors.  ViT towers only."""
-    if not cfg.is_vit:
-        raise NotImplementedError("ModifiedResNet image towers are not ported yet")
-
+    reference-layout state dict of CPU f32 tensors (an RN tower's
+    BatchNorms with ``num_batches_tracked``), keyed as the JAX package's
+    ``clip_pytree_to_state_dict`` keys it."""
     def cpu(a: torch.Tensor) -> torch.Tensor:
         return a.detach().to("cpu", torch.float32).contiguous()
 
@@ -295,21 +316,28 @@ def clip_to_state_dict(params: dict, cfg: ClipConfig) -> StateDict:
                 sd[f"{prefix}.resblocks.{i}.{name}"] = cpu(a.T if transpose else a)
 
     v, t = params["visual"], params["text"]
-    P = cfg.vision_patch_size
-    sd: StateDict = {
-        "visual.conv1.weight": cpu(v["patch_w"].reshape(P, P, 3, cfg.vision_width)
-                                   .permute(3, 2, 0, 1)),
-        "visual.class_embedding": cpu(v["cls"]),
-        "visual.positional_embedding": cpu(v["pos"]),
-        "visual.ln_pre.weight": cpu(v["ln_pre_g"]), "visual.ln_pre.bias": cpu(v["ln_pre_b"]),
-        "visual.ln_post.weight": cpu(v["ln_post_g"]), "visual.ln_post.bias": cpu(v["ln_post_b"]),
-        "visual.proj": cpu(v["proj"]),
+    if cfg.is_vit:
+        P = cfg.vision_patch_size
+        sd: StateDict = {
+            "visual.conv1.weight": cpu(v["patch_w"].reshape(P, P, 3, cfg.vision_width)
+                                       .permute(3, 2, 0, 1)),
+            "visual.class_embedding": cpu(v["cls"]),
+            "visual.positional_embedding": cpu(v["pos"]),
+            "visual.ln_pre.weight": cpu(v["ln_pre_g"]),
+            "visual.ln_pre.bias": cpu(v["ln_pre_b"]),
+            "visual.ln_post.weight": cpu(v["ln_post_g"]),
+            "visual.ln_post.bias": cpu(v["ln_post_b"]),
+            "visual.proj": cpu(v["proj"]),
+        }
+        blocks(v["blocks"], "visual.transformer", sd)
+    else:
+        sd = resnet_to_state_dict(v, cpu)
+    sd.update({
         "token_embedding.weight": cpu(t["tok_emb"]),
         "positional_embedding": cpu(t["pos"]),
         "ln_final.weight": cpu(t["ln_final_g"]), "ln_final.bias": cpu(t["ln_final_b"]),
         "text_projection": cpu(t["proj"]),
         "logit_scale": cpu(params["logit_scale"]),
-    }
-    blocks(v["blocks"], "visual.transformer", sd)
+    })
     blocks(t["blocks"], "transformer", sd)
     return sd

@@ -14,7 +14,7 @@ counterpart here.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +88,17 @@ def transformer(x: torch.Tensor, blocks: dict, n_heads: int,
     for i in range(_n_layers(blocks)):
         x = residual_block(x, _layer(blocks, i), n_heads, causal)
     return x
+
+
+def transformer_collect(x: torch.Tensor, blocks: dict, n_heads: int,
+                        causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`transformer` that also returns every block's output, stacked
+    (L, B, S, D): the reference's ``mid_feature`` mode."""
+    outs = []
+    for i in range(_n_layers(blocks)):
+        x = residual_block(x, _layer(blocks, i), n_heads, causal)
+        outs.append(x)
+    return x, torch.stack(outs)
 
 
 def final_block_pooled(x: torch.Tensor, blk: dict, n_heads: int, pool_idx,

@@ -5,7 +5,8 @@
 launches a hand-written kernel of ``csrc/attention.cu`` (which replaces the
 Pallas ``flash_attention``) or raises: bf16 runs the tensor-core kernel
 (variant ``bf16_tc``, Dh = 64), f32 the exact-f32 CUDA-core kernel
-(variant ``f32``).  On a CPU tensor it runs the plain version
+(variant ``f32``), at any sequence length (above 288 the kernels stream
+K and V through shared memory).  On a CPU tensor it runs the plain version
 :func:`attention_reference`.  Keys at or past the real sequence length
 never enter a softmax, so no sequence padding is needed.
 
@@ -32,7 +33,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("attention", {
     "keds_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
                            ctypes.c_float, _P],
-    "keds_attention_max_seq": [],
     "keds_attention_max_head_dim": [],
     "keds_attention_tc_head_dim": [],
 }, variants=("bf16_tc", "f32"))
@@ -125,10 +125,9 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_cuda(q, k, v)
     B, H, S, Dh = q.shape
     _check_qkv(q, k, v)
+    if S < 1:
+        raise ValueError(f"attention kernel needs S >= 1, got S={S}")
     lib = KERNEL.lib()
-    max_seq = lib.keds_attention_max_seq()
-    if not 1 <= S <= max_seq:
-        raise ValueError(f"attention kernel supports 1 <= S <= {max_seq}, got S={S}")
     variant, code = _VARIANTS[q.dtype]
     if variant == "bf16_tc":
         head_dim = lib.keds_attention_tc_head_dim()

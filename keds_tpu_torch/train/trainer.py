@@ -88,11 +88,16 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 def truncated_prompt(prompt_tokens, eot_id: int) -> np.ndarray:
     """The fixed image-stream prompt cut to the next multiple of 8 that
     covers EOT + K + 1: the splice pools at EOT + K, and a causal tower's
-    pooled output does not depend on later positions (S=8 for "a photo of")."""
+    pooled output does not depend on later positions (S=8 for "a photo of").
+    A prompt given without its padding (``--prompt-tokens``, SOT to EOT) is
+    zero-padded to that width, as the tokenizer pads, so that the splice
+    keeps EOT in the sequence."""
     prompt = np.asarray(prompt_tokens)
     eot_pos = int(np.argmax(prompt[0] == eot_id))
     s_t = -(-(eot_pos + K_PSEUDO + 1) // 8) * 8
-    return prompt[:, :s_t] if s_t < prompt.shape[1] else prompt
+    if s_t > prompt.shape[1]:
+        prompt = np.pad(prompt, ((0, 0), (0, s_t - prompt.shape[1])))
+    return prompt[:, :s_t]
 
 
 def frozen_clip(clip_params: dict, compute_dtype: torch.dtype, device: torch.device) -> dict:

@@ -3,7 +3,8 @@
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
     python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k]
-                             [attention_bwd] [train_check_controls] [raw_check_controls]
+                             [attention] [attention_bwd] [train_check_controls]
+                             [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -30,6 +31,13 @@ wide_k            the top-k above k=32 at the evaluators' rankings (4181,
                   nothing after the first chunk is inserted: the products and
                   the fixed cost of the fold) and at k=32 (the one-entry lists
                   of the f32 kernel).  Takes ``--impl`` as ``rank`` does.
+attention         the attention forward at the rows of chip_smoke.py at
+                  S <= 288 (the vision chunk (16, 16, 257, 64) and the text
+                  (64, 12, 32, 64) bf16, (2, 4, 77, 64) f32 causal) and above
+                  (ViT-L/14 at 336 px (16, 16, 577, 64) bf16), on the inputs
+                  and the graph-replay timing of ``chip_smoke.py``.  Takes
+                  ``--impl`` as ``rank`` does (an implementation that refuses
+                  a shape times it as null).
 attention_bwd     the bf16 attention backward (``attention_backward``,
                   causal) at the train prompt (128, 12, 8, 64) and the text
                   buckets (64, 12, {16, 32, 77}, 64), on the inputs and the
@@ -54,6 +62,21 @@ raw_check_controls
                   the card in bf16 and in f32, and of the CPU in bf16,
                   each against the CPU in f32, and of the card in bf16
                   against the CPU in bf16.
+rn_gain_controls
+                  why synth's RN towers hold a gain of 0.25 in each
+                  bottleneck's last BatchNorm: RN50 and RN50x64 (synthetic
+                  weights, BatchNorms calibrated) at gains 1, 0.5 and 0.25
+                  (``synth.RESIDUAL_GAIN`` patched for each build),
+                  the card's bf16 encode of 4 N(0, 1) images against its f32
+                  encode (cuDNN TF32 off): the cosine, the same after
+                  subtracting the f32 batch mean from both (what tells the
+                  images apart), and the f32 features' spread.
+rn_encode_chunks
+                  RN50's bf16 encode of 64 uint8 images (synthetic weights)
+                  in the serving engine's chunks of 16 and in one chunk of
+                  64: host-clock ms between two synchronises (median of
+                  five after a warm-up) and device ms (torch.profiler), to
+                  tell the host's launches from the card's work.
 """
 
 from __future__ import annotations
@@ -72,9 +95,12 @@ from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, TRAIN_BATCH, _dou
                         _unit_rows, compare_readings, emit, jpeg_bytes, raw_reading, time_ms,
                         train_check_batch, train_reading)
 
-PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "attention_bwd",
-          "train_check_controls", "raw_check_controls")
-IMPL_PHASES = ("rank", "narrow_k", "wide_k", "attention_bwd")   # the phases --impl times
+PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "attention", "attention_bwd",
+          "train_check_controls", "raw_check_controls", "rn_gain_controls",
+          "rn_encode_chunks")
+IMPL_PHASES = ("rank", "narrow_k", "wide_k", "attention", "attention_bwd")   # --impl's
+FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.bfloat16, True),
+              (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False))
 NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
                  (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
                  (QUERY_BATCH, 10_000, 10, torch.float32))
@@ -147,6 +173,22 @@ def _time_topk(phase: str, impl: str, shapes, D: int = 768) -> None:
         del db, q
         torch.cuda.empty_cache()
     emit(phase, impl=impl, D=D, kernel_ms=ms)
+
+
+def attention(impl: str) -> None:
+    from keds_tpu_torch.ops.attention import attention as fwd
+
+    ms = {}
+    for B, H, S, Dh, dtype, causal in FWD_SHAPES:
+        q, k, v = _qkv(B, H, S, Dh, dtype)
+        name = f"{B}x{H}x{S}x{Dh} {str(dtype)[6:]}{' causal' if causal else ''}"
+        try:
+            fwd(q, k, v, causal)
+        except ValueError:          # an implementation that refuses the shape
+            ms[name] = None
+            continue
+        ms[name] = time_ms(lambda: fwd(q, k, v, causal))
+    emit("attention", impl=impl, kernel_ms=ms)
 
 
 def attention_bwd(impl: str) -> None:
@@ -246,6 +288,66 @@ def raw_check_controls() -> None:
              **{f"{k}_vs_cpu_f32": compare_readings(v, cpu) for k, v in readings.items()},
              card_bf16_vs_cpu_bf16=compare_readings(readings["card_bf16"],
                                                     readings["cpu_bf16"]))
+
+
+def rn_gain_controls() -> None:
+    from chip_smoke import _cosines, feature_spread
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.runtime import disable_tf32
+
+    disable_tf32()
+    for name in ("RN50", "RN50x64"):
+        cfg = synth.RN_CONFIGS[name]
+        px = cfg.image_resolution
+        x = torch.randn((4, px, px, 3), generator=torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        for gain in (1.0, 0.5, 0.25):
+            with mock.patch.object(synth, "RESIDUAL_GAIN", gain):
+                p32 = synth.init_clip(cfg, 40, torch.device("cuda"), torch.float32)
+            with torch.inference_mode():
+                f32 = mclip.encode_image(p32, cfg, x)
+                bf16 = mclip.encode_image(cast_floating(p32, torch.bfloat16, "cuda"), cfg, x)
+            mean = f32.mean(dim=0)
+            emit("rn_gain_controls", model=name, residual_gain=gain,
+                 cudnn_tf32=torch.backends.cudnn.allow_tf32,
+                 bf16_vs_f32_cosine=_cosines(bf16, f32),
+                 centred_cosine=_cosines(bf16 - mean, f32 - mean),
+                 f32_feature_spread=feature_spread(f32.cpu()))
+            del p32
+            torch.cuda.empty_cache()
+
+
+def rn_encode_chunks() -> None:
+    import time
+
+    from chip_smoke import profile_device
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip
+
+    cfg = synth.RN_CONFIGS["RN50"]
+    params = synth.init_clip(cfg, 30, torch.device("cuda"), torch.bfloat16)
+    images = torch.randint(0, 256, (64, 224, 224, 3), dtype=torch.uint8, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    for chunk in (16, 64):
+        def encode():
+            with torch.inference_mode():
+                mclip.encode_image_chunked(params, cfg, images, chunk)
+
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            encode()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        emit("rn_encode_chunks", model="RN50", images=64, chunk=chunk,
+             host_ms=float(np.median(walls[1:])), host_ms_runs=walls[1:])
+        profile_device(f"rn_encode_chunks_profile_{chunk}", encode,
+                       [("convolution (cuDNN)", ("conv", "fprop", "cudnn", "implicit"))])
 
 
 def main() -> int:

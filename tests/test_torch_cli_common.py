@@ -72,8 +72,12 @@ def test_experiment_name():
     for argv in (["--name", "run/a"], ["--name", "x", "--lr", "1e-3"]):
         assert tcommon.experiment_name(tparse_args(argv)) == jcommon.experiment_name(
             jparse_args(argv))
+    for argv in (["--no-time-suffix", "--batch-size", "8"],
+                 ["--no-time-suffix", "--skip-aggregate", "--model", "RN50"]):
+        assert tcommon.experiment_name(tparse_args(argv)) == jcommon.experiment_name(
+            jparse_args(argv))
     name = tcommon.experiment_name(tparse_args(["--no-time-suffix", "--batch-size", "8"]))
-    assert name == "lr=0.0005_wd=0.2_model=ViT-L-14_batchsize=8_workers=1"
+    assert name == "lr=0.0005_wd=0.2_agg=True_model=ViT-L-14_batchsize=8_workers=1"
     assert re.fullmatch(r".*_date=\d{4}(-\d\d){5}",
                         tcommon.experiment_name(tparse_args([])))
 

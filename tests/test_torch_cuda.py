@@ -48,7 +48,8 @@ def _qkv(dev, b, h, s, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("s", [1, 15, 16, 17, 33, 63, 64, 65, 77, 197, 257, 288])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 33, 63, 64, 65, 77, 197, 257, 288,
+                               289, 577, 1025])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_kernel_matches_plain(cuda, dtype, s, causal):
     B, H, Dh = 3, 5, 64        # B*H = 15: not a multiple of any tile
@@ -287,9 +288,12 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb = torch.zeros((2, 96), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="divisible by 64"):
         mips_topk(qb, torch.zeros((50, 96), device=cuda, dtype=torch.bfloat16), 3)
-    x = torch.zeros((1, 1, 300, 64), device=cuda)
-    with pytest.raises(ValueError, match="S <= "):
-        attention(x, x, x)
+    # S above 288 streams K and V (its S <= 288 refusal is gone)
+    q, k, v = _qkv(cuda, 1, 2, 300, torch.float32, 300)
+    torch.testing.assert_close(attention(q, k, v), attention_reference(q, k, v),
+                               atol=ATT_TOL[torch.float32], rtol=0)
+    with pytest.raises(ValueError, match="S >= 1"):
+        attention(*(torch.zeros((1, 1, 0, 64), device=cuda),) * 3)
     y = torch.zeros((1, 1, 10, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh = 64"):
         attention(y, y, y)
@@ -962,3 +966,78 @@ def test_sharded_topk_two_ranks_sharing_the_card(cuda, tmp_path):
     apart = np.abs(np.diff(whole, axis=1, prepend=np.inf)) > 1e-6
     apart &= np.abs(np.diff(whole, axis=1, append=-np.inf)) > 1e-6
     np.testing.assert_array_equal(outs[0]["idx"][apart], outs[0]["whole_idx"][apart])
+
+
+def test_attention_head_dim_128_f32_streams_past_the_resident_limit(cuda):
+    """f32 at Dh = 128: S = 288 would need more than 227 KB resident, so it
+    streams, as does S = 577."""
+    for s in (288, 577):
+        q = torch.randn((2, 3, s, 128), generator=_gen(cuda, s), device=cuda)
+        out = attention(q, 0.5 * q, q.flip(-1))
+        torch.testing.assert_close(out, attention_reference(q, 0.5 * q, q.flip(-1)),
+                                   atol=ATT_TOL[torch.float32], rtol=0)
+
+
+def _rn_tiny():
+    from keds_tpu_torch.models.clip import ClipConfig
+
+    return ClipConfig(embed_dim=32, image_resolution=64, vision_layers=(2, 1, 1, 1),
+                      vision_width=16, vision_patch_size=0, transformer_width=64,
+                      transformer_heads=1, transformer_layers=1)
+
+
+def test_rn_tower_bf16_on_card_matches_cpu_f32(cuda):
+    """The ModifiedResNet tower (calibrated synthetic weights): the card's
+    bf16 and f32 encodes against the CPU's f32 encode (cuDNN TF32 off)."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.convert import cast_floating
+
+    cfg = _rn_tiny()
+    params = synth.init_clip(cfg, 5, torch.device("cpu"), torch.float32)
+    x = torch.randn((6, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    cpu = mclip.encode_image(params, cfg, x)
+    f32 = mclip.encode_image(cast_floating(params, torch.float32, cuda), cfg, x.to(cuda))
+    bf16 = mclip.encode_image(cast_floating(params, torch.bfloat16, cuda), cfg, x.to(cuda))
+    torch.cuda.synchronize()
+    assert not torch.backends.cudnn.allow_tf32
+    torch.testing.assert_close(f32.cpu(), cpu, atol=1e-4, rtol=1e-4)
+    cos = torch.nn.functional.cosine_similarity(bf16.float().cpu(), cpu, dim=1)
+    assert float(cos.min()) > 0.995
+
+
+def test_model_surface_at_one_token_on_card_matches_cpu(cuda):
+    """The visual-invert composition at mask_ratio 1 runs the vision blocks
+    over the CLS token alone: B2 at S = 1 on the card, in both dtypes,
+    against the CPU's f32."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models import clip as mclip, heads as mheads
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=8, vision_width=128,
+                     vision_patch_size=16, transformer_width=64, transformer_heads=1,
+                     transformer_layers=2)
+    params = synth.init_clip(cfg, 6, torch.device("cpu"), torch.float32)
+    cross = synth.init_crossformer(128, 64, 1, seed=7, device=torch.device("cpu"),
+                                   dtype=torch.float32)
+    x = torch.randn((3, 32, 32, 3), generator=torch.Generator().manual_seed(2))
+    tf = torch.randn((3, 64), generator=torch.Generator().manual_seed(3))
+
+    def run(dev, dtype):
+        p, c = cast_floating(params, dtype, dev), cast_floating(cross, dtype, dev)
+        return mclip.get_visual_composed_features(
+            p, cfg, tf.to(dev, dtype), x.to(dev),
+            lambda q, k, v: mheads.crossformer_apply(c, q, k, v), None, 1.0)
+
+    cpu = run("cpu", torch.float32)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, None)):
+        before = att_mod.KERNEL.launches[VARIANT[dtype]]
+        out = run(cuda, dtype)
+        torch.cuda.synchronize()
+        assert att_mod.KERNEL.launches[VARIANT[dtype]] == before + 8
+        if tol:
+            torch.testing.assert_close(out.cpu(), cpu, atol=tol, rtol=tol)
+        else:
+            cos = torch.nn.functional.cosine_similarity(out.float().cpu(), cpu, dim=1)
+            assert float(cos.min()) > 0.995

@@ -207,7 +207,8 @@ def test_text_stream_checkpoint_round_trips_and_resumes_in_jax(vocab, run, tmp_p
                               if mod == "text_condition")
     assert all(t in opt.state for mod, _, t in params if mod != "text_condition")
     assert len(ckpt["optimizer"]["state"]) == len(params) - len(stateless)
-    init = synth.init_heads(D, 4, torch.device("cpu"), torch.float32)   # the CLI's, seed 3
+    init = synth.init_heads(D, 512, D, 2, seed=4, device=torch.device("cpu"),
+                            dtype=torch.float32)   # the CLI's at --seed 3
     jheads, jepoch = jload_heads_checkpoint(path)
     assert jepoch == 1
     for a, b in zip(jax.tree.leaves(to_numpy(jheads.text_condition)),

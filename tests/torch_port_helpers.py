@@ -229,3 +229,86 @@ def eval_db_arrays(rows: int = 128):
     """The evaluation tests' knowledge DB (image, caption) as f32 arrays."""
     rng = np.random.default_rng(0)
     return rng.standard_normal((rows, D)), rng.standard_normal((rows, D))
+
+
+# --- ModifiedResNet (RN) checkpoints -----------------------------------------
+
+
+def rn_state_dict(layers=(1, 1, 1, 1), width=8, resolution=64, embed_dim=16,
+                  text_width=64, text_layers=1, seed=0) -> dict:
+    """A reference-layout RN CLIP state dict of f32 numpy arrays (the
+    reference ``ModifiedResNet`` keys and shapes, ``num_batches_tracked``
+    included), random from ``seed``, with non-trivial BatchNorm gains,
+    shifts and running statistics.  embed_dim != text_width, as in every
+    published RN model."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def conv(key, c_in, c_out, k):
+        sd[key] = normal((c_out, c_in, k, k), (c_in * k * k) ** -0.5)
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{prefix}.bias"] = normal((c,), 0.1)
+        sd[f"{prefix}.running_mean"] = normal((c,), 0.2)
+        sd[f"{prefix}.running_var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        sd[f"{prefix}.num_batches_tracked"] = np.asarray(7, np.int64)
+
+    conv("visual.conv1.weight", 3, width // 2, 3)
+    bn("visual.bn1", width // 2)
+    conv("visual.conv2.weight", width // 2, width // 2, 3)
+    bn("visual.bn2", width // 2)
+    conv("visual.conv3.weight", width // 2, width, 3)
+    bn("visual.bn3", width)
+    inplanes = width
+    for li, n in enumerate(layers):
+        planes = width * 2 ** li
+        for bi in range(n):
+            pre = f"visual.layer{li + 1}.{bi}"
+            conv(f"{pre}.conv1.weight", inplanes, planes, 1)
+            bn(f"{pre}.bn1", planes)
+            conv(f"{pre}.conv2.weight", planes, planes, 3)
+            bn(f"{pre}.bn2", planes)
+            conv(f"{pre}.conv3.weight", planes, 4 * planes, 1)
+            bn(f"{pre}.bn3", 4 * planes)
+            if (li > 0 and bi == 0) or inplanes != 4 * planes:
+                conv(f"{pre}.downsample.0.weight", inplanes, 4 * planes, 1)
+                bn(f"{pre}.downsample.1", 4 * planes)
+            inplanes = 4 * planes
+    d, grid = 32 * width, resolution // 32
+    sd["visual.attnpool.positional_embedding"] = normal((grid * grid + 1, d), d ** -0.5)
+    for name, d_out in (("q", d), ("k", d), ("v", d), ("c", embed_dim)):
+        sd[f"visual.attnpool.{name}_proj.weight"] = normal((d_out, d), d ** -0.5)
+        sd[f"visual.attnpool.{name}_proj.bias"] = normal((d_out,), 0.02)
+    tw = text_width
+    sd["token_embedding.weight"] = normal((49408, tw), 0.02)
+    sd["positional_embedding"] = normal((77, tw), 0.01)
+    for i in range(text_layers):
+        pre = f"transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{pre}.{ln}.weight"] = rng.uniform(0.8, 1.2, tw).astype(np.float32)
+            sd[f"{pre}.{ln}.bias"] = normal((tw,), 0.02)
+        sd[f"{pre}.attn.in_proj_weight"] = normal((3 * tw, tw), tw ** -0.5)
+        sd[f"{pre}.attn.in_proj_bias"] = normal((3 * tw,), 0.02)
+        sd[f"{pre}.attn.out_proj.weight"] = normal((tw, tw), tw ** -0.5)
+        sd[f"{pre}.attn.out_proj.bias"] = normal((tw,), 0.02)
+        sd[f"{pre}.mlp.c_fc.weight"] = normal((4 * tw, tw), tw ** -0.5)
+        sd[f"{pre}.mlp.c_fc.bias"] = normal((4 * tw,), 0.02)
+        sd[f"{pre}.mlp.c_proj.weight"] = normal((tw, 4 * tw), (4 * tw) ** -0.5)
+        sd[f"{pre}.mlp.c_proj.bias"] = normal((tw,), 0.02)
+    sd["ln_final.weight"] = np.ones(tw, np.float32)
+    sd["ln_final.bias"] = np.zeros(tw, np.float32)
+    sd["text_projection"] = normal((tw, embed_dim), tw ** -0.5)
+    sd["logit_scale"] = np.asarray(np.log(1 / 0.07), np.float32)
+    return sd
+
+
+def save_state_dict(sd: dict, path) -> str:
+    """``sd`` (numpy arrays) as a torch ``.pt`` of tensors."""
+    import torch
+
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
+    return str(path)
