@@ -61,6 +61,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            get_visual_composed_features at mask_ratio 1 (B2 at S = 1, its
            launches counted) and 0.75 (the same tokens kept on both),
            encode_text_img_vis, get_text_mid_cross_feature, clip_forward.
+5e. int8_quantize, int8_retrieval, int8_linear
+           the int8 backend over the main path's DB: quantize_int8 on the
+           card against the CPU bit for bit (a 50 000-row slice);
+           mips_topk_int8 (k = 16 at B = 64 and 128, k = 2 at 128,
+           oversample 4, true-row re-rank) against its plain version (the
+           stage-1 product in float64) index for index but for near-ties
+           within 1e-5 (counted), its top-16 overlap with B1's exact
+           search, rows padded for torch._int_mm (B = 17 and 1 over 4096
+           rows) and every row present twice (the lower row first); then
+           int8_linear at a ViT-L/14 block's four GEMM shapes (16 images'
+           4112 tokens) against the CPU bit for bit.  Times beside B1 at
+           the same shape, the bf16 addmm of the same work and the bound
+           (the int8 rate: 1,979 TOP/s, H100 SXM data sheet).
+5f. quant_path, profile_quant, quant_check, quant_rn50
+           ViT-L/14 serving with --quant-towers int8 and the int8
+           Retriever (3 batches of 64; launch counts zeroed just before
+           and read just after: no B1 bf16, the int8 products counted),
+           the profile of one batch, 4 queries' composed features against
+           the card's bf16 towers and the CPU's f32 int8 towers as
+           cosines centred by the CPU's batch mean (a control with each
+           int8 weight's scales permuted across channels must stay below
+           the limit), and RN50's text tower quantized, its ResNet visual
+           tower skipped with the warning seen.
 6. train_path
            the features-mode image-stream train step (make_train_step +
            train_epoch) on the main path's ViT-L/14 and 0.5M DB, heads in
@@ -121,7 +144,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            decode, peak memory; the gate (the two --topn 300 files name the
            same images in the same order but for near-ties within 1e-5,
            counted); 4 queries composed on the card in bf16 against the CPU
-           in f32 from the same files (cosine).
+           in f32 from the same files (cosine).  Then serve_quant: the
+           first 128 queries with --quant-towers int8 --retrieval-backend
+           int8 at --topn 10, their top-10 overlap with the exact run.
 16. demo_path
            keds_tpu_torch.cli.demo.main, MLP and CrossFormer intents, one
            query and two prompts over a 256-image csv: index.html and the
@@ -149,7 +174,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            image-stream step over the global batch of 2 x 128 (2 warm-up
            and 10 timed steps, samples/s, gloo's collective ms a step: the
            host-staged transport of a shared card, not NCCL), one bf16 and
-           one f32 reading of step 0, and a device-ranked CIRR sweep epoch.
+           one f32 reading of step 0, a device-ranked CIRR sweep epoch,
+           and mips_topk_int8_sharded over its half (quantized on the
+           card) for 64 queries, equal to the one-process int8 search
+           but for near-ties.
            This process computes the same on one device first, and the
            gates hold the ranks to it: composed-feature cosine >= 0.9999,
            DB neighbours equal but for near-ties (scores within 1e-4),
@@ -166,7 +194,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     above 288 keys), then the card's name and power limit from
     nvidia-smi, then the result line.
 
-The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
+The backward rows cover S above 128 (the streamed launches): bf16 at 257
+and 577, f32 at 289.  The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
 rankings (k=101, 100, 200), a --db-topk of 64 and, above 256 (passes of the
 wide kernel), k=300 over 10 000, 4096 and 0.5M rows and k = N = 1000, and
 RN50's retrieval and ranking at D = 1024.  The attention rows cover S
@@ -304,7 +333,7 @@ def check_attention_bwd(cases):
 
     rows = []
     for B, H, S, Dh, dtype, causal in cases:
-        variant = BWD_VARIANT[dtype]
+        variant = BWD_VARIANT[dtype] + ("_stream" if S > 128 else "")
         launches0 = BWD_KERNEL.launches[variant]
         q, k, v = _qkv(B, H, S, Dh, dtype)
         dout = _dout(B, H, S, Dh, dtype)
@@ -527,7 +556,13 @@ def feature_spread(features) -> float:
     return float(((f @ f.T).sum() - n) / (n * (n - 1)))
 
 
-def serving_run(phase: str, engine, kernels, seed: int, **fields) -> SimpleNamespace:
+SERVING_WANT = {("attention", "f32"): 0, ("attention_bwd", "bf16"): 0,
+                ("attention_bwd", "f32"): 0}
+SERVING_POSITIVE = (("attention", "bf16_tc"), ("mips_topk", "bf16_tc"), ("mips_topk", "f32"))
+
+
+def serving_run(phase: str, engine, kernels, seed: int, want=SERVING_WANT,
+                positive=SERVING_POSITIVE, **fields) -> SimpleNamespace:
     """ComposedQueryEngine over a path's model and DB: N_CORPUS uint8
     images at the model's resolution encoded, N_QUERY_BATCHES of 64 composed
     queries (the S=32 bucket) ranked against them, kernel launch counts
@@ -557,11 +592,7 @@ def serving_run(phase: str, engine, kernels, seed: int, **fields) -> SimpleNames
     launches = {name: dict(k.launches) for name, k in kernels.items()}
     # bf16 serving runs both tensor-core kernels and the f32 ranking; no
     # CUDA-core attention is left on it, and it saves nothing for a backward
-    check_path_launches(phase, launches,
-                        {("attention", "f32"): 0, ("attention_bwd", "bf16"): 0,
-                         ("attention_bwd", "f32"): 0},
-                        [("attention", "bf16_tc"), ("mips_topk", "bf16_tc"),
-                         ("mips_topk", "f32")])
+    check_path_launches(phase, launches, want, positive)
     n_q = QUERY_BATCH * N_QUERY_BATCHES
     if scores.shape != (n_q, 10) or idx.shape != (n_q, 10):
         raise AssertionError(f"search shapes {scores.shape} {idx.shape}")
@@ -1861,8 +1892,10 @@ def dist_rank(workdir: pathlib.Path, url: str) -> None:
     maybe_init_distributed(SimpleNamespace(distributed=True, dist_url=url, device=DEV))
     mesh = make_mesh(device=DEV)
     dev = mesh.device
+    from keds_tpu_torch.ops.quant import INT8_MM
+
     kernels = {"attention": att_mod.KERNEL, "attention_bwd": att_mod.BWD_KERNEL,
-               "mips_topk": topk_mod.KERNEL}
+               "mips_topk": topk_mod.KERNEL, "int8_mm": INT8_MM}
 
     def counted(fn):
         """(fn(), seconds, launches, collectives) of one synchronised run."""
@@ -1912,6 +1945,16 @@ def dist_rank(workdir: pathlib.Path, url: str) -> None:
     arrays["rank_vals"] = torch.cat([v for v, _ in ranked]).cpu().numpy()
     arrays["rank_idx"] = torch.cat([i for _, i in ranked]).cpu().numpy()
     del engine, dc, ranked
+    torch.cuda.empty_cache()
+
+    # the int8 search: the rank's half quantized on the card, searched and merged
+    q = _unit_rows(QUERY_BATCH, VIT_L_14.embed_dim, torch.bfloat16, seed=DIST_SEED)
+    q8, sc = topk_mod.quantize_int8(db.image_db)
+    (v8, i8), s, launches, comm = counted(lambda: topk_mod.mips_topk_int8_sharded(
+        q.float(), q8, sc, 16, mesh, DB_ROWS, db_shard=db.image_db))
+    info["int8"] = dict(seconds=s, launches=launches, collectives=comm)
+    arrays["int8_vals"], arrays["int8_idx"] = v8.cpu().numpy(), i8.cpu().numpy()
+    del q8, sc
     torch.cuda.empty_cache()
 
     # image-stream training, the rank's block of the global batch
@@ -2057,10 +2100,14 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
     launches.  Returns rank 0's launches by path."""
     from keds_tpu_torch.engine import ComposedQueryEngine
     from keds_tpu_torch.models.clip import VIT_L_14
-    from keds_tpu_torch.ops.topk import mips_topk
+    from keds_tpu_torch.ops.topk import mips_topk, mips_topk_int8, quantize_int8
 
     t = time.perf_counter()
     dev = db.image_db.device
+    q = _unit_rows(QUERY_BATCH, VIT_L_14.embed_dim, torch.bfloat16, seed=DIST_SEED)
+    q8, sc = quantize_int8(db.image_db)
+    int8_1 = [a.cpu().numpy() for a in mips_topk_int8(q.float(), q8, sc, 16, db=db.image_db)]
+    del q, q8, sc
     engine = ComposedQueryEngine(clip_params, VIT_L_14, heads, db, split_id=SPLIT_ID,
                                  device=dev)
     images, texts, corpus = dist_inputs()
@@ -2112,7 +2159,8 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
                            passes=rel <= rel_max and cosine >= cos_min and norm_rel <= norm_max)
     gate = dist_eval_gate(eval_ref.split, eval_ref,
                           {k: arrays[f"eval_{k}"] for k in ("composed", "image", "mixture")})
-    by_rank = [{p: i[p]["launches"] for p in ("serving", "ranking", "train", "eval")}
+    i8 = ties_apart(*int8_1, arrays["int8_vals"], arrays["int8_idx"], NEAR_TIE)
+    by_rank = [{p: i[p]["launches"] for p in ("serving", "ranking", "int8", "train", "eval")}
                for i, _ in ranks]
 
     def launched(c):
@@ -2121,6 +2169,8 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
         return {"serving": c["serving"]["mips_topk"]["bf16_tc"] == 2 * N_QUERY_BATCHES
                 and c["serving"]["attention"]["bf16_tc"] > 0,
                 "ranking": c["ranking"]["mips_topk"]["f32"] == N_QUERY_BATCHES,
+                "int8": c["int8"]["int8_mm"]["retrieval"] == 1
+                and c["int8"]["mips_topk"]["bf16_tc"] == 0,
                 "train": c["train"]["mips_topk"]["bf16_tc"] > 0
                 and c["train"]["attention"]["bf16_tc"] > 0
                 and c["train"]["attention_bwd"]["bf16"] > 0,
@@ -2132,6 +2182,7 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
               shard_rows=info["shard_rows"] == -(-DB_ROWS // DIST_RANKS),
               feature_cosine=bool(np.isfinite(cos).all() and cos.min() >= DIST_FEATURE_COSINE_MIN),
               neighbours=all(n == near for n, near in nb), ranking=rk[0] == rk[1],
+              int8_search=i8[0] == i8[1],
               steps=all(r["passes"] for r in steps.values()), eval=gate["passes"],
               launches=all(all(w.values()) for w in want))
     emit("dist_path", model="ViT-L/14", ranks=DIST_RANKS, device=info["device"],
@@ -2148,12 +2199,343 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
          peak_mem_gb=[i["peak_mem_gb"] for i, _ in ranks],
          feature_cosine_min=float(cos.min()), feature_cosine_limit=DIST_FEATURE_COSINE_MIN,
          neighbour_entries_differing=[n for n, _ in nb], neighbour_near_ties=[x for _, x in nb],
-         ranking_entries_differing=rk[0], ranking_near_ties=rk[1], steps=steps,
+         ranking_entries_differing=rk[0], ranking_near_ties=rk[1],
+         int8=dict(info["int8"], entries_differing=i8[0], near_ties=i8[1], k=16,
+                   oversample=INT8_OVERSAMPLE),
+         steps=steps,
          eval_gate=gate, eval_tables_one_process=eval_ref.tables, launches_by_rank=by_rank,
          launch_checks=want, checks=ok)
     if not all(ok.values()):
         raise AssertionError(f"dist_path checks failed: {ok}")
     return by_rank[0]
+
+
+# --- int8 retrieval and the W8A8 towers (ROADMAP items 14 and 15) ------------
+
+INT8_PEAK_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+INT8_SLICE = 50_000       # quantize_int8: card vs CPU bit for bit on this many rows
+INT8_OVERSAMPLE = 4
+QUANT_CHECK_QUERIES = 4
+# quant_check: the int8 towers' composed features against the card's bf16
+# towers and the CPU's f32 int8 towers, cosine after the f32 batch mean is
+# taken out (random ViT-L/14 features are nearly collinear, PERF.md); the
+# control (each int8 weight's scales permuted across its output channels)
+# must stay below the limit in the same run
+QUANT_CENTRED_MIN = {"int8_vs_bf16": 0.8, "int8_vs_cpu_int8": 0.9}
+QUANT_LINEAR_ROWS = 16 * 257   # one 16-image vision chunk's tokens
+QUANT_LINEAR_CPU_ROWS = 2 * 257
+
+
+def int8_search_row(q, q8, sc, db, k) -> dict:
+    """mips_topk_int8 (true-row re-rank) on the card against its plain
+    version (the stage-1 product in float64) on the same inputs: indices
+    equal but for near-ties (re-ranked scores within NEAR_TIE), values, the
+    top-k overlap with B1's exact search, times and the bound."""
+    from keds_tpu_torch.ops.quant import INT8_MM
+    from keds_tpu_torch.ops.topk import mips_topk, mips_topk_int8
+
+    B, D = q.shape
+    N = q8.shape[0]
+    qf = q.float()
+    before = INT8_MM.launches["retrieval"]
+    vals, idx = mips_topk_int8(qf, q8, sc, k, INT8_OVERSAMPLE, db=db)
+    launches = INT8_MM.launches["retrieval"] - before
+    pv, pi = mips_topk_int8(qf, q8, sc, k, INT8_OVERSAMPLE, db=db, plain=True)
+    ei = mips_topk(q, db, k)[1]
+    torch.cuda.synchronize()
+    differ = idx != pi
+    near = differ & ((vals - pv).abs() <= NEAR_TIE)
+    err = (vals - pv).abs().max().item()
+    overlap = float(np.mean([len(set(a) & set(b)) / k for a, b in
+                             zip(idx.cpu().tolist(), ei.cpu().tolist())]))
+    # inputs read once (int8 DB, its scales, the queries, the candidates'
+    # true rows), the output written once; 2 B N D int8 operations
+    nbytes = N * D + N * 4 + B * D * 4 + B * k * INT8_OVERSAMPLE * D * db.element_size() \
+        + B * k * 8
+    ops = 2 * B * N * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_PEAK_OPS
+    # the (B, N) int32 scores and their f32 copy, written and read once each
+    materialized = (nbytes + 2 * 2 * B * N * 4) / HBM_BYTES_PER_S
+    row = dict(shape=[B, N, D, k], oversample=INT8_OVERSAMPLE, rerank="true rows",
+               max_abs_err=err, tol=NEAR_TIE, entries_differing=int(differ.sum()),
+               near_ties=int(near.sum()), b1_exact_overlap=overlap,
+               kernel_ms=time_ms(lambda: mips_topk_int8(qf, q8, sc, k, INT8_OVERSAMPLE,
+                                                         db=db)),
+               plain_ms=time_ms(lambda: mips_topk_int8(qf, q8, sc, k, INT8_OVERSAMPLE,
+                                                        db=db, plain=True), iters=3),
+               b1_bf16_ms=time_ms(lambda: mips_topk(q, db, k)),
+               int_mm_ms=time_ms(lambda: torch._int_mm(
+                   torch.zeros((max(B, 17), D), dtype=torch.int8, device=DEV), q8.T)),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_ms_scores_materialized=max(materialized, t_ops) * 1e3,
+               launches=launches)
+    if int(differ.sum()) != int(near.sum()) or not err <= NEAR_TIE:
+        raise AssertionError(f"int8 search {B, N, D, k}: {int(differ.sum())} entries differ "
+                             f"from the plain version, {int(near.sum())} near-ties; "
+                             f"max_abs_err {err}")
+    return row
+
+
+def int8_retrieval(db) -> list:
+    """The int8 backend over the main path's 0.5M x 768 bf16 DB (image
+    table): quantize_int8 on the card against the CPU bit for bit on an
+    INT8_SLICE-row slice, then mips_topk_int8 against its plain version at
+    the serving and train batches (k = 16), the caption neighbours (k = 2),
+    rows padded for torch._int_mm (B = 17 and 1 over 4096 rows) and
+    duplicated rows (index for index, ties to the lower row)."""
+    from keds_tpu_torch.ops.topk import mips_topk_int8, quantize_int8
+
+    t = time.perf_counter()
+    part = db.image_db[:INT8_SLICE]
+    c8, csc = quantize_int8(part)
+    p8, psc = quantize_int8(part.cpu())
+    quant_equal = bool(torch.equal(c8.cpu(), p8) and torch.equal(csc.cpu(), psc))
+    q8, sc = quantize_int8(db.image_db)
+    quantize_ms = time_ms(lambda: quantize_int8(db.image_db), iters=3)
+    emit("int8_quantize", rows=DB_ROWS, dim=db.dim, slice_rows=INT8_SLICE,
+         card_equals_cpu=quant_equal, quantize_ms=quantize_ms,
+         quantize_bound_ms=(DB_ROWS * db.dim * 3 + DB_ROWS * 4) / HBM_BYTES_PER_S * 1e3)
+    if not quant_equal:
+        raise AssertionError("quantize_int8 on the card differs from the CPU's")
+    rows = []
+    for B, k in ((QUERY_BATCH, 16), (TRAIN_BATCH, 16), (TRAIN_BATCH, 2)):
+        q = _unit_rows(B, db.dim, torch.bfloat16, seed=B + k)
+        rows.append(int8_search_row(q, q8, sc, db.image_db, k))
+        emit("int8_retrieval", **rows[-1])
+    small, s8, ssc = db.image_db[:4096], q8[:4096], sc[:4096]
+    for B in (17, 1):
+        q = _unit_rows(B, db.dim, torch.bfloat16, seed=B)
+        rows.append(int8_search_row(q, s8, ssc, small, 16))
+        emit("int8_retrieval", case="rows padded for torch._int_mm", **rows[-1])
+    half = db.image_db[:2048]
+    dup = torch.cat([half, half])
+    d8, dsc = quantize_int8(dup)
+    q = _unit_rows(QUERY_BATCH, db.dim, torch.bfloat16, seed=5)
+    vals, idx = mips_topk_int8(q.float(), d8, dsc, 16, INT8_OVERSAMPLE, db=dup)
+    pv, pi = mips_topk_int8(q.float(), d8, dsc, 16, INT8_OVERSAMPLE, db=dup, plain=True)
+    torch.cuda.synchronize()
+    pairs = bool(torch.equal(idx[:, 1::2], idx[:, 0::2] + 2048) and (idx[:, 0::2] < 2048).all())
+    emit("int8_retrieval", case="every row twice", shape=[QUERY_BATCH, 4096, db.dim, 16],
+         index_for_index=bool(torch.equal(idx, pi)), lower_row_first=pairs,
+         seconds=time.perf_counter() - t)
+    if not (torch.equal(idx, pi) and torch.equal(vals, pv) and pairs):
+        raise AssertionError("int8 search over duplicated rows differs from the plain "
+                             "version or does not keep the lower row first")
+    del q8, sc, c8, p8
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_linear_rows() -> list:
+    """int8_linear on a ViT-L/14 block's four GEMM shapes (a 16-image chunk's
+    4112 tokens) on the card against the CPU on the same bf16 input, bit for
+    bit; times beside the bf16 addmm of the same work and the bound."""
+    from keds_tpu_torch.ops.quant import (INT8_MM, int8_linear, int8_matmul_plain,
+                                          quantize_activations, quantize_weight)
+
+    rows = []
+    M = QUANT_LINEAR_ROWS
+    gen = torch.Generator(device=DEV).manual_seed(70)
+    for name, (K, N) in (("qkv_w", (1024, 3072)), ("out_w", (1024, 1024)),
+                         ("fc_w", (1024, 4096)), ("proj_w", (4096, 1024))):
+        x = torch.randn((M, K), generator=gen, device=DEV).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device=DEV) * K ** -0.5).to(torch.bfloat16)
+        b = (torch.randn((N,), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        wq = quantize_weight(w)
+        before = INT8_MM.launches["linear"]
+        card = int8_linear(x, wq, b)
+        launches = INT8_MM.launches["linear"] - before
+        # each token is quantized alone, so the first QUANT_LINEAR_CPU_ROWS
+        # rows of the card's result are the CPU's result on those rows
+        n = QUANT_LINEAR_CPU_ROWS
+        cpu = int8_linear(x[:n].cpu(), {k: v.cpu() for k, v in wq.items()}, b.cpu())
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(card[:n].cpu(), cpu))
+        err = (card[:n].cpu().float() - cpu.float()).abs().max().item()
+        xq, xs = quantize_activations(x)
+
+        def plain():
+            acc = int8_matmul_plain(xq, wq["q"])
+            return ((acc.float() * xs) * wq["s"] + b.float()).to(x.dtype)
+
+        nbytes = M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2
+        ops = 2 * M * K * N
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_PEAK_OPS
+        row = dict(weight=name, shape=[M, K, N], cpu_rows=n, card_equals_cpu=equal,
+                   max_abs_err=err,
+                   kernel_ms=time_ms(lambda: int8_linear(x, wq, b)),
+                   plain_ms=time_ms(plain, iters=3),
+                   int_mm_ms=time_ms(lambda: torch._int_mm(xq, wq["q"])),
+                   bf16_addmm_ms=time_ms(lambda: torch.addmm(b, x, w)),
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bf16_bound_ms=max((M * K * 2 + K * N * 2 + N * 2 + M * N * 2)
+                                     / HBM_BYTES_PER_S, ops / PEAK_FLOPS[torch.bfloat16]) * 1e3,
+                   launches=launches)
+        emit("int8_linear", **row)
+        rows.append(row)
+        if not equal:
+            raise AssertionError(f"int8_linear {name} {M, K, N}: card differs from the CPU "
+                                 f"by {err}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _scales_permuted(params: dict) -> dict:
+    """A control: each int8 block weight with its scales permuted across its
+    output channels (the int8 values kept), a quantizer fault that keeps
+    every scale's statistics."""
+    from keds_tpu_torch.ops.quant import is_quantized
+
+    gen = torch.Generator().manual_seed(71)
+    out = dict(params)
+    for tower in ("visual", "text"):
+        blocks = dict(params[tower]["blocks"])
+        for key, w in blocks.items():
+            if is_quantized(w):
+                perm = torch.randperm(w["s"].shape[-1], generator=gen).to(w["s"].device)
+                blocks[key] = {"q": w["q"], "s": w["s"][..., perm]}
+        out[tower] = dict(params[tower], blocks=blocks)
+    return out
+
+
+def quant_path(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, kernels) -> dict:
+    """ViT-L/14 serving with --quant-towers int8 and the int8 Retriever over
+    the 0.5M DB (ComposedQueryEngine, 3 batches of 64; launch counts zeroed
+    just before and read just after), the profile of one batch, the check
+    of QUANT_CHECK_QUERIES composed queries against the card's bf16 towers
+    and the CPU's f32 int8 run (centred cosines, with the control), and
+    RN50's text tower quantized with its visual tower skipped."""
+    import logging
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.clip import VIT_L_14
+    from keds_tpu_torch.ops.quant import INT8_MM, is_quantized, quantize_clip_blocks
+    from keds_tpu_torch.retrieval.database import Retriever
+
+    t = time.perf_counter()
+    counted = {**kernels, "int8_mm": INT8_MM}
+    engine = ComposedQueryEngine(clip_params, VIT_L_14, heads, db, split_id=SPLIT_ID,
+                                 retriever=Retriever(db, "int8"), quant_towers="int8",
+                                 device=DEV)
+    torch.cuda.synchronize()
+    run = serving_run("quant_path", engine, counted, seed=0, model="ViT-L/14",
+                      quant_towers="int8", retrieval_backend="int8", db_rows=DB_ROWS,
+                      build_s=time.perf_counter() - t,
+                      want={**SERVING_WANT, ("mips_topk", "bf16_tc"): 0,
+                            ("int8_mm", "retrieval"): 2 * N_QUERY_BATCHES},
+                      positive=(("attention", "bf16_tc"), ("mips_topk", "f32"),
+                                ("int8_mm", "linear")))
+    profile_batch(engine, run.q_images[1], run.q_texts[1], run.dcorpus, phase="profile_quant",
+                  groups=[("int8 GEMM (torch._int_mm)", ("imma", "i8", "int8", "s8"))])
+
+    # the check: 4 queries, three ways
+    tc = time.perf_counter()
+    qi, qt = [run.q_images[0][:QUANT_CHECK_QUERIES]], [run.q_texts[0][:QUANT_CHECK_QUERIES]]
+    int8_card = torch.from_numpy(engine.compose(qi, qt)).double()
+    control = ComposedQueryEngine(_scales_permuted(engine.clip_c), VIT_L_14, heads, db,
+                                  split_id=SPLIT_ID, retriever=engine.retriever, device=DEV)
+    control_card = torch.from_numpy(control.compose(qi, qt)).double()
+    del control
+    bf16 = ComposedQueryEngine(clip_params, VIT_L_14, heads, db, split_id=SPLIT_ID, device=DEV)
+    bf16_card = torch.from_numpy(bf16.compose(qi, qt)).double()
+    del bf16
+    cpu = ComposedQueryEngine(cpu_clip, VIT_L_14, cpu_heads, cpu_db, split_id=SPLIT_ID,
+                              compute_dtype=torch.float32, device="cpu",
+                              retriever=Retriever(cpu_db, "int8"), quant_towers="int8")
+    int8_cpu = torch.from_numpy(cpu.compose(qi, qt)).double()
+    del cpu
+    mean = int8_cpu.mean(dim=0)
+    readings = {
+        "int8_vs_bf16": (_cosines(int8_card, bf16_card),
+                         _cosines(int8_card - mean, bf16_card - mean),
+                         _cosines(control_card - mean, bf16_card - mean)),
+        "int8_vs_cpu_int8": (_cosines(int8_card, int8_cpu),
+                             _cosines(int8_card - mean, int8_cpu - mean),
+                             _cosines(control_card - mean, int8_cpu - mean))}
+    check = {name: dict(cosine=c, centred_cosine=cc, control_centred_cosine=ctl,
+                        centred_threshold=QUANT_CENTRED_MIN[name],
+                        passes=min(cc) >= QUANT_CENTRED_MIN[name] > max(ctl))
+             for name, (c, cc, ctl) in readings.items()}
+    emit("quant_check", queries=QUANT_CHECK_QUERIES, checks=check,
+         int8_feature_spread=feature_spread(int8_cpu.numpy()),
+         seconds=time.perf_counter() - tc)
+    if not all(c["passes"] for c in check.values()):
+        raise AssertionError(f"quant_check: {check}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # RN50: the text tower quantized, the ModifiedResNet visual tower skipped
+    cfg = synth.RN_CONFIGS["RN50"]
+    rn = synth.init_clip(cfg, 30, torch.device(DEV), torch.bfloat16)
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logging.getLogger().addHandler(handler)
+    try:
+        rq = quantize_clip_blocks(rn)
+    finally:
+        logging.getLogger().removeHandler(handler)
+    text = torch.from_numpy(prompt_batch(np.random.default_rng(72), 4)).long().to(DEV)
+    with torch.inference_mode():
+        tq = mclip.encode_text(rq, cfg, text)
+        tb = mclip.encode_text(rn, cfg, text)
+    rn_ok = dict(visual_kept=rq["visual"] is rn["visual"],
+                 text_quantized=all(is_quantized(rq["text"]["blocks"][k])
+                                    for k in ("qkv_w", "out_w", "fc_w", "proj_w")),
+                 warning_seen=any("leaving it unquantized" in m for m in seen))
+    emit("quant_rn50", model="RN50", checks=rn_ok, warning=seen[:1],
+         text_int8_vs_bf16_cosine=_cosines(tq, tb))
+    if not all(rn_ok.values()):
+        raise AssertionError(f"quant_rn50: {rn_ok}")
+    del rn, rq
+    torch.cuda.empty_cache()
+    return run.launches
+
+
+def serve_quant(f, kernels, exact_out) -> dict:
+    """The serve CLI with --quant-towers int8 --retrieval-backend int8 over
+    the smoke files' 4096-image folder, SERVE_WIDE_QUERIES queries at --topn
+    10 (launch counts zeroed just before and read just after); its top-10
+    overlap with the exact bf16 run of the same queries (serve_path's
+    --topn 300 file)."""
+    from keds_tpu_torch.cli import serve
+    from keds_tpu_torch.ops.quant import INT8_MM
+
+    counted = {**kernels, "int8_mm": INT8_MM}
+    for k in counted.values():
+        k.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out_path = f.root / "served_int8.jsonl"
+    with contextlib.redirect_stdout(sys.stderr):
+        out = serve.main(_serve_args(f, out_path, f.wide_queries, 10)
+                         + ["--quant-towers", "int8", "--retrieval-backend", "int8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {n: dict(k.launches) for n, k in counted.items()}
+    n_batches = -(-SERVE_WIDE_QUERIES // QUERY_BATCH)
+    check_path_launches("serve --quant-towers int8 --retrieval-backend int8", launches,
+                        {("mips_topk", "bf16_tc"): 0, ("mips_topk", "f32"): n_batches,
+                         ("int8_mm", "retrieval"): 2 * n_batches},
+                        [("attention", "bf16_tc"), ("int8_mm", "linear")])
+    got, exact = served_results(out_path), served_results(exact_out)
+    overlap = [len({r["name"] for r in g["results"]} & {r["name"] for r in e["results"][:10]})
+               / 10 for g, e in zip(got, exact)]
+    top1 = [g["results"][0]["name"] == e["results"][0]["name"] for g, e in zip(got, exact)]
+    emit("serve_quant", queries=len(got), topn=10, corpus_images=out["corpus_images"],
+         corpus_images_per_s=out["corpus_images"] / out["corpus_s"],
+         queries_per_s=out["queries"] / out["queries_s"], wall_s=wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         top10_overlap_with_exact=float(np.mean(overlap)), top1_agree=float(np.mean(top1)),
+         launches=launches)
+    if len(got) != SERVE_WIDE_QUERIES or not all(len(g["results"]) == 10 for g in got):
+        raise AssertionError("serve --quant-towers int8 output malformed")
+    return launches
 
 
 # --- the RN towers, ViT-L/14 at 336 px and the rest of the model surface ------
@@ -2462,7 +2844,11 @@ def main() -> int:
                                     (64, 12, 32, 64, bf16, True),
                                     (64, 12, 77, 64, bf16, True),
                                     (2, 4, 77, 64, f32, True),
-                                    (2 * TRAIN_BATCH, 12, 32, 64, bf16, True)])
+                                    (2 * TRAIN_BATCH, 12, 32, 64, bf16, True),
+                                    # above 128: the streamed launches
+                                    (4, 16, 257, 64, bf16, False),
+                                    (4, 16, 577, 64, bf16, False),
+                                    (2, 4, 289, 64, f32, False)])
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
                             (QUERY_BATCH, DB_ROWS // DIST_RANKS, 768, 16, bf16),  # a shard
@@ -2493,6 +2879,12 @@ def main() -> int:
     cpu_clip, cpu_heads, cpu_db = compose_check("e2e_check", engine, VIT_L_14, clip_params,
                                                 heads, db, run.q_images, run.q_texts)
     del engine, run
+    torch.cuda.empty_cache()
+
+    # --- int8 retrieval and the W8A8 towers ------------------------------------
+    int8_rows = int8_retrieval(db)
+    linear_rows = int8_linear_rows()
+    quant_launches = quant_path(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, kernels)
     torch.cuda.empty_cache()
 
     # --- the RN towers, ViT-L/14 at 336 px, the rest of the model surface ----
@@ -2537,6 +2929,7 @@ def main() -> int:
         emit("smoke_files", seconds=files.seconds, corpus_jpegs=SERVE_CORPUS,
              shards=len(files.shards), vocab="synthetic merges, '*' = 265")
         serve_launches = serve_path(files, kernels)
+        serve_int8_launches = serve_quant(files, kernels, files.root / "served_wide.jsonl")
         demo_launches = demo_path(files, kernels)
         theads, step, batch, raw_launches = raw_train_path(files, clip_params, heads, db,
                                                            kernels)
@@ -2562,6 +2955,10 @@ def main() -> int:
     entries = [(att, "bf16_tc", att_rows[0], launches), (att, "f32", att_rows[2], launches),
                (bwd, "bf16", bwd_rows[0], train_launches),
                (bwd, "f32", bwd_rows[4], train_launches),
+               # the backward above 128 keys (two streamed launches a call)
+               (bwd, "bf16_stream", bwd_rows[6], train_launches),
+               (bwd, "bf16_stream", bwd_rows[7], train_launches),
+               (bwd, "f32_stream", bwd_rows[8], train_launches),
                (top, "bf16_tc", topk_rows[1], launches),
                (top, "f32", topk_rows[7], eval_launches),
                (top, "bf16", topk_rows[10], launches),
@@ -2583,7 +2980,8 @@ def main() -> int:
              "eval": eval_launches, "serve_cli": serve_launches["serve"],
              "serve_cli_topn300": serve_launches["serve_topn300"],
              "demo_mlp": demo_launches["mlp"], "demo_crossformer": demo_launches["crossformer"],
-             "train_raw": raw_launches,
+             "train_raw": raw_launches, "quant_serving": quant_launches,
+             "serve_cli_int8": serve_int8_launches,
              **{f"dist_{p}_rank0": c for p, c in dist_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
@@ -2593,6 +2991,16 @@ def main() -> int:
          "shape": row["shape"], "dtype": row["dtype"],
          "launches_by_path": {p: c[name][variant] for p, c in paths.items()}}
         for (name, src, rep), variant, row, counts in entries]}), flush=True)
+    emit("library_calls", note="int8 products of the int8 retrieval backend and the W8A8 "
+         "towers: torch._int_mm (cuBLASLt), not TPU kernels; launches by path",
+         int8_retrieval=[{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "b1_bf16_ms",
+                                            "int_mm_ms", "bound_ms", "bound_by",
+                                            "bound_ms_scores_materialized")}
+                         for r in int8_rows],
+         int8_linear=[{k: r[k] for k in ("weight", "shape", "kernel_ms", "plain_ms",
+                                         "int_mm_ms", "bf16_addmm_ms", "bound_ms", "bound_by",
+                                         "bf16_bound_ms")} for r in linear_rows],
+         launches_by_path={p: c["int8_mm"] for p, c in paths.items() if "int8_mm" in c})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

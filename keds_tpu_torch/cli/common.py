@@ -153,14 +153,16 @@ class ScalarWriters:
 
 def load_database(cfg, mesh: Mesh):
     """The knowledge DB of the flags, in the compute dtype on the mesh's
-    device, wrapped in a :class:`Retriever` (every ``--retrieval-backend``
-    the port takes runs the exact fused top-k).  With ``--db-shard`` over
+    device, wrapped in a :class:`Retriever` of ``--retrieval-backend``
+    ('auto' is 'xla', as in the JAX package).  With ``--db-shard`` over
     several ranks the DB is read on the host and each rank keeps its block
     of the rows."""
     from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
 
+    backend = "xla" if cfg.retrieval_backend == "auto" else cfg.retrieval_backend
     if not (cfg.db_shard and mesh.size > 1):
-        return Retriever(KnowledgeDB.from_config(cfg, compute_dtype(cfg), mesh.device))
+        return Retriever(KnowledgeDB.from_config(cfg, compute_dtype(cfg), mesh.device),
+                         backend)
     db = KnowledgeDB.from_config(cfg, compute_dtype(cfg), "cpu").shard_over(mesh)
     logging.info("knowledge DB rows split over %d ranks: %d here", mesh.size, db.size)
-    return Retriever(db)
+    return Retriever(db, backend)

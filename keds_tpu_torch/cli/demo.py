@@ -59,8 +59,8 @@ def make_html(prompts, query_image, image_paths_per_prompt, out_dir) -> str:
 
 def cache_path(cfg, clip_source: str) -> str:
     """``./data/<retrieval-data name>-<fingerprint>.pkl``, the JAX package's
-    fingerprint of the weights and the numerics (no quantised towers, uint8
-    images normalised on the device)."""
+    fingerprint of the weights and the numerics (``--quant-towers``,
+    ``--precision``, and 1 for uint8 images normalised on the device)."""
     ident = f"{clip_source}:{cfg.quant_towers}:{cfg.precision}:1"
     if os.path.isfile(str(clip_source)):
         st = os.stat(clip_source)
@@ -114,13 +114,15 @@ def _demo(cfg) -> dict:
     from keds_tpu_torch.models.convert import (cast_floating, crossformer_from_state_dict,
                                                im2text_from_state_dict, params_from_numpy)
     from keds_tpu_torch.models.loader import load_clip
+    from keds_tpu_torch.ops.quant import maybe_quantize_clip
     from keds_tpu_torch.tokenizer import star_token_id, tokenize
 
     device = setup_runtime(cfg)[0]   # the demo runs on one device
     clip_source = cfg.resume or cfg.clip_weights or cfg.model
     clip_params, ccfg, _, t_val = load_clip(clip_source, normalize_on_host=False,
                                             device=device)
-    clip_c = cast_floating(clip_params, compute_dtype(cfg), device)
+    clip_c = maybe_quantize_clip(cast_floating(clip_params, compute_dtype(cfg), device),
+                                 cfg.quant_towers)
     del clip_params
 
     # img2text from the checkpoint: CrossFormer -> late fusion, MLP -> splice

@@ -58,7 +58,7 @@ def _evaluate(cfg) -> None:
     ctx = EvalContext(clip_params=clip_params, cfg=clip_cfg, retriever=load_database(cfg, mesh),
                       image_branch=cfg.image_branch, text_branch=cfg.text_branch,
                       db_topk=cfg.db_topk, compute_dtype=compute_dtype(cfg), mesh=mesh,
-                      eval_ranking=cfg.eval_ranking, split_id=cfg.split_id, device=device)
+                      quant_towers=cfg.quant_towers, eval_ranking=cfg.eval_ranking, split_id=cfg.split_id, device=device)
     root = cfg.root_data
 
     def loader(ds):

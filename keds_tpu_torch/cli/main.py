@@ -203,6 +203,13 @@ def main(argv: Optional[list] = None) -> None:
         raise SystemExit("--neighbors requires precomputed features (the raw-image modes "
                          "compute features on the fly, so neighbors cannot be "
                          "precomputed); use --dataset-type directory")
+    if cfg.neighbors and cfg.retrieval_backend not in ("auto", "xla"):
+        raise SystemExit(f"--neighbors replaces the in-step search entirely, which would "
+                         f"silently override --retrieval-backend {cfg.retrieval_backend}; "
+                         "drop one of the two flags (precomputed neighbors are exact)")
+    if cfg.quant_towers != "none":
+        logging.warning("--quant-towers %s: the towers train unquantized (int8 towers "
+                        "serve inference only, as in the JAX package)", cfg.quant_towers)
     if cfg.stream == "text" and raw:
         raise SystemExit("--stream text requires precomputed features (subject/other "
                          "templates); use --dataset-type directory")

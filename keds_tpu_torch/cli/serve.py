@@ -95,8 +95,9 @@ def _serve(cfg) -> dict:
     heads, _ = load_heads_checkpoint(cfg.resume, device)
     retriever = load_database(cfg, mesh)
     engine = ComposedQueryEngine(clip_params, clip_cfg, heads, retriever.db,
-                                 db_topk=cfg.db_topk, compute_dtype=compute_dtype(cfg),
-                                 device=device, mesh=mesh)
+                                 retriever=retriever, db_topk=cfg.db_topk,
+                                 compute_dtype=compute_dtype(cfg),
+                                 quant_towers=cfg.quant_towers, device=device, mesh=mesh)
     del clip_params, heads
 
     # ---- corpus: streamed one batch at a time -------------------------------

@@ -193,13 +193,16 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
         help="split the knowledge DB's rows over the ranks of --distributed "
              "(each rank searches its block; the candidates are merged)")
     add("--quant-towers", type=str, default="none", choices=["none", "int8"],
-        help="int8 is not ported yet (ROADMAP.md section A item 15)")
+        help="int8: W8A8 int8 for the transformer towers' block GEMMs at inference "
+             "(per-channel weights, per-token activations; an RN visual tower is "
+             "left as it is)")
     add("--worker-processes", action="store_true", default=False,
         help="decode in --workers spawned processes instead of threads")
     add("--retrieval-backend", type=str, default="auto",
         choices=["auto", "xla", "pallas", "int8", "approx"],
-        help="auto, xla and pallas all run the exact fused top-k kernel; int8 "
-             "and approx are not ported yet (ROADMAP.md section A item 14)")
+        help="auto, xla and pallas run the exact fused top-k kernel; approx runs it "
+             "too (approx_max_k is exact off the TPU); int8 scores an int8 copy of "
+             "the DB and re-ranks 4x-oversampled candidates against the true rows")
     add("--eval-ranking", type=str, default="host", choices=["host", "device"],
         help="device: the sweeps' mixtures and rankings on the device (the fused "
              "top-k kernel in f32), only the indices fetched; host: the numpy "
@@ -293,19 +296,14 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
 # Flags of parts not ported yet, or left out on purpose: (field, value that
 # asks for them, ROADMAP item or reason).
 _ITEM16 = "ROADMAP.md section A item 16 (tools and harness)"
-UNPORTED = (("quant_towers", "int8", "ROADMAP.md section A item 15 (W8A8 towers)"),
-            ("checkpoint_format", "orbax", _ITEM16),
+UNPORTED = (("checkpoint_format", "orbax", _ITEM16),
             ("profile_dir", None, _ITEM16),
             ("pre_save_feature", True, _ITEM16 + "; features come from "
              "python -m keds_tpu.tools.extract_features"),
             ("openai_pretrained", True, "left out on purpose (ROADMAP.md section A): it "
              "downloads; give --clip-weights a local .pt"),
             ("device_preprocess", False, "left out on purpose (ROADMAP.md section A): the "
-             "port sends uint8 and normalises on the device"),
-            ("retrieval_backend", "int8", "ROADMAP.md section A item 14 (auto, xla and "
-             "pallas run the exact search)"),
-            ("retrieval_backend", "approx", "ROADMAP.md section A item 14 (auto, xla and "
-             "pallas run the exact search)"))
+             "port sends uint8 and normalises on the device"))
 
 
 def parse_args(argv: Optional[List[str]] = None,

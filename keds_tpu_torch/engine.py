@@ -14,7 +14,10 @@ The ``*`` token id (``split_id``) comes from the CLIP BPE vocab
 (``tokenizer.star_token_id``, which raises ``FileNotFoundError`` without
 one) unless the caller passes it.  Everything runs on ``device`` (the CUDA
 device unless the caller asks for the CPU); the tower attention and both
-searches go through the fused kernels there.
+searches go through the fused kernels there.  ``retriever`` (a
+:class:`~keds_tpu_torch.retrieval.database.Retriever` over ``db``) picks the
+retrieval backend, exact by default; ``quant_towers='int8'`` runs the
+towers' block GEMMs in W8A8 int8 after the cast to ``compute_dtype``.
 
 Under a ``mesh`` of several ranks every rank feeds the same global batches
 (the serving feed): each rank encodes and composes its block of every batch
@@ -35,6 +38,7 @@ import torch
 from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads, compose_pseudo_tokens
 from keds_tpu_torch.models.convert import cast_floating
+from keds_tpu_torch.ops.quant import maybe_quantize_clip
 from keds_tpu_torch.ops.topk import mips_topk, mips_topk_sharded
 from keds_tpu_torch.parallel.mesh import (Mesh, all_gather, fetch_global,
                                           shard_global_batch, shard_rows)
@@ -56,17 +60,21 @@ class ComposedQueryEngine:
                  db: KnowledgeDB, *, split_id: Optional[int] = None, db_topk: int = 16,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  encode_chunk: Optional[int] = mclip.DEFAULT_ENCODE_CHUNK,
-                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                 retriever: Optional[Retriever] = None, quant_towers: str = "none"):
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         if db.image_db.device != self.device:
             raise ValueError(f"knowledge DB is on {db.image_db.device}, engine "
                              f"runs on {self.device}")
         self.cfg = cfg
-        self.clip_c = cast_floating(clip_params, compute_dtype, self.device)
+        self.clip_c = maybe_quantize_clip(cast_floating(clip_params, compute_dtype, self.device),
+                                          quant_towers)
         self.heads = cast_floating(heads, compute_dtype, self.device)
         self.db = db
-        self.retriever = Retriever(db)
+        if retriever is not None and retriever.db is not db:
+            raise ValueError("the retriever searches another knowledge DB than the engine's")
+        self.retriever = retriever if retriever is not None else Retriever(db)
         self.db_topk = db_topk
         self.split_id = int(star_token_id() if split_id is None else split_id)
         self.encode_chunk = encode_chunk

@@ -55,6 +55,7 @@ from keds_tpu_torch.io.checkpoint import load_heads_checkpoint
 from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads, compose_pseudo_tokens
 from keds_tpu_torch.models.convert import cast_floating
+from keds_tpu_torch.ops.quant import maybe_quantize_clip
 from keds_tpu_torch.ops.topk import mips_topk
 from keds_tpu_torch.parallel.mesh import fetch_batches, shard_global_batch
 from keds_tpu_torch.retrieval.database import Retriever, unit_rows
@@ -89,8 +90,9 @@ class EvalContext:
     """Frozen CLIP, knowledge DB and head-checkpoint branches of an
     evaluation.  ``split_id`` None reads the ``*`` id from the BPE vocab;
     ``device`` None is the CUDA device.  ``mesh`` splits every batch over
-    the ranks (the module docstring); ``quant_towers`` (W8A8 towers) is not
-    ported yet (refused)."""
+    the ranks (the module docstring); ``quant_towers`` 'int8' runs the
+    towers' block GEMMs in W8A8 int8 (quantized after the cast, as the JAX
+    package does)."""
 
     clip_params: dict
     cfg: mclip.ClipConfig
@@ -109,9 +111,6 @@ class EvalContext:
     def __post_init__(self):
         if self.mesh is not None and self.mesh.size == 1:
             self.mesh = None
-        if self.quant_towers != "none":
-            raise NotImplementedError(f"quant_towers={self.quant_towers!r}: W8A8 towers are "
-                                      "ROADMAP.md section A item 15, not ported yet")
         if self.eval_ranking not in ("host", "device"):
             raise ValueError(f"eval_ranking must be 'host' or 'device', got "
                              f"{self.eval_ranking!r}")
@@ -120,7 +119,9 @@ class EvalContext:
         if self.retriever.db.image_db.device != self.device:
             raise ValueError(f"knowledge DB is on {self.retriever.db.image_db.device}, "
                              f"evaluation runs on {self.device}")
-        self.clip_c = cast_floating(self.clip_params, self.compute_dtype, self.device)
+        self.clip_c = maybe_quantize_clip(
+            cast_floating(self.clip_params, self.compute_dtype, self.device),
+            self.quant_towers)
         self.logit_scale = float(np.exp(np.asarray(
             torch.as_tensor(self.clip_params["logit_scale"]).float().cpu())).ravel()[0])
         self.split_id = int(star_token_id() if self.split_id is None else self.split_id)

@@ -22,18 +22,21 @@ from keds_tpu_torch.models.clip import ClipConfig
 from keds_tpu_torch.models.composition import FusionHeads
 from keds_tpu_torch.models.resnet import (channels_last, resnet_from_state_dict,
                                           resnet_to_state_dict)
+from keds_tpu_torch.ops.quant import is_quantized
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 
 StateDict = Dict[str, object]
 
 
-def _map(tree, fn):
+def _map(tree, fn, is_leaf=lambda t: False):
+    if is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: _map(v, fn, is_leaf) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(v, fn) for v in tree))
+        return type(tree)(*(_map(v, fn, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
+        return type(tree)(_map(v, fn, is_leaf) for v in tree)
     return fn(tree)
 
 
@@ -49,13 +52,16 @@ def _tensor(a, device: torch.device, dtype: torch.dtype = torch.float32) -> torc
 
 def cast_floating(tree, dtype: torch.dtype, device: DeviceLike = None):
     """Every floating tensor of a parameter tree cast to ``dtype`` on
-    ``device``; integer tensors only move."""
+    ``device``; integer tensors (a quantized weight's int8 ``q`` among
+    them) only move, and so does a quantized weight's f32 scale ``s``."""
     dev = resolve_device(device)
 
-    def cast(a: torch.Tensor) -> torch.Tensor:
+    def cast(a):
+        if is_quantized(a):
+            return {k: v.to(dev) for k, v in a.items()}
         return a.to(device=dev, dtype=dtype if a.is_floating_point() else a.dtype)
 
-    return _map(tree, cast)
+    return _map(tree, cast, is_quantized)
 
 
 def params_from_numpy(tree, device: DeviceLike = None, dtype: torch.dtype = torch.float32):
@@ -307,6 +313,12 @@ def clip_to_state_dict(params: dict, cfg: ClipConfig) -> StateDict:
     reference-layout state dict of CPU f32 tensors (an RN tower's
     BatchNorms with ``num_batches_tracked``), keyed as the JAX package's
     ``clip_pytree_to_state_dict`` keys it."""
+    for tower in ("visual", "text"):
+        blocks = params.get(tower, {}).get("blocks", {})
+        if any(is_quantized(w) for w in blocks.values()):
+            raise ValueError(f"the {tower} tower is quantized (--quant-towers int8); "
+                             "a quantized tree has no reference layout and is not saved")
+
     def cpu(a: torch.Tensor) -> torch.Tensor:
         return a.detach().to("cpu", torch.float32).contiguous()
 

@@ -20,12 +20,17 @@ import torch
 import torch.nn.functional as F
 
 from keds_tpu_torch.ops.attention import attention
+from keds_tpu_torch.ops.quant import int8_linear
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense layer, ``w`` is (in, out); computes in ``x``'s dtype.  The bias
     rides in the matrix product (one kernel: it is added in the f32
-    accumulator before the output is rounded)."""
+    accumulator before the output is rounded).  A ``{"q": int8, "s": f32}``
+    weight (:func:`keds_tpu_torch.ops.quant.quantize_weight`) runs the W8A8
+    int8 product instead (:func:`~keds_tpu_torch.ops.quant.int8_linear`)."""
+    if isinstance(w, dict):
+        return int8_linear(x, w, b)
     w = w.to(x.dtype)
     if b is None:
         return torch.matmul(x, w)
@@ -75,11 +80,14 @@ def residual_block(x: torch.Tensor, blk: dict, n_heads: int,
 
 
 def _layer(blocks: dict, i: int) -> dict:
-    return {name: a[i] for name, a in blocks.items()}
+    """Layer ``i`` of stacked blocks; a quantized weight's ``q`` and ``s``
+    are sliced on their layer axis too."""
+    return {name: {k: v[i] for k, v in a.items()} if isinstance(a, dict) else a[i]
+            for name, a in blocks.items()}
 
 
 def _n_layers(blocks: dict) -> int:
-    return next(iter(blocks.values())).shape[0]
+    return blocks["ln1_g"].shape[0]
 
 
 def transformer(x: torch.Tensor, blocks: dict, n_heads: int,

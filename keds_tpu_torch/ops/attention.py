@@ -13,7 +13,8 @@ never enter a softmax, so no sequence padding is needed.
 Gradients (the counterpart of the JAX op's ``custom_vjp``): when grad mode
 is on and q, k or v requires grad, a CUDA call goes through an autograd
 Function whose backward launches ``csrc/attention_bwd.cu``
-(:func:`attention_backward`, variants ``bf16`` and ``f32``); on the CPU
+(:func:`attention_backward`, variants ``bf16`` and ``f32``, and above 128
+keys the streamed ``bf16_stream`` and ``f32_stream``); on the CPU
 autograd runs through :func:`attention_reference`.  Otherwise (serving,
 ``torch.inference_mode``) the forward kernel runs alone and nothing is
 saved.
@@ -39,38 +40,48 @@ KERNEL = CudaKernel("attention", {
 _VARIANTS = {torch.bfloat16: ("bf16_tc", 1), torch.float32: ("f32", 0)}
 
 BWD_KERNEL = CudaKernel("attention_bwd", {
-    "keds_attention_bwd": [_P] * 7 + [_I] * 5 + [_P, _I, ctypes.c_float, _P],
-    "keds_attention_bwd_max_seq": [],
+    "keds_attention_bwd": [_P] * 7 + [_I] * 5 + [_P, _I, ctypes.c_float, _P, _P],
     "keds_attention_bwd_head_dim": [],
     "keds_attention_bwd_plan": [_I, _P],
-}, variants=("bf16", "f32"))
+}, variants=("bf16", "f32", "bf16_stream", "f32_stream"))
 _BWD_VARIANTS = {torch.bfloat16: ("bf16", 1), torch.float32: ("f32", 0)}
 
 
 class BwdPlan(NamedTuple):
-    """Launch plan of the bf16 backward kernel (``csrc/attention_bwd.cu``)."""
+    """Launch plan of the bf16 backward kernels (``csrc/attention_bwd.cu``)."""
 
     key_tiles: int      # 16-row tiles of the sequence
     slices: int         # (batch, head) slices a block takes
     warps: int          # warps a block
-    smem_bytes: int     # dynamic shared memory a block
+    smem_bytes: int     # dynamic shared memory a block (the dkv kernel's above 128)
+    workspace_rows: int  # f32 rows a (batch, head) per statistic (0 at S <= 128)
 
     def blocks(self, batch_heads: int) -> int:
         return -(-batch_heads // self.slices)
 
 
-# Mirror of csrc/attention_bwd.cu's tc_plan (a card test checks it against
-# keds_attention_bwd_plan): q, k, v and dO in 144-byte rows and three f32
-# statistics a row, per slice; S <= 16 packs BWD_SMALL_SLICES slices into a
-# block, one warp each.
+# Mirror of csrc/attention_bwd.cu's keds_attention_bwd_plan (a card test
+# checks one against the other).  S <= BWD_RESIDENT_SEQ: one block holds a
+# (batch, head), q, k, v and dO in 144-byte rows and three f32 statistics a
+# row, per slice; S <= 16 packs BWD_SMALL_SLICES slices into a block, one
+# warp each.  Above it two streamed launches (dq, then dk and dv) of
+# BWD_STREAM_WARPS warps, K and V of 128 keys resident in the dkv kernel
+# plus two 64-row stages of q and dO and of the statistics, which a
+# workspace of S rounded up to 128 rows carries between the two.
 BWD_SMALL_SLICES = 4
+BWD_RESIDENT_SEQ = 128
+BWD_STREAM_WARPS = 8
 
 
 def bwd_plan(S: int) -> BwdPlan:
     n = -(-S // 16)
+    if S > BWD_RESIDENT_SEQ:
+        rows = 16 * BWD_STREAM_WARPS
+        smem = (2 * rows * 144 + 2 * 2 * 64 * 144) + 2 * 3 * 64 * 4
+        return BwdPlan(n, 1, BWD_STREAM_WARPS, smem, -(-S // rows) * rows)
     slice_bytes = 16 * n * (4 * 144 + 3 * 4)
     slices = BWD_SMALL_SLICES if n == 1 else 1
-    return BwdPlan(n, slices, BWD_SMALL_SLICES if n == 1 else n, slices * slice_bytes)
+    return BwdPlan(n, slices, BWD_SMALL_SLICES if n == 1 else n, slices * slice_bytes, 0)
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -156,8 +167,10 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention` for the output gradient ``dout``.
 
-    On CUDA it launches ``csrc/attention_bwd.cu`` (Dh = 64, S <= 128, f32 or
-    bf16) or raises; q, k and v may be strided views, and a ``dout`` whose
+    On CUDA it launches ``csrc/attention_bwd.cu`` (Dh = 64, any S >= 1, f32
+    or bf16; above 128 two streamed launches with an f32 workspace of
+    3 * B * H * ``bwd_plan(S).workspace_rows`` floats) or raises; q, k and v
+    may be strided views, and a ``dout`` whose
     head dimension is not contiguous is made contiguous here, as is, for
     bf16, any input whose rows are not 16-byte aligned.  The three
     gradients are views of one (B, S, 3, H, Dh) buffer, laid out as the
@@ -172,10 +185,10 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"output gradient {dout.shape} {dout.dtype} does not match "
                          f"q {q.shape} {q.dtype}")
     lib = BWD_KERNEL.lib()
-    max_seq, head_dim = lib.keds_attention_bwd_max_seq(), lib.keds_attention_bwd_head_dim()
-    if not 1 <= S <= max_seq or Dh != head_dim:
+    head_dim = lib.keds_attention_bwd_head_dim()
+    if S < 1 or Dh != head_dim:
         raise ValueError(f"attention backward kernel supports Dh = {head_dim} and "
-                         f"1 <= S <= {max_seq}, got Dh={Dh}, S={S}")
+                         f"S >= 1, got Dh={Dh}, S={S}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     variant, code = _BWD_VARIANTS[q.dtype]
@@ -186,13 +199,18 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grads = torch.empty((B, S, 3, H, Dh), dtype=q.dtype, device=q.device)
     dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
     strides = _strides(q, k, v, dout, dq, dk, dv)
+    rows = bwd_plan(S).workspace_rows
+    workspace = torch.empty((3 * B * H * rows,), dtype=torch.float32, device=q.device) \
+        if rows else None
     err = lib.keds_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), code, B, H, S, Dh,
         ctypes.cast(strides, ctypes.c_void_p), int(causal), 1.0 / math.sqrt(Dh),
-        stream_ptr(q))
+        workspace.data_ptr() if rows else None, stream_ptr(q))
     BWD_KERNEL.check(err)
-    BWD_KERNEL.launches[variant] += 1
+    # above BWD_RESIDENT_SEQ the call's two streamed launches count once,
+    # apart from the resident kernel's
+    BWD_KERNEL.launches[variant + ("_stream" if rows else "")] += 1
     return dq, dk, dv
 
 

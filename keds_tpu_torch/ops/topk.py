@@ -18,16 +18,27 @@ row index first.
 ranks of a mesh (the counterpart of faiss ``index_cpu_to_all_gpus``): each
 rank runs :func:`mips_topk` on its shard, and the candidates are
 all-gathered and merged in plain torch, (B, W·k) values.
+
+The int8 backend (:func:`mips_topk_int8`, ROADMAP item 14) scores an int8
+copy of the DB (:func:`quantize_int8`) with the s8 x s8 -> s32 product of
+:mod:`keds_tpu_torch.ops.quant` (``torch._int_mm`` on the card, as the JAX
+package leaves it to XLA), takes the top ``k * oversample`` candidates and
+re-ranks them in f32 against the true (or dequantized) rows.  Equal scores
+keep the lower index in both stages, as ``lax.top_k`` does.
+:func:`mips_topk_approx` is the ``approx`` backend: ``lax.approx_max_k`` is
+a TPU partial reduce, and off the TPU JAX lowers it to an exact top-k, so
+here it is the exact search (B1 on the card).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from keds_tpu_torch.ops.cuda_build import CudaKernel, require_cuda, sm_count, stream_ptr
+from keds_tpu_torch.ops.quant import by_127, int8_matmul, int8_matmul_plain
 from keds_tpu_torch.parallel.mesh import all_gather
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -200,20 +211,24 @@ def _shard_merge_tail(vals: torch.Tensor, idx: torch.Tensor, k: int, k_cand: int
 
 
 def _local_then_merge(queries: torch.Tensor, db_shard: torch.Tensor, k: int, mesh,
-                      n_real: int, n_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      n_real: int, n_pad: int,
+                      backend: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
     """B1 over this rank's rows at k + n_pad, then the merge.  Zero pad rows
     score 0.0, which outranks negative true scores, and the merge's mask
     cannot bring back a true row that a pad row pushed out of the local
     candidates: ``n_pad`` extra candidates keep at least min(k, true rows
-    of the shard) true ones."""
+    of the shard) true ones.  ``backend`` 'approx' runs
+    :func:`mips_topk_approx` (B1 as well); 'xla', 'pallas' and 'auto' run
+    :func:`mips_topk`."""
     n_local = db_shard.shape[0]
     k_cand = min(k + n_pad, n_local)
-    vals, idx = mips_topk(queries, db_shard, k_cand)
+    search = mips_topk_approx if backend == "approx" else mips_topk
+    vals, idx = search(queries, db_shard, k_cand)
     return _shard_merge_tail(vals, idx, k, max(k, k_cand), mesh, n_real, n_local)
 
 
 def mips_topk_sharded(queries: torch.Tensor, db_shard: torch.Tensor, k: int, mesh,
-                      n_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      n_real: int, backend: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over a database whose rows are split over ``mesh``:
     ``queries`` (B, D) are the same on every rank, ``db_shard`` is this
     rank's block of the rows padded to a multiple of the world size
@@ -222,4 +237,99 @@ def mips_topk_sharded(queries: torch.Tensor, db_shard: torch.Tensor, k: int, mes
     equal to :func:`mips_topk` on the whole database (ties to the lower
     row)."""
     n_pad = db_shard.shape[0] * mesh.size - n_real
-    return _local_then_merge(queries, db_shard, k, mesh, n_real, n_pad)
+    return _local_then_merge(queries, db_shard, k, mesh, n_real, n_pad, backend)
+
+
+def mips_topk_approx(queries: torch.Tensor, db: torch.Tensor,
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``approx`` backend.  The JAX package's ``mips_topk_approx`` calls
+    ``lax.approx_max_k``, a partial reduce of the TPU that Hopper has no
+    counterpart of; off the TPU JAX lowers it to an exact top-k (ties to
+    the lower index), whose exact re-rank then changes nothing.  So this
+    is :func:`mips_topk`: B1 at k on the card, :func:`mips_topk_plain` on
+    the CPU.  These are the reference's own semantics off the TPU, not a
+    fallback."""
+    return mips_topk(queries, db, k)
+
+
+def quantize_int8(db: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8, row ~ scale * row_i8: (values (N, D) int8,
+    scales (N,) f32), in f32 with rounding half to even, as the JAX
+    package computes it (the same bits on the CPU and the card)."""
+    db = db.float()
+    scale = by_127(db.abs().amax(dim=1))
+    q = torch.round(db / scale.clamp_min(1e-12)[:, None])
+    return q.to(torch.int8), scale
+
+
+def topk_lower_index(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row of (B, N) f32 ``scores``, best first, equal scores
+    by lower index first (``lax.top_k``'s order; ``torch.topk`` fixes none
+    on CUDA).  Each score becomes an int64 key that orders as the float
+    does in its high 32 bits (-0.0 below +0.0, as XLA's total order has it)
+    and holds N - 1 - index in its low 32, so no two keys tie and one
+    ``torch.topk`` of the keys is that order."""
+    B, N = scores.shape
+    bits = scores.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    rev = (N - 1) - torch.arange(N, device=scores.device, dtype=torch.int64)
+    keys = ordered * 4294967296 + rev
+    top = torch.topk(keys, k, dim=1).values
+    idx = (N - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(scores, 1, idx), idx
+
+
+def mips_topk_int8(queries: torch.Tensor, db_i8: torch.Tensor, db_scale: torch.Tensor,
+                   k: int, oversample: int = 4, db: Optional[torch.Tensor] = None,
+                   plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over an int8 DB with an f32 re-rank of the candidates (the JAX
+    package's ``mips_topk_int8``): (values (B, k) f32, indices (B, k)
+    int32).
+
+    Stage 1 is exact integer arithmetic: the queries quantized per row, the
+    s8 x s8 -> s32 product with ``db_i8`` (:func:`~keds_tpu_torch.ops.quant.
+    int8_matmul`: ``torch._int_mm`` on the card), times ``db_scale``, and
+    the top ``k * oversample`` rows.  Stage 2 gathers those candidates' true
+    rows (``db``) or, without it, their dequantized rows, and takes the
+    top k of their f32 products with the f32 queries.  ``oversample <= 1``
+    skips stage 2 and returns the stage-1 scores times the query scales.
+    Ties go to the lower row in stage 1 and the lower candidate in stage 2.
+
+    ``plain=True`` takes the stage-1 product in float64
+    (:func:`~keds_tpu_torch.ops.quant.int8_matmul_plain`, exact) on any
+    device: the card check's plain version.  It is never chosen for a
+    CUDA tensor otherwise."""
+    q = queries.float()
+    N = db_i8.shape[0]
+    qs = by_127(q.abs().amax(dim=1))
+    q_i8 = torch.round(q / qs.clamp_min(1e-12)[:, None]).to(torch.int8)
+    raw = (int8_matmul_plain(q_i8, db_i8.T) if plain
+           else int8_matmul(q_i8, db_i8.T, path="retrieval"))
+    scores = raw.float() * db_scale[None, :]
+    kk = min(k * max(oversample, 1), N)
+    cand_vals, cand_idx = topk_lower_index(scores, kk)
+    if oversample <= 1:
+        return (cand_vals * qs[:, None])[:, :k].contiguous(), cand_idx[:, :k].to(torch.int32)
+    if db is not None:       # exact re-rank against the true rows
+        cand_rows = db[cand_idx].float()
+    else:                    # the dequantized rows (int8 artifacts are all there is)
+        cand_rows = db_i8[cand_idx].float() * db_scale[cand_idx][:, :, None]
+    exact = torch.bmm(cand_rows, q[:, :, None])[..., 0]      # (B, kk)
+    vals, pos = torch.sort(exact, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), torch.gather(cand_idx, 1, pos[:, :k]).to(torch.int32)
+
+
+def mips_topk_int8_sharded(queries: torch.Tensor, db_i8_shard: torch.Tensor,
+                           scale_shard: torch.Tensor, k: int, mesh, n_real: int,
+                           oversample: int = 4, db_shard: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-sharded int8 search: every rank runs :func:`mips_topk_int8` on
+    its block at k + n_pad (with its block of the true rows for the
+    re-rank), then the candidates merge over the mesh as in
+    :func:`mips_topk_sharded`; zero pad rows score 0.0 in int8 too, hence
+    the n_pad extra candidates."""
+    n_local = db_i8_shard.shape[0]
+    k_cand = min(k + n_local * mesh.size - n_real, n_local)
+    vals, idx = mips_topk_int8(queries, db_i8_shard, scale_shard, k_cand,
+                               oversample=oversample, db=db_shard)
+    return _shard_merge_tail(vals, idx, k, max(k, k_cand), mesh, n_real, n_local)

@@ -9,6 +9,16 @@ Under a mesh (``--db-shard``) :meth:`KnowledgeDB.shard_over` keeps only this
 rank's block of the rows, and a :class:`Retriever` over it searches with
 :func:`~keds_tpu_torch.ops.topk.mips_topk_sharded` and gathers neighbour
 rows by global index across the ranks.
+
+``Retriever(db, backend=...)`` takes the JAX package's backends: 'auto',
+'xla' and 'pallas' run the exact search (B1 on the card), 'approx' runs it
+too (``approx_max_k`` is exact off the TPU, see
+:func:`~keds_tpu_torch.ops.topk.mips_topk_approx`), and 'int8' scores an
+int8 copy of each table and re-ranks the candidates against the true rows
+(:func:`~keds_tpu_torch.ops.topk.mips_topk_int8`).  The int8 copy is the
+DB's pre-quantized artifacts (``build_database --int8``, read with the DB
+by :meth:`KnowledgeDB.from_config`) or, without them, quantized once on the
+device.
 """
 
 from __future__ import annotations
@@ -22,7 +32,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from keds_tpu_torch.ops.topk import mips_topk, mips_topk_sharded
+from keds_tpu_torch.ops.topk import (mips_topk, mips_topk_approx, mips_topk_int8,
+                                     mips_topk_int8_sharded, mips_topk_sharded,
+                                     quantize_int8)
 from keds_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce_sum, shard_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 
@@ -46,6 +58,9 @@ class KnowledgeDB:
     text_db: torch.Tensor
     names: List[str]
     mesh: Optional[Mesh] = None   # the mesh the rows are split over
+    # pre-quantized int8 artifacts, {"image"|"text": (int8 (N, D), f32 (N,))}
+    # numpy arrays of all N rows (memory-mapped); the int8 Retriever places them
+    quant: Optional[dict] = None
 
     @property
     def size(self) -> int:
@@ -121,7 +136,20 @@ class KnowledgeDB:
         if not (img and txt):
             raise FileNotFoundError("knowledge database not found; pass --database-path "
                                     "or --db-image-file/--db-text-file")
-        return cls.load(img, txt, names, dtype, device)
+        db = cls.load(img, txt, names, dtype, device)
+        if cfg.database_path:
+            quant = _load_int8_artifacts(cfg.database_path)
+            # artifacts of another sampling (a rebuild with another --size or
+            # --seed, or a --db-*-file elsewhere) would give wrong neighbours
+            if quant is not None and any(
+                    quant[m][0].shape != tuple(getattr(db, f"{m}_db").shape)
+                    or quant[m][1].shape[0] != db.size for m in ("image", "text")):
+                logging.warning("ignoring int8 artifacts in %s: shape mismatch vs the "
+                                "loaded DB (%s rows) — rebuild with build_database --int8",
+                                cfg.database_path, db.size)
+                quant = None
+            db.quant = quant
+        return db
 
     def shard_over(self, mesh: Mesh) -> "KnowledgeDB":
         """Split the rows over the mesh (the counterpart of faiss
@@ -131,7 +159,8 @@ class KnowledgeDB:
         def place(a):
             return shard_rows(mesh, a).to(mesh.device, copy=True)
 
-        return KnowledgeDB(place(self.image_db), place(self.text_db), self.names, mesh)
+        return KnowledgeDB(place(self.image_db), place(self.text_db), self.names, mesh,
+                           self.quant)
 
 
 def _first_existing(base: str, modality: str) -> Optional[str]:
@@ -141,6 +170,21 @@ def _first_existing(base: str, modality: str) -> Optional[str]:
         if os.path.isfile(os.path.join(base, name)):
             return os.path.join(base, name)
     return None
+
+
+def _load_int8_artifacts(base: str) -> Optional[dict]:
+    """The int8 artifacts ``tools/build_database.py --int8`` writes
+    (``{image,text}_db_int8.npy`` memory-mapped and ``*_db_scale.npy``), or
+    None unless all four files exist."""
+    out = {}
+    for name in ("image", "text"):
+        qf = os.path.join(base, f"{name}_db_int8.npy")
+        sf = os.path.join(base, f"{name}_db_scale.npy")
+        if not (os.path.isfile(qf) and os.path.isfile(sf)):
+            return None
+        out[name] = (np.load(qf, mmap_mode="r"), np.asarray(np.load(sf), np.float32))
+    logging.info("loaded pre-quantized int8 DB artifacts from %s", base)
+    return out
 
 
 def db_fingerprint(db: KnowledgeDB) -> dict:
@@ -189,18 +233,64 @@ class Retriever:
     global batch (equal blocks) and gets its own rows back: the queries are
     all-gathered, searched on every shard and merged
     (:func:`~keds_tpu_torch.ops.topk.mips_topk_sharded`), and the neighbour
-    rows are read by global index (:func:`global_rows`)."""
+    rows are read by global index (:func:`global_rows`).
 
-    def __init__(self, db: KnowledgeDB):
+    ``backend`` is one of :data:`BACKENDS` (the module docstring).  The
+    int8 backend's index arrays (:meth:`quant_arrays`) follow the DB's rows:
+    with a mesh each rank holds its block of them, padded as the tables."""
+
+    BACKENDS = ("auto", "xla", "pallas", "int8", "approx")
+
+    def __init__(self, db: KnowledgeDB, backend: str = "xla"):
+        if backend not in self.BACKENDS:
+            raise ValueError(f"unknown retrieval backend {backend!r}; one of {self.BACKENDS}")
         self.db = db
+        self.backend = backend
+        self._int8: dict = {}
+        if backend == "int8":
+            for name, arr in (("image", db.image_db), ("text", db.text_db)):
+                if db.quant is not None:
+                    q8, scale = (torch.from_numpy(np.array(a)) for a in db.quant[name])
+                    if db.mesh is not None:     # this rank's block, zero-padded
+                        q8, scale = shard_rows(db.mesh, q8), shard_rows(db.mesh, scale)
+                    q8, scale = q8.to(arr.device), scale.to(arr.device)
+                else:
+                    q8, scale = quantize_int8(arr)
+                self._int8[name] = (q8, scale)
 
-    def search(self, queries: torch.Tensor, db_array: torch.Tensor,
-               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def quant_arrays(self):
+        """((image int8, image scales), (text int8, text scales)) of the int8
+        backend (this rank's rows under a mesh), or None for the others."""
+        if self.backend != "int8":
+            return None
+        return self._int8["image"], self._int8["text"]
+
+    def _local_search(self, queries: torch.Tensor, db_array: torch.Tensor, k: int,
+                      modality: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        mesh, n_real = self.db.mesh, len(self.db.names)
+        if self.backend == "int8":
+            # the int8 scan proposes candidates; the order comes from the
+            # re-rank against the true rows, resident for the gather anyway
+            q8, scale = self._int8[modality]
+            if mesh is None:
+                return mips_topk_int8(queries.float(), q8, scale, k, db=db_array)
+            return mips_topk_int8_sharded(queries.float(), q8, scale, k, mesh, n_real,
+                                          db_shard=db_array)
+        if mesh is None:
+            return (mips_topk_approx if self.backend == "approx" else mips_topk)(
+                queries, db_array, k)
+        return mips_topk_sharded(queries, db_array, k, mesh, n_real, self.backend)
+
+    def search(self, queries: torch.Tensor, db_array: torch.Tensor, k: int,
+               modality: str = "image") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k of ``db_array`` (the DB's ``modality`` table) for this
+        rank's queries; under a mesh every rank's queries are searched over
+        every shard and each rank keeps its own rows of the result."""
         mesh = self.db.mesh
         if mesh is None:
-            return mips_topk(queries, db_array, k)
+            return self._local_search(queries, db_array, k, modality)
         q = all_gather(mesh, queries).flatten(0, 1)
-        vals, idx = mips_topk_sharded(q, db_array, k, mesh, len(self.db.names))
+        vals, idx = self._local_search(q, db_array, k, modality)
         return shard_rows(mesh, vals), shard_rows(mesh, idx)
 
     def _gather(self, db_array: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -216,14 +306,15 @@ class Retriever:
         for each query: the query is normalised in f32 and cast to the DB
         dtype.  ``text=False`` skips the caption search (None)."""
         q = unit_rows(feature.float()).to(self.db.image_db.dtype)
-        img_idx = self.search(q, self.db.image_db, k)[1]
-        return img_idx, self.search(q, self.db.text_db, k)[1] if text else None
+        img_idx = self.search(q, self.db.image_db, k, "image")[1]
+        return img_idx, self.search(q, self.db.text_db, k, "text")[1] if text else None
 
     def caption_indices(self, feature: torch.Tensor, k: int = 2) -> torch.Tensor:
         """Top-k caption-DB rows for caption queries, normalised (again, for
         the text stream, whose trainer normalises them first) and cast to
         the DB dtype."""
-        return self.search(unit_rows(feature).to(self.db.text_db.dtype), self.db.text_db, k)[1]
+        return self.search(unit_rows(feature).to(self.db.text_db.dtype), self.db.text_db, k,
+                           "text")[1]
 
     def retrieve_features(self, feature: torch.Tensor, k: int = 16,
                           generator: Optional[torch.Generator] = None,

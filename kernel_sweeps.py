@@ -5,6 +5,7 @@ from ``chip_smoke.py`` so that the smoke run stays a check.
     python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k]
                              [attention] [attention_bwd] [train_check_controls]
                              [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
+                             [int8_layouts]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -38,11 +39,15 @@ attention         the attention forward at the rows of chip_smoke.py at
                   and the graph-replay timing of ``chip_smoke.py``.  Takes
                   ``--impl`` as ``rank`` does (an implementation that refuses
                   a shape times it as null).
-attention_bwd     the bf16 attention backward (``attention_backward``,
-                  causal) at the train prompt (128, 12, 8, 64) and the text
-                  buckets (64, 12, {16, 32, 77}, 64), on the inputs and the
-                  graph-replay timing of ``chip_smoke.py``.  Takes ``--impl``
-                  as ``rank`` does: run parent, change, change, parent.
+attention_bwd     the attention backward (``attention_backward``): bf16
+                  causal at the train prompt (128, 12, 8, 64) and the text
+                  buckets (64, 12, {16, 32, 77, 128}, 64), f32 causal at
+                  (2, 4, 77, 64), and above 128 (the streamed launches) bf16
+                  at (4, 16, {257, 577}, 64) and f32 at (2, 4, 289, 64), on
+                  the inputs and the graph-replay timing of
+                  ``chip_smoke.py``.  Takes ``--impl`` as ``rank`` does
+                  (an implementation that refuses a shape times it as
+                  null): run parent, change, change, parent.
 train_check_controls
                   what ``chip_smoke.py``'s train_check reads when the
                   attention gradient is broken on purpose, beside the sound
@@ -77,6 +82,11 @@ rn_encode_chunks
                   64: host-clock ms between two synchronises (median of
                   five after a warm-up) and device ms (torch.profiler), to
                   tell the host's launches from the card's work.
+int8_layouts      ``torch._int_mm`` (the W8A8 towers' int8 product) at a
+                  ViT-L/14 vision chunk's four block GEMMs and the text
+                  tower's, the weight row-major and column-major, beside a
+                  bf16 ``mm``; and which small shapes cuBLASLt takes in
+                  each layout.
 """
 
 from __future__ import annotations
@@ -97,7 +107,7 @@ from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, TRAIN_BATCH, _dou
 
 PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "attention", "attention_bwd",
           "train_check_controls", "raw_check_controls", "rn_gain_controls",
-          "rn_encode_chunks")
+          "rn_encode_chunks", "int8_layouts")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "attention", "attention_bwd")   # --impl's
 FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.bfloat16, True),
               (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False))
@@ -106,7 +116,14 @@ NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_RO
                  (QUERY_BATCH, 10_000, 10, torch.float32))
 WIDE_SHAPES = ((4181, 2297, 101, torch.float32), (2048, 4096, 100, torch.float32),
                (1024, 10_000, 200, torch.float32), (QUERY_BATCH, DB_ROWS, 64, torch.bfloat16))
-BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64), (64, 12, 16, 64), (64, 12, 32, 64), (64, 12, 77, 64))
+BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
+              (64, 12, 16, 64, torch.bfloat16, True), (64, 12, 32, 64, torch.bfloat16, True),
+              (64, 12, 77, 64, torch.bfloat16, True), (64, 12, 128, 64, torch.bfloat16, True),
+              (2, 4, 77, 64, torch.float32, True),
+              # above 128: the streamed launches (an implementation that refuses
+              # them times them as null)
+              (4, 16, 257, 64, torch.bfloat16, False), (4, 16, 577, 64, torch.bfloat16, False),
+              (2, 4, 289, 64, torch.float32, False))
 CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
 
@@ -195,11 +212,17 @@ def attention_bwd(impl: str) -> None:
     from keds_tpu_torch.ops.attention import attention_backward
 
     ms = {}
-    for B, H, S, Dh in BWD_SHAPES:
-        q, k, v = _qkv(B, H, S, Dh, torch.bfloat16)
-        dout = _dout(B, H, S, Dh, torch.bfloat16)
-        ms[f"{B}x{H}x{S}x{Dh}"] = time_ms(lambda: attention_backward(q, k, v, dout, True))
-    emit("attention_bwd", impl=impl, dtype="bf16", causal=True, kernel_ms=ms)
+    for B, H, S, Dh, dtype, causal in BWD_SHAPES:
+        q, k, v = _qkv(B, H, S, Dh, dtype)
+        dout = _dout(B, H, S, Dh, dtype)
+        name = f"{B}x{H}x{S}x{Dh} {str(dtype)[6:]}{' causal' if causal else ''}"
+        try:
+            attention_backward(q, k, v, dout, causal)
+        except ValueError:          # an implementation that refuses the shape
+            ms[name] = None
+            continue
+        ms[name] = time_ms(lambda: attention_backward(q, k, v, dout, causal))
+    emit("attention_bwd", impl=impl, kernel_ms=ms)
 
 
 def _fault(name: str):
@@ -318,6 +341,48 @@ def rn_gain_controls() -> None:
                  f32_feature_spread=feature_spread(f32.cpu()))
             del p32
             torch.cuda.empty_cache()
+
+
+INT8_SHAPES = ((16 * 257, 1024, 3072), (16 * 257, 1024, 1024), (16 * 257, 1024, 4096),
+               (16 * 257, 4096, 1024), (64 * 32, 768, 2304), (64 * 32, 3072, 768))
+INT8_SMALL = tuple((m, k, n) for m in (17, 20, 24, 32) for k in (64, 128, 768)
+                   for n in (64, 192, 256))
+
+
+def int8_layouts() -> None:
+    """``torch._int_mm`` (the int8 product of the W8A8 towers) at a ViT-L/14
+    vision chunk's four block GEMMs (4112 tokens) and the text tower's at
+    the S=32 bucket (2048 tokens), with the weight (K, N) row-major (as
+    ``quantize_weight`` lays it out) and column-major (a transposed view of
+    an (N, K) tensor); then which small shapes cuBLASLt takes in each
+    layout (M rows just past 16, K and N of a tiny test tower)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def i8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    rows = []
+    for m, k, n in INT8_SHAPES:
+        a, b = i8((m, k)), i8((k, n))
+        col = b.t().contiguous().t()
+        exact = torch.equal(torch._int_mm(a, b), torch._int_mm(a, col))
+        rows.append(dict(shape=[m, k, n], equal=exact,
+                         row_major_ms=time_ms(lambda: torch._int_mm(a, b)),
+                         col_major_ms=time_ms(lambda: torch._int_mm(a, col)),
+                         bf16_mm_ms=time_ms(lambda: torch.mm(a.to(torch.bfloat16),
+                                                             b.to(torch.bfloat16)))))
+    taken = {}
+    for m, k, n in INT8_SMALL:
+        a, b = i8((m, k)), i8((k, n))
+        for name, w in (("row_major", b), ("col_major", b.t().contiguous().t())):
+            try:
+                torch._int_mm(a, w)
+                torch.cuda.synchronize()
+                taken[f"{m}x{k}x{n} {name}"] = True
+            except RuntimeError as e:
+                taken[f"{m}x{k}x{n} {name}"] = str(e).splitlines()[0][:120]
+    emit("int8_layouts", gemms=rows, small_shapes=taken)
 
 
 def rn_encode_chunks() -> None:

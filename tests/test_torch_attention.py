@@ -59,10 +59,15 @@ def test_backward_plan_fits_and_covers_every_slice(bh):
     fits the H100's 227 KB of shared memory, has a warp per 16-row tile (or
     per slice at S <= 16), and the blocks' slices cover each (batch, head)
     exactly once."""
-    for s in range(1, 129):
+    for s in range(1, 1100):
         p = bwd_plan(s)
         assert (p.key_tiles - 1) * 16 < s <= p.key_tiles * 16
         assert p.smem_bytes <= 227 * 1024
+        if s > 128:     # the streamed launches: 8 warps, a workspace row per query row
+            assert (p.slices, p.warps, p.smem_bytes) == (1, 8, 75_264)
+            assert s <= p.workspace_rows < s + 128 and p.workspace_rows % 128 == 0
+            continue
+        assert p.workspace_rows == 0
         assert p.warps == (p.slices if p.key_tiles == 1 else p.key_tiles)
         slices = [blk * p.slices + w for blk in range(p.blocks(bh)) for w in range(p.slices)]
         assert sorted(x for x in slices if x < bh) == list(range(bh))

@@ -132,12 +132,22 @@ def test_new_flags_parse_as_in_jax():
         assert {f: getattr(t, f) for f in NEW_FLAGS} == {f: getattr(j, f) for f in NEW_FLAGS}
 
 
-@pytest.mark.parametrize("argv,item", [(["--quant-towers", "int8"], "item 15"),
-                                       (["--retrieval-backend", "approx"], "item 14"),
-                                       (["--retrieval-backend", "int8"], "item 14")])
+@pytest.mark.parametrize("argv,item", [(["--checkpoint-format", "orbax"], "item 16"),
+                                       (["--profile-dir", "x"], "item 16"),
+                                       (["--pre-save-feature"], "item 16")])
 def test_unported_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match=item):
         tparse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--quant-towers", "int8"], ["--retrieval-backend", "approx"],
+                                  ["--retrieval-backend", "int8"]])
+def test_int8_and_approx_flags_parse_as_in_jax(argv):
+    """--quant-towers int8 and --retrieval-backend int8|approx are ported
+    (ROADMAP items 14 and 15): they parse to the JAX package's values."""
+    fields = ("quant_towers", "retrieval_backend")
+    t, j = tparse_args(argv), jparse_args(argv)
+    assert {f: getattr(t, f) for f in fields} == {f: getattr(j, f) for f in fields}
 
 
 @pytest.mark.parametrize("argv", [["--db-shard"], ["--worker-processes"],

@@ -530,10 +530,42 @@ def test_attention_backward_plan_mirrors_the_library(cuda):
     import ctypes
 
     lib = att_mod.BWD_KERNEL.lib()
-    out = (ctypes.c_int * 4)()
-    for s in range(1, 129):
+    out = (ctypes.c_int * 5)()
+    for s in range(1, 1100):
         assert lib.keds_attention_bwd_plan(s, ctypes.cast(out, ctypes.c_void_p)) == 0
         assert tuple(out) == tuple(att_mod.bwd_plan(s))
+    assert lib.keds_attention_bwd_plan(0, ctypes.cast(out, ctypes.c_void_p)) != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("s", [129, 257, 577, 1025])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_backward_streams_long_sequences(cuda, dtype, s, causal):
+    """Above 128 the two streamed launches (dq, then dk and dv), through
+    autograd as the towers reach them; two calls agree bit for bit."""
+    qkv, (q, k, v), dout = _grad_inputs(cuda, 2, 3, s, dtype, s)
+    variant = BWD_VARIANT[dtype] + "_stream"
+    before = dict(att_mod.BWD_KERNEL.launches)
+    grads = torch.autograd.grad(attention(q, k, v, causal), (q, k, v), dout)
+    again = att_mod.attention_backward(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    assert att_mod.BWD_KERNEL.launches == dict(before, **{variant: before[variant] + 2})
+    ref = att_mod.attention_reference_backward(q, k, v, dout, causal)
+    atol, rtol = BWD_TOL[dtype]
+    for g, a, r in zip(grads, again, ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("s", [257, 577])
+def test_attention_backward_streamed_near_one_hot_softmax(cuda, s):
+    qkv = torch.randn((2, s, 3, 4, 64), generator=_gen(cuda, s), device=cuda)
+    qkv[:, :, 0] *= 8
+    q, k, v = (qkv.to(torch.bfloat16)[:, :, i].transpose(1, 2) for i in range(3))
+    dout = torch.randn((2, 4, s, 64), generator=_gen(cuda, s + 1), device=cuda).to(torch.bfloat16)
+    for causal in (False, True):
+        _check_backward(q, k, v, dout, causal)
 
 
 def test_attention_backward_copies_unaligned_rows(cuda):
@@ -548,9 +580,9 @@ def test_attention_backward_copies_unaligned_rows(cuda):
 
 
 def test_attention_backward_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros((1, 1, 129, 64), device=cuda)
-    with pytest.raises(ValueError, match="S <= 128"):
-        att_mod.attention_backward(x, x, x, x)
+    # S = 129 is taken since the streamed kernels: it runs against the plain version
+    x = torch.randn((1, 1, 129, 64), generator=_gen(cuda, 60), device=cuda)
+    _check_backward(x, x * 0.5, x * 0.25, x.flip(2), False)
     y = torch.zeros((1, 1, 8, 32), device=cuda)
     with pytest.raises(ValueError, match="Dh = 64"):
         att_mod.attention_backward(y, y, y, y)
@@ -1041,3 +1073,118 @@ def test_model_surface_at_one_token_on_card_matches_cpu(cuda):
         else:
             cos = torch.nn.functional.cosine_similarity(out.float().cpu(), cpu, dim=1)
             assert float(cos.min()) > 0.995
+
+
+# --- int8 retrieval and W8A8 towers (library products, held to their plain versions) ---
+
+@pytest.mark.parametrize("b", [1, 2, 16, 17])
+@pytest.mark.parametrize("n", [4096, 4101])
+@pytest.mark.parametrize("true_rows", [True, False])
+def test_int8_search_matches_plain(cuda, b, n, true_rows):
+    """torch._int_mm with its rows (B <= 16) and ragged columns (N % 8)
+    padded equals the float64 plain product; the whole search agrees index
+    for index."""
+    from keds_tpu_torch.ops.quant import INT8_MM
+
+    db = _unit(n, 768, torch.bfloat16, cuda, n)
+    q = _unit(b, 768, torch.bfloat16, cuda, b + 7)
+    q8, sc = topk_mod.quantize_int8(db)
+    before = INT8_MM.launches["retrieval"]
+    for k in (16, 2):
+        got = topk_mod.mips_topk_int8(q.float(), q8, sc, k, db=db if true_rows else None)
+        want = topk_mod.mips_topk_int8(q.float(), q8, sc, k, db=db if true_rows else None,
+                                       plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+    assert INT8_MM.launches["retrieval"] == before + 2 * (1 + (n % 8 > 0))
+
+
+def test_int8_search_duplicated_rows_keep_the_lower_index(cuda):
+    half = _unit(2048, 768, torch.bfloat16, cuda, 1)
+    db = torch.cat([half, half])
+    q = _unit(9, 768, torch.bfloat16, cuda, 2)
+    q8, sc = topk_mod.quantize_int8(db)
+    for oversample in (1, 4):
+        vals, idx = topk_mod.mips_topk_int8(q.float(), q8, sc, 16, oversample, db=db)
+        pv, pidx = topk_mod.mips_topk_int8(q.float(), q8, sc, 16, oversample, db=db,
+                                           plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, pidx)
+        # a row and its copy tie: the lower index comes first, the copy next
+        assert (idx[:, 0::2] < 2048).all() and torch.equal(idx[:, 1::2], idx[:, 0::2] + 2048)
+
+
+def test_quantize_int8_card_equals_cpu(cuda):
+    db = _unit(5000, 768, torch.bfloat16, cuda, 3)
+    q8, sc = topk_mod.quantize_int8(db)
+    c8, csc = topk_mod.quantize_int8(db.cpu())
+    assert torch.equal(q8.cpu(), c8) and torch.equal(sc.cpu(), csc)
+
+
+def test_int8_matmul_refuses_a_depth_it_does_not_take(cuda):
+    from keds_tpu_torch.ops.quant import int8_matmul
+
+    a = torch.ones((32, 100), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match=r"\(32, 100\)"):
+        int8_matmul(a, a.T.contiguous())
+
+
+@pytest.mark.parametrize("rows", [5, 77 * 4, 257 * 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_int8_linear_card_equals_cpu(cuda, rows, dtype):
+    """The same input on the card and the CPU: the activation quantization,
+    the integer product and the f32 dequantization are the same operations,
+    so the results agree bit for bit."""
+    from keds_tpu_torch.ops.quant import INT8_MM, int8_linear, quantize_weight
+
+    x = torch.randn((rows, 1024), generator=_gen(cuda, rows), device=cuda).to(dtype)
+    w = torch.randn((1024, 3072), generator=_gen(cuda, 1), device=cuda) * 0.03
+    b = torch.randn((3072,), generator=_gen(cuda, 2), device=cuda)
+    wq = quantize_weight(w)
+    before = INT8_MM.launches["linear"]
+    got = int8_linear(x, wq, b)
+    want = int8_linear(x.cpu(), {k: t.cpu() for k, t in wq.items()}, b.cpu())
+    torch.cuda.synchronize()
+    assert INT8_MM.launches["linear"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_tiny_int8_tower_engine_card_matches_cpu(cuda):
+    """The engine with W8A8 towers and the int8 retriever at a tiny size in
+    f32, card vs CPU.  Activations at a rounding boundary of their token's
+    int8 grid may round one step the other way (the f32 sums before them run
+    in another order), hence 2e-3."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.ops.quant import INT8_MM
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=32, vision_layers=2,
+                     vision_width=128, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=1, transformer_layers=2)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=3,
+                                    device="cpu")
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)]
+    text = np.zeros((4, 77), np.int32)
+    text[:, :6] = [49406, 320, 1125, 539, 265, 267]
+    text[:, 6:12] = rng.integers(1000, 40000, (4, 6))
+    text[:, 12] = 49407
+    out = {}
+    before = dict(INT8_MM.launches)
+    for dev in ("cpu", cuda):
+        ddb = KnowledgeDB(db.image_db.to(dev), db.text_db.to(dev), db.names)
+        eng = ComposedQueryEngine(cast_floating(params, torch.float32, dev), cfg,
+                                  cast_floating(heads, torch.float32, dev), ddb,
+                                  retriever=Retriever(ddb, "int8"), quant_towers="int8",
+                                  split_id=265, compute_dtype=torch.float32,
+                                  db_topk=8, encode_chunk=2, device=dev)
+        out[str(dev)] = (eng.encode_corpus(images), eng.compose(images, [text]))
+    torch.cuda.synchronize()
+    assert INT8_MM.launches["linear"] > before["linear"]
+    assert INT8_MM.launches["retrieval"] > before["retrieval"]
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=2e-3)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=2e-3)

@@ -144,8 +144,12 @@ def test_eval_context_refuses_what_is_not_ported(tree, tmp_path):
     one = tev.EvalContext(clip, TCFG, retr, mesh=make_mesh(device="cpu"), device="cpu",
                           split_id=265)
     assert one.mesh is None and one.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tev.EvalContext(clip, TCFG, retr, quant_towers="int8", device="cpu", split_id=265)
+    # W8A8 towers are ported: the blocks are quantized after the cast, and
+    # an unknown mode is refused
+    quant = tev.EvalContext(clip, TCFG, retr, quant_towers="int8", device="cpu", split_id=265)
+    assert quant.clip_c["visual"]["blocks"]["qkv_w"]["q"].dtype == torch.int8
+    with pytest.raises(ValueError, match="unknown --quant-towers mode"):
+        tev.EvalContext(clip, TCFG, retr, quant_towers="int4", device="cpu", split_id=265)
     orbax = tmp_path / "epoch_1.pt"
     orbax.mkdir()
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")

@@ -99,8 +99,8 @@ def test_eval_cli_cirr_test_writes_jax_submission(run):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--retrieval-backend", "int8"), "item 14"),
-    (("--retrieval-backend", "approx"), "item 14"),
+    (("--checkpoint-format", "orbax"), "item 16"),
+    (("--profile-dir", "x"), "item 16"),
     (("--eval-mode", "fashion"), "--source-data"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(tmp_path, extra, match):

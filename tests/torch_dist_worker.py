@@ -248,13 +248,48 @@ def cuda_topk(out: dict, url: str) -> None:
         out.update(whole_vals=whole_vals.cpu().numpy(), whole_idx=whole_idx.cpu().numpy())
 
 
+def int8(mesh, d: str, out: dict) -> None:
+    """The sharded int8 search (true-row and dequantized re-rank), its pad
+    rows against negative scores, and the int8 and approx Retrievers over a
+    sharded DB (tests/test_torch_int8_retrieval.py)."""
+    from keds_tpu_torch.ops.topk import mips_topk_int8_sharded, quantize_int8
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+
+    z = dict(np.load(os.path.join(d, "inputs.npz")))
+    q = torch.from_numpy(z["q"])
+    db = KnowledgeDB.from_arrays(z["rows"], z["txt"], dtype=torch.float32, normalize=False,
+                                 device="cpu").shard_over(mesh)
+    q8, sc = quantize_int8(db.image_db)
+    for tag, rows in (("true", db.image_db), ("deq", None)):
+        v, ix = mips_topk_int8_sharded(q, q8, sc, 5, mesh, len(z["rows"]), db_shard=rows)
+        out[f"sharded_{tag}_vals"], out[f"sharded_{tag}_idx"] = v.numpy(), ix.numpy()
+    neg = KnowledgeDB.from_arrays(z["neg"], z["neg"], dtype=torch.float32, normalize=False,
+                                  device="cpu").shard_over(mesh)
+    v, ix = mips_topk_int8_sharded(torch.ones((1, 16)), *quantize_int8(neg.image_db), 4, mesh,
+                                   len(z["neg"]), db_shard=neg.image_db)
+    out["pad_vals"], out["pad_idx"] = v.numpy(), ix.numpy()
+    n = len(z["q"])
+    for backend in ("int8", "approx"):
+        retr = Retriever(KnowledgeDB.from_arrays(z["rows"], z["txt"], dtype=torch.float32,
+                                                 device="cpu").shard_over(mesh), backend)
+        ti, tt = retr.retrieve_features(torch.from_numpy(block(mesh, z["q"])), k=4)
+        out[f"{backend}_img"] = fetch_global(mesh, ti, n).numpy()
+        out[f"{backend}_txt"] = fetch_global(mesh, tt, n).numpy()
+
+
 def main() -> int:
     scenario, d, url = sys.argv[1:4]
-    if scenario == "core":
+    if scenario in ("core", "int8"):
         maybe_init_distributed(SimpleNamespace(distributed=True, dist_url=url, device="cpu"))
     out: dict = {}
     if scenario == "core":
         core(make_mesh(device="cpu"), d, out)
+    elif scenario == "int8":
+        int8(make_mesh(device="cpu"), d, out)
+        # both ranks done with the group before either exits: a rank that
+        # exits while the other's gloo threads still talk to it aborts
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
     elif scenario == "cuda_topk":
         cuda_topk(out, url)
     else:
