@@ -188,17 +188,42 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            cannot see a gradient off by a factor), and the sweep's epoch-1 tables equal to the one-process
            device-ranked tables but for near-ties within 1e-5.  Each rank
            is joined with a timeout; a failed rank fails the phase.
+2a. any_depth_path
+           D off the kernels' steps through the entry points (launch and
+           pad counts zeroed just before and read just after): the exact
+           Retriever over 100 000-row DBs at D = 100 (f32), 96 (bf16) and
+           1280 (bf16), 64 queries at k = 16 (B1 with D zero-padded to its
+           step, or the wide bf16 kernel above 1024) against the plain
+           version; int8_matmul at (32, 100) x (100, 4096) equal to its
+           plain version; an int8 Retriever over a 4096 x 100 DB (tables
+           padded once to depth 104, the queries per call) with the CPU's
+           neighbours but for near-ties.
+17a. extract_features, profile_dir, validate_artifacts
+           keds_tpu_torch.tools.extract_features over the 4096 JPEGs and
+           their captions with the ViT-L/14 checkpoint: images/s, names in
+           folder order, 64 sampled rows of both arrays against a direct
+           bf16 encode within 2e-2 and row-aligned; the train CLI on its
+           output (32 steps of 128 over the 1000-row DB) with and without
+           --profile-dir: one trace of 11 train_step_e0 ranges holding the
+           port's own kernels, equal losses; validate_artifacts in CIRR
+           mode over a 256-image PNG tree, the 0.5M DB and the checkpoint
+           as both streams, --expected from the port's eval CLI table on
+           the same files: parity_ok true.
 19. the kernels line (launches of each path beside each variant, the
     dist path's rank 0 among them; RN50's serving for the D = 1024 top-k
     rows and its text tower's attention, the 336 px encode for the rows
-    above 288 keys), then the card's name and power limit from
-    nvidia-smi, then the result line.
+    above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
+    rows with their pads, extract_features for the vision attention),
+    then the card's name and power limit from nvidia-smi, then the
+    result line.
 
 The backward rows cover S above 128 (the streamed launches): bf16 at 257
 and 577, f32 at 289.  The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
 rankings (k=101, 100, 200), a --db-topk of 64 and, above 256 (passes of the
 wide kernel), k=300 over 10 000, 4096 and 0.5M rows and k = N = 1000, and
-RN50's retrieval and ranking at D = 1024.  The attention rows cover S
+RN50's retrieval and ranking at D = 1024, and D off the kernels' steps
+(100 f32, 96 bf16, 1280 bf16 over 100 000 rows, with the pad's own ms).
+The attention rows cover S
 above 288, where the kernels stream K and V: ViT-L/14 at 336 px (577),
 1025 tokens, and f32 at 577 and 289.
 """
@@ -397,16 +422,21 @@ def _unit_rows(n: int, d: int, dtype, seed: int) -> torch.Tensor:
 
 
 def check_topk(cases):
-    from keds_tpu_torch.ops.topk import KERNEL, MAX_K, mips_topk, mips_topk_plain, split_plan
+    from keds_tpu_torch.ops.quant import pad_depth
+    from keds_tpu_torch.ops.topk import (KERNEL, MAX_K, depth_step, kernel_depth, mips_topk,
+                                         mips_topk_plain, split_plan)
 
     rows = []
     for B, N, D, k, dtype in cases:
         db = _unit_rows(N, D, dtype, seed=N)
         q = _unit_rows(B, D, dtype, seed=B + 1)
-        variant = split_plan(B, N, torch.cuda.get_device_properties(0).multi_processor_count,
-                             dtype, k)[0].variant + ("_multi" if k > MAX_K else "")
-        launches0 = KERNEL.launches[variant]
+        tiling = split_plan(B, N, torch.cuda.get_device_properties(0).multi_processor_count,
+                            dtype, k, D)[0]
+        variant = tiling.variant + ("_multi" if k > MAX_K else "")
+        depth = kernel_depth(tiling, D)
+        launches0, pads0 = KERNEL.launches[variant], KERNEL.pads[variant]
         vals, idx = mips_topk(q, db, k)
+        pads = KERNEL.pads[variant] - pads0
         pv, pi = mips_topk_plain(q, db, min(k + 1, N))
         torch.cuda.synchronize()
         err = (vals - pv[:, :k]).abs().max().item()
@@ -434,6 +464,12 @@ def check_topk(cases):
                    library_ms=time_ms(lambda: torch.topk(torch.mm(q, db.t()).float(), k)),
                    bound_ms=b_ms, bound_by=b_by,
                    launches=KERNEL.launches[variant] - launches0)
+        if depth != D:    # any D: the wrapper's zero-padded copies, timed alone
+            if pads != 1:
+                raise AssertionError(f"mips_topk {B, N, D, k} {dtype}: {pads} pads, want 1")
+            row.update(padded_to=depth, pads=pads,
+                       pad_ms=time_ms(lambda: (pad_depth(q, depth_step(tiling)),
+                                               pad_depth(db, depth_step(tiling)))))
         emit("mips_topk", **row)
         rows.append(row)
         del db, q
@@ -2800,6 +2836,291 @@ def surface_path(clip_params, cpu_clip, kernels) -> dict:
     return launches
 
 
+# --- any D, the tools, --profile-dir and the artifact gate ---------------------
+
+ANY_D_ROWS = 100_000       # the B1 rows and Retrievers at D off the kernels' steps
+ANY_D_CASES = ((100, torch.float32), (96, torch.bfloat16), (1280, torch.bfloat16))
+INT8_ANY_D = (32, 100, 4096)   # int8_matmul (M, K) x (K, N), K off torch._int_mm's 8
+EXTRACT_BATCH = 256        # the JAX tool's default --batch-size
+EXTRACT_CHECK_ROWS = 64
+EXTRACT_TOL = 2e-2         # the JAX tool's own test tolerance (tests/test_data_tools.py)
+PROFILE_BATCH = 128        # 4096 feature pairs: 32 steps, the window 10-20 inside
+VALIDATE_IMAGES = 256      # a CIRR val tree of this many PNGs and as many queries
+
+
+def _separated_agree(idx, pv, pi, tol: float) -> bool:
+    """Indices equal to the reference's ``pi`` wherever its score ``pv`` is
+    apart from both neighbours by more than ``tol``."""
+    idx, pv, pi = (torch.as_tensor(x).cpu() for x in (idx, pv, pi))
+    gaps = (pv[:, :-1] - pv[:, 1:]).abs() > tol
+    sep = torch.ones_like(pi, dtype=torch.bool)
+    sep[:, :-1] &= gaps
+    sep[:, 1:] &= gaps
+    return bool(((idx == pi) | ~sep).all())
+
+
+def any_depth_path(kernels) -> dict:
+    """D off the kernels' steps through the entry points, launch and pad
+    counts zeroed just before and read just after: the exact Retriever's
+    neighbour search (both tables, 64 queries, k = 16) over an
+    ANY_D_ROWS-row DB at each ANY_D_CASES width (B1 with D zero-padded, or
+    the wide bf16 kernel at 1280) against the plain version; int8_matmul at
+    INT8_ANY_D exactly equal to its plain version; an int8 Retriever over
+    a 4096 x 100 DB with the CPU's neighbours but for near-ties."""
+    from keds_tpu_torch.ops.quant import INT8_MM, int8_matmul, int8_matmul_plain
+    from keds_tpu_torch.ops.topk import mips_topk_plain
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever, unit_rows
+
+    t = time.perf_counter()
+    out, launches = {}, {}
+    for D, dtype in ANY_D_CASES:
+        table = _unit_rows(ANY_D_ROWS, D, dtype, seed=D)
+        retr = Retriever(KnowledgeDB(table, table, [str(i) for i in range(ANY_D_ROWS)]))
+        q = _unit_rows(QUERY_BATCH, D, torch.float32, seed=D + 1)
+        for k in kernels.values():
+            k.reset()
+        img_idx, txt_idx = retr.neighbour_indices(q, 16)
+        torch.cuda.synchronize()
+        launches[f"D{D}"] = {**{n: dict(k.launches) for n, k in kernels.items()},
+                             "mips_topk_pads": dict(kernels["mips_topk"].pads)}
+        pv, pi = mips_topk_plain(unit_rows(q).to(dtype), table, 16)
+        if not (torch.equal(img_idx, txt_idx) and _separated_agree(img_idx, pv, pi, TOPK_TOL)):
+            raise AssertionError(f"any_depth D={D} {dtype}: neighbours differ from the plain "
+                                 "version")
+        out[f"D{D}"] = dict(dtype=str(dtype), idx_equal_share=float(
+            (img_idx == pi).float().mean()), launches=launches[f"D{D}"]["mips_topk"],
+            pads=launches[f"D{D}"]["mips_topk_pads"])
+        del retr, table
+        torch.cuda.empty_cache()
+    M, K, N = INT8_ANY_D
+    gen = torch.Generator(device=DEV).manual_seed(K)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device=DEV).to(torch.int8)
+    b = torch.randint(-127, 128, (N, K), generator=gen, device=DEV).to(torch.int8).T
+    INT8_MM.reset()
+    got = int8_matmul(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, int8_matmul_plain(a, b)) or INT8_MM.pads["linear"] != 1:
+        raise AssertionError(f"int8_matmul {INT8_ANY_D}: not equal to its plain version")
+    out["int8_matmul"] = dict(shape=list(INT8_ANY_D), equal=True, pads=dict(INT8_MM.pads),
+                              ms=time_ms(lambda: int8_matmul(a, b)),
+                              plain_ms=time_ms(lambda: int8_matmul_plain(a, b)))
+    rng = np.random.default_rng(100)
+    img, txt = (rng.standard_normal((N, K)).astype(np.float32) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((QUERY_BATCH, K)).astype(np.float32))
+    card = Retriever(KnowledgeDB.from_arrays(img, txt, dtype=torch.float32, device=DEV), "int8")
+    cpu = Retriever(KnowledgeDB.from_arrays(img, txt, dtype=torch.float32, device="cpu"), "int8")
+    INT8_MM.reset()
+    agree = []
+    for name in ("image", "text"):
+        vals, idx = card.search(q.to(DEV), getattr(card.db, f"{name}_db"), 16, name)
+        pv, pi = cpu.search(q, getattr(cpu.db, f"{name}_db"), 16, name)
+        differ, near = ties_apart(vals.cpu().numpy(), idx.cpu().numpy(), pv.numpy(),
+                                  pi.numpy(), NEAR_TIE)
+        agree.append(differ == near)
+    torch.cuda.synchronize()
+    out["int8_retriever"] = dict(db=[N, K], depth=int(card.quant_arrays()[0][0].shape[1]),
+                                 launches=dict(INT8_MM.launches), pads=dict(INT8_MM.pads),
+                                 neighbours_equal_but_near_ties=all(agree))
+    if not all(agree) or INT8_MM.pads["retrieval"] != 0 or INT8_MM.pads["queries"] != 2:
+        raise AssertionError(f"int8 Retriever at D = {K}: {out['int8_retriever']}")
+    emit("any_depth_path", seconds=time.perf_counter() - t, **out)
+    return launches
+
+
+def extract_features_path(f, kernels) -> dict:
+    """``keds_tpu_torch.tools.extract_features`` over the SERVE_CORPUS JPEGs
+    and their captions with the ViT-L/14 checkpoint (launch counts zeroed
+    just before and read just after): images/s ("DB encode imgs/sec"), the
+    names in folder order, and EXTRACT_CHECK_ROWS sampled rows of both
+    arrays against a direct bf16 encode_image / encode_text of the same
+    inputs (EXTRACT_TOL, each row closest to its own direct row).  Returns
+    (launch counts, the output directory)."""
+    import os
+
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.models.loader import load_clip
+    from keds_tpu_torch.tokenizer import tokenize
+    from keds_tpu_torch.tools.extract_features import main as extract
+    from keds_tpu_torch.transforms import device_normalize
+
+    out_dir = f.root / "features"
+    for k in kernels.values():
+        k.reset()
+    stats = extract(["--images", str(f.corpus), "--captions", str(f.captions),
+                     "--clip-weights", str(f.mlp), "--out", str(out_dir),
+                     "--batch-size", str(EXTRACT_BATCH), "--workers", "8"])
+    torch.cuda.synchronize()
+    launches = {n: dict(k.launches) for n, k in kernels.items()}
+    check_path_launches("extract_features", launches,
+                        {("mips_topk", "bf16_tc"): 0, ("attention_bwd", "bf16"): 0},
+                        positive=(("attention", "bf16_tc"),))
+    names = json.loads((out_dir / "names.json").read_text())
+    want_names = sorted(p.split(".")[0] for p in os.listdir(f.corpus))
+    img_f = np.load(out_dir / "image_features.npy", mmap_mode="r")
+    txt_f = np.load(out_dir / "text_features.npy", mmap_mode="r")
+    rows = np.sort(np.random.default_rng(5).choice(len(names), EXTRACT_CHECK_ROWS,
+                                                   replace=False))
+    clip_params, cfg, _, t_val = load_clip(str(f.mlp), normalize_on_host=False, device=DEV)
+    clip_c = cast_floating(clip_params, torch.bfloat16, DEV)
+    del clip_params
+    from PIL import Image
+
+    caps = json.loads(f.captions.read_text())
+    images = np.stack([t_val(Image.open(f.corpus / f"{names[r]}.jpg")) for r in rows])
+    with torch.inference_mode():
+        ref_img = mclip.encode_image(clip_c, cfg, device_normalize(
+            torch.from_numpy(images).to(DEV))).float().cpu().numpy()
+        ref_txt = mclip.encode_text(clip_c, cfg, torch.from_numpy(
+            tokenize([caps[names[r]] for r in rows])).to(DEV)).float().cpu().numpy()
+    del clip_c
+    torch.cuda.empty_cache()
+
+    def aligned(got, want):
+        g = got / np.linalg.norm(got, axis=1, keepdims=True)
+        w = want / np.linalg.norm(want, axis=1, keepdims=True)
+        return bool((np.argmax(g @ w.T, axis=1) == np.arange(len(got))).all())
+
+    got_img, got_txt = np.asarray(img_f[rows]), np.asarray(txt_f[rows])
+    row = dict(images=stats["rows"], seconds=stats["seconds"],
+               images_per_s=stats["images_per_s"], batch=EXTRACT_BATCH,
+               names_in_folder_order=names == want_names,
+               img_max_abs_err=float(np.abs(got_img - ref_img).max()),
+               txt_max_abs_err=float(np.abs(got_txt - ref_txt).max()),
+               rows_aligned=aligned(got_img, ref_img) and aligned(got_txt, ref_txt),
+               tol=EXTRACT_TOL, launches=launches["attention"])
+    emit("extract_features", **row)
+    close = all(np.allclose(g, w, rtol=EXTRACT_TOL, atol=EXTRACT_TOL)
+                for g, w in ((got_img, ref_img), (got_txt, ref_txt)))
+    if not (close and row["rows_aligned"] and row["names_in_folder_order"]
+            and stats["rows"] == SERVE_CORPUS):
+        raise AssertionError(f"extract_features: {row}")
+    return launches, out_dir
+
+
+def profile_dir_path(f, features) -> dict:
+    """The train CLI on ``features`` (extract_features' output: 32 steps of
+    PROFILE_BATCH) over the 1000-row DB, with --profile-dir under build/
+    and without: the trace exists, holds 11 train_step_e0 ranges (steps
+    10-20), and its CUDA kernels include the port's own (B2, B2′, B1);
+    the two runs' losses agree within TRAIN_LOSS_RTOL."""
+    import glob
+    import os
+
+    from keds_tpu_torch.cli.main import main as train_main
+
+    t = time.perf_counter()
+    prof_dir = f.root / "profile"
+    losses, walls = {}, {}
+    for name, extra in (("traced", ["--profile-dir", str(prof_dir)]), ("plain", [])):
+        t1 = time.perf_counter()
+        train_main(["--train-data", str(features), "--dataset-type", "directory",
+                    "--clip-weights", str(f.mlp), "--database-path", str(f.tiny_db),
+                    "--batch-size", str(PROFILE_BATCH), "--epochs", "1", "--warmup", "2",
+                    "--workers", "4", "--logs", str(f.root / "logs"),
+                    "--name", f"profile_{name}", *extra])
+        walls[name] = time.perf_counter() - t1
+        scalars = (f.root / "logs" / f"profile_{name}" / "scalars.jsonl").read_text()
+        losses[name] = [json.loads(x)["train/loss"] for x in scalars.splitlines()]
+    files = glob.glob(str(prof_dir / "*.pt.trace.json"))
+    events = json.loads(open(files[0]).read())["traceEvents"] if len(files) == 1 else []
+    ranges = sum(e.get("name") == "train_step_e0" and e.get("cat") == "user_annotation"
+                 for e in events)
+    kernels_ev = [e for e in events if e.get("cat") == "kernel"]
+    kernel_names = {e["name"] for e in kernels_ev}
+    ours = {word: sorted(n for n in kernel_names if word in n)[:3]
+            for word in ("attention_tc", "attention_bwd", "topk_")}
+    # what the trace shows of the 11 steps: device ms by group, the steps'
+    # host span, and the device's busy share of it
+    steps = [e for e in events if e.get("name") == "train_step_e0"
+             and e.get("cat") == "user_annotation"]
+    span_us = (max(e["ts"] + e["dur"] for e in steps) - min(e["ts"] for e in steps)
+               if steps else 0.0)
+    groups = {"port_kernels": ("attention_tc", "attention_bwd", "topk_"),
+              "gemm": GEMM_WORDS}
+    device_ms = {g: 0.0 for g in (*groups, "other")}
+    for e in kernels_ev:
+        g = next((g for g, words in groups.items()
+                  if any(w in e["name"].lower() for w in words)), "other")
+        device_ms[g] += e.get("dur", 0.0) / 1e3
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses["traced"],
+                                                              losses["plain"]))
+    row = dict(trace_files=len(files), train_step_ranges=ranges, kernels_in_trace=ours,
+               n_kernel_names=len(kernel_names), steps_span_ms=span_us / 1e3,
+               device_ms_by_group=device_ms,
+               device_busy_share=sum(device_ms.values()) / max(span_us / 1e3, 1e-9),
+               losses=losses, loss_rel_diff=rel,
+               loss_rtol=TRAIN_LOSS_RTOL, trace_mb=(os.path.getsize(files[0]) / 1e6
+                                                    if files else 0.0),
+               walls_s=walls, seconds=time.perf_counter() - t)
+    emit("profile_dir", **row)
+    if not (len(files) == 1 and ranges == 11 and all(ours.values())
+            and len(losses["traced"]) == len(losses["plain"]) > 0 and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"--profile-dir: {row}")
+    return row
+
+
+def validate_path(f) -> dict:
+    """``keds_tpu_torch.tools.validate_artifacts`` in CIRR mode on the card
+    over a CIRR val tree of VALIDATE_IMAGES of the smoke JPEGs (as PNGs)
+    and as many queries, the 0.5M DB and the ViT-L/14 checkpoint as both
+    fixed streams, with --expected set to the port's eval CLI table on the
+    same streams and files (epoch 1 of the sweep): it must return with
+    parity_ok true."""
+    from PIL import Image
+
+    from keds_tpu_torch.cli.eval_retrieval import main as eval_main
+    from keds_tpu_torch.evalkit import evaluators
+    from keds_tpu_torch.tools.validate_artifacts import main as validate
+
+    t = time.perf_counter()
+    root = f.root / "cirr_data"
+    base = root / "CIRR"
+    for sub in ("dev", "captions", "image_splits"):
+        (base / sub).mkdir(parents=True)
+    names = [f"img{i:05d}" for i in range(VALIDATE_IMAGES)]
+    for n in names:
+        Image.open(f.corpus / f"{n}.jpg").save(base / "dev" / f"{n}.png")
+    rng = np.random.default_rng(31)
+    caps = [{"reference": names[q], "target_hard": names[int(rng.integers(VALIDATE_IMAGES))],
+             "caption": caption(rng)} for q in range(VALIDATE_IMAGES)]
+    (base / "captions" / "cap.rc2.val.json").write_text(json.dumps(caps))
+    (base / "image_splits" / "split.rc2.val.json").write_text(
+        json.dumps({n: f"dev/{n}.png" for n in names}))
+    tables = []
+    real = evaluators.evaluate_cirr
+
+    def epoch_one(ctx, src, tgt, epochs=None):
+        tables.append(real(ctx, src, tgt, epochs=[1]))
+        return tables[-1]
+
+    evaluators.evaluate_cirr = epoch_one
+    try:
+        eval_main(["--eval-mode", "cirr", "--resume", str(f.mlp), "--root-data", str(root),
+                   "--database-path", str(f.db), "--image-branch", str(f.mlp),
+                   "--text-branch", str(f.mlp), "--batch-size", str(QUERY_BATCH),
+                   "--logs", str(f.root / "logs"), "--name", "validate_expected"])
+    finally:
+        evaluators.evaluate_cirr = real
+    expected = {"cirr": {key: m for (_, key), m in tables[0].items()}}
+    (f.root / "expected.json").write_text(json.dumps(expected))
+    report = f.root / "report.json"
+    t1 = time.perf_counter()
+    validate(["--image-stream", str(f.mlp), "--text-stream", str(f.mlp),
+              "--db-image", str(f.db / "image_db.npy"), "--db-text", str(f.db / "text_db.npy"),
+              "--data-root", str(root), "--eval-mode", "cirr",
+              "--batch-size", str(QUERY_BATCH), "--expected", str(f.root / "expected.json"),
+              "--out", str(report)])
+    rep = json.loads(report.read_text())
+    row = dict(images=VALIDATE_IMAGES, queries=VALIDATE_IMAGES, parity_ok=rep["parity_ok"],
+               table=rep["table"], expected=expected["cirr"], exit_code=0,
+               validate_s=time.perf_counter() - t1, seconds=time.perf_counter() - t)
+    emit("validate_artifacts", **row)
+    if rep["parity_ok"] is not True or set(rep["table"]) != set(expected["cirr"]):
+        raise AssertionError(f"validate_artifacts: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2865,7 +3186,11 @@ def main() -> int:
                             (8, 1000, 768, 1000, f32),               # k = N
                             (QUERY_BATCH, SERVE_CORPUS, 768, SERVE_WIDE_TOPN, f32),  # serve
                             (QUERY_BATCH, DB_ROWS, 1024, 16, bf16),  # RN50 retrieval
-                            (QUERY_BATCH, N_CORPUS, 1024, 10, f32)])  # RN50 ranking
+                            (QUERY_BATCH, N_CORPUS, 1024, 10, f32),  # RN50 ranking
+                            # any D: padded to the step (f32 32, bf16_tc 64), or
+                            # bf16 above 1024 on the wide kernel
+                            *((QUERY_BATCH, ANY_D_ROWS, d, 16, dt) for d, dt in ANY_D_CASES)])
+    any_d_launches = any_depth_path(kernels)
 
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
@@ -2939,6 +3264,10 @@ def main() -> int:
         raw_train_check(files, clip_params, heads, db, cpu_clip, cpu_heads, cpu_db)
         del cpu_clip, cpu_heads, cpu_db
         raw_cli_runs(files)
+        torch.cuda.empty_cache()
+        extract_launches, features = extract_features_path(files, kernels)
+        profile_dir_path(files, features)
+        validate_path(files)
 
     # --- two ranks sharing the card over gloo ----------------------------------
     torch.cuda.empty_cache()
@@ -2973,7 +3302,13 @@ def main() -> int:
                (att, "f32", att_rows[6], vit336_launches),
                (att, "bf16_tc", att_rows[9], surface_launches["mask_ratio_1"]),
                (att, "bf16_tc", att_rows[10], surface_launches["mask_ratio_0.75"]),
-               (att, "bf16_tc", att_rows[11], surface_launches["text_mid_cross"])]
+               (att, "bf16_tc", att_rows[11], surface_launches["text_mid_cross"]),
+               # any D: the Retriever's searches at D = 100, 96 and 1280, and
+               # the tool's encodes
+               (top, "f32", topk_rows[17], any_d_launches["D100"]),
+               (top, "bf16_tc", topk_rows[18], any_d_launches["D96"]),
+               (top, "bf16", topk_rows[19], any_d_launches["D1280"]),
+               (att, "bf16_tc", att_rows[0], extract_launches)]
     paths = {"serving": launches, "rn_serving": rn_launches, "vit336": vit336_launches,
              **{f"surface_{p}": c for p, c in surface_launches.items()},
              "train_image": train_launches, "train_text": text_launches,
@@ -2981,7 +3316,8 @@ def main() -> int:
              "serve_cli_topn300": serve_launches["serve_topn300"],
              "demo_mlp": demo_launches["mlp"], "demo_crossformer": demo_launches["crossformer"],
              "train_raw": raw_launches, "quant_serving": quant_launches,
-             "serve_cli_int8": serve_int8_launches,
+             "serve_cli_int8": serve_int8_launches, "extract_features": extract_launches,
+             **{f"any_depth_{p}": c for p, c in any_d_launches.items()},
              **{f"dist_{p}_rank0": c for p, c in dist_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
@@ -2989,6 +3325,8 @@ def main() -> int:
          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
          "shape": row["shape"], "dtype": row["dtype"],
+         **({"padded_to": row["padded_to"], "pad_ms": row["pad_ms"],
+             "pads": counts["mips_topk_pads"][variant]} if "padded_to" in row else {}),
          "launches_by_path": {p: c[name][variant] for p, c in paths.items()}}
         for (name, src, rep), variant, row, counts in entries]}), flush=True)
     emit("library_calls", note="int8 products of the int8 retrieval backend and the W8A8 "

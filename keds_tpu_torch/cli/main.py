@@ -73,13 +73,14 @@ def _load_clip(cfg, device: torch.device):
     from keds_tpu_torch import synth
     from keds_tpu_torch.models.clip import model_config_for
     from keds_tpu_torch.models.convert import clip_from_state_dict
-    from keds_tpu_torch.models.loader import state_dict_from_file
+    from keds_tpu_torch.models.loader import resolve_clip_weights, state_dict_from_file
 
-    if not cfg.clip_weights:
+    if not (cfg.clip_weights or cfg.openai_pretrained):
         clip_cfg = model_config_for(cfg.model)
         logging.info("initialized %s from scratch (no --clip-weights)", cfg.model)
         return synth.init_clip(clip_cfg, cfg.seed, device, torch.float32), clip_cfg
-    return clip_from_state_dict(state_dict_from_file(cfg.clip_weights), device=device)
+    path = resolve_clip_weights(cfg.clip_weights or cfg.model)
+    return clip_from_state_dict(state_dict_from_file(path), device=device)
 
 
 def _load_neighbors(cfg, dataset, db, device: torch.device) -> None:
@@ -191,6 +192,12 @@ def main(argv: Optional[list] = None) -> None:
     from keds_tpu_torch.config import parse_args
 
     cfg = parse_args(argv)
+    if cfg.pre_save_feature:
+        raise SystemExit(
+            "--pre-save-feature: feature pre-extraction is the standalone tool "
+            "`python -m keds_tpu_torch.tools.extract_features` (the reference's "
+            "save_feature pass); train on its output with --train-data <out-dir> "
+            "--dataset-type directory")
     if cfg.load_feature and cfg.dataset_type == "webdataset":
         raise SystemExit("--load-feature trains on precomputed features (the default "
                          "path here); it is incompatible with --dataset-type webdataset")
@@ -381,7 +388,8 @@ def _train(cfg, dataset_type: str, checkpoint_path: str, log_dir: str) -> None:
             logging.info("Start epoch %d", epoch)
             loader.set_epoch(epoch)
             train_epoch(step_fn, heads, batches(), epoch, steps_per_epoch,
-                        schedule=schedule, writers=writers, world_size=mesh.size)
+                        schedule=schedule, writers=writers, world_size=mesh.size,
+                        profile_dir=cfg.profile_dir if epoch == start_epoch else None)
             if not primary:
                 continue
             save = dict(epoch=epoch + 1, name=cfg.name, clip_params=clip_params,

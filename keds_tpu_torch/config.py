@@ -218,7 +218,8 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--middle_dim", type=int, default=512, help="IM2TEXT hidden width")
     add("--n-layer", type=int, default=2, help="IM2TEXT hidden layers")
     add("--openai-pretrained", action="store_true", default=False,
-        help="left out on purpose (it downloads); give --clip-weights a local .pt")
+        help="load --model's OpenAI weights from ~/.cache/clip (nothing is "
+             "downloaded)")
     add("--clip-weights", type=str, default=None,
         help="reference-layout CLIP .pt (a state dict or a TorchScript archive)")
     add("--droprate", type=float, default=0.1)
@@ -250,7 +251,7 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
         help="tensorboard, wandb or all, beside scalars.jsonl")
     add("--wandb-notes", type=str, default="")
     add("--profile-dir", type=str, default=None,
-        help="not ported yet (ROADMAP.md section A item 16)")
+        help="write a torch.profiler trace of steps 10-20 of the first epoch here")
     add("--debug", action="store_true", default=False, help="log at DEBUG")
     add("--copy-codebase", action="store_true", default=False,
         help="copy keds_tpu_torch into <logs>/<name>/code before training")
@@ -276,12 +277,13 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
                      ("--C", dict(type=float, default=3.16))):
         add(flag, help="inert, as in the JAX package", **kw)
     add("--pre-save-feature", action="store_true", default=False,
-        help="feature extraction is not ported yet (ROADMAP.md section A item 16)")
+        help="features come from python -m keds_tpu_torch.tools.extract_features; "
+             "the train CLI exits naming it")
     add("--load-feature", action="store_true", default=False,
         help="train on precomputed features (the default; refused with webdataset)")
     add("--num-partitions", type=int, default=0,
-        help="ranks on the data axis: 0 or the world size (a subset of the ranks "
-             "is not ported yet, ROADMAP.md section A item 10)")
+        help="ranks on the data axis: 0, or at least the world size (clamped to it, "
+             "with a warning)")
     add("--split-id", type=int, default=None,
         help="token id of '*' in the vocab (image stream default 265; the text "
              "stream reads it from the vocab and refuses another)")
@@ -295,13 +297,8 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
 
 # Flags of parts not ported yet, or left out on purpose: (field, value that
 # asks for them, ROADMAP item or reason).
-_ITEM16 = "ROADMAP.md section A item 16 (tools and harness)"
-UNPORTED = (("checkpoint_format", "orbax", _ITEM16),
-            ("profile_dir", None, _ITEM16),
-            ("pre_save_feature", True, _ITEM16 + "; features come from "
-             "python -m keds_tpu.tools.extract_features"),
-            ("openai_pretrained", True, "left out on purpose (ROADMAP.md section A): it "
-             "downloads; give --clip-weights a local .pt"),
+UNPORTED = (("checkpoint_format", "orbax", "ROADMAP.md section A item 16 (tools and "
+             "harness)"),
             ("device_preprocess", False, "left out on purpose (ROADMAP.md section A): the "
              "port sends uint8 and normalises on the device"))
 

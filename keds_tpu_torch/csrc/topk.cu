@@ -741,9 +741,11 @@ extern "C" int keds_topk_chunk_rows(int variant) { return kTiles[variant][1]; }
 // Largest D of the bf16 kernel (its queries' fragments live in registers).
 extern "C" int keds_topk_tc_max_dim() { return kTcMaxDim; }
 
-// q (B, D) and db (N, D) row-major, 16-byte aligned; D % 64 == 0 for
-// bf16_tc, D % 32 == 0 otherwise.  k <= 32, or k <= 256 for the wide
-// variants.  cand_v / cand_i: scratch of B * n_splits * k entries.
+// q (B, D) and db (N, D) row-major, 16-byte aligned; D % 64 == 0 and
+// D <= 1024 for bf16_tc, D % 32 == 0 otherwise (the Python wrapper,
+// ops/topk.py:mips_topk, takes any D: it zero-pads D to the step and sends
+// bf16 rows wider than 1024 to the wide bf16 variant at any k).  k <= 32,
+// or k <= 256 for the wide variants.  cand_v / cand_i: scratch of B * n_splits * k entries.
 // n_splits <= the number of chunks.  The result goes to out_v / out_i with
 // row stride out_ld >= k.  bound_v / bound_i (wide variants only; null for
 // none) point at each query's bound entry, row stride out_ld: one pass of a

@@ -6,7 +6,9 @@ reference's directory layouts and return the JAX package's tuples in its
 order: images through the given transform (PIL, imported when an image is
 opened), prompts tokenized by the port's BPE.  ``CustomFolder`` (a folder
 of images) and ``CsvDataset`` (image paths and captions in a csv) feed the
-serve and demo CLIs and raw-image training.
+serve and demo CLIs and raw-image training.  ``ImageFolderByClass`` (a
+tree of class folders) and ``imagenet_train_subset_indices`` serve the
+ImageNet zero-shot path.
 
 ``CsvDataset.caption_token_needs`` and ``FeaturePairDataset.own_token_needs``
 give each sample's causal-prefix bucket need from the dataset alone, so
@@ -264,6 +266,47 @@ class CustomFolder:
     def __getitem__(self, idx: int):
         path = self.samples[idx]
         return self.transform(_open_image(path)), path
+
+
+class ImageFolderByClass:
+    """<root>/<class_dir>/<image> tree with integer labels by sorted class
+    order (torchvision ImageFolder semantics; the ImageNet zero-shot path,
+    reference src/data.py:732-774)."""
+
+    def __init__(self, root: str, transform: Callable):
+        self.transform = transform
+        self.samples: List[tuple] = []
+        classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        for c in classes:
+            cdir = os.path.join(root, c)
+            for fn in sorted(os.listdir(cdir)):
+                self.samples.append((os.path.join(cdir, fn), self.class_to_idx[c]))
+        self.targets = [t for _, t in self.samples]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int):
+        path, target = self.samples[idx]
+        return self.transform(_open_image(path)), target
+
+
+def imagenet_train_subset_indices(targets: Sequence[int], per_class: int = 50,
+                                  n_classes: int = 1000, seed: int = 0) -> np.ndarray:
+    """A random ``per_class``-per-class subset, sorted (reference
+    get_imagenet train sampler, src/data.py:751-764): each class's indices
+    shuffled by one numpy ``default_rng(seed)`` in class order."""
+    rng = np.random.default_rng(seed)
+    targets = np.asarray(targets)
+    keep = []
+    for c in range(n_classes):
+        idx = np.where(targets == c)[0]
+        if len(idx) == 0:
+            continue
+        rng.shuffle(idx)
+        keep.append(idx[:per_class])
+    return np.sort(np.concatenate(keep)) if keep else np.empty(0, np.int64)
 
 
 class CsvDataset:

@@ -43,17 +43,21 @@ class CudaKernel:
     ``launches[variant]`` is incremented by the op's wrapper each time it
     launches that variant on a CUDA tensor, and nowhere else; a run resets
     the counts (:meth:`reset`) to show that a code path went through a kernel.
+    ``pads[variant]`` counts the calls whose inputs the wrapper copied with
+    zero padding before the launch.
     """
 
     def __init__(self, name: str, functions: Dict[str, List], variants: Iterable[str]):
         self.name = name
         self.functions = functions      # C name -> ctypes argtypes
         self.launches = dict.fromkeys(variants, 0)
+        self.pads = dict.fromkeys(self.launches, 0)
         self._lib: Optional[ctypes.CDLL] = None
         self.build_log = ""
 
     def reset(self) -> None:
         self.launches = dict.fromkeys(self.launches, 0)
+        self.pads = dict.fromkeys(self.launches, 0)
 
     @property
     def source(self) -> pathlib.Path:

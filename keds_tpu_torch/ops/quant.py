@@ -17,12 +17,16 @@ Scheme (inference; the gradient is straight-through):
 it to XLA's ``dot_general``, not to a Pallas kernel, so on the card it is
 the library's ``torch._int_mm`` (cuBLASLt's int8 tensor-core GEMM), padded
 to the shapes it takes: more than 16 rows (fewer are padded with zero rows
-and the result sliced) and a column count that is a multiple of 8 (the
-last ragged columns run as one zero-padded 8-column product); the depth
-must be a multiple of 8, or it raises with the shape.  Each call counts in
-``INT8_MM.launches``.  On the CPU, and as the card check's plain version,
-:func:`int8_matmul_plain` takes the same product in float64, exact for any
-depth the towers or the DB have.
+and the result sliced), a column count that is a multiple of 8 (the last
+ragged columns run as one zero-padded 8-column product) and a depth that
+is a multiple of 8 (a ragged depth is zero-padded: zeros add nothing to an
+integer sum, so the product stays exact).  Each call counts in
+``INT8_MM.launches``, and each call that padded the depth of both operands
+in ``INT8_MM.pads`` (a copy of ``b``, the whole DB on the retrieval path;
+the int8 ``Retriever`` pads its tables once, so its searches pad only the
+queries, counted under ``queries``).  On the CPU, and as the card check's
+plain version, :func:`int8_matmul_plain` takes the same product in
+float64, exact for any depth the towers or the DB have.
 """
 
 from __future__ import annotations
@@ -41,16 +45,19 @@ _COL_STEP = 8           # and depths and column counts that are multiples of 8
 class LaunchCount:
     """Calls of a library product by the path that made them, counted by
     the wrapper where it calls the library on a CUDA tensor (as
-    :class:`~keds_tpu_torch.ops.cuda_build.CudaKernel` counts launches)."""
+    :class:`~keds_tpu_torch.ops.cuda_build.CudaKernel` counts launches),
+    and the calls of each path that zero-padded an operand first."""
 
-    def __init__(self, *paths: str):
+    def __init__(self, *paths: str, pads: Tuple[str, ...] = ()):
         self.launches = dict.fromkeys(paths, 0)
+        self.pads = dict.fromkeys(paths + pads, 0)
 
     def reset(self) -> None:
         self.launches = dict.fromkeys(self.launches, 0)
+        self.pads = dict.fromkeys(self.pads, 0)
 
 
-INT8_MM = LaunchCount("retrieval", "linear")
+INT8_MM = LaunchCount("retrieval", "linear", pads=("queries",))
 
 
 def by_127(x: torch.Tensor) -> torch.Tensor:
@@ -95,6 +102,14 @@ def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).to(torch.int32)
 
 
+def pad_depth(x: torch.Tensor, step: int = _COL_STEP) -> torch.Tensor:
+    """``x`` with its last axis zero-padded to a multiple of ``step``, a new
+    contiguous tensor (``x`` itself when it is one already): zero columns
+    add nothing to a product over that axis."""
+    short = -x.shape[-1] % step
+    return torch.nn.functional.pad(x, (0, short)) if short else x
+
+
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch._int_mm`` with a's rows padded to more than 16."""
     M = a.shape[0]
@@ -116,8 +131,9 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor, path: str = "linear") -> torch
         return int8_matmul_plain(a, b)
     K, N = b.shape
     if K % _COL_STEP:
-        raise ValueError(f"torch._int_mm needs a depth that is a multiple of {_COL_STEP}, "
-                         f"got {tuple(a.shape)} x {tuple(b.shape)}")
+        a, b = pad_depth(a), pad_depth(b.T).T
+        K = b.shape[0]
+        INT8_MM.pads[path] += 1
     n_main = N - N % _COL_STEP
     parts = []
     if n_main:

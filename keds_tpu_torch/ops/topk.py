@@ -10,9 +10,13 @@ take the CUDA-core kernel with lists of up to eight entries a lane (f32
 counts as ``f32``, bf16 as ``bf16``), up to k = 256 in one pass.  A larger
 k (the Pallas kernel has no cap) runs that kernel in ceil(k / 256) passes,
 each bounded by the previous pass's last entry (``csrc/topk.cu``); each
-pass counts as ``f32_multi`` or ``bf16_multi``.  On CPU tensors it runs the
-plain version :func:`mips_topk_plain`.  Both order equal scores by lower
-row index first.
+pass counts as ``f32_multi`` or ``bf16_multi``.  bf16 rows wider than the
+tensor-core kernel holds (``TC_MAX_DIM``) take the CUDA-core kernel at any
+k.  Like the Pallas kernel, it takes any D: a D off the kernel's depth
+step (64 for ``bf16_tc``, 32 otherwise) is zero-padded in the wrapper,
+which adds 0 to every inner product, and counts in ``KERNEL.pads``.  On
+CPU tensors it runs the plain version :func:`mips_topk_plain`.  Both order
+equal scores by lower row index first.
 
 :func:`mips_topk_sharded` searches a database whose rows are split over the
 ranks of a mesh (the counterpart of faiss ``index_cpu_to_all_gpus``): each
@@ -38,7 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from keds_tpu_torch.ops.cuda_build import CudaKernel, require_cuda, sm_count, stream_ptr
-from keds_tpu_torch.ops.quant import by_127, int8_matmul, int8_matmul_plain
+from keds_tpu_torch.ops.quant import (INT8_MM, by_127, int8_matmul, int8_matmul_plain,
+                                     pad_depth)
 from keds_tpu_torch.parallel.mesh import all_gather
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -77,6 +82,17 @@ MAX_K = 256           # one pass of the wide kernel; a larger k takes several
 TC_MAX_DIM = 1024     # the queries' fragments live in registers
 
 
+def depth_step(tiling: Tiling) -> int:
+    """The multiple of D that ``tiling``'s kernel reads: 64 for the
+    tensor-core tiles, 32 for the CUDA-core ones."""
+    return 64 if tiling is TC else 32
+
+
+def kernel_depth(tiling: Tiling, dim: int) -> int:
+    """``dim`` rounded up to ``tiling``'s depth step: the D the kernel runs."""
+    return -(-dim // depth_step(tiling)) * depth_step(tiling)
+
+
 def _check_k(k: int, n: int) -> None:
     if not 1 <= k <= n:
         raise ValueError(f"top-k needs 1 <= k <= N, got k={k}, N={n}")
@@ -93,18 +109,19 @@ def mips_topk_plain(queries: torch.Tensor, db: torch.Tensor,
 
 
 def split_plan(n_queries: int, n_rows: int, n_sms: int,
-               dtype: torch.dtype, k: int = 1) -> Tuple[Tiling, int]:
+               dtype: torch.dtype, k: int = 1, dim: int = 0) -> Tuple[Tiling, int]:
     """(tiling, number of database slices) for the fused kernel.
 
-    k above ``LANE_K`` takes the wide tiling of its dtype.  Otherwise bf16
-    takes the tensor-core tiling, and f32 the 64 x 128 tiling unless its
+    k above ``LANE_K`` takes the wide tiling of its dtype, and so does bf16
+    whose D (``dim``), padded to the tensor-core step, exceeds
+    ``TC_MAX_DIM``.  Otherwise bf16 takes the tensor-core tiling, and f32 the 64 x 128 tiling unless its
     grid would leave three quarters of the SMs idle (a small database, such
     as a ranked corpus of a few hundred rows); then the 16 x 32 one.  The
     slices are sized so that the grid has ``blocks_per_sm`` blocks per SM
     where the database has chunks enough, and no slice is empty.  A slice
     may hold fewer than k rows: the merge skips the empty slots it leaves."""
     bf16 = dtype == torch.bfloat16
-    if k > LANE_K:
+    if k > LANE_K or (bf16 and kernel_depth(TC, dim) > TC_MAX_DIM):
         tiling = BF16_WIDE if bf16 else F32_WIDE
     else:
         tiling = TC if bf16 else F32
@@ -131,12 +148,13 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     if queries.dtype != db.dtype or queries.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"top-k kernel takes f32 or bf16 inputs of one dtype, "
                          f"got {queries.dtype} and {db.dtype}")
-    tiling, n_splits = split_plan(B, N, sm_count(queries), queries.dtype, k)
-    step = 64 if tiling is TC else 32
-    if db.shape[1] != D or D % step or (tiling is TC and D > TC_MAX_DIM):
-        raise ValueError(f"top-k kernel needs matching D divisible by {step}"
-                         f"{f' and at most {TC_MAX_DIM}' if tiling is TC else ''}, "
-                         f"got {queries.shape} and {db.shape}")
+    if db.shape[1] != D:
+        raise ValueError(f"top-k kernel needs queries and database of one D, got "
+                         f"{tuple(queries.shape)} and {tuple(db.shape)}")
+    tiling, n_splits = split_plan(B, N, sm_count(queries), queries.dtype, k, D)
+    if D % depth_step(tiling):
+        queries, db = pad_depth(queries, depth_step(tiling)), pad_depth(db, depth_step(tiling))
+        KERNEL.pads[tiling.variant if k <= MAX_K else f"{tiling.variant}_multi"] += 1
     if not (queries.is_contiguous() and db.is_contiguous()):
         raise ValueError("top-k kernel needs contiguous queries and database")
     if queries.data_ptr() % 16 or db.data_ptr() % 16:
@@ -289,7 +307,11 @@ def mips_topk_int8(queries: torch.Tensor, db_i8: torch.Tensor, db_scale: torch.T
     Stage 1 is exact integer arithmetic: the queries quantized per row, the
     s8 x s8 -> s32 product with ``db_i8`` (:func:`~keds_tpu_torch.ops.quant.
     int8_matmul`: ``torch._int_mm`` on the card), times ``db_scale``, and
-    the top ``k * oversample`` rows.  Stage 2 gathers those candidates' true
+    the top ``k * oversample`` rows.  ``db_i8`` may be wider than the
+    queries, zero-padded to the depth ``torch._int_mm`` takes (the
+    ``Retriever`` pads its tables once): the int8 queries are then padded
+    to it per call, and the dequantized rows are read at the queries'
+    width.  Stage 2 gathers those candidates' true
     rows (``db``) or, without it, their dequantized rows, and takes the
     top k of their f32 products with the f32 queries.  ``oversample <= 1``
     skips stage 2 and returns the stage-1 scores times the query scales.
@@ -300,9 +322,13 @@ def mips_topk_int8(queries: torch.Tensor, db_i8: torch.Tensor, db_scale: torch.T
     device: the card check's plain version.  It is never chosen for a
     CUDA tensor otherwise."""
     q = queries.float()
-    N = db_i8.shape[0]
+    (N, depth), D = db_i8.shape, q.shape[1]
     qs = by_127(q.abs().amax(dim=1))
     q_i8 = torch.round(q / qs.clamp_min(1e-12)[:, None]).to(torch.int8)
+    if depth > D:            # tables padded to the product's depth (Retriever)
+        q_i8 = torch.nn.functional.pad(q_i8, (0, depth - D))
+        if q_i8.device.type == "cuda":
+            INT8_MM.pads["queries"] += 1
     raw = (int8_matmul_plain(q_i8, db_i8.T) if plain
            else int8_matmul(q_i8, db_i8.T, path="retrieval"))
     scores = raw.float() * db_scale[None, :]
@@ -313,7 +339,7 @@ def mips_topk_int8(queries: torch.Tensor, db_i8: torch.Tensor, db_scale: torch.T
     if db is not None:       # exact re-rank against the true rows
         cand_rows = db[cand_idx].float()
     else:                    # the dequantized rows (int8 artifacts are all there is)
-        cand_rows = db_i8[cand_idx].float() * db_scale[cand_idx][:, :, None]
+        cand_rows = db_i8[cand_idx, :D].float() * db_scale[cand_idx][:, :, None]
     exact = torch.bmm(cand_rows, q[:, :, None])[..., 0]      # (B, kk)
     vals, pos = torch.sort(exact, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), torch.gather(cand_idx, 1, pos[:, :k]).to(torch.int32)

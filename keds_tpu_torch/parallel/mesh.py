@@ -122,14 +122,20 @@ def maybe_init_distributed(cfg=None) -> bool:
 
 def make_mesh(num_partitions: int = 0, device: DeviceLike = None) -> Mesh:
     """The mesh over every rank of the group (one rank without a group).
-    ``num_partitions`` takes 0 or the world size; a subset of the ranks is
-    not ported.  The rank's device is ``device``'s type, and for CUDA
-    without an index ``cuda:{LOCAL_RANK % device_count}``."""
+    ``num_partitions`` 0 means every rank; more than the world size is
+    clamped to it with the JAX package's warning.  Fewer ranks than the
+    world is the JAX package's ``ValueError``: with one device a process, a
+    subset would leave some processes without a mesh device.  The rank's
+    device is ``device``'s type, and for CUDA without an index
+    ``cuda:{LOCAL_RANK % device_count}``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if num_partitions not in (0, world):
-        raise SystemExit(f"--num-partitions {num_partitions}: the port's mesh spans every "
-                         f"rank ({world}); a subset of the ranks is not ported yet "
-                         "(ROADMAP.md section A item 10)")
+    if num_partitions > world:
+        logging.warning("make_mesh: %d devices requested, %d available — using all",
+                        num_partitions, world)
+    elif 0 < num_partitions < world:
+        raise ValueError(f"--num-partitions {num_partitions} must be a positive multiple "
+                         f"of the process count ({world}) so every host keeps local mesh "
+                         "devices")
     if world == 1:
         return Mesh(0, 1, resolve_device(device))
     dev = torch.device("cuda" if device is None else device)

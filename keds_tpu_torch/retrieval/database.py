@@ -32,6 +32,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from keds_tpu_torch.ops.quant import pad_depth
 from keds_tpu_torch.ops.topk import (mips_topk, mips_topk_approx, mips_topk_int8,
                                      mips_topk_int8_sharded, mips_topk_sharded,
                                      quantize_int8)
@@ -237,7 +238,9 @@ class Retriever:
 
     ``backend`` is one of :data:`BACKENDS` (the module docstring).  The
     int8 backend's index arrays (:meth:`quant_arrays`) follow the DB's rows:
-    with a mesh each rank holds its block of them, padded as the tables."""
+    with a mesh each rank holds its block of them, padded as the tables.
+    Their depth is zero-padded once to a multiple of 8, the depth
+    ``torch._int_mm`` takes, so that no search copies the DB."""
 
     BACKENDS = ("auto", "xla", "pallas", "int8", "approx")
 
@@ -256,7 +259,7 @@ class Retriever:
                     q8, scale = q8.to(arr.device), scale.to(arr.device)
                 else:
                     q8, scale = quantize_int8(arr)
-                self._int8[name] = (q8, scale)
+                self._int8[name] = (pad_depth(q8), scale)
 
     def quant_arrays(self):
         """((image int8, image scales), (text int8, text scales)) of the int8

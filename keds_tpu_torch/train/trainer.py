@@ -36,7 +36,6 @@ global-batch step, and every rank applies the same AdamW update.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -230,36 +229,52 @@ def train_epoch(train_step, heads: FusionHeads, data_iter: Iterable, epoch: int,
                 steps_per_epoch: int, *, log_every: int = 500,
                 schedule: Optional[Callable[[int], float]] = None,
                 writers: Sequence[Callable] = (),
-                world_size: int = 1) -> Optional[torch.Tensor]:
+                world_size: int = 1, profile_dir: Optional[str] = None,
+                profile_window: Tuple[int, int] = (10, 20)) -> Optional[torch.Tensor]:
     """One epoch with the reference's logging cadence (data time, batch time,
     loss, LR every ``log_every`` steps).  The card is synchronised only at
     those log steps (reading the loss).  The samples seen count global
-    rows: each rank's batch times ``world_size``.  Returns the last step's
-    loss (on the device), or None for an empty epoch."""
+    rows: each rank's batch times ``world_size``.  ``profile_dir`` writes a
+    torch.profiler trace (:mod:`keds_tpu_torch.profiling`) of steps
+    ``profile_window[0]..profile_window[1]``, each step a
+    ``train_step_e{epoch}`` range; an epoch shorter than the window starts
+    it at step ``steps_per_epoch - 2`` and closes it at its end.  Returns
+    the last step's loss (on the device), or None for an empty epoch."""
+    from keds_tpu_torch.profiling import StepTimer, annotate, start_trace, stop_trace
+
+    timer = StepTimer()
     loss = None
-    end = time.time()
-    data_time = batch_time = 0.0
+    prof = None
     for i, batch in enumerate(data_iter):
         if i >= steps_per_epoch:
             break
         step = epoch * steps_per_epoch + i
-        data_time = time.time() - end
-        loss = train_step(heads, batch, step)
+        timer.data_ready()
+        if profile_dir and prof is None and i == min(profile_window[0],
+                                                     max(steps_per_epoch - 2, 0)):
+            prof = start_trace(profile_dir)
+        with annotate(f"train_step_e{epoch}"):
+            loss = train_step(heads, batch, step)
+        if prof is not None and i >= profile_window[1]:
+            float(loss)            # the step's work completes inside the trace
+            stop_trace(prof, profile_dir)
+            prof, profile_dir = None, None
         if i % log_every == 0:
             loss_val = float(loss)
-            now = time.time()
-            batch_time, end = now - end, now
+            timer.step_done()
             lr = schedule(step) if schedule else float("nan")
             pct = 100.0 * i / max(steps_per_epoch, 1)
             logging.info(
                 f"Train Epoch: {epoch} [{i * batch[0].shape[0] * world_size}"
-                f" ({pct:.0f}%)]\tLoss: {loss_val:.6f}\tData (t) {data_time:.3f}"
-                f"\tBatch (t) {batch_time:.3f}\tLR: {lr:5f}")
-            scalars = {"train/loss": loss_val, "train/data_time": data_time,
-                       "train/batch_time": batch_time, "train/lr": lr}
+                f" ({pct:.0f}%)]\tLoss: {loss_val:.6f}\tData (t) {timer.data_time:.3f}"
+                f"\tBatch (t) {timer.batch_time:.3f}\tLR: {lr:5f}")
+            scalars = {"train/loss": loss_val, "train/data_time": timer.data_time,
+                       "train/batch_time": timer.batch_time, "train/lr": lr}
             for w in writers:
                 w(scalars, step)
         else:
-            now = time.time()
-            batch_time, end = now - end, now
+            timer.step_done()
+    if prof is not None:
+        float(loss)
+        stop_trace(prof, profile_dir)
     return loss

@@ -133,11 +133,21 @@ def test_new_flags_parse_as_in_jax():
 
 
 @pytest.mark.parametrize("argv,item", [(["--checkpoint-format", "orbax"], "item 16"),
-                                       (["--profile-dir", "x"], "item 16"),
-                                       (["--pre-save-feature"], "item 16")])
+                                       (["--no-device-preprocess"], "left out on purpose")])
 def test_unported_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match=item):
         tparse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--profile-dir", "x"], ["--pre-save-feature"],
+                                  ["--openai-pretrained"]])
+def test_item16_flags_parse_as_in_jax(argv):
+    """--profile-dir, --pre-save-feature and --openai-pretrained are ported:
+    they parse to the JAX package's values (the train CLI then traces,
+    exits naming the port's extract_features, or reads ~/.cache/clip)."""
+    fields = ("profile_dir", "pre_save_feature", "openai_pretrained")
+    t, j = tparse_args(argv), jparse_args(argv)
+    assert {f: getattr(t, f) for f in fields} == {f: getattr(j, f) for f in fields}
 
 
 @pytest.mark.parametrize("argv", [["--quant-towers", "int8"], ["--retrieval-backend", "approx"],

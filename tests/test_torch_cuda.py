@@ -285,9 +285,15 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         torch.testing.assert_close(vals, pv, atol=TOPK_TOL[torch.float32], rtol=0)
     with pytest.raises(ValueError, match="one dtype"):
         mips_topk(q, torch.zeros((50, 64), device=cuda, dtype=torch.bfloat16), 3)
-    qb = torch.zeros((2, 96), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="divisible by 64"):
-        mips_topk(qb, torch.zeros((50, 96), device=cuda, dtype=torch.bfloat16), 3)
+    # bf16 at D = 96 is zero-padded to the tensor-core step (its refusal is gone)
+    qb, dbb = _unit(2, 96, torch.bfloat16, cuda, 96), _unit(50, 96, torch.bfloat16, cuda, 97)
+    vals, idx = mips_topk(qb, dbb, 3)
+    pv, pi = mips_topk_plain(qb, dbb, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(idx, pi, atol=0, rtol=0)
+    torch.testing.assert_close(vals, pv, atol=TOPK_TOL[torch.bfloat16], rtol=0)
+    with pytest.raises(ValueError, match="one D"):
+        mips_topk(qb, torch.zeros((50, 64), device=cuda, dtype=torch.bfloat16), 3)
     # S above 288 streams K and V (its S <= 288 refusal is gone)
     q, k, v = _qkv(cuda, 1, 2, 300, torch.float32, 300)
     torch.testing.assert_close(attention(q, k, v), attention_reference(q, k, v),
@@ -1122,12 +1128,89 @@ def test_quantize_int8_card_equals_cpu(cuda):
     assert torch.equal(q8.cpu(), c8) and torch.equal(sc.cpu(), csc)
 
 
-def test_int8_matmul_refuses_a_depth_it_does_not_take(cuda):
-    from keds_tpu_torch.ops.quant import int8_matmul
+@pytest.mark.parametrize("depth", [100, 7])
+def test_int8_matmul_takes_any_depth(cuda, depth):
+    """A depth off torch._int_mm's step of 8 is zero-padded: the integer
+    product equals the float64 plain one exactly, and the pad is counted."""
+    from keds_tpu_torch.ops.quant import INT8_MM, int8_matmul, int8_matmul_plain
 
-    a = torch.ones((32, 100), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match=r"\(32, 100\)"):
-        int8_matmul(a, a.T.contiguous())
+    gen = _gen(cuda, depth)
+    a = torch.randint(-127, 128, (32, depth), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(-127, 128, (61, depth), generator=gen, device=cuda).to(torch.int8)
+    pads = INT8_MM.pads["linear"]
+    got = int8_matmul(a, b.T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_plain(a, b.T))
+    assert INT8_MM.pads["linear"] == pads + 1
+
+
+def test_int8_retriever_at_depth_100_equals_cpu(cuda):
+    """The int8 Retriever pads its tables once (depth 104), so its searches
+    pad only the queries; neighbours equal the CPU's."""
+    import numpy as np
+
+    from keds_tpu_torch.ops.quant import INT8_MM
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+
+    rng = np.random.default_rng(5)
+    img, txt = (rng.standard_normal((4096, 100)).astype(np.float32) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((32, 100)).astype(np.float32))
+    card = Retriever(KnowledgeDB.from_arrays(img, txt, dtype=torch.float32, device=cuda),
+                     "int8")
+    cpu = Retriever(KnowledgeDB.from_arrays(img, txt, dtype=torch.float32, device="cpu"),
+                    "int8")
+    assert card.quant_arrays()[0][0].shape == (4096, 104)
+    INT8_MM.reset()
+    for name in ("image", "text"):
+        table = getattr(card.db, f"{name}_db")
+        vals, idx = card.search(q.to(cuda), table, 16, name)
+        pv, pi = cpu.search(q, getattr(cpu.db, f"{name}_db"), 16, name)
+        torch.cuda.synchronize()
+        # the re-rank sums 100 f32 products in another order on the CPU
+        torch.testing.assert_close(vals.cpu(), pv, atol=1e-5, rtol=0)
+        gaps = pv[:, :-1] - pv[:, 1:] > 1e-5
+        sep = torch.ones_like(pi, dtype=torch.bool)
+        sep[:, :-1] &= gaps
+        sep[:, 1:] &= gaps
+        assert bool(((idx.cpu() == pi) | ~sep).all())
+    assert INT8_MM.launches["retrieval"] == 2 and INT8_MM.pads["queries"] == 2
+    assert INT8_MM.pads["retrieval"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [100, 96, 1280])
+@pytest.mark.parametrize("k", [1, 16, 32, 101])
+def test_topk_any_depth_matches_plain(cuda, dtype, d, k):
+    """Any D on the card: off the kernel's depth step the wrapper zero-pads
+    (counted in KERNEL.pads), and bf16 above TC_MAX_DIM takes the wide
+    CUDA-core kernel at any k; held to the plain version on the unpadded
+    inputs."""
+    q, db = _unit(37, d, dtype, cuda, d + k), _unit(3001, d, dtype, cuda, d)
+    tiling, _ = split_plan(37, 3001, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                           dtype, k, d)
+    wide = k > topk_mod.LANE_K or (dtype == torch.bfloat16 and d > topk_mod.TC_MAX_DIM)
+    assert tiling.variant == (WIDE_VARIANT if wide else VARIANT)[dtype]
+    padded = topk_mod.kernel_depth(tiling, d) != d
+    assert padded == (d % (64 if tiling is topk_mod.TC else 32) != 0)
+    launches, pads = topk_mod.KERNEL.launches[tiling.variant], topk_mod.KERNEL.pads[tiling.variant]
+    vals, idx = mips_topk(q, db, k)
+    torch.cuda.synchronize()
+    assert topk_mod.KERNEL.launches[tiling.variant] == launches + 1
+    assert topk_mod.KERNEL.pads[tiling.variant] == pads + padded
+    _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
+
+
+def test_topk_sharded_any_depth(cuda):
+    """mips_topk_sharded passes a D of 100 through to B1 on its shard."""
+    from keds_tpu_torch.ops.topk import mips_topk_sharded
+    from keds_tpu_torch.parallel.mesh import Mesh
+
+    q, db = _unit(9, 100, torch.bfloat16, cuda, 1), _unit(2000, 100, torch.bfloat16, cuda, 2)
+    pads = topk_mod.KERNEL.pads["bf16_tc"]
+    vals, idx = mips_topk_sharded(q, db, 16, Mesh(0, 1, cuda), n_real=1990)
+    torch.cuda.synchronize()
+    assert topk_mod.KERNEL.pads["bf16_tc"] == pads + 1
+    _assert_topk_agrees(vals, idx, q, db[:1990], 16, TOPK_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("rows", [5, 77 * 4, 257 * 2])

@@ -190,15 +190,26 @@ def test_worker_processes_give_the_threads_batches(tmp_path, shards):
         assert list(ca) == list(cb)
 
 
-def test_mesh_of_one_rank():
+def test_mesh_of_one_rank(caplog, monkeypatch):
     """Without a process group: one rank, helpers that pass rows through,
-    and --num-partitions other than 0 or 1 refused."""
+    and --num-partitions above the world size clamped to it with the JAX
+    package's warning (keds_tpu.parallel.mesh.make_mesh); fewer ranks than
+    the world refused with its ValueError (shown with a patched world)."""
     assert not tmesh.maybe_init_distributed(SimpleNamespace(distributed=False))
     mesh = tmesh.make_mesh(0, "cpu")
     assert (mesh.rank, mesh.size, mesh.device.type) == (0, 1, "cpu")
     assert tmesh.make_mesh(1, "cpu").size == 1
-    with pytest.raises(SystemExit, match="item 10"):
-        tmesh.make_mesh(2, "cpu")
+    with caplog.at_level("WARNING"):
+        clamped = tmesh.make_mesh(4, "cpu")
+    assert (clamped.rank, clamped.size, clamped.device.type) == (0, 1, "cpu")
+    assert "4 devices requested, 1 available — using all" in caplog.text
+    with monkeypatch.context() as mp:
+        mp.setattr(tmesh.dist, "is_initialized", lambda: True)
+        mp.setattr(tmesh.dist, "get_world_size", lambda: 4)
+        for n in (1, 2, 3):
+            with pytest.raises(ValueError, match=rf"--num-partitions {n} must be a "
+                                                 r"positive multiple of the process count \(4\)"):
+                tmesh.make_mesh(n, "cpu")
     x = np.arange(10.0).reshape(5, 2)
     local, n = tmesh.shard_global_batch(mesh, x)
     assert n == 5 and torch.equal(local, torch.from_numpy(x))

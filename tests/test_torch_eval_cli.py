@@ -100,7 +100,7 @@ def test_eval_cli_cirr_test_writes_jax_submission(run):
 
 @pytest.mark.parametrize("extra,match", [
     (("--checkpoint-format", "orbax"), "item 16"),
-    (("--profile-dir", "x"), "item 16"),
+    (("--no-device-preprocess",), "left out on purpose"),
     (("--eval-mode", "fashion"), "--source-data"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(tmp_path, extra, match):

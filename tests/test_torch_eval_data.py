@@ -144,8 +144,9 @@ def test_load_clip_equals_jax(tmp_path, layout):
         np.testing.assert_array_equal(b, a, err_msg=str(kp))
     img = Image.new("RGB", (50, 40), (10, 200, 30))
     assert _same(t_val(img), j_val(img))
-    with pytest.raises(FileNotFoundError, match="not a local file"):
-        tloader.load_clip("ViT-L/14", device="cpu")
+    with pytest.raises(FileNotFoundError, match="no cached file at .*ViT-L-14.pt .*downloads "
+                                                "nothing"):
+        tloader.load_clip("ViT-L/14", device="cpu", download_root=str(tmp_path / "none"))
 
 
 def dataclasses_equal(a, b):

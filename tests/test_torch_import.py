@@ -48,7 +48,10 @@ def test_import_loads_no_jax_and_no_keds_tpu():
             "keds_tpu_torch.data.tarstream", "keds_tpu_torch.parallel.mesh",
             "keds_tpu_torch.ops.quant", "keds_tpu_torch.retrieval.synth",
             "keds_tpu_torch.tools.build_database",
-            "keds_tpu_torch.tools.quant_accuracy"} <= set(MODULES)
+            "keds_tpu_torch.tools.quant_accuracy", "keds_tpu_torch.profiling",
+            "keds_tpu_torch.tools.extract_features", "keds_tpu_torch.tools.validate_artifacts",
+            "keds_tpu_torch.tools.extract_nouns",
+            "keds_tpu_torch.tools.prep_imagenet_val"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",

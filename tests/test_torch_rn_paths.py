@@ -254,9 +254,7 @@ def test_eval_cli_cirr_with_an_rn_checkpoint_equals_jax(tmp_path, monkeypatch, v
 
 # the flags the port refuses: not ported yet (with their ROADMAP item), or
 # left out on purpose
-REFUSED = {("--checkpoint-format", "orbax"),
-           ("--profile-dir", "x"), ("--pre-save-feature", None),
-           ("--openai-pretrained", None), ("--no-device-preprocess", None)}
+REFUSED = {("--checkpoint-format", "orbax"), ("--no-device-preprocess", None)}
 
 
 def _parser(add):

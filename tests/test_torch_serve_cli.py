@@ -101,13 +101,18 @@ def test_serve_cli_equals_jax(run, monkeypatch, ranking, corpus, topn, n_results
 
 
 def test_serve_cli_refuses_what_it_does_not_take(run, tmp_path):
+    """What the serve CLI refuses; and --num-partitions 2 on one process,
+    which it takes as the JAX CLI does: clamped to the one rank with the
+    warning, the results those of the JAX CLI."""
     base = ["--target-data", "x", "--query_file", "q", "--logs", str(tmp_path)]
     with pytest.raises(SystemExit, match="--resume"):
         tserve.main(base)
     with pytest.raises(SystemExit, match="orbax"):
         tserve.main(base + ["--resume", str(tmp_path)])
-    with pytest.raises(SystemExit, match="item 16"):
-        tserve.main(base + ["--resume", "c.pt", "--profile-dir", "x"])
-    # --db-shard is ported; a mesh over a subset of the ranks is not
-    with pytest.raises(SystemExit, match="item 10"):
-        tserve.main(base + ["--resume", "c.pt", "--device", "cpu", "--num-partitions", "2"])
+    with pytest.raises(SystemExit, match="left out on purpose"):
+        tserve.main(base + ["--resume", "c.pt", "--no-device-preprocess"])
+    got = _serve(tserve, run, "small", 5, "port_np2", ["--device", "cpu",
+                                                       "--num-partitions", "2"])
+    assert "2 devices requested, 1 available — using all" in (
+        run / "logs" / "port_np2" / "out.log").read_text()
+    assert_same_results(got, _serve(jserve, run, "small", 5, "jax_np2"), 5)

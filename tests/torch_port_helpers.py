@@ -312,3 +312,55 @@ def save_state_dict(sd: dict, path) -> str:
 
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
     return str(path)
+
+
+# --- artifact gate ----------------------------------------------------------------
+
+def write_artifact_fixture(tmp_path):
+    """tests/test_validate_artifacts.py's fixture: single-checkpoint image
+    and text streams (train checkpoints with CLIP and heads), a 64-row
+    ``cc_*_databases.pt`` DB and an 8-image CIRR val tree with 4 queries.
+    Returns (image stream, text stream, DB dir, data root)."""
+    import json
+
+    from PIL import Image
+
+    from keds_tpu.io.checkpoint import save_train_checkpoint
+    from keds_tpu.io.pt import save_pt
+
+    cfg = jclip.ClipConfig(embed_dim=D, image_resolution=32, vision_layers=1, vision_width=64,
+                           vision_patch_size=16, transformer_width=D, transformer_heads=1,
+                           transformer_layers=1)
+    clip_params = jclip.init_clip(jax.random.key(0), cfg)
+    rng = np.random.default_rng(0)
+
+    def mk_heads(seed):
+        k1, k2, k3 = jax.random.split(jax.random.key(seed), 3)
+        return JFusionHeads(img2text=jheads.init_im2text(k1, D, 48, D),
+                            retrieval_fuse=jheads.init_crossformer(k2, D, D, D, num_layers=3),
+                            text_condition=jheads.init_crossformer(k3, D, D, D, num_layers=3))
+
+    img_stream, txt_stream = str(tmp_path / "image_stream.pt"), str(tmp_path / "text_stream.pt")
+    save_train_checkpoint(img_stream, epoch=1, name="i", clip_params=clip_params, clip_cfg=cfg,
+                          heads=mk_heads(2))
+    save_train_checkpoint(txt_stream, epoch=1, name="t", clip_params=clip_params, clip_cfg=cfg,
+                          heads=mk_heads(3))
+    db = tmp_path / "db"
+    db.mkdir()
+    save_pt(np.float32(rng.standard_normal((64, D))), str(db / "cc_image_databases.pt"))
+    save_pt(np.float32(rng.standard_normal((64, D))), str(db / "cc_text_databases.pt"))
+    (db / "database_names.txt").write_text("\n".join(f"n{i}" for i in range(64)))
+    root = tmp_path / "data"
+    base = root / "CIRR"
+    for sub in ("dev", "captions", "image_splits"):
+        (base / sub).mkdir(parents=True)
+    names = [f"img{i}" for i in range(8)]
+    for n in names:
+        Image.fromarray(rng.integers(0, 255, (36, 36, 3), dtype=np.uint8)).save(
+            base / "dev" / f"{n}.png")
+    caps = [{"reference": names[q], "target_hard": names[(q + 1) % 8], "caption": f"change {q}"}
+            for q in range(4)]
+    (base / "captions" / "cap.rc2.val.json").write_text(json.dumps(caps))
+    (base / "image_splits" / "split.rc2.val.json").write_text(
+        json.dumps({n: f"dev/{n}.png" for n in names}))
+    return img_stream, txt_stream, str(db), str(root)
