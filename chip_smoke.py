@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the keds_tpu_torch serving, training and evaluation paths
 (ViT-L/14 and RN50), of the RN family and the rest of the model surface,
-of its serve, demo and train command lines, and of two ranks of the port
-sharing the card, on one CUDA card.
+of its serve, demo and train command lines and tools, of two ranks of the
+port sharing the card, and of the full-scale eval benches, on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py full-sweeps    # the benches' full sweeps alone
+
+``full-sweeps`` runs bench_cirr_fullscale (30 epochs x 2 branches) and
+bench_coco_fullscale (25 epochs) with their defaults, each device- and
+then host-ranked, and prints each run's JSON line and launch counts.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -209,13 +214,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            mode over a 256-image PNG tree, the 0.5M DB and the checkpoint
            as both streams, --expected from the port's eval CLI table on
            the same files: parity_ok true.
+18a. fullscale_path
+           keds_tpu_torch.tools.bench_cirr_fullscale as a user runs it, at
+           the CIRR val protocol's size: 4181 queries over 2297 noise PNGs at
+           224 px, the 0.5M x 768 f32 DB in the reference's .pt layout, a full
+           ViT-L/14 resume.pt and heads-only branches of 2 epochs (of 30),
+           staged once under build/ (timed apart), then device- and
+           host-ranked in bf16 at batch 64 with 8 decode threads: each JSON
+           line, the two recall tables equal but for near-ties within 1e-5
+           (eval_path's gate), the text buckets the prompts took; then
+           bench_coco_fullscale over 5000 rows (10 000 JPEGs) at 1 epoch (of
+           25), device-ranked, its tables finite.  Launch counts are zeroed
+           just before and read just after each run and must equal what its
+           batches give: B1 bf16_tc twice a query batch, B1 f32 (k=101)
+           three times an epoch for CIRR's device ranking, B2 bf16_tc 24
+           times an encoded chunk and 12 times a composed batch, nothing else.
 19. the kernels line (launches of each path beside each variant, the
     dist path's rank 0 among them; RN50's serving for the D = 1024 top-k
     rows and its text tower's attention, the 336 px encode for the rows
     above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
-    rows with their pads, extract_features for the vision attention),
-    then the card's name and power limit from nvidia-smi, then the
-    result line.
+    rows with their pads, extract_features for the vision attention, the
+    device-ranked CIRR bench for the text attention at S=77), then the
+    card's name and power limit from nvidia-smi, then the result line.
 
 The backward rows cover S above 128 (the streamed launches): bf16 at 257
 and 577, f32 at 289.  The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
@@ -225,7 +245,8 @@ RN50's retrieval and ranking at D = 1024, and D off the kernels' steps
 (100 f32, 96 bf16, 1280 bf16 over 100 000 rows, with the pad's own ms).
 The attention rows cover S
 above 288, where the kernels stream K and V: ViT-L/14 at 336 px (577),
-1025 tokens, and f32 at 577 and 289.
+1025 tokens, and f32 at 577 and 289; and the eval benches' prompt batches,
+(64, 12, 77, 64) causal.
 """
 
 from __future__ import annotations
@@ -1112,7 +1133,7 @@ def near_tie_gate(split, runs: dict) -> dict:
     near, bad, moved = 0, [], []
     feat_diff = max(float(np.abs(a - b).max()) for fa, fb in zip(host["feats"], dev["feats"])
                     for a, b in zip(fa, fb))
-    for e, j in enumerate(range(1, EVAL_EPOCHS + 1)):
+    for e, j in enumerate(sorted({j for j, _ in host["tables"]})):
         a, b = host["feats"][e]
         mixture = a * 0.5 + b * 0.5
         mixture /= np.linalg.norm(mixture, axis=-1, keepdims=True)
@@ -1157,6 +1178,51 @@ def check_eval_launches(launches: dict, n_batches: int) -> None:
                              "no backward")
 
 
+@contextlib.contextmanager
+def eval_capture():
+    """Record what evaluate_cirr (or evaluate_coco) computes while the block
+    runs: the corpus features and names, each epoch's two composed feature
+    sets, the device ranking's top-k indices, the tables, and what
+    profile_eval replays.  The features are kept on the card until the
+    block ends, then copied to the host."""
+    from keds_tpu_torch.evalkit import evaluators as ev
+
+    run = dict(feats=[], topk=[])
+    real = (ev._encode_corpus, ev._compose_all, ev._rank_topk, ev.evaluate_cirr,
+            ev.evaluate_coco)
+
+    def encode_corpus(ctx, loader):
+        run["corpus"], run["names"] = real[0](ctx, loader)
+        return run["corpus"], run["names"]
+
+    def compose_all(ctx, compose, hi, ht, cache, texts=None):
+        out = real[1](ctx, compose, hi, ht, cache, texts)
+        run["feats"].append(out)
+        run["profile"] = (ctx, compose, cache)
+        return out
+
+    def rank_topk(feats, corpus_dev, k):
+        out = real[2](feats, corpus_dev, k)
+        run["topk"].append([i.cpu().numpy() for i in out])
+        run["corpus_dev"] = corpus_dev
+        return out
+
+    def recorded(evaluate):
+        def run_evaluator(*args, **kw):
+            run["tables"] = evaluate(*args, **kw)
+            return run["tables"]
+        return run_evaluator
+
+    ev._encode_corpus, ev._compose_all, ev._rank_topk, ev.evaluate_cirr, ev.evaluate_coco = (
+        encode_corpus, compose_all, rank_topk, recorded(real[3]), recorded(real[4]))
+    try:
+        yield run
+    finally:
+        (ev._encode_corpus, ev._compose_all, ev._rank_topk, ev.evaluate_cirr,
+         ev.evaluate_coco) = real
+    run["feats"] = [tuple(f.cpu().numpy() for f in pair) for pair in run["feats"]]
+
+
 def eval_path(clip_params, db, kernels, root: pathlib.Path) -> tuple:
     """The evaluation main path: evaluate_cirr over EVAL_EPOCHS sweep epochs
     of a CIRR-val-sized split, device ranking and then host ranking, with
@@ -1170,52 +1236,25 @@ def eval_path(clip_params, db, kernels, root: pathlib.Path) -> tuple:
     split = cirr_split(11)
     gen_s = time.perf_counter() - t
     runs = {}
-    real = (ev._encode_corpus, ev._compose_all, ev._rank_topk)
-    run = {}
-
-    def encode_corpus(ctx, loader):
-        corpus, names = real[0](ctx, loader)
-        run["corpus"] = corpus
-        return corpus, names
-
-    def compose_all(ctx, compose, hi, ht, cache, texts=None):
-        out = real[1](ctx, compose, hi, ht, cache, texts)
-        run["feats"].append(out)                     # kept on the card until the end
-        run["profile"] = (ctx, compose, cache)
-        return out
-
-    def rank_topk(feats, corpus_dev, k):
-        out = real[2](feats, corpus_dev, k)
-        run["topk"].append([i.cpu().numpy() for i in out])
-        run["corpus_dev"] = corpus_dev
-        return out
-
     branches = write_branches(root, db.image_db.device)
-    ev._encode_corpus, ev._compose_all, ev._rank_topk = encode_corpus, compose_all, rank_topk
-    try:
-        for ranking in ("device", "host"):
-            run = dict(feats=[], topk=[])
-            ctx = ev.EvalContext(clip_params, VIT_L_14, Retriever(db),
-                                 image_branch=branches[0], text_branch=branches[1],
-                                 compute_dtype=torch.bfloat16,
-                                 eval_ranking=ranking, split_id=SPLIT_ID)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for k in kernels.values():
-                k.reset()
+    for ranking in ("device", "host"):
+        ctx = ev.EvalContext(clip_params, VIT_L_14, Retriever(db),
+                             image_branch=branches[0], text_branch=branches[1],
+                             compute_dtype=torch.bfloat16,
+                             eval_ranking=ranking, split_id=SPLIT_ID)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.reset()
+        with eval_capture() as run:
             t0 = time.perf_counter()
-            tables = ev.evaluate_cirr(ctx, split.queries, split.corpus,
-                                      epochs=range(1, EVAL_EPOCHS + 1))
+            ev.evaluate_cirr(ctx, split.queries, split.corpus,
+                             epochs=range(1, EVAL_EPOCHS + 1))
             torch.cuda.synchronize()
-            run.update(tables=tables, seconds=time.perf_counter() - t0,
-                       walls=dict(ev.last_cirr_walls),
-                       launches={n: dict(k.launches) for n, k in kernels.items()},
-                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-            runs[ranking] = run
-    finally:
-        ev._encode_corpus, ev._compose_all, ev._rank_topk = real
-    for r in runs.values():
-        r["feats"] = [tuple(f.cpu().numpy() for f in pair) for pair in r["feats"]]
+        run.update(seconds=time.perf_counter() - t0, walls=dict(ev.last_cirr_walls),
+                   launches={n: dict(k.launches) for n, k in kernels.items()},
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs[ranking] = run
     launches = runs["device"]["launches"]
     check_eval_launches(launches, len(split.queries))
     for r in runs.values():
@@ -1325,6 +1364,17 @@ def jpeg_bytes(rng: np.random.Generator, px: int = 256) -> bytes:
     return buf.getvalue()
 
 
+def write_vocab(path: pathlib.Path) -> pathlib.Path:
+    """The synthetic merges file at ``path``, set in KEDS_TPU_BPE_VOCAB."""
+    import gzip
+    import os
+
+    with gzip.open(path, "wt", encoding="utf-8") as fh:
+        fh.write("#version: synthetic\n" + "\n".join(SYNTHETIC_MERGES) + "\n")
+    os.environ["KEDS_TPU_BPE_VOCAB"] = str(path)
+    return path
+
+
 def write_smoke_files(root: pathlib.Path, clip_params, heads, db) -> SimpleNamespace:
     """The files the CLIs read, under ``root``: the synthetic vocab (set in
     KEDS_TPU_BPE_VOCAB), reference-layout ViT-L/14 checkpoints with an MLP
@@ -1332,9 +1382,7 @@ def write_smoke_files(root: pathlib.Path, clip_params, heads, db) -> SimpleNames
     SERVE_CORPUS 256 px JPEGs, queries.jsonl, csvs of DEMO_CORPUS and
     CLI_ROWS images, tar shards of the first RAW_SHARDS x RAW_PER_SHARD
     images and their caption map."""
-    import gzip
     import io
-    import os
     import tarfile
 
     from keds_tpu_torch.io.checkpoint import save_train_checkpoint
@@ -1343,10 +1391,7 @@ def write_smoke_files(root: pathlib.Path, clip_params, heads, db) -> SimpleNames
 
     t = time.perf_counter()
     f = SimpleNamespace(root=root)
-    f.vocab = root / "merges.txt.gz"
-    with gzip.open(f.vocab, "wt", encoding="utf-8") as fh:
-        fh.write("#version: synthetic\n" + "\n".join(SYNTHETIC_MERGES) + "\n")
-    os.environ["KEDS_TPU_BPE_VOCAB"] = str(f.vocab)
+    f.vocab = write_vocab(root / "merges.txt.gz")
     f.mlp = root / "mlp.pt"
     save_train_checkpoint(str(f.mlp), epoch=1, name="chip_smoke", clip_params=clip_params,
                           clip_cfg=VIT_L_14, heads=heads)
@@ -2846,6 +2891,10 @@ EXTRACT_CHECK_ROWS = 64
 EXTRACT_TOL = 2e-2         # the JAX tool's own test tolerance (tests/test_data_tools.py)
 PROFILE_BATCH = 128        # 4096 feature pairs: 32 steps, the window 10-20 inside
 VALIDATE_IMAGES = 256      # a CIRR val tree of this many PNGs and as many queries
+FULLSCALE_CIRR_EPOCHS = 2  # of the protocol's 30 sweep epochs a branch
+FULLSCALE_COCO_ROWS = 5000     # the protocol's val2017 split
+FULLSCALE_COCO_EPOCHS = 1  # of 25: the sweep's first two checkpoints
+FULLSCALE_WORKERS = 8      # the eval CLI's decode threads (--workers)
 
 
 def _separated_agree(idx, pv, pi, tol: float) -> bool:
@@ -3121,12 +3170,174 @@ def validate_path(f) -> dict:
     return row
 
 
+def batch_rows(n: int) -> list:
+    """The row counts of the loader's batches of QUERY_BATCH over n rows."""
+    return [min(QUERY_BATCH, n - i) for i in range(0, n, QUERY_BATCH)]
+
+
+def encode_launches(rows: list) -> int:
+    """B2 launches of the ViT-L/14 vision tower over batches of ``rows``
+    images: one a layer a chunk (encode_image_chunked cuts a batch into
+    chunks only where the chunk size divides it)."""
+    from keds_tpu_torch.models import clip as mclip
+
+    c = mclip.DEFAULT_ENCODE_CHUNK
+    return mclip.VIT_L_14.vision_layers * sum(n // c if n > c and n % c == 0 else 1
+                                              for n in rows)
+
+
+def fullscale_want(launches: dict, image_rows: list, query_batches: int, epochs: int,
+                   rank_f32: int) -> dict:
+    """An eval CLI run's launches: B2 bf16_tc in the vision tower over the
+    encoded images and in the 12-layer text tower twice a query batch an
+    epoch (both branches), B1 bf16_tc twice a query batch (image and caption
+    DB), B1 f32 ``rank_f32`` times, nothing else."""
+    from keds_tpu_torch.models import clip as mclip
+
+    want = {(name, v): 0 for name, counts in launches.items() for v in counts}
+    want.update({("mips_topk", "f32"): rank_f32, ("mips_topk", "bf16_tc"): 2 * query_batches,
+                 ("attention", "bf16_tc"): encode_launches(image_rows)
+                 + mclip.VIT_L_14.transformer_layers * 2 * epochs * query_batches})
+    return want
+
+
+def fullscale_path(kernels, root: pathlib.Path) -> dict:
+    """The two full-scale eval benches as a user runs them, each in a
+    workdir under ``root``: bench_cirr_fullscale at the CIRR val protocol
+    (4181 queries, 2297 PNGs at 224 px, the 0.5M x 768 DB, ViT-L/14 bf16,
+    batches of 64) over FULLSCALE_CIRR_EPOCHS epochs, staged once, then
+    device- and host-ranked, the two tables held to each other but for
+    near-ties; then bench_coco_fullscale at FULLSCALE_COCO_ROWS rows over
+    FULLSCALE_COCO_EPOCHS epoch, device-ranked.  Launch counts are zeroed
+    just before and read just after each run and must equal what its
+    batches give (all positive); the text buckets the prompts took are
+    recorded."""
+    import os
+
+    from keds_tpu_torch.evalkit import evaluators as ev
+    from keds_tpu_torch.tools import bench_cirr_fullscale, bench_coco_fullscale
+
+    write_vocab(root / "merges.txt.gz")
+    buckets = set()
+    real_bucket = ev._bucket
+
+    def bucket(text):
+        out = real_bucket(text)
+        buckets.add(out.shape[1])
+        return out
+
+    def run_tool(main, argv):
+        for k in kernels.values():
+            k.reset()
+        ev._bucket = bucket
+        try:
+            with eval_capture() as run:
+                run["rec"] = main(argv)    # ends with the tables on the host
+        finally:
+            ev._bucket = real_bucket
+        run["launches"] = {n: dict(k.launches) for n, k in kernels.items()}
+        return run
+
+    out = dict(card=nvidia_smi(), model="ViT-L/14", dtype="bf16")
+    wd = root / "cirr"
+    argv = ["--workdir", str(wd), "--epochs", str(FULLSCALE_CIRR_EPOCHS),
+            "--workers", str(FULLSCALE_WORKERS), "--device", DEV]
+    t = time.perf_counter()
+    bench_cirr_fullscale.main(argv + ["--build-only"])
+    stage_s = time.perf_counter() - t
+    runs = {r: run_tool(bench_cirr_fullscale.main, argv + ["--eval-ranking", r])
+            for r in ("device", "host")}
+    caps = json.loads((wd / "data" / "CIRR" / "captions" / "cap.rc2.val.json").read_text())
+    index = {os.path.basename(p): i for i, p in enumerate(runs["host"]["names"])}
+    split = SimpleNamespace(ref=np.array([index[c["reference"] + ".png"] for c in caps]),
+                            target=np.array([index[c["target_hard"] + ".png"] for c in caps]))
+    q_rows, c_rows = batch_rows(len(caps)), batch_rows(len(index))
+    for r, run in runs.items():
+        check_path_launches(f"fullscale_cirr_{r}", run["launches"],
+                            fullscale_want(run["launches"], c_rows + q_rows, len(q_rows),
+                                           FULLSCALE_CIRR_EPOCHS,
+                                           3 * FULLSCALE_CIRR_EPOCHS if r == "device" else 0))
+    gate = near_tie_gate(split, runs)
+    out["cirr"] = dict(stage_s=stage_s, corpus_images=len(index), queries=len(caps),
+                       text_buckets=sorted(buckets), gate=gate,
+                       **{r: dict(line=run["rec"], launches=run["launches"])
+                          for r, run in runs.items()})
+    del runs
+
+    wd = root / "coco"
+    argv = ["--workdir", str(wd), "--rows", str(FULLSCALE_COCO_ROWS),
+            "--epochs", str(FULLSCALE_COCO_EPOCHS), "--workers", str(FULLSCALE_WORKERS),
+            "--device", DEV, "--eval-ranking", "device"]
+    t = time.perf_counter()
+    bench_coco_fullscale.main(argv + ["--build-only"])
+    stage_s = time.perf_counter() - t
+    buckets.clear()
+    coco = run_tool(bench_coco_fullscale.main, argv)
+    q_rows = batch_rows(FULLSCALE_COCO_ROWS)
+    check_path_launches("fullscale_coco", coco["launches"],
+                        fullscale_want(coco["launches"], q_rows + q_rows, len(q_rows),
+                                       FULLSCALE_COCO_EPOCHS, 0))
+    keys = {(j, k) for j in range(1, FULLSCALE_COCO_EPOCHS + 1)
+            for k in ("composed", "image", "mixture")}
+    tables = coco["tables"]
+    ok = set(tables) == keys and all(np.isfinite(v) for m in tables.values() for v in m.values())
+    out["coco"] = dict(stage_s=stage_s, rows=FULLSCALE_COCO_ROWS, text_buckets=sorted(buckets),
+                       line=coco["rec"], launches=coco["launches"], tables_ok=ok)
+    emit("fullscale_path", **out)
+    if not ok:
+        raise AssertionError(f"fullscale_path: COCO tables malformed: {tables}")
+    if not gate["passes"]:
+        raise AssertionError(f"fullscale_path: CIRR host and device rankings differ beyond "
+                             f"near-ties at {gate['n_other']} queries: "
+                             f"{gate['other_differences']}")
+    return {"cirr_device": out["cirr"]["device"]["launches"],
+            "cirr_host": out["cirr"]["host"]["launches"], "coco": coco["launches"]}
+
+
+def full_sweeps() -> None:
+    """The protocols' full sweeps with the benches' defaults (ViT-L/14
+    bf16, batches of 64, 2 decode threads): bench_cirr_fullscale over 30
+    epochs x 2 branches and bench_coco_fullscale over 25 epochs (50
+    checkpoints), each staged once under build/ and run device- then
+    host-ranked; each run's JSON line, then its launch counts and the
+    staging's seconds."""
+    import shutil
+
+    from keds_tpu_torch.ops import attention as att_mod, topk as topk_mod
+    from keds_tpu_torch.ops.cuda_build import build_all
+    from keds_tpu_torch.tools import bench_cirr_fullscale, bench_coco_fullscale
+
+    kernels = {"attention": att_mod.KERNEL, "attention_bwd": att_mod.BWD_KERNEL,
+               "mips_topk": topk_mod.KERNEL}
+    build_all(kernels.values())
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        write_vocab(pathlib.Path(d) / "merges.txt.gz")
+        for name, tool in (("cirr", bench_cirr_fullscale), ("coco", bench_coco_fullscale)):
+            argv = ["--workdir", str(pathlib.Path(d) / name), "--device", DEV]
+            t = time.perf_counter()
+            tool.main(argv + ["--build-only"])
+            emit(f"full_sweep_{name}_staging", seconds=time.perf_counter() - t)
+            for ranking in ("device", "host"):
+                for k in kernels.values():
+                    k.reset()
+                tool.main(argv + ["--eval-ranking", ranking])
+                emit(f"full_sweep_{name}_{ranking}",
+                     launches={n: dict(k.launches) for n, k in kernels.items()})
+            shutil.rmtree(pathlib.Path(d) / name)
+    print(nvidia_smi(), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["dist-rank"]:       # one rank of dist_path
         dist_rank(pathlib.Path(sys.argv[2]), sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["full-sweeps"]:     # outside the smoke run: the benches' sweeps
+        full_sweeps()
         return 0
     from keds_tpu_torch import synth
     from keds_tpu_torch.engine import ComposedQueryEngine
@@ -3159,7 +3370,9 @@ def main() -> int:
                                 # ratio 1), 64 patches kept (0.75), text at 77
                                 (2, 16, 1, 64, bf16, False),
                                 (2, 16, 65, 64, bf16, False),
-                                (2, 12, 77, 64, bf16, True)])
+                                (2, 12, 77, 64, bf16, True),
+                                # the eval benches' prompts at the S=77 bucket
+                                (QUERY_BATCH, 12, 77, 64, bf16, True)])
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
@@ -3274,6 +3487,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build) as d:
         dist_launches = dist_path(clip_params, heads, db, eval_ref, pathlib.Path(d))
 
+    # --- the full-scale CIRR and COCO eval benches ------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        fullscale_launches = fullscale_path(kernels, pathlib.Path(d))
+
     att = ("attention", "keds_tpu_torch/csrc/attention.cu", "keds_tpu/ops/attention.py:122")
     bwd = ("attention_bwd", "keds_tpu_torch/csrc/attention_bwd.cu",
            "keds_tpu/ops/attention.py:134")
@@ -3308,7 +3526,9 @@ def main() -> int:
                (top, "f32", topk_rows[17], any_d_launches["D100"]),
                (top, "bf16_tc", topk_rows[18], any_d_launches["D96"]),
                (top, "bf16", topk_rows[19], any_d_launches["D1280"]),
-               (att, "bf16_tc", att_rows[0], extract_launches)]
+               (att, "bf16_tc", att_rows[0], extract_launches),
+               # the full-scale CIRR bench's text tower at S=77
+               (att, "bf16_tc", att_rows[12], fullscale_launches["cirr_device"])]
     paths = {"serving": launches, "rn_serving": rn_launches, "vit336": vit336_launches,
              **{f"surface_{p}": c for p, c in surface_launches.items()},
              "train_image": train_launches, "train_text": text_launches,
@@ -3318,6 +3538,7 @@ def main() -> int:
              "train_raw": raw_launches, "quant_serving": quant_launches,
              "serve_cli_int8": serve_int8_launches, "extract_features": extract_launches,
              **{f"any_depth_{p}": c for p, c in any_d_launches.items()},
+             **{f"fullscale_{p}": c for p, c in fullscale_launches.items()},
              **{f"dist_{p}_rank0": c for p, c in dist_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,

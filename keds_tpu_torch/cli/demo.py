@@ -94,12 +94,12 @@ def main(argv: Optional[list] = None) -> dict:
     """Write the demo page; returns the cache path, the composition and each
     query's top-10 file names per prompt."""
     from keds_tpu_torch.cli.common import run_logging
-    from keds_tpu_torch.config import parse_args
+    from keds_tpu_torch.config import ORBAX_LEFT_OUT, parse_args
 
     cfg = parse_args(argv, prog="keds_tpu_torch.cli.demo")
     if cfg.resume and os.path.isdir(cfg.resume):
-        raise SystemExit(f"--resume {cfg.resume}: orbax checkpoint directories are not "
-                         "read by the port; pass a reference-layout .pt")
+        raise SystemExit(f"--resume {cfg.resume}: a directory (an orbax checkpoint?); "
+                         f"pass a reference-layout .pt: orbax is {ORBAX_LEFT_OUT}")
     with run_logging(cfg, require_fresh=False):
         return _demo(cfg)
 

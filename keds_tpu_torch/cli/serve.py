@@ -63,14 +63,14 @@ def main(argv: Optional[list] = None) -> dict:
     """Serve the queries; returns the run's counts and walls (corpus and
     query images, seconds, where the ranking ran)."""
     from keds_tpu_torch.cli.common import run_logging
-    from keds_tpu_torch.config import parse_args
+    from keds_tpu_torch.config import ORBAX_LEFT_OUT, parse_args
 
     cfg = parse_args(argv, prog="keds_tpu_torch.cli.serve")
     if not cfg.resume:
         raise SystemExit("--resume <checkpoint.pt> is required (heads + CLIP)")
     if os.path.isdir(cfg.resume):
-        raise SystemExit(f"--resume {cfg.resume}: orbax checkpoint directories are not "
-                         "read by the port; pass a reference-layout .pt")
+        raise SystemExit(f"--resume {cfg.resume}: a directory (an orbax checkpoint?); "
+                         f"pass a reference-layout .pt: orbax is {ORBAX_LEFT_OUT}")
     if not cfg.target_data:
         raise SystemExit("--target-data <corpus image dir> is required")
     if not cfg.query_file:

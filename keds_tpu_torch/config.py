@@ -24,6 +24,11 @@ MODEL_CHOICES = [
 ]
 # tokenize("a photo of") in the CLIP vocab: SOT, a, photo, of, EOT
 DEFAULT_PROMPT_TOKENS = (49406, 320, 1125, 539, 49407)
+# Why the port reads and writes no orbax checkpoint.
+ORBAX_LEFT_OUT = ("left out on purpose (ROADMAP.md section A): orbax writes an OCDBT store "
+                  "whose nodes are zstd frames, and the port has no orbax, tensorstore or "
+                  "zstd decoder (Python's standard library has none); the JAX package's "
+                  ".pt checkpoints resume in the port")
 
 
 def get_default_params(model_name: str) -> dict:
@@ -246,7 +251,7 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
     add("--save-most-recent", action="store_true", default=False)
     add("--resume", type=str, default=None)
     add("--checkpoint-format", type=str, default="pt", choices=["pt", "orbax"],
-        help="orbax is not ported (ROADMAP.md section A item 16)")
+        help="orbax is refused: " + ORBAX_LEFT_OUT)
     add("--report-to", type=str, default="",
         help="tensorboard, wandb or all, beside scalars.jsonl")
     add("--wandb-notes", type=str, default="")
@@ -295,10 +300,9 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
              "plain versions of the kernels)")
 
 
-# Flags of parts not ported yet, or left out on purpose: (field, value that
-# asks for them, ROADMAP item or reason).
-UNPORTED = (("checkpoint_format", "orbax", "ROADMAP.md section A item 16 (tools and "
-             "harness)"),
+# Flags of parts left out on purpose: (field, value that asks for them,
+# reason).
+UNPORTED = (("checkpoint_format", "orbax", ORBAX_LEFT_OUT),
             ("device_preprocess", False, "left out on purpose (ROADMAP.md section A): the "
              "port sends uint8 and normalises on the device"))
 

@@ -50,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from keds_tpu_torch.config import ORBAX_LEFT_OUT
 from keds_tpu_torch.evalkit import metrics as M
 from keds_tpu_torch.io.checkpoint import load_heads_checkpoint
 from keds_tpu_torch.models import clip as mclip
@@ -179,7 +180,7 @@ class EvalContext:
         path = directory if fixed else os.path.join(directory, f"epoch_{epoch}.pt")
         if os.path.isdir(path):
             raise ValueError(f"{path} is a directory (an orbax checkpoint?): the port "
-                             "reads .pt checkpoint files only")
+                             f"reads .pt checkpoint files only; orbax is {ORBAX_LEFT_OUT}")
         if fixed and path in self._heads_cache:
             return self._heads_cache[path]
         heads, _ = load_heads_checkpoint(path, self.device)

@@ -1271,3 +1271,44 @@ def test_tiny_int8_tower_engine_card_matches_cpu(cuda):
     assert INT8_MM.launches["retrieval"] > before["retrieval"]
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=2e-3)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=2e-3)
+
+
+@pytest.mark.parametrize("tool,ranking", [("cirr", "device"), ("cirr", "host"),
+                                          ("coco", "device"), ("coco", "host")])
+def test_fullscale_benches_at_tiny_scale_card_equal_cpu(cuda, tmp_path, monkeypatch, tool,
+                                                        ranking):
+    """bench_cirr_fullscale and bench_coco_fullscale at the JAX tools' tiny
+    scale (f32), staged once with the card's weights: the run on cuda:0
+    launches B1 and B2 and gives the recall tables of the same files on the
+    CPU."""
+    import gzip
+
+    from keds_tpu_torch.evalkit import evaluators as ev
+    from keds_tpu_torch.tools import bench_cirr_fullscale, bench_coco_fullscale
+
+    with gzip.open(tmp_path / "merges.txt.gz", "wt") as f:   # no merges: bytes only
+        f.write("#version: test\n")
+    monkeypatch.setenv("KEDS_TPU_BPE_VOCAB", str(tmp_path / "merges.txt.gz"))
+    main = {"cirr": bench_cirr_fullscale, "coco": bench_coco_fullscale}[tool].main
+    sizes = {"cirr": ["--queries", "6", "--corpus", "8"], "coco": ["--rows", "8"]}[tool]
+    name = f"evaluate_{tool}"
+    real, tables = getattr(ev, name), []
+
+    def record(*args, **kw):
+        tables.append(real(*args, **kw))
+        return tables[-1]
+
+    monkeypatch.setattr(ev, name, record)
+    for dev in ("cuda", "cpu"):
+        before = (sum(topk_mod.KERNEL.launches.values()),
+                  sum(att_mod.KERNEL.launches.values()))
+        main(["--workdir", str(tmp_path / "fs"), "--model-scale", "tiny", *sizes,
+              "--db-rows", "64", "--epochs", "2", "--image-px", "32", "--batch-size", "4",
+              "--workers", "0", "--precision", "fp32", "--eval-ranking", ranking,
+              "--device", dev])
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert sum(topk_mod.KERNEL.launches.values()) > before[0]
+            assert sum(att_mod.KERNEL.launches.values()) > before[1]
+    assert len(tables) == 2 and tables[0] == tables[1]
+    assert {j for j, _ in tables[0]} == {1, 2}

@@ -99,7 +99,7 @@ def test_eval_cli_cirr_test_writes_jax_submission(run):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--checkpoint-format", "orbax"), "item 16"),
+    (("--checkpoint-format", "orbax"), "left out on purpose .*OCDBT"),
     (("--no-device-preprocess",), "left out on purpose"),
     (("--eval-mode", "fashion"), "--source-data"),
 ])

@@ -51,7 +51,9 @@ def test_import_loads_no_jax_and_no_keds_tpu():
             "keds_tpu_torch.tools.quant_accuracy", "keds_tpu_torch.profiling",
             "keds_tpu_torch.tools.extract_features", "keds_tpu_torch.tools.validate_artifacts",
             "keds_tpu_torch.tools.extract_nouns",
-            "keds_tpu_torch.tools.prep_imagenet_val"} <= set(MODULES)
+            "keds_tpu_torch.tools.prep_imagenet_val",
+            "keds_tpu_torch.tools.bench_cirr_fullscale",
+            "keds_tpu_torch.tools.bench_coco_fullscale"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",

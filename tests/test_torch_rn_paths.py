@@ -252,8 +252,7 @@ def test_eval_cli_cirr_with_an_rn_checkpoint_equals_jax(tmp_path, monkeypatch, v
 
 # --- the parser -----------------------------------------------------------------
 
-# the flags the port refuses: not ported yet (with their ROADMAP item), or
-# left out on purpose
+# the flags the port refuses: left out on purpose
 REFUSED = {("--checkpoint-format", "orbax"), ("--no-device-preprocess", None)}
 
 

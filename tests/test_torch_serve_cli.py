@@ -107,7 +107,7 @@ def test_serve_cli_refuses_what_it_does_not_take(run, tmp_path):
     base = ["--target-data", "x", "--query_file", "q", "--logs", str(tmp_path)]
     with pytest.raises(SystemExit, match="--resume"):
         tserve.main(base)
-    with pytest.raises(SystemExit, match="orbax"):
+    with pytest.raises(SystemExit, match="orbax .*OCDBT"):
         tserve.main(base + ["--resume", str(tmp_path)])
     with pytest.raises(SystemExit, match="left out on purpose"):
         tserve.main(base + ["--resume", "c.pt", "--no-device-preprocess"])
