@@ -143,8 +143,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 15. serve_path
            keds_tpu_torch.cli.serve.main in this process: 512 queries over
            the 4096-image folder at --topn 10 (ranked on the card: B1 f32),
-           then the first 128 at --topn 300 ranked on the card (B1's passes,
-           f32_multi) and on the host; launch counts zeroed just before and
+           then the first 128 at --topn 300 ranked on the card (B1 f32 at
+           k = 300) and on the host; launch counts zeroed just before and
            read just after each card run; corpus images/s, queries/s with
            decode, peak memory; the gate (the two --topn 300 files name the
            same images in the same order but for near-ties within 1e-5,
@@ -198,7 +198,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            pad counts zeroed just before and read just after): the exact
            Retriever over 100 000-row DBs at D = 100 (f32), 96 (bf16) and
            1280 (bf16), 64 queries at k = 16 (B1 with D zero-padded to its
-           step, or the wide bf16 kernel above 1024) against the plain
+           step, or B1's bf16 score route above 1024) against the plain
            version; int8_matmul at (32, 100) x (100, 4096) equal to its
            plain version; an int8 Retriever over a 4096 x 100 DB (tables
            padded once to depth 104, the queries per call) with the CPU's
@@ -239,8 +239,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 The backward rows cover S above 128 (the streamed launches): bf16 at 257
 and 577, f32 at 289.  The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
-rankings (k=101, 100, 200), a --db-topk of 64 and, above 256 (passes of the
-wide kernel), k=300 over 10 000, 4096 and 0.5M rows and k = N = 1000, and
+rankings (k=101, 100, 200), a --db-topk of 64 and, above 256, k=300 over
+10 000, 4096 and 0.5M rows and k = N = 1000, and
 RN50's retrieval and ranking at D = 1024, and D off the kernels' steps
 (100 f32, 96 bf16, 1280 bf16 over 100 000 rows, with the pad's own ms).
 The attention rows cover S
@@ -444,8 +444,9 @@ def _unit_rows(n: int, d: int, dtype, seed: int) -> torch.Tensor:
 
 def check_topk(cases):
     from keds_tpu_torch.ops.quant import pad_depth
-    from keds_tpu_torch.ops.topk import (KERNEL, MAX_K, depth_step, kernel_depth, mips_topk,
-                                         mips_topk_plain, split_plan)
+    from keds_tpu_torch.ops.topk import (GRID_LAUNCHES, KERNEL, TILINGS, depth_step,
+                                         kernel_depth, mips_topk, mips_topk_plain, split_plan)
+    tiling_names = dict(zip(TILINGS, ("F32", "F32_MID", "TC", "BF16", "F32_FUSED")))
 
     rows = []
     for B, N, D, k, dtype in cases:
@@ -453,9 +454,10 @@ def check_topk(cases):
         q = _unit_rows(B, D, dtype, seed=B + 1)
         tiling = split_plan(B, N, torch.cuda.get_device_properties(0).multi_processor_count,
                             dtype, k, D)[0]
-        variant = tiling.variant + ("_multi" if k > MAX_K else "")
+        variant = tiling.variant
         depth = kernel_depth(tiling, D)
         launches0, pads0 = KERNEL.launches[variant], KERNEL.pads[variant]
+        grid0 = GRID_LAUNCHES[variant]
         vals, idx = mips_topk(q, db, k)
         pads = KERNEL.pads[variant] - pads0
         pv, pi = mips_topk_plain(q, db, min(k + 1, N))
@@ -477,6 +479,7 @@ def check_topk(cases):
         b_ms, b_by = bound((B * D + N * D) * q.element_size() + B * k * 8,
                            2 * B * N * D, dtype)
         row = dict(shape=[B, N, D, k], dtype=str(dtype), variant=variant,
+                   tiling=tiling_names[tiling], cuda_kernels=GRID_LAUNCHES[variant] - grid0,
                    max_abs_err=err, tol=TOPK_TOL,
                    idx_equal_share=float((idx == pi[:, :k]).float().mean()),
                    separated_positions=int(sep.sum()),
@@ -1326,7 +1329,7 @@ WORDS = ("the dog cat ball red hat chasing and of world numbers cafe a on in wit
          "street man woman blue green near tree car house water people").split()
 SERVE_CORPUS = 4096    # the serve CLI ranks a corpus this large on the device
 SERVE_QUERIES = 512
-SERVE_WIDE_TOPN = 300  # above 256: the multi-pass top-k
+SERVE_WIDE_TOPN = 300  # above 256
 SERVE_WIDE_QUERIES = 128
 SERVE_CHECK_QUERIES = 4
 DEMO_CORPUS = 256
@@ -1540,14 +1543,13 @@ def serve_path(f, kernels) -> dict:
     # ranking at --topn 10), B2 in both towers; no backward
     check_path_launches("serve", la, {
         ("mips_topk", "bf16_tc"): 2 * n_batches, ("mips_topk", "f32"): n_batches,
-        ("mips_topk", "f32_multi"): 0, ("attention", "f32"): 0,
+        ("mips_topk", "bf16"): 0, ("attention", "f32"): 0,
         ("attention_bwd", "bf16"): 0, ("attention_bwd", "f32"): 0},
         [("attention", "bf16_tc")])
     wide = run("served_wide.jsonl", f.wide_queries, SERVE_WIDE_TOPN)
     n_wide = -(-SERVE_WIDE_QUERIES // QUERY_BATCH)
-    passes = -(-SERVE_WIDE_TOPN // 256)
     check_path_launches("serve --topn 300", wide["launches"], {
-        ("mips_topk", "f32_multi"): passes * n_wide, ("mips_topk", "f32"): 0,
+        ("mips_topk", "f32"): n_wide, ("mips_topk", "bf16"): 0,
         ("mips_topk", "bf16_tc"): 2 * n_wide})
     real_min = serve.DEVICE_RANK_MIN_ROWS
     serve.DEVICE_RANK_MIN_ROWS = SERVE_CORPUS + 1
@@ -2913,7 +2915,7 @@ def any_depth_path(kernels) -> dict:
     counts zeroed just before and read just after: the exact Retriever's
     neighbour search (both tables, 64 queries, k = 16) over an
     ANY_D_ROWS-row DB at each ANY_D_CASES width (B1 with D zero-padded, or
-    the wide bf16 kernel at 1280) against the plain version; int8_matmul at
+    B1's bf16 score route at 1280) against the plain version; int8_matmul at
     INT8_ANY_D exactly equal to its plain version; an int8 Retriever over
     a 4096 x 100 DB with the CPU's neighbours but for near-ties."""
     from keds_tpu_torch.ops.quant import INT8_MM, int8_matmul, int8_matmul_plain
@@ -3394,14 +3396,14 @@ def main() -> int:
                             (2048, 4096, 768, 100, f32),             # Fashion-IQ-like
                             (1024, 10_000, 768, 200, f32),           # ImageNet-like
                             (QUERY_BATCH, DB_ROWS, 768, 64, bf16),   # --db-topk 64
-                            (QUERY_BATCH, 10_000, 768, 300, f32),    # k > 256: passes
+                            (QUERY_BATCH, 10_000, 768, 300, f32),    # k > 256
                             (QUERY_BATCH, DB_ROWS, 768, 300, bf16),
                             (8, 1000, 768, 1000, f32),               # k = N
                             (QUERY_BATCH, SERVE_CORPUS, 768, SERVE_WIDE_TOPN, f32),  # serve
                             (QUERY_BATCH, DB_ROWS, 1024, 16, bf16),  # RN50 retrieval
                             (QUERY_BATCH, N_CORPUS, 1024, 10, f32),  # RN50 ranking
-                            # any D: padded to the step (f32 32, bf16_tc 64), or
-                            # bf16 above 1024 on the wide kernel
+                            # any D: padded to the step (f32 16, bf16 64), or
+                            # bf16 above 1024 on the BF16 score route
                             *((QUERY_BATCH, ANY_D_ROWS, d, 16, dt) for d, dt in ANY_D_CASES)])
     any_d_launches = any_depth_path(kernels)
 
@@ -3509,8 +3511,9 @@ def main() -> int:
                (top, "bf16_tc", topk_rows[1], launches),
                (top, "f32", topk_rows[7], eval_launches),
                (top, "bf16", topk_rows[10], launches),
-               (top, "f32_multi", topk_rows[14], serve_launches["serve_topn300"]),
-               (top, "bf16_multi", topk_rows[12], serve_launches["serve_topn300"]),
+               (top, "f32", topk_rows[14], serve_launches["serve_topn300"]),
+               (top, "bf16", topk_rows[12], serve_launches["serve_topn300"]),
+               (top, "f32", topk_rows[5], launches),    # the served corpus ranking
                # RN50's serving (the D = 1024 rows) and the streamed
                # attention above 288 keys (ViT-L/14 at 336 px)
                (att, "bf16_tc", att_rows[8], rn_launches),
@@ -3545,7 +3548,8 @@ def main() -> int:
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],
          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "shape": row["shape"], "dtype": row["dtype"],
+         "shape": row["shape"], "dtype": row["dtype"], "tiling": row.get("tiling"),
+         **({"cuda_kernels_per_search": row["cuda_kernels"]} if "cuda_kernels" in row else {}),
          **({"padded_to": row["padded_to"], "pad_ms": row["pad_ms"],
              "pads": counts["mips_topk_pads"][variant]} if "padded_to" in row else {}),
          "launches_by_path": {p: c[name][variant] for p, c in paths.items()}}

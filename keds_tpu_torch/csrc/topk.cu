@@ -1,28 +1,77 @@
-// Fused exact top-k by inner product (MIPS) on Hopper (sm_90a).
+// Exact top-k by inner product (MIPS) on Hopper (sm_90a).
 //
 // Replaces the TPU kernel keds_tpu/ops/pallas_topk.py:mips_topk_pallas
 // (body _kernel, merge _iterative_topk).  queries (B, D) and a database
 // (N, D), both f32 or both bf16, give the k best rows per query: values
 // (B, k) f32 and indices (B, k) int32, sorted by descending score with ties
-// going to the lower row index.  Score tiles are accumulated in f32 and
-// folded at once into a running top-k, so the (B, N) score matrix never
-// reaches device memory.
+// going to the lower row index; rows >= N never appear.  The TPU kernel
+// carries its running top-k across a sequential grid in VMEM; Hopper blocks
+// run in parallel and carry nothing between them, so every route below ends
+// in a selection that one team of threads makes per query.  Any k <= N
+// reads the database once, and one search launches the same kernels for
+// every k.
 //
-// The TPU kernel carries its running top-k across a sequential grid in VMEM.
-// Hopper blocks run in parallel and carry nothing between them, so the
-// search is two launches:
-//   1. a partial kernel, one block per (query tile, slice of the database),
-//      writes k candidates per query to a scratch buffer (B, n_splits, k).
-//      The slices split the database's chunks evenly (they differ by at
-//      most one chunk).  Rows >= N (the ragged edge) are never offered;
-//      the database is not padded.
-//   2. topk_merge: one warp per query folds its candidates into the final
-//      top-k with the same insertion rule.
+// Order.  Entry (score s, row i) becomes one 64-bit key: the high word maps
+// the float's bits to an unsigned order (-0.0 first turned into +0.0: the
+// plain version ranks the two as equal), the low word is ~i, so that of two
+// equal scores the lower row has the larger key.  No two keys are equal,
+// empty slots (row -1) are key 0, and "the k best" is "the k largest keys".
 //
-// Tie rule (both passes): entry a beats b when a.score > b.score, or the
-// scores are equal and a.index < b.index; empty slots (index -1) lose to
-// everything.  This is the lower-index-first order of lax.top_k and of the
-// Pallas kernel's first-argmax merge.
+// The selection (select_row, a warp or a block of threads a row).  The
+// cost per entry must not grow with k, so there is no running list to
+// insert into.  A first read of the row keeps each thread's group of eight
+// keys' largest score; the want-th largest of those maxima (a radix
+// descent over them in shared memory) is a bound that at least `want` keys
+// reach and, on real scores, few more.  A second read gathers the keys at
+// or above it (a ballot and one shared atomic a warp give the slots) and a
+// bitonic sort in shared memory orders them.  Where the groups are too few
+// (k a large share of the row) or too many keys pass, the radix descent runs
+// over the row itself, 8 bits a pass from the top (warp-aggregated
+// shared-memory histograms), stopping when the bin of the want-th key is
+// taken whole.  A k above the sort's room (4096 keys a block) takes rounds
+// inside the team, each after the previous round's last key.  (Tried and
+// dropped on the H100: the radix descent over every row, a buffer with a
+// running threshold sorted whenever it fills, and staging the row in
+// shared memory; each was slower than the group bound.)
+//
+// Routes (variant codes below; ops/topk.py:split_plan picks one):
+//
+// f32 at any k, bf16 above k = 32 or at D > 1024: score, then select.  A
+// score kernel writes the (B, N) f32 scores to scratch (38 MB at the CIRR
+// ranking, 4181 x 2297), and topk_select selects per query.
+//   * topk_score_f32: exact f32 FMA on CUDA cores (tensor cores would round
+//     to TF32), 128 x 128 tiles with 8 x 8 outputs a thread (64 x 64 with 4 x
+//     4 where a big tile would be half empty or the card half idle), 16-deep
+//     slices staged transposed in shared memory while the next slice's loads
+//     wait in registers.  Each score sums its D products in order by fmaf.
+//     Bound: the products at 67 TFLOP/s (0.22 ms at the CIRR ranking).  (A
+//     4-stage cp.async ring of untransposed slices, tried, was slower: 8 x 8
+//     outputs and the ring's reads need more registers than two blocks an
+//     SM leave.)
+//   * topk_score_bf16: mma.sync m16n8k16 bf16 -> f32 (products of bf16
+//     inputs are exact in f32) on 128 database rows x 64 queries a block,
+//     both operands ldmatrix'd from a 4-stage cp.async ring (144-byte rows,
+//     conflict-free), two blocks an SM.  Any D that is a multiple of 64.  Bound: the database
+//     read (0.23 ms at (64, 0.5M, 768)); the scores add B * N * 4 bytes
+//     written and read twice (128 MB there), so the selection, not the
+//     product, is what this route pays above its bound.
+//   * topk_select: a team per (query, segment).  A row longer than
+//     SEGMENT_ROWS (ops/topk.py) is cut into segments so that a few queries
+//     over a long database still fill the card; each segment's team selects
+//     min(k, segment) candidates, and the team that finishes a query's last
+//     segment (a per-query counter, reset by that team) merges them.
+// f32 at N <= 1024 (the served corpus ranking, (64, 256, 768) at k = 10):
+// topk_fused, one launch.  Blocks of 4 queries x 32 rows (1 x 128 above
+// k = 256) stream their slices through a 6-deep cp.async ring (the tile's
+// work per slice is too small to hide a copy otherwise) and write their
+// scores to scratch; the block that finishes a query tile's last row tile
+// selects its rows, a warp a row (the whole block above k = 256).  Bound:
+// launch latency and the L2 round trips of a serial chain (the work is
+// 0.0004 ms).
+// bf16 at k <= 32 and D <= 1024 (the 0.5M retrieval, the train-step search):
+// topk_tc, kept as it was (34 % of its bound, faster than its library
+// call), then topk_select over its (B, slices, k) candidates with their
+// explicit indices in place of the one-warp merge.
 //
 // topk_tc (bf16).  What bounds it on the H100: the database read (N * D * 2
 // bytes, 768 MB at N = 0.5M, D = 768: 0.23 ms at 3.35 TB/s) against
@@ -47,43 +96,15 @@
 //     i).  After the first chunks almost nothing is marked; only the marked
 //     32-row groups take the ballot/shuffle insertion.  The insertions
 //     that remain (about k(1 + ln(rows / k)) per list) are what keeps the
-//     kernel above its bound.
+//     kernel above its bound.  Its registers and shared memory hold no room
+//     for longer lists, hence the score-then-select route above k = 32.
 //
-// topk_f32 (f32: the corpus ranking).  Exact f32 FMA on CUDA cores (tensor
-// cores would round to TF32), 64-query x 128-row tiles.  For a small
-// database (the 256-row ranking) the wrapper picks 16 x 32 tiles, so the
-// search spreads over tens of blocks instead of two.  Both tile sizes sum
-// each score in the same order.
-//
-// k > 32 (the evaluators' rankings at k = 100, 101 and 200, a large
-// --topn or --db-topk): each lane holds L = 2, 4 or 8 entries of the running
-// list, entry e at lane e % 32 and slot e / 32 (offer_wide); an insertion
-// shifts every slot up one lane and carries lane 31 of slot s into lane 0
-// of slot s + 1.  Both dtypes then take topk_f32 with 32-query x 128-row
-// tiles; bf16 inputs are widened to f32 as they are staged (products of
-// bf16 values are exact in f32).  Between chunks a warp's four lists live
-// in shared memory (up to 64 KB a block); each comes into registers while
-// its query's scores are folded.  The bound is the products on CUDA cores
-// (0.22 ms at the CIRR ranking); the 32-query tiles read shared memory
-// more often per product than 64-query ones, and the insertions take about
-// as long again.  The k <= 32 instantiations (L = 1) are unchanged.
-// Nothing calls the bf16 wide path on a hot loop (the shipped --db-topk is
-// 16), so it runs on CUDA cores: the tensor-core kernel's registers and
-// shared memory hold no room for eight-slot lists.
-//
-// k > 256 (a --topn of 300 over a served corpus; the Pallas kernel has no
-// cap on k): the wrapper runs the wide kernel in ceil(k / 256) passes with
-// no host round trip between them.  Pass p finds the best <= 256 rows among
-// those that come strictly after the previous pass's last entry (s_b, i_b)
-// in the total order (score desc, index asc): a row is offered only if
-// s < s_b, or s == s_b and i > i_b.  The bound is read straight from the
-// previous pass's slice of the output (column 256 p - 1, row stride k), and
-// each pass's merge writes its own 256 columns.  This is exact because every
-// pass takes the same wide tiling (32 x 128, the same D-loop order), so each
-// (query, row) score is bit-identical across passes; a short final pass
-// keeps the wide tiling instead of the k <= 32 kernels, whose sums round
-// differently.  Each pass reads the whole database again: k / 256 times the
-// single-pass cost.
+// Scratch (scores, candidates) and the counters are the wrapper's
+// (torch.empty, and one zeroed int32 buffer per device that the kernels
+// leave zeroed); the kernels allocate nothing.  Two searches sharing a
+// device's counters must not run at once on two streams.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -91,13 +112,12 @@ namespace {
 
 using namespace keds;
 using bf16 = __nv_bfloat16;
+using u64 = unsigned long long;
 
-constexpr int kLaneK = 32;       // k of lists with one entry a lane
-constexpr int kMaxK = 256;       // eight entries a lane: one pass of the search
+constexpr int kLaneK = 32;       // k of topk_tc's lists, one entry a lane
 
-// Variant codes of the C interface (mirrored in ops/topk.py).  The wide
-// variants take any k <= kMaxK, the others k <= kLaneK.
-enum Variant : int { kF32 = 0, kF32Small = 1, kBf16Tc = 2, kF32Wide = 3, kBf16Wide = 4 };
+// Variant codes of the C interface (mirrored in ops/topk.py).
+enum Variant : int { kF32 = 0, kF32Mid = 1, kBf16Tc = 2, kBf16 = 3, kF32Fused = 4 };
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   if (bi < 0) return ai >= 0;
@@ -130,84 +150,6 @@ __device__ __forceinline__ void offer(float& sv, int& si, float cv, int ci,
     }
     tv = __shfl_sync(kFullMask, sv, k - 1);
     ti = __shfl_sync(kFullMask, si, k - 1);
-  }
-}
-
-// Entry e (warp-uniform) of a list of L entries a lane, on every lane: each
-// slot is shuffled and the shuffled values are selected.  (Selecting between
-// slots before the shuffle is compiled into a load from a computed address,
-// which puts the whole list in local memory: kernel_sweeps.py wide_k.)
-template <int L>
-__device__ __forceinline__ void list_entry(const float (&sv)[L], const int (&si)[L], int e,
-                                           float& v, int& i) {
-  v = __shfl_sync(kFullMask, sv[0], e % 32);
-  i = __shfl_sync(kFullMask, si[0], e % 32);
-#pragma unroll
-  for (int s = 1; s < L; ++s) {
-    const float x = __shfl_sync(kFullMask, sv[s], e % 32);
-    const int y = __shfl_sync(kFullMask, si[s], e % 32);
-    if (s == e / 32) {
-      v = x;
-      i = y;
-    }
-  }
-}
-
-// offer() for lists of L entries a lane (entry e at lane e % 32, slot
-// e / 32).  The insertion position counts the better entries of every slot;
-// slots shift from the top down, each taking lane 31 of the slot below into
-// its lane 0 before that slot is rewritten.
-template <int L>
-__device__ __forceinline__ void offer_wide(float (&sv)[L], int (&si)[L], float cv, int ci,
-                                           bool valid, int k, int lane) {
-  float tv;
-  int ti;
-  list_entry<L>(sv, si, k - 1, tv, ti);
-  unsigned pending = __ballot_sync(kFullMask, valid && better(cv, ci, tv, ti));
-  while (pending) {
-    const int src = __ffs(pending) - 1;
-    pending &= pending - 1;
-    const float bv = __shfl_sync(kFullMask, cv, src);
-    const int bi = __shfl_sync(kFullMask, ci, src);
-    if (!better(bv, bi, tv, ti)) continue;       // threshold rose meanwhile
-    int pos = 0;
-#pragma unroll
-    for (int s = 0; s < L; ++s)
-      pos += __popc(__ballot_sync(kFullMask, s * 32 + lane < k && better(sv[s], si[s], bv, bi)));
-#pragma unroll
-    for (int s = L - 1; s >= 0; --s) {
-      float pv = __shfl_up_sync(kFullMask, sv[s], 1);
-      int pi = __shfl_up_sync(kFullMask, si[s], 1);
-      if (s > 0) {
-        const float cv31 = __shfl_sync(kFullMask, sv[s > 0 ? s - 1 : 0], 31);
-        const int ci31 = __shfl_sync(kFullMask, si[s > 0 ? s - 1 : 0], 31);
-        if (lane == 0) {
-          pv = cv31;
-          pi = ci31;
-        }
-      }
-      const int e = s * 32 + lane;
-      if (e == pos) {
-        sv[s] = bv;
-        si[s] = bi;
-      } else if (e > pos) {
-        sv[s] = pv;
-        si[s] = pi;
-      }
-    }
-    list_entry<L>(sv, si, k - 1, tv, ti);
-  }
-}
-
-// One candidate per lane into a list of L entries a lane: offer() itself
-// for L = 1.
-template <int L>
-__device__ __forceinline__ void fold(float (&sv)[L], int (&si)[L], float cv, int ci,
-                                     bool valid, int k, int lane) {
-  if constexpr (L == 1) {
-    offer(sv[0], si[0], cv, ci, valid, k, lane);
-  } else {
-    offer_wide<L>(sv, si, cv, ci, valid, k, lane);
   }
 }
 
@@ -403,312 +345,841 @@ topk_tc(const bf16* __restrict__ q, const bf16* __restrict__ db,
   }
 }
 
-// --- f32 CUDA-core partial kernel -------------------------------------------
+// --- order keys and the team selection ----------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kDK = 32;          // depth of one staged slice of D
-
-// Eight consecutive elements as f32: two 16-byte loads of f32, or one of
-// bf16 widened exactly.
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+// The float's bits as an unsigned order (larger float, larger key); -0.0
+// ranks as +0.0.
+__device__ __forceinline__ unsigned order_key(float v) {
+  unsigned b = __float_as_uint(v);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    x[2 * j] = f.x;
-    x[2 * j + 1] = f.y;
-  }
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
-// Stage rows [row0, row0 + kRows) x [d0, d0 + kDK) of a row-major (rows, D)
-// f32 or bf16 matrix into dst[d][row] as f32 (transposed), zero-filling
-// rows >= limit.
-template <int kRows, typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int row0, int limit,
-                                      int D, int d0, float* dst) {
-  constexpr int kVecs = kRows * (kDK / 8);
-#pragma unroll
-  for (int rep = 0; rep < (kVecs + kThreads - 1) / kThreads; ++rep) {
-    const int e = threadIdx.x + rep * kThreads;
-    if (kVecs % kThreads != 0 && e >= kVecs) break;
-    const int row = e / (kDK / 8), dd = (e % (kDK / 8)) * 8;
-    float x[8];
-    if (row0 + row < limit) {
-      load8(src + static_cast<size_t>(row0 + row) * D + d0 + dd, x);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) x[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) dst[(dd + u) * kRows + row] = x[u];
-  }
+// (score, row) -> key: score order high, ~row low; an empty slot (row < 0) is 0.
+__device__ __forceinline__ u64 entry_key(float v, int row) {
+  return row < 0 ? 0ull
+                 : (static_cast<u64>(order_key(v)) << 32) | static_cast<unsigned>(~row);
 }
 
-// kBQ queries x kBN rows per tile; thread (ty, tx) of a 16 x 16 grid owns
-// queries ty * kBQ/16 + i and rows tx + 16 j.  Each warp folds kBQ/8
-// queries into lists of L entries a lane.  With L = 1 the lists stay in
-// registers.  With L > 1 they live in dynamic shared memory (wide_list_bytes;
-// query i's entry e of a warp at [(i * L + e / 32) * 32 + e % 32]): each
-// query's list is loaded into registers while its chunk is folded, since
-// registers indexed by the query loop would land in local memory.
-template <typename T, int kBQ, int kBN, int L>
-__global__ void __launch_bounds__(kThreads)
-topk_f32(const T* __restrict__ q, const T* __restrict__ db,
-         float* __restrict__ cand_v, int* __restrict__ cand_i, int B, int N, int D,
-         int k, int n_splits, const float* __restrict__ bound_v,
-         const int* __restrict__ bound_i, int bound_ld) {
-  constexpr int kQPT = kBQ / 16, kRPT = kBN / 16;
-  constexpr int kScoreLd = kBN + 1;
-  constexpr int kQueriesPerWarp = kBQ / (kThreads / 32);
-  constexpr int kTileFloats = kDK * kBQ + kDK * kBN;
-  constexpr int kSmemFloats = kTileFloats > kBQ * kScoreLd ? kTileFloats : kBQ * kScoreLd;
-  __shared__ __align__(16) float smem[kSmemFloats];
-  float* q_s = smem;                 // [kDK][kBQ]
-  float* d_s = smem + kDK * kBQ;     // [kDK][kBN]
-  float* sc = smem;                  // [kBQ][kScoreLd], reuses the tiles
+constexpr int kSelThreads = 256;
+constexpr int kSelLoads = 8;        // keys a thread reads at once: one group
+constexpr int kBlockCap = 4096;     // entries a block team sorts in one round
+constexpr int kWarpCap = 256;       // ... a warp team
+constexpr int kFusedMaxRows = 1024;
+constexpr int kTeamCtlBytes = 256 * 4 + 4 * 4;   // histogram, control words
+constexpr int kMaxGroups = 8192;                 // group maxima a team holds
 
-  const int q0 = blockIdx.x * kBQ;
-  const int split = blockIdx.y;
-  int c_begin, c_end;
-  slice_range((N + kBN - 1) / kBN, n_splits, split, c_begin, c_end);
+// Groups of a row of `len` read by a team of `team` threads.
+__host__ __device__ constexpr int row_groups(int len, int team) {
+  return (len + team * kSelLoads - 1) / (team * kSelLoads) * team;
+}
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// Shared memory of a team: control, a sort buffer of 2 cap keys (a round
+// keeps cap; the gathered keys may overshoot it), `groups` group maxima.
+__host__ __device__ constexpr int team_bytes(int cap, int groups) {
+  return kTeamCtlBytes + 16 * cap + 4 * groups;
+}
 
-  constexpr bool kRegLists = L == 1;
-  constexpr int kRegQueries = kRegLists ? kQueriesPerWarp : 1;
-  float sv[kRegQueries][L];
-  int si[kRegQueries][L];
-#pragma unroll
-  for (int i = 0; i < kRegQueries; ++i)
-#pragma unroll
-    for (int s = 0; s < L; ++s) {
-      sv[i][s] = -CUDART_INF_F;
-      si[i][s] = -1;
-    }
-  extern __shared__ __align__(16) unsigned char list_smem[];
-  constexpr int kWarpEntries = kQueriesPerWarp * L * 32;
-  float* lv = reinterpret_cast<float*>(list_smem) + warp * kWarpEntries;
-  int* li = reinterpret_cast<int*>(list_smem + sizeof(float) * kBQ * L * 32) +
-            warp * kWarpEntries;
-  if constexpr (!kRegLists) {
-    for (int x = lane; x < kWarpEntries; x += 32) {
-      lv[x] = -CUDART_INF_F;
-      li[x] = -1;
-    }
-  }
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int n0 = c * kBN;
-    float acc[kQPT][kRPT];
-#pragma unroll
-    for (int i = 0; i < kQPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kRPT; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += kDK) {
-      __syncthreads();
-      stage<kBQ>(q, q0, B, D, d0, q_s);
-      stage<kBN>(db, n0, N, D, d0, d_s);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDK; ++d) {
-        float av[kQPT];
-        if constexpr (kQPT == 4) {
-          const float4 a = *reinterpret_cast<const float4*>(q_s + d * kBQ + ty * 4);
-          av[0] = a.x; av[1] = a.y; av[2] = a.z; av[3] = a.w;
-        } else {
-#pragma unroll
-          for (int i = 0; i < kQPT; ++i) av[i] = q_s[d * kBQ + ty * kQPT + i];
-        }
-#pragma unroll
-        for (int j = 0; j < kRPT; ++j) {
-          const float bv = d_s[d * kBN + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kQPT; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kQPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kRPT; ++j) sc[(ty * kQPT + i) * kScoreLd + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-
-    if constexpr (kRegLists) {
-#pragma unroll
-      for (int i = 0; i < kQueriesPerWarp; ++i) {
-        const float* row = sc + (warp * kQueriesPerWarp + i) * kScoreLd;
-#pragma unroll
-        for (int u = 0; u < kBN / 32; ++u) {
-          const int col = lane + 32 * u;
-          offer(sv[i][0], si[i][0], row[col], n0 + col, n0 + col < N, k, lane);
-        }
-      }
-    } else {
-#pragma unroll 1
-      for (int i = 0; i < kQueriesPerWarp; ++i) {
-        const float* row = sc + (warp * kQueriesPerWarp + i) * kScoreLd;
-        float* qv = lv + i * L * 32 + lane;
-        int* qx = li + i * L * 32 + lane;
-        // a later pass of a k > 256 search offers only the rows after its
-        // bound (the previous pass's last entry) in the total order
-        const int qi = q0 + warp * kQueriesPerWarp + i;
-        const bool bounded = bound_v != nullptr && qi < B;
-        const float bv = bounded ? bound_v[static_cast<size_t>(qi) * bound_ld] : CUDART_INF_F;
-        const int bi = bounded ? bound_i[static_cast<size_t>(qi) * bound_ld] : -1;
-#pragma unroll
-        for (int s = 0; s < L; ++s) {
-          sv[0][s] = qv[32 * s];
-          si[0][s] = qx[32 * s];
-        }
-#pragma unroll
-        for (int u = 0; u < kBN / 32; ++u) {
-          const int col = lane + 32 * u;
-          const float x = row[col];
-          const bool after = x < bv || (x == bv && n0 + col > bi);
-          offer_wide<L>(sv[0], si[0], x, n0 + col, n0 + col < N && after, k, lane);
-        }
-#pragma unroll
-        for (int s = 0; s < L; ++s) {
-          qv[32 * s] = sv[0][s];
-          qx[32 * s] = si[0][s];
-        }
-      }
-    }
-  }
-
-  if constexpr (kRegLists) {
-#pragma unroll
-    for (int i = 0; i < kQueriesPerWarp; ++i) {
-      const int qi = q0 + warp * kQueriesPerWarp + i;
-      if (qi < B && lane < k) {
-        const size_t o = (static_cast<size_t>(qi) * n_splits + split) * k + lane;
-        cand_v[o] = sv[i][0];
-        cand_i[o] = si[i][0];
-      }
-    }
+template <int kTeam>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (kTeam == 32) {
+    __syncwarp();
   } else {
-    for (int i = 0; i < kQueriesPerWarp; ++i) {
-      const int qi = q0 + warp * kQueriesPerWarp + i;
-      if (qi >= B) break;
-      const size_t o = (static_cast<size_t>(qi) * n_splits + split) * k;
-      for (int e = lane; e < k; e += 32) {
-        cand_v[o + e] = lv[i * L * 32 + e];
-        cand_i[o + e] = li[i * L * 32 + e];
-      }
-    }
+    __syncthreads();
   }
 }
 
-// Dynamic shared memory of topk_f32's lists: none for L = 1.
-constexpr int wide_list_bytes(int bq, int slots) {
-  return slots == 1 ? 0 : bq * slots * 32 * static_cast<int>(sizeof(float) + sizeof(int));
-}
-
-// One warp per query folds its n_cand candidates into row qi * ldo of the
-// output; a slice of fewer than k rows left -1 slots, which are never offered.
-template <int L>
-__global__ void __launch_bounds__(128)
-topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
-           float* __restrict__ out_v, int* __restrict__ out_i, int B,
-           int n_cand, int k, int ldo) {
-  const int qi = blockIdx.x * 4 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (qi >= B) return;   // whole warp leaves together
-  const float* cv = cand_v + static_cast<size_t>(qi) * n_cand;
-  const int* ci = cand_i + static_cast<size_t>(qi) * n_cand;
-  float sv[L];
-  int si[L];
-#pragma unroll
-  for (int s = 0; s < L; ++s) {
-    sv[s] = -CUDART_INF_F;
-    si[s] = -1;
-  }
-  for (int base = 0; base < n_cand; base += 32) {
-    const int c = base + lane;
-    const bool in = c < n_cand;
-    const float v = in ? cv[c] : -CUDART_INF_F;
-    const int i = in ? ci[c] : -1;
-    fold<L>(sv, si, v, i, in && i >= 0, k, lane);
-  }
-#pragma unroll
-  for (int s = 0; s < L; ++s) {
-    const int e = s * 32 + lane;
-    if (e < k) {
-      out_v[static_cast<size_t>(qi) * ldo + e] = sv[s];
-      out_i[static_cast<size_t>(qi) * ldo + e] = si[s];
-    }
-  }
-}
-
-// Per variant: query tile, chunk rows.
-constexpr int kWideBQ = 32, kWideBN = 128;
-constexpr int kTiles[5][2] = {{64, 128}, {16, 32}, {kTcBQ, kTcBN}, {kWideBQ, kWideBN},
-                              {kWideBQ, kWideBN}};
-
-// A search's bound: none, or the previous pass's last entries (row stride ld).
-struct Bound {
-  const float* v = nullptr;
-  const int* i = nullptr;
-  int ld = 0;
+// One row to select from: values v[0, len), their rows idx[j] or base + j.
+struct Row {
+  const float* v;
+  const int* idx;
+  int base, len;
 };
 
-template <typename T, int kBQ, int kBN, int L>
-cudaError_t launch_f32(const void* q, const void* db, float* cv, int* ci, int B, int N,
-                       int D, int k, int n_splits, cudaStream_t st, Bound bound = {}) {
-  constexpr int kListBytes = wide_list_bytes(kBQ, L);
-  if constexpr (kListBytes > 0) {
+// kCached: read through L1 (the row was written by an earlier launch);
+// otherwise from L2 (written by other blocks of this launch).
+template <bool kCached>
+__device__ __forceinline__ u64 row_key(const Row& r, int j) {
+  if (j >= r.len) return 0ull;
+  const float v = kCached ? __ldg(r.v + j) : __ldcg(r.v + j);
+  const int row = r.idx ? (kCached ? __ldg(r.idx + j) : __ldcg(r.idx + j)) : r.base + j;
+  return entry_key(v, row);
+}
+
+struct TeamSmem {
+  int* hist;           // 256 bins
+  int* ctl;            // 4 control words
+  u64* buf;            // the sort buffer, 2 cap keys
+  unsigned* gmax;      // the group maxima's high words
+};
+
+__device__ __forceinline__ TeamSmem team_smem(unsigned char* smem, int team, int cap,
+                                              int groups) {
+  unsigned char* p = smem + static_cast<size_t>(team) * team_bytes(cap, groups);
+  int* hist = reinterpret_cast<int*>(p);
+  u64* buf = reinterpret_cast<u64*>(p + kTeamCtlBytes);
+  return {hist, hist + 256, buf, reinterpret_cast<unsigned*>(buf + 2 * cap)};
+}
+
+// A warp: the bin of hist that holds the remaining-th largest counted key.
+// ctl = {bin, keys in the bins above it, keys in it}; bin -1 when hist
+// counts fewer than `remaining` keys.
+__device__ __forceinline__ void find_digit(const int* hist, int remaining, int* ctl, int lane) {
+  int h[8], s = 0;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    h[b] = hist[lane * 8 + b];
+    s += h[b];
+  }
+  int incl = s;                    // keys in the bins of this lane and the lanes above
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_down_sync(kFullMask, incl, o);
+    if (lane + o < 32) incl += t;
+  }
+  const int total = __shfl_sync(kFullMask, incl, 0);
+  if (total < remaining) {
+    if (lane == 0) ctl[0] = -1;
+    return;
+  }
+  int above = incl - s;
+  if (above < remaining && remaining <= incl) {
+    bool found = false;
+#pragma unroll
+    for (int b = 7; b >= 0; --b) {
+      if (!found && above + h[b] >= remaining) {
+        ctl[0] = lane * 8 + b;
+        ctl[1] = above;
+        ctl[2] = h[b];
+        found = true;
+      }
+      if (!found) above += h[b];
+    }
+  }
+}
+
+// The least key t such that the keys in [t, bound) of key_at(0 .. len-1)
+// (0 for none) number `want`: a radix descent 8 bits a pass from the top,
+// each pass a histogram of the keys that share the bits fixed so far
+// (warp-aggregated shared atomics) and one warp finding the bin of the
+// want-th key; it stops as soon as that bin is taken whole.  Keys below
+// `lower` are not counted; 1 (every key) when fewer than `want` remain.
+template <int kTeam, typename KeyAt>
+__device__ u64 kth_key(KeyAt key_at, int len, int want, u64 lower, u64 bound,
+                       const TeamSmem& s, int rank) {
+  const int lane = rank % 32;
+  u64 prefix = 0, thresh = 1;
+  int remaining = want;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int b = rank; b < 256; b += kTeam) s.hist[b] = 0;
+    team_sync<kTeam>();
+    const u64 hi = shift == 56 ? 0ull : ~0ull << (shift + 8);
+    for (int j0 = 0; j0 < len; j0 += kTeam * kSelLoads) {
+      u64 key[kSelLoads];
+#pragma unroll
+      for (int u = 0; u < kSelLoads; ++u) key[u] = key_at(j0 + u * kTeam + rank);
+#pragma unroll
+      for (int u = 0; u < kSelLoads; ++u) {
+        const bool in = key[u] >= lower && key[u] != 0 && key[u] < bound &&
+                        (key[u] & hi) == prefix;
+        const unsigned digit = static_cast<unsigned>(key[u] >> shift) & 255u;
+        const unsigned m = __ballot_sync(kFullMask, in);
+        if (in) {
+          const unsigned peers = __match_any_sync(m, digit);
+          if (lane == __ffs(peers) - 1) atomicAdd(s.hist + digit, __popc(peers));
+        }
+      }
+    }
+    team_sync<kTeam>();
+    if (rank < 32) find_digit(s.hist, remaining, s.ctl, lane);
+    team_sync<kTeam>();
+    const int d = s.ctl[0], above = s.ctl[1], in_bin = s.ctl[2];
+    team_sync<kTeam>();                    // ctl is rewritten next
+    if (d < 0) break;                      // fewer keys left than wanted
+    remaining -= above;
+    prefix |= static_cast<u64>(d) << shift;
+    thresh = prefix;
+    if (in_bin == remaining) break;        // the bin is taken whole
+  }
+  return thresh;
+}
+
+// The row's keys in [lower, bound) into buf[0, room) (order lost; those
+// past room dropped); returns how many there are.
+template <int kTeam, bool kCached>
+__device__ int gather(const Row& row, u64 lower, u64 bound, const TeamSmem& s, int room,
+                      int rank) {
+  const int lane = rank % 32;
+  if (rank == 0) s.ctl[3] = 0;
+  team_sync<kTeam>();
+  for (int j0 = 0; j0 < row.len; j0 += kTeam * kSelLoads) {
+    u64 key[kSelLoads];
+#pragma unroll
+    for (int u = 0; u < kSelLoads; ++u) key[u] = row_key<kCached>(row, j0 + u * kTeam + rank);
+#pragma unroll
+    for (int u = 0; u < kSelLoads; ++u) {
+      const bool take = key[u] != 0 && key[u] >= lower && key[u] < bound;
+      const unsigned m = __ballot_sync(kFullMask, take);
+      int base = 0;
+      if (lane == 0 && m) base = atomicAdd(s.ctl + 3, __popc(m));
+      base = __shfl_sync(kFullMask, base, 0);
+      if (take) {
+        const int pos = base + __popc(m & ((1u << lane) - 1u));
+        if (pos < room) s.buf[pos] = key[u];
+      }
+    }
+  }
+  team_sync<kTeam>();
+  const int got = s.ctl[3];
+  team_sync<kTeam>();
+  return got;
+}
+
+// Sort buf[0, n) (n a power of two) into descending order.
+template <int kTeam>
+__device__ void bitonic_desc(u64* buf, int n, int rank) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = rank; t < n / 2; t += kTeam) {
+        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
+        const u64 a = buf[lo], b = buf[hi];
+        if ((a < b) == ((lo & size) == 0)) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      team_sync<kTeam>();
+    }
+}
+
+// The k best entries of `row`, sorted, to out_v / out_i [0, k); slots past
+// the row's entries get (-inf, -1).  A team of kTeam threads (rank 0 ..
+// kTeam - 1, every one of them calling) shares s, with room for `groups`
+// group maxima.  Each round (a k above cap takes several, each after the
+// previous round's last key) first reads the row once in groups of
+// kSelLoads keys a thread and keeps each group's largest score: the want-th
+// largest of those maxima is a lower bound that at least `want` keys reach,
+// and few more on real scores, so that one more read gathers them all (up
+// to 2 cap) and a sort ends the round.  Where the groups are too few, or
+// more keys pass, the radix descent over the row (above that bound) finds
+// the want-th key itself; a round that takes every key left needs neither.
+template <int kTeam, bool kCached>
+__device__ void select_row(const Row& row, int k, float* out_v, int* out_i, const TeamSmem& s,
+                           int cap, int groups, int rank) {
+  const int n_groups = row_groups(row.len, kTeam);
+  u64 bound = ~0ull;
+  for (int done = 0; done < k;) {
+    const int want = min(k - done, cap);
+    u64 lower = 1;
+    int got = -1;                          // keys gathered, -1 for none yet
+    if (n_groups <= groups && n_groups >= want) {
+      for (int j0 = 0, g = rank; j0 < row.len; j0 += kTeam * kSelLoads, g += kTeam) {
+        unsigned top = 0;
+#pragma unroll
+        for (int u = 0; u < kSelLoads; ++u) {
+          const u64 key = row_key<kCached>(row, j0 + u * kTeam + rank);
+          if (key < bound) top = max(top, static_cast<unsigned>(key >> 32));
+        }
+        s.gmax[g] = top;
+      }
+      team_sync<kTeam>();
+      const unsigned* gm = s.gmax;
+      auto group_key = [&](int g) { return g < n_groups ? static_cast<u64>(gm[g]) << 32 : 0ull; };
+      lower = kth_key<kTeam>(group_key, n_groups, want, 1, ~0ull, s, rank) & 0xffffffff00000000ull;
+      if (lower == 0) lower = 1;
+      got = gather<kTeam, kCached>(row, lower, bound, s, 2 * cap, rank);
+    }
+    if (got < 0 && want >= row.len) {        // the round takes every key left
+      got = gather<kTeam, kCached>(row, 1, bound, s, cap, rank);
+    } else if (got < 0 || got > 2 * cap) {
+      const u64 thresh = kth_key<kTeam>([&](int j) { return row_key<kCached>(row, j); }, row.len,
+                                        want, lower, bound, s, rank);
+      got = gather<kTeam, kCached>(row, max(thresh, lower), bound, s, cap, rank);
+    }
+    got = min(got, 2 * cap);
+    int n = 1;
+    while (n < got) n <<= 1;
+    for (int e = got + rank; e < n; e += kTeam) s.buf[e] = 0ull;
+    team_sync<kTeam>();
+    bitonic_desc<kTeam>(s.buf, n, rank);
+    for (int e = rank; e < want; e += kTeam) {
+      const u64 key = e < got ? s.buf[e] : 0ull;
+      out_v[done + e] = key ? key_value(static_cast<unsigned>(key >> 32)) : -CUDART_INF_F;
+      out_i[done + e] = key ? static_cast<int>(~static_cast<unsigned>(key)) : -1;
+    }
+    bound = want <= got ? s.buf[want - 1] : 0ull;
+    done += want;
+    team_sync<kTeam>();                    // buf and ctl are rewritten next round
+    if (bound == 0ull) {                   // the row ran out: the rest are empty slots
+      for (int e = done + rank; e < k; e += kTeam) {
+        out_v[e] = -CUDART_INF_F;
+        out_i[e] = -1;
+      }
+      break;
+    }
+  }
+}
+
+// Whether this team is the last of `total` to finish its share; that team
+// resets the counter for the next launch.  Every thread of the team calls.
+template <int kTeam>
+__device__ __forceinline__ bool last_of(int* counter, int total, int rank, int* flag) {
+  __threadfence();
+  team_sync<kTeam>();
+  if (rank == 0) {
+    const bool last = atomicAdd(counter, 1) == total - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  team_sync<kTeam>();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// One team per (row, segment) of a (rows, row_len) matrix with row stride
+// ld: values, and indices `idx` or the column.  One segment: the row's k
+// best go to out (row stride k).  Several: each segment's min(k, segment)
+// best go to cand (row * n_segs + seg, stride that), and the team that
+// finishes a row's last segment merges the row's candidates into out.
+template <int kTeam>
+__global__ void __launch_bounds__(kSelThreads)
+topk_select(const float* __restrict__ vals, const int* __restrict__ idx, int rows, int row_len,
+            int ld, int n_segs, int k, float* cand_v, int* cand_i, float* __restrict__ out_v,
+            int* __restrict__ out_i, int* counters, int cap, int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kTeams = kSelThreads / kTeam;
+  const int rank = threadIdx.x % kTeam, team = threadIdx.x / kTeam;
+  const long long t = static_cast<long long>(blockIdx.x) * kTeams + team;
+  if (t >= static_cast<long long>(rows) * n_segs) return;   // a whole team (warp teams only)
+  const TeamSmem s = team_smem(smem, team, cap, groups);
+  const int row = static_cast<int>(t / n_segs), seg = static_cast<int>(t % n_segs);
+  const int seg_len = (row_len + n_segs - 1) / n_segs, start = seg * seg_len;
+  const size_t at = static_cast<size_t>(row) * ld + start;
+  const Row r{vals + at, idx ? idx + at : nullptr, start, max(0, min(seg_len, row_len - start))};
+  float* ov = out_v + static_cast<size_t>(row) * k;
+  int* oi = out_i + static_cast<size_t>(row) * k;
+  if (n_segs == 1) {
+    select_row<kTeam, true>(r, k, ov, oi, s, cap, groups, rank);
+    return;
+  }
+  const int kc = min(k, seg_len);
+  const size_t c0 = static_cast<size_t>(row) * n_segs * kc;
+  select_row<kTeam, true>(r, kc, cand_v + c0 + seg * kc, cand_i + c0 + seg * kc, s, cap, groups,
+                          rank);
+  if (!last_of<kTeam>(counters + row, n_segs, rank, s.ctl + 1)) return;
+  const Row c{cand_v + c0, cand_i + c0, 0, n_segs * kc};
+  select_row<kTeam, false>(c, k, ov, oi, s, cap, groups, rank);
+}
+
+// --- f32 score tiles on CUDA cores ---------------------------------------------
+//
+// A BM-query x BN-row tile, TM x TN outputs a thread: output (i, j) of
+// thread (ty, tx) is query m_of(ty, i), row n_of(tx, j), in runs of up to
+// four neighbours (G) so that each depth step reads them as one vector.
+// Each kF32DK-deep slice of both operands is staged transposed ([d][m]);
+// the next slice's loads are in registers while this one is multiplied.
+
+constexpr int kF32DK = 16;
+constexpr int kVecs = kF32DK / 4;     // 16-byte loads a row of a slice
+
+template <int BM, int BN, int TM, int TN>
+struct F32Tile {
+  static constexpr int kThreads = (BM / TM) * (BN / TN);
+  static constexpr int kGM = TM < 4 ? TM : 4, kGN = TN < 4 ? TN : 4;
+  static constexpr int kBandM = BM / (TM / kGM), kBandN = BN / (TN / kGN);
+  static constexpr int kPitchM = BM + 4, kPitchN = BN + 4;
+  static constexpr int kStage = kF32DK * (kPitchM + kPitchN);          // floats
+  static constexpr int kSmemBytes = 2 * kStage * static_cast<int>(sizeof(float));
+  static constexpr int kLoadsA = (BM * kVecs + kThreads - 1) / kThreads;
+  static constexpr int kLoadsB = (BN * kVecs + kThreads - 1) / kThreads;
+  __device__ static int m_of(int ty, int i) { return (i / kGM) * kBandM + ty * kGM + i % kGM; }
+  __device__ static int n_of(int tx, int j) { return (j / kGN) * kBandN + tx * kGN + j % kGN; }
+};
+
+template <int G>
+__device__ __forceinline__ void load_run(const float* p, float* x) {
+  if constexpr (G == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (G == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void store_run(float* p, const float* x) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (G == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    p[0] = x[0];
+  }
+}
+
+// acc = the tile's scores: queries q0.., rows n0.., summed over d in order.
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void f32_tile(const float* __restrict__ q,
+                                         const float* __restrict__ db, int B, int N, int D,
+                                         int q0, int n0, float* smem, float (&acc)[TM][TN]) {
+  using T = F32Tile<BM, BN, TM, TN>;
+  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
+  float4 ra[T::kLoadsA], rb[T::kLoadsB];
+  auto fetch = [&](int d0) {
+#pragma unroll
+    for (int u = 0; u < T::kLoadsA; ++u) {
+      const int e = tid + u * T::kThreads, r = e / kVecs;
+      ra[u] = e < BM * kVecs && q0 + r < B
+                  ? __ldg(reinterpret_cast<const float4*>(q + static_cast<size_t>(q0 + r) * D +
+                                                          d0 + (e % kVecs) * 4))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < T::kLoadsB; ++u) {
+      const int e = tid + u * T::kThreads, r = e / kVecs;
+      rb[u] = e < BN * kVecs && n0 + r < N
+                  ? __ldg(reinterpret_cast<const float4*>(db + static_cast<size_t>(n0 + r) * D +
+                                                          d0 + (e % kVecs) * 4))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto put = [&](int stage) {
+    float* as = smem + stage * T::kStage;
+    float* bs = as + kF32DK * T::kPitchM;
+#pragma unroll
+    for (int u = 0; u < T::kLoadsA; ++u) {
+      const int e = tid + u * T::kThreads, r = e / kVecs, c = (e % kVecs) * 4;
+      if (e < BM * kVecs) {
+        as[(c + 0) * T::kPitchM + r] = ra[u].x;
+        as[(c + 1) * T::kPitchM + r] = ra[u].y;
+        as[(c + 2) * T::kPitchM + r] = ra[u].z;
+        as[(c + 3) * T::kPitchM + r] = ra[u].w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < T::kLoadsB; ++u) {
+      const int e = tid + u * T::kThreads, r = e / kVecs, c = (e % kVecs) * 4;
+      if (e < BN * kVecs) {
+        bs[(c + 0) * T::kPitchN + r] = rb[u].x;
+        bs[(c + 1) * T::kPitchN + r] = rb[u].y;
+        bs[(c + 2) * T::kPitchN + r] = rb[u].z;
+        bs[(c + 3) * T::kPitchN + r] = rb[u].w;
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int n_steps = D / kF32DK;
+  fetch(0);
+  put(0);
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) fetch((s + 1) * kF32DK);
+    const float* as = smem + (s & 1) * T::kStage;
+    const float* bs = as + kF32DK * T::kPitchM;
+#pragma unroll
+    for (int d = 0; d < kF32DK; ++d) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int g = 0; g < TM / T::kGM; ++g)
+        load_run<T::kGM>(as + d * T::kPitchM + g * T::kBandM + ty * T::kGM, a + g * T::kGM);
+#pragma unroll
+      for (int g = 0; g < TN / T::kGN; ++g)
+        load_run<T::kGN>(bs + d * T::kPitchN + g * T::kBandN + tx * T::kGN, b + g * T::kGN);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (s + 1 < n_steps) put((s + 1) & 1);
+    __syncthreads();
+  }
+}
+
+// The tile to scores[query * ld + row] (ld % 4 == 0, so a run of G never
+// crosses a row's end).
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void f32_store(const float (&acc)[TM][TN], float* scores, int ld,
+                                          int B, int N, int q0, int n0) {
+  using T = F32Tile<BM, BN, TM, TN>;
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = q0 + T::m_of(ty, i);
+    if (m >= B) continue;
+#pragma unroll
+    for (int g = 0; g < TN / T::kGN; ++g) {
+      const int n = n0 + T::n_of(tx, g * T::kGN);
+      if (n < N) store_run<T::kGN>(scores + static_cast<size_t>(m) * ld + n, &acc[i][g * T::kGN]);
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), 2)
+topk_score_f32(const float* __restrict__ q, const float* __restrict__ db,
+               float* __restrict__ scores, int ld, int B, int N, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[TM][TN];
+  f32_tile<BM, BN, TM, TN>(q, db, B, N, D, q0, n0, reinterpret_cast<float*>(smem), acc);
+  f32_store<BM, BN, TM, TN>(acc, scores, ld, B, N, q0, n0);
+}
+
+// --- f32 score tiles streamed through a cp.async ring (topk_fused) -----------
+//
+// For tiles too small to hide a slice's copy behind its products: TM x TN
+// outputs a thread, output (i, j) of thread (ty, tx) query ty + i * BM / TM,
+// row tx + j * BN / TN, so that a warp reads neighbouring rows and stores
+// neighbouring scores.  DK-deep slices of both operands stream through a
+// kStages-deep cp.async ring, rows of DK + 4 floats (an odd multiple of 16
+// bytes: the 16-byte reads of eight neighbouring rows fall on distinct
+// banks).  Each score sums its D products in order by fmaf.
+
+template <int BM, int BN, int TM, int TN, int DK, int kStages>
+struct RingTile {
+  static constexpr int kThreads = (BM / TM) * (BN / TN);
+  static constexpr int kPitch = DK + 4;
+  static constexpr int kStage = (BM + BN) * kPitch;                    // floats
+  static constexpr int kSmemBytes = kStages * kStage * static_cast<int>(sizeof(float));
+};
+
+// acc = the tile's scores: queries q0.., rows n0...  Ends with a barrier, so
+// the caller may reuse the shared memory.
+template <int BM, int BN, int TM, int TN, int DK, int kStages>
+__device__ __forceinline__ void ring_tile(const float* __restrict__ q,
+                                         const float* __restrict__ db, int B, int N, int D,
+                                         int q0, int n0, float* smem, float (&acc)[TM][TN]) {
+  using T = RingTile<BM, BN, TM, TN, DK, kStages>;
+  constexpr int kChunks = DK / 4;               // 16-byte copies a row of a slice
+  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
+  auto load_stage = [&](int s) {
+    float* as = smem + (s % kStages) * T::kStage;
+    float* bs = as + BM * T::kPitch;
+    const int d0 = s * DK;
+#pragma unroll
+    for (int e = tid; e < BM * kChunks; e += T::kThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * 4;
+      const bool in = q0 + r < B;                // rows past the edge are zero-filled
+      cp_async16(as + r * T::kPitch + c, q + static_cast<size_t>(in ? q0 + r : 0) * D + d0 + c,
+                 in);
+    }
+#pragma unroll
+    for (int e = tid; e < BN * kChunks; e += T::kThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * 4;
+      const bool in = n0 + r < N;
+      cp_async16(bs + r * T::kPitch + c, db + static_cast<size_t>(in ? n0 + r : 0) * D + d0 + c,
+                 in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int n_steps = D / DK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();                  // slice s landed; slot s - 1 is free
+    if (s + kStages - 1 < n_steps) load_stage(s + kStages - 1);
+    cp_async_commit();
+    const float* as = smem + (s % kStages) * T::kStage + ty * T::kPitch;
+    const float* bs = smem + (s % kStages) * T::kStage + (BM + tx) * T::kPitch;
+#pragma unroll
+    for (int c = 0; c < DK; c += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + i * (BM / TM) * T::kPitch + c);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(bs + j * (BN / TN) * T::kPitch + c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The tile to scores[query * ld + row].
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void ring_store(const float (&acc)[TM][TN], float* scores, int ld,
+                                          int B, int N, int q0, int n0) {
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = q0 + ty + i * (BM / TM);
+    if (m >= B) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + j * (BN / TN);
+      if (n < N) scores[static_cast<size_t>(m) * ld + n] = acc[i][j];
+    }
+  }
+}
+
+// --- f32 score and select in one launch (N <= kFusedMaxRows) ------------------
+//
+// BQ queries x BN rows a block, one output a thread; 32-deep slices six
+// deep in flight (the per-slice work is small, so the copies' latency is
+// what the ring hides).  The block that finishes a query tile's last row
+// tile selects its rows: at k <= kWarpCap 4 x 32 tiles and a warp a row;
+// above, 1 x 128 tiles, so that each query's block sorts its row with all
+// its threads (one warp sorting 1024 keys is a long serial chain).
+
+constexpr int kFusedThreads = 128, kFusedDK = 32, kFusedStages = 6;
+constexpr int kFusedBQ = 4, kFusedBN = kFusedThreads / kFusedBQ;   // k <= kWarpCap
+
+template <int BQ>
+using FusedTile = RingTile<BQ, kFusedThreads / BQ, 1, 1, kFusedDK, kFusedStages>;
+
+template <int BQ>
+__global__ void __launch_bounds__(kFusedThreads)
+topk_fused(const float* __restrict__ q, const float* __restrict__ db, float* scores, int ld,
+           int B, int N, int D, int k, float* __restrict__ out_v, int* __restrict__ out_i,
+           int* counters, int cap) {
+  constexpr int BN = kFusedThreads / BQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.y * BQ, n0 = blockIdx.x * BN;
+  float acc[1][1];
+  ring_tile<BQ, BN, 1, 1, kFusedDK, kFusedStages>(q, db, B, N, D, q0, n0,
+                                                  reinterpret_cast<float*>(smem), acc);
+  ring_store<BQ, BN, 1, 1>(acc, scores, ld, B, N, q0, n0);
+  __shared__ int flag;
+  if (!last_of<kFusedThreads>(counters + blockIdx.y, gridDim.x, threadIdx.x, &flag)) return;
+  if constexpr (BQ == 1) {
+    const int groups = row_groups(N, kFusedThreads);
+    const TeamSmem s = team_smem(smem, 0, cap, groups);
+    select_row<kFusedThreads, false>(Row{scores + static_cast<size_t>(q0) * ld, nullptr, 0, N},
+                                     k, out_v + static_cast<size_t>(q0) * k,
+                                     out_i + static_cast<size_t>(q0) * k, s, cap, groups,
+                                     threadIdx.x);
+  } else {
+    const int warp = threadIdx.x / 32, groups = row_groups(N, 32);
+    const TeamSmem s = team_smem(smem, warp, cap, groups);
+    for (int r = warp; r < BQ && q0 + r < B; r += kFusedThreads / 32) {
+      const size_t qi = q0 + r;
+      select_row<32, false>(Row{scores + qi * ld, nullptr, 0, N}, k, out_v + qi * k,
+                            out_i + qi * k, s, cap, groups, threadIdx.x % 32);
+    }
+  }
+}
+
+// --- bf16 score tiles on tensor cores (k > 32 or D > 1024) --------------------
+//
+// 128 database rows x 64 queries a block; 8 warps of 32 rows x 32 queries,
+// each k16 step two A fragments (database rows) and four B fragments
+// (queries), both ldmatrix'd from the ring, into 8 mma.
+
+constexpr int kMmaThreads = 256;
+constexpr int kMmaBR = 128;
+constexpr int kMmaBQ = 64;
+constexpr int kMmaDK = 64;
+constexpr int kMmaStages = 4;
+constexpr int kMmaPitch = kMmaDK + 8;          // 144-byte rows: ldmatrix conflict-free
+constexpr int kMmaStageElems = (kMmaBR + kMmaBQ) * kMmaPitch;
+constexpr int kMmaSmemBytes = static_cast<int>(sizeof(bf16)) * kMmaStages * kMmaStageElems;
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+topk_score_bf16(const bf16* __restrict__ q, const bf16* __restrict__ db,
+                float* __restrict__ scores, int ld, int B, int N, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * kMmaBR, q0 = blockIdx.y * kMmaBQ;
+  const int n_steps = D / kMmaDK;
+  auto load_stage = [&](int s) {
+    bf16* rows = ring + (s % kMmaStages) * kMmaStageElems;
+    bf16* qs = rows + kMmaBR * kMmaPitch;
+    const int d0 = s * kMmaDK;
+#pragma unroll
+    for (int rep = 0; rep < kMmaBR * (kMmaDK / 8) / kMmaThreads; ++rep) {
+      const int e = tid + rep * kMmaThreads, r = e / (kMmaDK / 8), c = (e % (kMmaDK / 8)) * 8;
+      const bool in = n0 + r < N;      // the ragged edge is zero-filled
+      cp_async16(rows + r * kMmaPitch + c,
+                 db + static_cast<size_t>(in ? n0 + r : 0) * D + d0 + c, in);
+    }
+#pragma unroll
+    for (int rep = 0; rep < kMmaBQ * (kMmaDK / 8) / kMmaThreads; ++rep) {
+      const int e = tid + rep * kMmaThreads, r = e / (kMmaDK / 8), c = (e % (kMmaDK / 8)) * 8;
+      const bool in = q0 + r < B;
+      cp_async16(qs + r * kMmaPitch + c,
+                 q + static_cast<size_t>(in ? q0 + r : 0) * D + d0 + c, in);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < n_steps) load_stage(s);
+    cp_async_commit();
+  }
+  const int wr = (warp % 4) * 32, wq = (warp / 4) * 32;
+  const int a_off = (lane % 16) * kMmaPitch + (lane / 16) * 8;
+  const int b_off = ((lane / 16) * 8 + lane % 8) * kMmaPitch + ((lane / 8) % 2) * 8;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();                  // stage s landed; slot s-1 is free
+    if (s + kMmaStages - 1 < n_steps) load_stage(s + kMmaStages - 1);
+    cp_async_commit();
+    const bf16* rows = ring + (s % kMmaStages) * kMmaStageElems;
+    const bf16* qs = rows + kMmaBR * kMmaPitch;
+#pragma unroll
+    for (int ks = 0; ks < kMmaDK / 16; ++ks) {
+      unsigned af[2][4], bfr[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(af[mt], rows + (wr + mt * 16) * kMmaPitch + a_off + ks * 16);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4(bfr[np], qs + (wq + np * 16) * kMmaPitch + b_off + ks * 16);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mt][2 * np], af[mt], bfr[np]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[np] + 2);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  // acc[mt][nt]: rows g and g + 8 of the m-tile, queries 2t and 2t + 1 of the n-tile
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = n0 + wr + mt * 16 + g + 8 * (e / 2);
+        const int qi = q0 + wq + nt * 8 + 2 * t + e % 2;
+        if (row < N && qi < B) scores[static_cast<size_t>(qi) * ld + row] = acc[mt][nt][e];
+      }
+}
+
+// --- launches -------------------------------------------------------------------
+
+// Per variant: query tile, database rows a block, depth step.
+constexpr int kTiles[5][3] = {{128, 128, kF32DK}, {64, 64, kF32DK}, {kTcBQ, kTcBN, kTcDK},
+                              {kMmaBQ, kMmaBR, kMmaDK}, {kFusedBQ, kFusedBN, kFusedDK}};
+
+inline int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+constexpr int kMaxDynSmem = 226 * 1024;   // 227 KB less room for static shared memory
+
+// Raise `kernel`'s dynamic shared-memory limit to near the card's, once.
+template <typename K>
+cudaError_t allow_max_smem(K kernel, int (&done)[64]) {
+  return allow_smem(reinterpret_cast<const void*>(kernel), kMaxDynSmem, done);
+}
+
+// A team per (row, segment): warps where the rows are many, short and k
+// small, else blocks; room for the group maxima of a segment and of the
+// merged candidates.
+cudaError_t launch_select(const float* vals, const int* idx, int rows, int row_len, int ld,
+                          int n_segs, int k, float* cand_v, int* cand_i, float* out_v,
+                          int* out_i, int* counters, cudaStream_t st) {
+  const long long teams = static_cast<long long>(rows) * n_segs;
+  const int seg_len = (row_len + n_segs - 1) / n_segs;
+  const int merged = n_segs > 1 ? n_segs * std::min(k, seg_len) : 0;
+  cudaError_t err;
+  if (k <= kWarpCap && teams >= 512 && seg_len <= 4096) {
     static int smem_set[64];
-    cudaError_t err = allow_smem(reinterpret_cast<const void*>(topk_f32<T, kBQ, kBN, L>),
-                                 kListBytes, smem_set);
-    if (err != cudaSuccess) return err;
+    if ((err = allow_max_smem(topk_select<32>, smem_set)) != cudaSuccess) return err;
+    constexpr int kTeams = kSelThreads / 32;
+    const int cap = pow2_at_least(k), groups = row_groups(seg_len, 32);
+    topk_select<32><<<static_cast<unsigned>((teams + kTeams - 1) / kTeams), kSelThreads,
+                      kTeams * team_bytes(cap, groups), st>>>(vals, idx, rows, row_len, ld,
+                                                              n_segs, k, cand_v, cand_i, out_v,
+                                                              out_i, counters, cap, groups);
+  } else {
+    static int smem_set[64];
+    if ((err = allow_max_smem(topk_select<kSelThreads>, smem_set)) != cudaSuccess) return err;
+    const int cap = pow2_at_least(std::min(k, kBlockCap));
+    const int groups = std::min(kMaxGroups, row_groups(std::max(seg_len, merged), kSelThreads));
+    topk_select<kSelThreads><<<static_cast<unsigned>(teams), kSelThreads,
+                               team_bytes(cap, groups), st>>>(
+        vals, idx, rows, row_len, ld, n_segs, k, cand_v, cand_i, out_v, out_i, counters, cap,
+        groups);
   }
-  dim3 grid((B + kBQ - 1) / kBQ, n_splits);
-  topk_f32<T, kBQ, kBN, L><<<grid, kThreads, kListBytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(db), cv, ci, B, N, D, k, n_splits,
-      bound.v, bound.i, bound.ld);
   return cudaGetLastError();
 }
 
-// Slots a lane for a list of k entries: 1 up to 32, else 2, 4 or 8.
-inline int list_slots(int k) { return k <= kLaneK ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8; }
-
-// The wide tiling at any k <= kMaxK: a short final pass of a k > 256 search
-// (k <= 32) takes the L = 2 lists, not the k <= 32 kernels.
-template <typename T>
-cudaError_t launch_wide(const void* q, const void* db, float* cv, int* ci, int B, int N,
-                        int D, int k, int n_splits, cudaStream_t st, Bound bound) {
-  switch (list_slots(k)) {
-    case 1:
-    case 2:
-      return launch_f32<T, kWideBQ, kWideBN, 2>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
-    case 4:
-      return launch_f32<T, kWideBQ, kWideBN, 4>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
-    default:
-      return launch_f32<T, kWideBQ, kWideBN, 8>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
-  }
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_score_f32(const float* q, const float* db, float* scores, int ld, int B,
+                             int N, int D, cudaStream_t st) {
+  using T = F32Tile<BM, BN, TM, TN>;
+  dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM);
+  topk_score_f32<BM, BN, TM, TN><<<grid, T::kThreads, T::kSmemBytes, st>>>(q, db, scores, ld,
+                                                                           B, N, D);
+  return cudaGetLastError();
 }
 
-cudaError_t launch_merge(const float* cv, const int* ci, float* out_v, int* out_i, int B,
-                         int n_cand, int k, int ldo, cudaStream_t st) {
-  const int blocks = (B + 3) / 4;
-  switch (list_slots(k)) {
-    case 1: topk_merge<1><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo); break;
-    case 2: topk_merge<2><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo); break;
-    case 4: topk_merge<4><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo); break;
-    default: topk_merge<8><<<blocks, 128, 0, st>>>(cv, ci, out_v, out_i, B, n_cand, k, ldo);
-  }
+cudaError_t launch_score_bf16(const bf16* q, const bf16* db, float* scores, int ld, int B, int N,
+                              int D, cudaStream_t st) {
+  static int smem_set[64];
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(topk_score_bf16), kMmaSmemBytes,
+                               smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kMmaBR - 1) / kMmaBR, (B + kMmaBQ - 1) / kMmaBQ);
+  topk_score_bf16<<<grid, kMmaThreads, kMmaSmemBytes, st>>>(q, db, scores, ld, B, N, D);
   return cudaGetLastError();
+}
+
+// Shared memory: the tile's ring, then the selection's (a warp team's per
+// warp, or the block team's).
+template <int BQ>
+cudaError_t launch_fused_tiles(const float* q, const float* db, float* scores, int ld, int B,
+                               int N, int D, int k, float* out_v, int* out_i, int* counters,
+                               cudaStream_t st) {
+  static int smem_set[64];
+  cudaError_t err = allow_max_smem(topk_fused<BQ>, smem_set);
+  if (err != cudaSuccess) return err;
+  const int cap = pow2_at_least(k);
+  const int sel = BQ == 1 ? team_bytes(cap, row_groups(N, kFusedThreads))
+                          : (kFusedThreads / 32) * team_bytes(cap, row_groups(N, 32));
+  constexpr int BN = kFusedThreads / BQ;
+  dim3 grid((N + BN - 1) / BN, (B + BQ - 1) / BQ);
+  topk_fused<BQ><<<grid, kFusedThreads, std::max(FusedTile<BQ>::kSmemBytes, sel), st>>>(
+      q, db, scores, ld, B, N, D, k, out_v, out_i, counters, cap);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fused(const float* q, const float* db, float* scores, int ld, int B, int N,
+                         int D, int k, float* out_v, int* out_i, int* counters, cudaStream_t st) {
+  if (k <= kWarpCap)
+    return launch_fused_tiles<kFusedBQ>(q, db, scores, ld, B, N, D, k, out_v, out_i, counters, st);
+  return launch_fused_tiles<1>(q, db, scores, ld, B, N, D, k, out_v, out_i, counters, st);
 }
 
 template <int kMaxSlices>
@@ -735,50 +1206,68 @@ cudaError_t launch_tc(const void* q, const void* db, float* cv, int* ci, int B, 
 
 }  // namespace
 
-extern "C" int keds_topk_max_k() { return kMaxK; }
 extern "C" int keds_topk_query_tile(int variant) { return kTiles[variant][0]; }
 extern "C" int keds_topk_chunk_rows(int variant) { return kTiles[variant][1]; }
-// Largest D of the bf16 kernel (its queries' fragments live in registers).
+extern "C" int keds_topk_depth_step(int variant) { return kTiles[variant][2]; }
+// Largest D of topk_tc (its queries' fragments live in registers).
 extern "C" int keds_topk_tc_max_dim() { return kTcMaxDim; }
+extern "C" int keds_topk_fused_max_rows() { return kFusedMaxRows; }
 
-// q (B, D) and db (N, D) row-major, 16-byte aligned; D % 64 == 0 and
-// D <= 1024 for bf16_tc, D % 32 == 0 otherwise (the Python wrapper,
-// ops/topk.py:mips_topk, takes any D: it zero-pads D to the step and sends
-// bf16 rows wider than 1024 to the wide bf16 variant at any k).  k <= 32,
-// or k <= 256 for the wide variants.  cand_v / cand_i: scratch of B * n_splits * k entries.
-// n_splits <= the number of chunks.  The result goes to out_v / out_i with
-// row stride out_ld >= k.  bound_v / bound_i (wide variants only; null for
-// none) point at each query's bound entry, row stride out_ld: one pass of a
-// k > 256 search (see the header).
-extern "C" int keds_mips_topk(const void* q, const void* db, void* cand_v,
-                              void* cand_i, void* out_v, void* out_i, int variant,
-                              int B, int N, int D, int k, int n_splits, int out_ld,
-                              const void* bound_v, const void* bound_i, void* stream) {
-  const bool wide = variant == kF32Wide || variant == kBf16Wide;
-  if (k < 1 || k > (wide ? kMaxK : kLaneK) || k > N || B < 1 || n_splits < 1 ||
-      variant < kF32 || variant > kBf16Wide || out_ld < k ||
-      ((bound_v != nullptr || bound_i != nullptr) && !wide) ||
-      ((bound_v == nullptr) != (bound_i == nullptr)))
+// q (B, D) and db (N, D) row-major, 16-byte aligned, D a multiple of the
+// variant's depth step (the Python wrapper, ops/topk.py:mips_topk, zero-pads
+// any D).  1 <= k <= N; k <= 32 and D <= 1024 for bf16_tc; N <= 1024 for
+// f32_fused.  out_v / out_i: (B, k).  bf16_tc: cand_v / cand_i hold
+// B * n_splits * k entries (n_splits database slices, <= the chunks).  The
+// others: scores holds B * ld floats (ld >= N, a multiple of 4); n_splits
+// segments of each row, and with more than one cand_v / cand_i hold
+// B * n_splits * min(k, ceil(N / n_splits)) entries.  counters: at least B
+// zeroed ints, left zeroed.  *kernels receives the number of kernels
+// launched (the same for every k).
+extern "C" int keds_mips_topk(const void* q, const void* db, void* scores, void* cand_v,
+                              void* cand_i, void* out_v, void* out_i, void* counters,
+                              int variant, int B, int N, int D, int k, int n_splits, int ld,
+                              void* stream, int* kernels) {
+  *kernels = 0;
+  if (variant < kF32 || variant > kF32Fused || k < 1 || k > N || B < 1 || n_splits < 1 ||
+      n_splits > N || D < 1 || D % kTiles[variant][2] ||
+      (variant == kBf16Tc && (k > kLaneK || D > kTcMaxDim)) ||
+      (variant != kBf16Tc && (ld < N || ld % 4)) ||
+      (variant == kF32Fused && (N > kFusedMaxRows || n_splits != 1)))
     return cudaErrorInvalidValue;
   float* cv = static_cast<float*>(cand_v);
   int* ci = static_cast<int*>(cand_i);
+  float* ov = static_cast<float*>(out_v);
+  int* oi = static_cast<int*>(out_i);
+  float* sc = static_cast<float*>(scores);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Bound bound{static_cast<const float*>(bound_v), static_cast<const int*>(bound_i),
-                    out_ld};
   cudaError_t err;
-  if (variant == kBf16Tc) {
-    if (D % kTcDK || D > keds_topk_tc_max_dim()) return cudaErrorInvalidValue;
-    err = launch_tc(q, db, cv, ci, B, N, D, k, n_splits, st);
-  } else {
-    if (D % kDK) return cudaErrorInvalidValue;
-    switch (variant) {
-      case kF32: err = launch_f32<float, 64, 128, 1>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
-      case kF32Small: err = launch_f32<float, 16, 32, 1>(q, db, cv, ci, B, N, D, k, n_splits, st); break;
-      case kF32Wide: err = launch_wide<float>(q, db, cv, ci, B, N, D, k, n_splits, st, bound); break;
-      default: err = launch_wide<bf16>(q, db, cv, ci, B, N, D, k, n_splits, st, bound);
-    }
+  switch (variant) {
+    case kBf16Tc:
+      err = launch_tc(q, db, cv, ci, B, N, D, k, n_splits, st);
+      if (err != cudaSuccess) return err;
+      *kernels = 1;
+      err = launch_select(cv, ci, B, n_splits * k, n_splits * k, 1, k, nullptr, nullptr, ov, oi,
+                          cnt, st);
+      break;
+    case kF32Fused:
+      err = launch_fused(static_cast<const float*>(q), static_cast<const float*>(db), sc, ld, B,
+                         N, D, k, ov, oi, cnt, st);
+      break;
+    default:
+      if (variant == kF32)
+        err = launch_score_f32<128, 128, 8, 8>(static_cast<const float*>(q),
+                                               static_cast<const float*>(db), sc, ld, B, N, D, st);
+      else if (variant == kF32Mid)
+        err = launch_score_f32<64, 64, 4, 4>(static_cast<const float*>(q),
+                                             static_cast<const float*>(db), sc, ld, B, N, D, st);
+      else
+        err = launch_score_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(db), sc,
+                                ld, B, N, D, st);
+      if (err != cudaSuccess) return err;
+      *kernels = 1;
+      err = launch_select(sc, nullptr, B, N, ld, n_splits, k, cv, ci, ov, oi, cnt, st);
   }
-  if (err != cudaSuccess) return err;
-  return launch_merge(cv, ci, static_cast<float*>(out_v), static_cast<int*>(out_i), B,
-                      n_splits * k, k, out_ld, st);
+  if (err == cudaSuccess) ++*kernels;
+  return err;
 }

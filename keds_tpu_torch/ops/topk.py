@@ -2,20 +2,21 @@
 ``keds_tpu/ops/topk.py`` and ``keds_tpu/ops/pallas_topk.py``).
 
 :func:`mips_topk` does the knowledge-DB neighbour search and the corpus
-ranking.  On CUDA tensors it launches the hand-written fused kernel
-``csrc/topk.cu`` (which replaces the Pallas ``mips_topk_pallas``) or
-raises: bf16 runs the tensor-core kernel (variant ``bf16_tc``), f32 the
-exact-f32 CUDA-core kernel (variant ``f32``).  Above k = 32 both dtypes
-take the CUDA-core kernel with lists of up to eight entries a lane (f32
-counts as ``f32``, bf16 as ``bf16``), up to k = 256 in one pass.  A larger
-k (the Pallas kernel has no cap) runs that kernel in ceil(k / 256) passes,
-each bounded by the previous pass's last entry (``csrc/topk.cu``); each
-pass counts as ``f32_multi`` or ``bf16_multi``.  bf16 rows wider than the
-tensor-core kernel holds (``TC_MAX_DIM``) take the CUDA-core kernel at any
-k.  Like the Pallas kernel, it takes any D: a D off the kernel's depth
-step (64 for ``bf16_tc``, 32 otherwise) is zero-padded in the wrapper,
-which adds 0 to every inner product, and counts in ``KERNEL.pads``.  On
-CPU tensors it runs the plain version :func:`mips_topk_plain`.  Both order
+ranking.  On CUDA tensors it launches the hand-written kernels of
+``csrc/topk.cu`` (which replace the Pallas ``mips_topk_pallas``) or
+raises.  bf16 at k <= 32 runs the fused tensor-core kernel (variant
+``bf16_tc``), then a selection over its candidates.  f32 at any k (variant
+``f32``) and bf16 above k = 32 or wider than the fused kernel holds
+(``TC_MAX_DIM``; variant ``bf16``) score first, exact f32 FMA on CUDA cores
+or bf16 ``mma.sync`` into a scratch score matrix, then select per query on
+64-bit (score, row) keys (:func:`entry_keys`), reading the database once
+for every k <= N.  f32 over at most ``FUSED_MAX_ROWS`` rows (the served
+corpus ranking) does both in one launch.  One search launches the same
+kernels for every k (``GRID_LAUNCHES`` counts them).  Like the Pallas
+kernel, it takes any D: a D off the kernel's depth step (64 for bf16, 16
+for f32, 32 for the one-launch f32) is zero-padded in the wrapper, which
+adds 0 to every inner product, and counts in ``KERNEL.pads``.  On CPU
+tensors it runs the plain version :func:`mips_topk_plain`.  Both order
 equal scores by lower row index first.
 
 :func:`mips_topk_sharded` searches a database whose rows are split over the
@@ -37,7 +38,7 @@ here it is the exact search (B1 on the card).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,44 +49,53 @@ from keds_tpu_torch.parallel.mesh import all_gather
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("topk", {
-    "keds_mips_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "keds_topk_max_k": [],
+    "keds_mips_topk": [_P] * 8 + [_I] * 7 + [_P, _P],
     "keds_topk_query_tile": [_I],
     "keds_topk_chunk_rows": [_I],
+    "keds_topk_depth_step": [_I],
     "keds_topk_tc_max_dim": [],
-}, variants=("bf16_tc", "f32", "bf16", "f32_multi", "bf16_multi"))
+    "keds_topk_fused_max_rows": [],
+}, variants=("bf16_tc", "f32", "bf16"))
+# CUDA kernels launched per variant (one search launches one to two)
+GRID_LAUNCHES = dict.fromkeys(KERNEL.launches, 0)
 
 
 class Tiling(NamedTuple):
-    """One instantiation of the partial kernel in ``csrc/topk.cu``."""
+    """One route of ``csrc/topk.cu``."""
 
     code: int           # the C interface's variant code
     variant: str        # launch-count key
     query_tile: int     # queries per block
-    chunk_rows: int     # database rows per chunk
-    blocks_per_sm: int  # blocks the split aims to run on each SM at once
+    chunk_rows: int     # database rows per block
+    depth_step: int     # the multiple of D the kernel reads
 
 
 # Mirrors of csrc/topk.cu's constants (a card test in tests/test_torch_cuda.py
-# checks them against the library).  The bf16 kernel holds 210 KB of shared
-# memory, so one block fits an SM; the f32 kernel's 33 KB let several run
-# together.  k above LANE_K takes the wide tilings: 32-query tiles on CUDA
-# cores, whose lists hold up to eight entries a lane.
-TC = Tiling(2, "bf16_tc", 64, 128, 1)
-F32 = Tiling(0, "f32", 64, 128, 4)
-F32_SMALL = Tiling(1, "f32", 16, 32, 4)
-F32_WIDE = Tiling(3, "f32", 32, 128, 4)
-BF16_WIDE = Tiling(4, "bf16", 32, 128, 4)
-TILINGS = (F32, F32_SMALL, TC, F32_WIDE, BF16_WIDE)
-LANE_K = 32           # one list entry a lane
-MAX_K = 256           # one pass of the wide kernel; a larger k takes several
-TC_MAX_DIM = 1024     # the queries' fragments live in registers
+# checks them against the library).  TC (bf16, k <= 32, D <= TC_MAX_DIM)
+# holds 210 KB of shared memory, one block an SM, and splits the database
+# into one slice per SM.  The others score into scratch and select per
+# query: F32 in 128 x 128 tiles, F32_MID in 64 x 64 where the big tiles
+# would be half empty or leave more than half the card idle, BF16 in
+# 64-query x 128-row mma tiles; F32_FUSED, over at most FUSED_MAX_ROWS rows,
+# in 4 x 32 tiles and one launch.
+F32 = Tiling(0, "f32", 128, 128, 16)
+F32_MID = Tiling(1, "f32", 64, 64, 16)
+TC = Tiling(2, "bf16_tc", 64, 128, 64)
+BF16 = Tiling(3, "bf16", 64, 128, 64)
+F32_FUSED = Tiling(4, "f32", 4, 32, 32)
+TILINGS = (F32, F32_MID, TC, BF16, F32_FUSED)
+LANE_K = 32               # TC's lists hold one entry a lane
+TC_MAX_DIM = 1024         # TC's query fragments live in registers
+FUSED_MAX_ROWS = 1024     # F32_FUSED sorts a whole row in one warp's round
+FUSED_MAX_SCORES = 1 << 20   # ... and its small tiles pay off below B * N of this
+SEGMENT_ROWS = 16_384     # longer rows are selected in segments, then merged
+SCORE_BYTES = 1 << 30     # one launch's scratch scores; more queries take several
 
 
 def depth_step(tiling: Tiling) -> int:
-    """The multiple of D that ``tiling``'s kernel reads: 64 for the
-    tensor-core tiles, 32 for the CUDA-core ones."""
-    return 64 if tiling is TC else 32
+    """The multiple of D that ``tiling``'s kernel reads: 64 for bf16
+    (the tensor-core tiles), 16 for f32 (32 for F32_FUSED)."""
+    return tiling.depth_step
 
 
 def kernel_depth(tiling: Tiling, dim: int) -> int:
@@ -108,30 +118,45 @@ def mips_topk_plain(queries: torch.Tensor, db: torch.Tensor,
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
 
 
+def entry_keys(scores: torch.Tensor) -> torch.Tensor:
+    """The 64-bit keys ``csrc/topk.cu`` selects on, as int64 with the sign
+    bit flipped (so that signed order is the kernel's unsigned order): the
+    score's order in the high word (-0.0 as +0.0), ~row in the low, so that
+    the k largest keys are the k best entries, equal scores lower row first.
+    The kernels' order on the CPU, for the tests."""
+    bits = scores.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
+    order = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+    rows = torch.arange(scores.shape[-1], dtype=torch.int64)
+    return ((order << 32) | (0xFFFFFFFF - rows)) ^ (-(1 << 63))
+
+
 def split_plan(n_queries: int, n_rows: int, n_sms: int,
                dtype: torch.dtype, k: int = 1, dim: int = 0) -> Tuple[Tiling, int]:
-    """(tiling, number of database slices) for the fused kernel.
+    """(tiling, number of database slices or row segments) for a search.
 
-    k above ``LANE_K`` takes the wide tiling of its dtype, and so does bf16
-    whose D (``dim``), padded to the tensor-core step, exceeds
-    ``TC_MAX_DIM``.  Otherwise bf16 takes the tensor-core tiling, and f32 the 64 x 128 tiling unless its
-    grid would leave three quarters of the SMs idle (a small database, such
-    as a ranked corpus of a few hundred rows); then the 16 x 32 one.  The
-    slices are sized so that the grid has ``blocks_per_sm`` blocks per SM
-    where the database has chunks enough, and no slice is empty.  A slice
-    may hold fewer than k rows: the merge skips the empty slots it leaves."""
+    bf16 at k <= ``LANE_K`` whose D (``dim``), padded to the tensor-core
+    step, fits ``TC_MAX_DIM`` takes TC, with the database split into one
+    slice an SM for each query tile (no slice empty).  Otherwise bf16 takes
+    BF16, and f32 F32_FUSED over at most ``FUSED_MAX_ROWS`` rows (and
+    ``FUSED_MAX_SCORES`` scores), else F32, or F32_MID where F32's query
+    tile would be half empty or its grid hold fewer than two blocks an SM.
+    These select per query over ceil(N / ``SEGMENT_ROWS``) segments of the
+    row: k decides nothing but TC."""
     bf16 = dtype == torch.bfloat16
-    if k > LANE_K or (bf16 and kernel_depth(TC, dim) > TC_MAX_DIM):
-        tiling = BF16_WIDE if bf16 else F32_WIDE
+    if bf16 and k <= LANE_K and kernel_depth(TC, dim) <= TC_MAX_DIM:
+        n_chunks = -(-n_rows // TC.chunk_rows)
+        want = -(-n_sms // -(-n_queries // TC.query_tile))
+        return TC, max(1, min(n_chunks, want))
+    if bf16:
+        tiling = BF16
+    elif n_rows <= FUSED_MAX_ROWS and n_queries * n_rows <= FUSED_MAX_SCORES:
+        return F32_FUSED, 1
     else:
-        tiling = TC if bf16 else F32
-        big_blocks = -(-n_queries // F32.query_tile) * -(-n_rows // F32.chunk_rows)
-        if tiling is F32 and big_blocks < n_sms // 4:
-            tiling = F32_SMALL
-    n_chunks = -(-n_rows // tiling.chunk_rows)
-    q_tiles = -(-n_queries // tiling.query_tile)
-    want = -(-tiling.blocks_per_sm * n_sms // q_tiles)
-    return tiling, max(1, min(n_chunks, want))
+        blocks = -(-n_queries // F32.query_tile) * -(-n_rows // F32.chunk_rows)
+        big = n_queries > F32_MID.query_tile and blocks >= 2 * n_sms
+        tiling = F32 if big else F32_MID
+    return tiling, -(-n_rows // SEGMENT_ROWS)
 
 
 def mips_topk(queries: torch.Tensor, db: torch.Tensor,
@@ -154,7 +179,7 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     tiling, n_splits = split_plan(B, N, sm_count(queries), queries.dtype, k, D)
     if D % depth_step(tiling):
         queries, db = pad_depth(queries, depth_step(tiling)), pad_depth(db, depth_step(tiling))
-        KERNEL.pads[tiling.variant if k <= MAX_K else f"{tiling.variant}_multi"] += 1
+        KERNEL.pads[tiling.variant] += 1
     if not (queries.is_contiguous() and db.is_contiguous()):
         raise ValueError("top-k kernel needs contiguous queries and database")
     if queries.data_ptr() % 16 or db.data_ptr() % 16:
@@ -162,31 +187,51 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     return launch(queries, db, k, tiling, n_splits)
 
 
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` entries on ``dev``, kept for
+    the device: the kernels that count finished tiles or segments leave it
+    zeroed."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[dev] = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=dev)
+    return c
+
+
 def launch(queries: torch.Tensor, db: torch.Tensor, k: int, tiling: Tiling,
            n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A search through ``tiling`` over ``n_splits`` database slices, on
-    inputs :func:`mips_topk` has checked (the card tests also call it with a
-    plan of their own).  A k above MAX_K takes the wide ``tiling`` in
-    passes: pass p fills columns [MAX_K p, MAX_K (p + 1)) of the output with
-    the best rows after the entry in column MAX_K p - 1, in the order
-    (score desc, index asc)."""
+    """A search through ``tiling`` over ``n_splits`` database slices (TC)
+    or row segments, on inputs :func:`mips_topk` has checked (the card tests
+    also call it with a plan of their own).  The scratch score matrix is
+    kept under ``SCORE_BYTES``: more queries than fit take one launch each
+    share."""
     (B, D), N, dev = queries.shape, db.shape[0], queries.device
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
-    width = min(k, MAX_K)
-    cand_v = torch.empty((B, n_splits, width), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((B, n_splits, width), dtype=torch.int32, device=dev)
-    variant = tiling.variant if k <= MAX_K else f"{tiling.variant}_multi"
-    for col in range(0, k, MAX_K):
-        # a later pass is bounded by the previous pass's last entry
-        bound = ((vals.data_ptr() + 4 * (col - 1), idx.data_ptr() + 4 * (col - 1)) if col
-                 else (None, None))
+    if tiling is TC:
+        ld, step = 0, B
+        cand_shape = (B, n_splits, k)
+    else:
+        ld = -(-N // 4) * 4
+        step = max(1, min(B, SCORE_BYTES // (4 * ld)))
+        cand_shape = (step, n_splits, min(k, -(-N // n_splits))) if n_splits > 1 else (0,)
+    scores = torch.empty((step, ld) if ld else (0,), dtype=torch.float32, device=dev)
+    cand_v = torch.empty(cand_shape, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(cand_shape, dtype=torch.int32, device=dev)
+    counters = _counters(dev, step)
+    row_bytes = D * queries.element_size()
+    for b0 in range(0, B, step):
+        rows, kernels = min(step, B - b0), ctypes.c_int(0)
         err = KERNEL.lib().keds_mips_topk(
-            queries.data_ptr(), db.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
-            vals.data_ptr() + 4 * col, idx.data_ptr() + 4 * col, tiling.code, B, N, D,
-            min(MAX_K, k - col), n_splits, k, *bound, stream_ptr(queries))
+            queries.data_ptr() + b0 * row_bytes, db.data_ptr(), scores.data_ptr(),
+            cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr() + 4 * b0 * k,
+            idx.data_ptr() + 4 * b0 * k, counters.data_ptr(), tiling.code, rows, N, D, k,
+            n_splits, ld, stream_ptr(queries), ctypes.byref(kernels))
         KERNEL.check(err)
-        KERNEL.launches[variant] += 1
+        KERNEL.launches[tiling.variant] += 1
+        GRID_LAUNCHES[tiling.variant] += kernels.value
     return vals, idx
 
 

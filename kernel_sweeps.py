@@ -2,7 +2,7 @@
 """Design measurements of the port's kernels on one CUDA card, kept apart
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
-    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k]
+    python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k] [topk_split]
                              [attention] [attention_bwd] [train_check_controls]
                              [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
                              [int8_layouts]
@@ -27,11 +27,17 @@ narrow_k          the top-k at the k <= 32 rows of chip_smoke.py: bf16 at
                   f32 at (64, 256 and 10 000, 768) k=10.  Takes ``--impl``.
 wide_k            the top-k above k=32 at the evaluators' rankings (4181,
                   2297, 768) k=101, (2048, 4096, 768) k=100 and (1024, 10 000,
-                  768) k=200 in f32, and (64, 500 000, 768) k=64 in bf16; the
-                  k=101 ranking also with zero queries (every score ties, so
-                  nothing after the first chunk is inserted: the products and
-                  the fixed cost of the fold) and at k=32 (the one-entry lists
-                  of the f32 kernel).  Takes ``--impl`` as ``rank`` does.
+                  768) k=200 in f32, the serve CLI's --topn 300 over 4096
+                  images and k = N = 1000 in f32, and (64, 500 000, 768) k=64
+                  and k=300 in bf16; the k=101 ranking also with zero queries
+                  (every score ties: the selection tells entries apart by
+                  their rows alone) and at k=32.  Takes ``--impl`` as
+                  ``rank`` does.
+topk_split        where one top-k search's device time goes, by CUDA kernel
+                  (torch.profiler, ten searches): the score kernel against
+                  the selection at the rows of narrow_k and wide_k, and the
+                  one-launch f32 ranking at k = 1 (its score tiles and
+                  launch alone), 10 and N.  Takes ``--impl``.
 attention         the attention forward at the rows of chip_smoke.py at
                   S <= 288 (the vision chunk (16, 16, 257, 64) and the text
                   (64, 12, 32, 64) bf16, (2, 4, 77, 64) f32 causal) and above
@@ -101,21 +107,26 @@ from unittest import mock
 import numpy as np
 import torch
 
-from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, TRAIN_BATCH, _dout, _qkv,
-                        _unit_rows, compare_readings, emit, jpeg_bytes, raw_reading, time_ms,
-                        train_check_batch, train_reading)
+from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, SERVE_CORPUS, SERVE_WIDE_TOPN,
+                        TRAIN_BATCH, _dout, _qkv, _unit_rows, compare_readings, emit,
+                        jpeg_bytes, raw_reading, time_ms, train_check_batch, train_reading)
 
-PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "attention", "attention_bwd",
-          "train_check_controls", "raw_check_controls", "rn_gain_controls",
+PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "topk_split", "attention",
+          "attention_bwd", "train_check_controls", "raw_check_controls", "rn_gain_controls",
           "rn_encode_chunks", "int8_layouts")
-IMPL_PHASES = ("rank", "narrow_k", "wide_k", "attention", "attention_bwd")   # --impl's
+IMPL_PHASES = ("rank", "narrow_k", "wide_k", "topk_split", "attention",
+               "attention_bwd")   # --impl's
 FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.bfloat16, True),
               (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False))
 NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
                  (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
                  (QUERY_BATCH, 10_000, 10, torch.float32))
 WIDE_SHAPES = ((4181, 2297, 101, torch.float32), (2048, 4096, 100, torch.float32),
-               (1024, 10_000, 200, torch.float32), (QUERY_BATCH, DB_ROWS, 64, torch.bfloat16))
+               (1024, 10_000, 200, torch.float32),
+               (QUERY_BATCH, SERVE_CORPUS, SERVE_WIDE_TOPN, torch.float32),   # serve --topn 300
+               (8, 1000, 1000, torch.float32),                                # k = N
+               (QUERY_BATCH, DB_ROWS, 64, torch.bfloat16),
+               (QUERY_BATCH, DB_ROWS, 300, torch.bfloat16))
 BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
               (64, 12, 16, 64, torch.bfloat16, True), (64, 12, 32, 64, torch.bfloat16, True),
               (64, 12, 77, 64, torch.bfloat16, True), (64, 12, 128, 64, torch.bfloat16, True),
@@ -190,6 +201,33 @@ def _time_topk(phase: str, impl: str, shapes, D: int = 768) -> None:
         del db, q
         torch.cuda.empty_cache()
     emit(phase, impl=impl, D=D, kernel_ms=ms)
+
+
+def topk_split(impl: str, D: int = 768) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from keds_tpu_torch.ops.topk import mips_topk
+
+    shapes = (*NARROW_SHAPES, *WIDE_SHAPES, (QUERY_BATCH, 256, 1, torch.float32),
+              (QUERY_BATCH, 256, 256, torch.float32), (8, 1000, 1, torch.float32))
+    rows = []
+    for B, N, k, dtype in shapes:
+        db = _unit_rows(N, D, dtype, seed=N)
+        q = _unit_rows(B, D, dtype, seed=B + 1)
+        for _ in range(3):
+            mips_topk(q, db, k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                mips_topk(q, db, k)
+            torch.cuda.synchronize()
+        ms = {e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]:
+              e.device_time_total / 10 / 1e3 for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total}
+        rows.append(dict(shape=[B, N, D, k], dtype=str(dtype)[6:], ms_by_kernel=ms))
+        del db, q
+        torch.cuda.empty_cache()
+    emit("topk_split", impl=impl, searches=rows)
 
 
 def attention(impl: str) -> None:

@@ -88,17 +88,18 @@ def _unit(n, d, dtype, dev, seed):
     return (a / a.norm(dim=1, keepdim=True)).to(dtype)
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _check_topk(q, db, k, dtype):
-    tiling, _ = split_plan(q.shape[0], db.shape[0],
-                           torch.cuda.get_device_properties(q.device).multi_processor_count,
-                           dtype, k)
-    passes = -(-k // topk_mod.MAX_K)
-    variant = tiling.variant + ("_multi" if passes > 1 else "")
-    before = topk_mod.KERNEL.launches[variant]
+    tiling, _ = split_plan(q.shape[0], db.shape[0], _sms(q.device), dtype, k, q.shape[1])
+    before = topk_mod.KERNEL.launches[tiling.variant]
     vals, idx = mips_topk(q, db, k)
     torch.cuda.synchronize()
-    assert tiling.variant == (VARIANT if k <= topk_mod.LANE_K else WIDE_VARIANT)[dtype]
-    assert topk_mod.KERNEL.launches[variant] == before + (passes if passes > 1 else 1)
+    wide = k > topk_mod.LANE_K or q.shape[1] > topk_mod.TC_MAX_DIM
+    assert tiling.variant == (WIDE_VARIANT if wide else VARIANT)[dtype]
+    assert topk_mod.KERNEL.launches[tiling.variant] == before + 1
     _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
     return tiling
 
@@ -147,10 +148,10 @@ def test_topk_bf16_main_path_width(cuda):
 
 
 def test_topk_f32_small_rank_shape(cuda):
-    """The corpus ranking (64, 256, 768) k=10 takes the small f32 tiles and
-    stays exact f32."""
+    """The corpus ranking (64, 256, 768) k=10 scores and selects in one
+    launch and stays exact f32."""
     db, q = _unit(256, 768, torch.float32, cuda, 11), _unit(64, 768, torch.float32, cuda, 12)
-    assert _check_topk(q, db, 10, torch.float32) is topk_mod.F32_SMALL
+    assert _check_topk(q, db, 10, torch.float32) is topk_mod.F32_FUSED
     vals, _ = mips_topk(q, db, 10)
     pv, _ = mips_topk_plain(q, db, 10)
     assert (vals - pv).abs().max().item() <= 1e-5
@@ -177,8 +178,8 @@ def test_topk_kernel_ties_go_to_lower_index(cuda, dtype):
 @pytest.mark.parametrize("k", [33, 64, 100, 101, 200, 256])
 @pytest.mark.parametrize("b,n", [(1, 300), (33, 3001), (70, 20_011)])
 def test_topk_wide_k_matches_plain(cuda, dtype, k, b, n):
-    """k above 32 (lists of 2, 4 and 8 entries a lane) at ragged N and B
-    off the 32-query tile."""
+    """k above 32 (the score routes' selection) at ragged N and B off the
+    query tiles."""
     _check_topk(_unit(b, 64, dtype, cuda, b + 7), _unit(n, 64, dtype, cuda, n + 2), k, dtype)
 
 
@@ -190,17 +191,19 @@ def test_topk_wide_k_whole_db(cuda, dtype, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("b,n,k", [(300, 2297, 101), (64, 60_001, 64)])
+@pytest.mark.parametrize("b,n,k", [(300, 2297, 101), (64, 60_001, 64), (2048, 4096, 100)])
 def test_topk_wide_k_main_path_width(cuda, dtype, b, n, k):
-    """D = 768: the CIRR ranking's k = 101 and a --db-topk of 64."""
+    """D = 768: the CIRR ranking's k = 101, a --db-topk of 64 and the
+    Fashion-IQ-like ranking (a warp a query over 4096 rows: the selection's
+    largest shared memory)."""
     _check_topk(_unit(b, 768, dtype, cuda, b), _unit(n, 768, dtype, cuda, n), k, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("k", [99, 240])
 def test_topk_wide_k_ties_go_to_lower_index(cuda, dtype, k):
-    """Every row three times, far apart: equal scores across slots, slices
-    and both passes keep the lower index first."""
+    """Every row three times, far apart: equal scores across the selection's
+    groups, its bound and its sort keep the lower index first."""
     base = _unit(700, 64, dtype, cuda, 15)
     db = torch.cat([base, base, base]).contiguous()
     q = _unit(45, 64, dtype, cuda, 16)
@@ -215,13 +218,16 @@ def test_topk_wide_k_ties_go_to_lower_index(cuda, dtype, k):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("k", [16, 200])
 def test_topk_slices_shorter_than_k(cuda, dtype, k):
-    """One slice per chunk: at k = 200 every slice is shorter than k, at
-    k = 16 the f32 plan's last (8 rows); the merge skips the empty slots
-    they leave."""
+    """TC's slices or the score routes' segments shorter than k: TC at
+    k = 16 over one slice per chunk (the last 104 rows), the others over
+    eight segments of 125 rows (every one shorter than k = 200); the
+    selection skips the empty slots they leave."""
     q, db = _unit(40, 64, dtype, cuda, 21), _unit(1000, 64, dtype, cuda, 22)
-    tiling = topk_mod.split_plan(40, 1000, 132, dtype, k)[0]
-    n_chunks = -(-1000 // tiling.chunk_rows)
-    vals, idx = topk_mod.launch(q, db, k, tiling, n_chunks)
+    tiling = topk_mod.split_plan(40, 1000, 132, dtype, k, 64)[0]
+    if tiling is topk_mod.F32_FUSED:      # one launch, no segments: take the 2-launch route
+        tiling = topk_mod.F32
+    n_splits = -(-1000 // tiling.chunk_rows) if tiling is topk_mod.TC else 8
+    vals, idx = topk_mod.launch(q, db, k, tiling, n_splits)
     torch.cuda.synchronize()
     assert bool((idx >= 0).all())
     _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
@@ -229,20 +235,19 @@ def test_topk_slices_shorter_than_k(cuda, dtype, k):
 
 def test_python_mirrors_match_the_library(cuda):
     lib = topk_mod.KERNEL.lib()
-    assert lib.keds_topk_max_k() == topk_mod.MAX_K
+    assert lib.keds_topk_fused_max_rows() == topk_mod.FUSED_MAX_ROWS
     assert lib.keds_topk_tc_max_dim() == topk_mod.TC_MAX_DIM
     for t in topk_mod.TILINGS:
-        assert (lib.keds_topk_query_tile(t.code), lib.keds_topk_chunk_rows(t.code)) == (
-            t.query_tile, t.chunk_rows)
+        assert (lib.keds_topk_query_tile(t.code), lib.keds_topk_chunk_rows(t.code),
+                lib.keds_topk_depth_step(t.code)) == (t.query_tile, t.chunk_rows, t.depth_step)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("k", [257, 300, 512, 513, 800])
 @pytest.mark.parametrize("b,n", [(1, 1000), (33, 3001), (70, 20_011)])
 def test_topk_multi_pass_matches_plain(cuda, dtype, k, b, n):
-    """k above 256: passes of the wide kernel, each after the previous
-    pass's last entry; a short last pass (k = 257, 513) keeps the wide
-    tiling."""
+    """k above 256, up to 800 (one read of the database, one round of the
+    selection's sort)."""
     _check_topk(_unit(b, 64, dtype, cuda, b + 9), _unit(n, 64, dtype, cuda, n + 4), k, dtype)
 
 
@@ -254,27 +259,121 @@ def test_topk_multi_pass_main_path_width(cuda, dtype, b, n, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("k", [300, 702, 2100])
+@pytest.mark.parametrize("k", [255, 256, 257, 300, 512, 702, 2100])
 def test_topk_multi_pass_ties_cross_passes(cuda, dtype, k):
-    """Every row three times: runs of equal scores straddle the pass
-    boundaries (256 and 512 are not multiples of 3), which must keep the
-    lower index first and drop none; k = 2100 is the whole DB."""
+    """Every row three times: runs of equal scores straddle k itself (255,
+    256, 257 and 512 are not multiples of 3), which must keep the lower
+    index first and drop none; k = 2100 is the whole DB."""
     base = _unit(700, 64, dtype, cuda, 25)
     db = torch.cat([base, base, base]).contiguous()
     q = _unit(45, 64, dtype, cuda, 26)
     vals, idx = mips_topk(q, db, k)
     torch.cuda.synchronize()
     _assert_topk_agrees(vals, idx, q, db, k, TOPK_TOL[dtype])
+    full = k - k % 3                    # whole triples; the last may be cut by k
+    vals, idx = vals[:, :full], idx[:, :full]
     assert bool((idx[:, 0::3] < idx[:, 1::3]).all() and (idx[:, 1::3] < idx[:, 2::3]).all())
     assert bool((idx[:, 0::3] % 700 == idx[:, 2::3] % 700).all())
     assert bool((vals[:, 0::3] == vals[:, 2::3]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [1000, 4097])
+def test_topk_k_equals_n(cuda, dtype, n):
+    """k = N: every row comes back in order (f32 at N = 1000 in one launch;
+    N = 4097, one key past a round of the selection's sort, in two rounds)."""
+    _check_topk(_unit(19, 128, dtype, cuda, n + 5), _unit(n, 128, dtype, cuda, n), n, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n,k", [(300, 40), (3001, 101), (20_011, 300)])
+def test_topk_signed_zero_scores_tie(cuda, dtype, n, k):
+    """Scores of exactly -0.0 and +0.0 (and other exact ties): queries +-e0
+    over rows whose first entry is one of -1, -0.5, -0.0, +0.0, 0.5, 1, so
+    each score is that entry or its negation.  The plain version ranks -0.0
+    and +0.0 as equal, lower row first, and so must the kernel: the order of
+    ``entry_keys`` on the plain scores, index for index."""
+    gen = np.random.default_rng(n)
+    db = gen.standard_normal((n, 64)).astype(np.float32)
+    db[:, 0] = gen.choice(np.array([-1.0, -0.5, -0.0, 0.0, 0.5, 1.0], np.float32), n)
+    q = np.zeros((6, 64), np.float32)
+    q[::2, 0], q[1::2, 0] = 1.0, -1.0
+    db, q = torch.from_numpy(db).to(cuda, dtype), torch.from_numpy(q).to(cuda, dtype)
+    vals, idx = mips_topk(q, db, k)
+    pv, pi = mips_topk_plain(q, db, k)
+    torch.cuda.synchronize()
+    assert bool((vals == pv).all())                      # -0.0 == +0.0
+    torch.testing.assert_close(idx, pi, atol=0, rtol=0)
+    scores = (q.float() @ db.float().T).cpu()
+    order = torch.sort(topk_mod.entry_keys(scores), dim=1, descending=True).indices[:, :k]
+    assert order.to(torch.int32).tolist() == idx.cpu().tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b", [1, 5, 17, 65, 129, 257])
+@pytest.mark.parametrize("d", [100, 1280])
+@pytest.mark.parametrize("k", [16, 300])
+def test_topk_queries_off_every_tile(cuda, dtype, b, d, k):
+    """B one past each route's query tile (4 fused, 64, 128) and D off the
+    depth step (100) or above TC_MAX_DIM (1280), zero-padded by the wrapper."""
+    n = 700 if b < 65 else 12_001    # f32: fused below 1024 rows; B = 257 takes F32
+    _check_topk(_unit(b, d, dtype, cuda, b + d), _unit(n, d, dtype, cuda, d + k), k, dtype)
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels of csrc/topk.cu that ``fn`` launches, from
+    torch.profiler's trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "topk_" in e.name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n", [(64, 256), (8, 1000), (33, 3001), (64, 20_011)])
+def test_topk_launches_same_for_every_k(cuda, dtype, b, n):
+    """One search launches the same kernels at k = 16, 101, 300 and N: f32
+    over at most 1024 rows one, every other route two (bf16 at k = 16 is
+    topk_tc and the selection; above, the score kernel and the selection),
+    counted by the wrapper and seen in the profiler's trace."""
+    q, db = _unit(b, 128, dtype, cuda, b), _unit(n, 128, dtype, cuda, n)
+    counts = set()
+    for k in (16, 101, 300, n):
+        if k > n:
+            continue
+        tiling, _ = split_plan(b, n, _sms(cuda), dtype, k, 128)
+        mips_topk(q, db, k)                         # built, counters allocated
+        before = topk_mod.GRID_LAUNCHES[tiling.variant]
+        names = _kernel_names(lambda: mips_topk(q, db, k))
+        assert topk_mod.GRID_LAUNCHES[tiling.variant] - before == len(names), names
+        counts.add(len(names))
+    fused = dtype == torch.float32 and n <= topk_mod.FUSED_MAX_ROWS
+    assert counts == {1 if fused else 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_topk_scratch_cap_splits_the_queries(cuda, dtype, monkeypatch):
+    """A score matrix above SCORE_BYTES takes one launch for each share of
+    the queries that fits (here 7 of 40 rows a share: 6 launches)."""
+    q, db = _unit(40, 64, dtype, cuda, 41), _unit(3001, 64, dtype, cuda, 42)
+    monkeypatch.setattr(topk_mod, "SCORE_BYTES", 7 * 3004 * 4)
+    tiling = split_plan(40, 3001, _sms(cuda), dtype, 101, 64)[0]
+    before = topk_mod.KERNEL.launches[tiling.variant]
+    vals, idx = mips_topk(q, db, 101)
+    torch.cuda.synchronize()
+    assert topk_mod.KERNEL.launches[tiling.variant] == before + 6
+    _assert_topk_agrees(vals, idx, q, db, 101, TOPK_TOL[dtype])
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((2, 64), device=cuda)
     with pytest.raises(ValueError, match="k <= N"):
         mips_topk(q, torch.zeros((5, 64), device=cuda), 6)
-    # k = 257 and k = N take the multi-pass search (its k > 256 refusal is gone)
+    # k = 257 and k = N
     for n, k in ((300, 257), (300, 300)):
         db = _unit(n, 64, torch.float32, cuda, n + k)
         qq = _unit(2, 64, torch.float32, cuda, k)
@@ -926,8 +1025,8 @@ def test_tiny_raw_train_step_card_matches_cpu(cuda):
 
 def test_serve_cli_topn_above_256_on_card(cuda, tmp_path, monkeypatch):
     """The serve CLI at --topn 280 over 300 images, ranked on the device
-    (the multi-pass top-k): the card's results equal the CPU run's, but for
-    swaps between entries within 1e-4 of each other."""
+    (k above 256): the card's results equal the CPU run's, but
+    for swaps between entries within 1e-4 of each other."""
     import json
 
     from PIL import Image
@@ -963,7 +1062,7 @@ def test_serve_cli_topn_above_256_on_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(serve, "DEVICE_RANK_MIN_ROWS", 1)
     results = {}
     for dev in ("cuda", "cpu"):
-        before = topk_mod.KERNEL.launches["f32_multi"]
+        before = topk_mod.KERNEL.launches["f32"]
         out = serve.main(["--resume", str(tmp_path / "ckpt.pt"), "--database-path",
                           str(tmp_path / "db"), "--target-data", str(tmp_path / "corpus"),
                           "--query_file", str(tmp_path / "q.jsonl"), "--demo-out",
@@ -972,7 +1071,8 @@ def test_serve_cli_topn_above_256_on_card(cuda, tmp_path, monkeypatch):
                           "--logs", str(tmp_path / "logs"), "--name", dev])
         assert out["device_ranking"] and out["topn"] == 280
         if dev == "cuda":
-            assert topk_mod.KERNEL.launches["f32_multi"] == before + 2 * 2   # 2 batches
+            # 2 batches: the ranking and the two DB searches (fp32) each
+            assert topk_mod.KERNEL.launches["f32"] == before + 3 * 2
         results[dev] = [json.loads(x) for x in open(out["out_path"])]
     for g, c in zip(results["cuda"], results["cpu"]):
         gs = np.array([r["score"] for r in g["results"]])
@@ -1186,12 +1286,11 @@ def test_topk_any_depth_matches_plain(cuda, dtype, d, k):
     CUDA-core kernel at any k; held to the plain version on the unpadded
     inputs."""
     q, db = _unit(37, d, dtype, cuda, d + k), _unit(3001, d, dtype, cuda, d)
-    tiling, _ = split_plan(37, 3001, torch.cuda.get_device_properties(cuda).multi_processor_count,
-                           dtype, k, d)
+    tiling, _ = split_plan(37, 3001, _sms(cuda), dtype, k, d)
     wide = k > topk_mod.LANE_K or (dtype == torch.bfloat16 and d > topk_mod.TC_MAX_DIM)
     assert tiling.variant == (WIDE_VARIANT if wide else VARIANT)[dtype]
     padded = topk_mod.kernel_depth(tiling, d) != d
-    assert padded == (d % (64 if tiling is topk_mod.TC else 32) != 0)
+    assert padded == (d % (64 if dtype == torch.bfloat16 else 16) != 0)
     launches, pads = topk_mod.KERNEL.launches[tiling.variant], topk_mod.KERNEL.pads[tiling.variant]
     vals, idx = mips_topk(q, db, k)
     torch.cuda.synchronize()

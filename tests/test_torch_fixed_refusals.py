@@ -111,17 +111,18 @@ def test_pre_save_feature_names_the_port_tool(tmp_path):
 
 def test_split_plan_routes_any_depth():
     """bf16 at k <= 32 keeps the tensor-core tiling up to D = 1024 (D padded
-    to 64) and takes the wide CUDA-core one above; f32 pads D to 32."""
+    to 64) and takes the BF16 score route above (padded to 64 as well); f32
+    pads D to 16."""
     bf16, f32 = torch.bfloat16, torch.float32
     for d, tiling, depth in ((96, ttopk.TC, 128), (100, ttopk.TC, 128), (1024, ttopk.TC, 1024),
-                             (1000, ttopk.TC, 1024), (1025, ttopk.BF16_WIDE, 1056),
-                             (1280, ttopk.BF16_WIDE, 1280)):
+                             (1000, ttopk.TC, 1024), (1025, ttopk.BF16, 1088),
+                             (1280, ttopk.BF16, 1280)):
         got = ttopk.split_plan(64, 100_000, 132, bf16, 16, d)[0]
         assert got is tiling and ttopk.kernel_depth(got, d) == depth, d
-    for d, depth in ((100, 128), (96, 96), (7, 32), (1280, 1280)):
+    for d, depth in ((100, 112), (96, 96), (7, 16), (1280, 1280)):
         got = ttopk.split_plan(64, 100_000, 132, f32, 16, d)[0]
-        assert got is ttopk.F32 and ttopk.kernel_depth(got, d) == depth
-    assert ttopk.split_plan(64, 100_000, 132, bf16, 101, 100)[0] is ttopk.BF16_WIDE
+        assert got is ttopk.F32_MID and ttopk.kernel_depth(got, d) == depth
+    assert ttopk.split_plan(64, 100_000, 132, bf16, 101, 100)[0] is ttopk.BF16
 
 
 @pytest.mark.parametrize("d", [100, 96, 7])

@@ -2,9 +2,9 @@
 corpus folder and queries (f32 on the CPU): the same result names in the
 same order and scores within 1e-5, under host ranking and under device
 ranking (DEVICE_RANK_MIN_ROWS patched to 1), with --topn above the corpus
-size, and above 256 (the multi-pass top-k on the card) over a corpus of 300
-images.  Entries whose scores lie within 1e-5 of each other may swap: the
-two packages sum the towers in another order."""
+size, and above 256 over a corpus of 300 images.  Entries whose scores lie
+within 1e-5 of each other may swap: the two packages sum the towers in
+another order."""
 
 import json
 
