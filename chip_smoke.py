@@ -58,6 +58,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            ViT-L/14 at 336 px (577 tokens, B2 streaming K and V): the
            encode of a 16-image chunk timed, 4 images on the card in bf16
            against the CPU in f32 (cosine >= 0.995), B2 launches counted.
+5c'. vit336_f32_check, vit224_f32_check
+           --precision fp32: the same 4 images, and 4 at 224 px (257
+           tokens, the main path's weights), encoded on the card in f32
+           (B2's f32 kernel in each of the 24 blocks, launches counted)
+           against the CPU's f32 encode:
+           1 - cosine <= 1e-10 and 1 - centred cosine (the CPU batch mean
+           taken out) <= 1e-7, limits the same encode with B2's inputs
+           cut to TF32 (the control) must miss.
 5d. surface_path
            the rest of the model surface at ViT-L/14 full width on the main
            path's weights, 2 rows each on the card in bf16 and the CPU in
@@ -103,7 +111,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            one train step on the card in bf16 against the same step on the
            CPU in f32 (same weights and batch, the card's neighbour indices
            fed to both, dropout 0): relative loss difference and cosine of
-           the flattened head gradients.
+           the flattened head gradients.  Then the same step on the card in
+           f32 (B2 and B2' in f32, launches counted) against the same CPU
+           step, within 1e-5 and 1 - 1e-6, which the bf16 step must miss.
 9. train_text_path
            the text-stream train step on the same model and DB: neighbour
            templates "a photo of * * {other}" for all 0.5M DB rows, B=128
@@ -234,8 +244,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     rows and its text tower's attention, the 336 px encode for the rows
     above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
     rows with their pads, extract_features for the vision attention, the
-    device-ranked CIRR bench for the text attention at S=77), then the
-    card's name and power limit from nvidia-smi, then the result line.
+    device-ranked CIRR bench for the text attention at S=77; the f32
+    image step and f32 encodes each beside its own shape), the walls line
+    (seconds of each part of the run), then the card's name and power
+    limit from nvidia-smi, then the result line.
 
 The backward rows cover S above 128 (the streamed launches): bf16 at 257
 and 577, f32 at 289.  The top-k rows cover k=16, 10 and 2 and, above 32, the evaluators'
@@ -246,7 +258,8 @@ RN50's retrieval and ranking at D = 1024, and D off the kernels' steps
 The attention rows cover S
 above 288, where the kernels stream K and V: ViT-L/14 at 336 px (577),
 1025 tokens, and f32 at 577 and 289; and the eval benches' prompt batches,
-(64, 12, 77, 64) causal.
+(64, 12, 77, 64) causal.  The f32 rows' bound takes the operations at
+3xTF32's rate (494.7 / 3 TFLOP/s), with the f32 FMA rate's bound beside it.
 """
 
 from __future__ import annotations
@@ -267,6 +280,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# B2 and B2' in f32 take each product as three TF32 terms on tensor cores
+# (494.7 TFLOP/s dense TF32, H100 SXM data sheet): their bound's rate
+ATT_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 ATT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # output-dtype rounding
 TOPK_TOL = 1e-4        # f32 sums of 768 products in another order
 COSINE_MIN = 0.995
@@ -278,6 +294,9 @@ BWD_VARIANT = {torch.bfloat16: "bf16", torch.float32: "f32"}
 TRAIN_BATCH = 128
 TRAIN_LOSS_RTOL = 0.01       # train_check: card bf16 vs CPU f32 (PERF.md)
 TRAIN_GRAD_COSINE_MIN = 0.99
+# the card's f32 step vs the CPU's f32 step (loss rel diff, gradient cosine):
+# the same f32 math in another order; the bf16 step misses them (PERF.md)
+TRAIN_F32_LIMITS = (1e-5, 1 - 1e-6)
 TRAIN_OPT = SimpleNamespace(lr=5e-4, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.2, warmup=2,
                             skip_scheduler=False)   # ViT-L/14 defaults, short warm-up
 TRAIN_PROMPT = np.array([[49406, 320, 1125, 539, 49407] + [0] * 72])   # "a photo of"
@@ -296,6 +315,18 @@ NEAR_TIE = 1e-5        # eval gate: scores this close may rank either way
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+class Walls:
+    """Host seconds of each part of the run, in order: ``walls(name)`` closes
+    the part that began at the previous call."""
+
+    def __init__(self):
+        self.seconds, self.t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name], self.t = now - self.t, now
 
 
 def time_ms(fn, iters: int = 20, reps: int = 3) -> float:
@@ -326,9 +357,14 @@ def time_ms(fn, iters: int = 20, reps: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float, dtype: torch.dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound(nbytes: float, flops: float, dtype: torch.dtype, peak: dict = PEAK_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _fma_bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
+    """An f32 attention row's bound at the f32 FMA rate, beside its 3xTF32 one."""
+    return {"bound_fma_ms": bound(nbytes, flops, dtype)[0]} if dtype == torch.float32 else {}
 
 
 def nvidia_smi() -> str:
@@ -356,15 +392,15 @@ def check_attention(cases):
             raise AssertionError(f"attention {B, H, S, Dh} {dtype} causal={causal}: "
                                  f"max_abs_err {err} > {ATT_TOL[dtype]}")
         pairs = S * (S + 1) // 2 if causal else S * S
-        b_ms, b_by = bound(4 * B * H * S * Dh * q.element_size(), 4 * B * H * pairs * Dh,
-                           dtype)
+        nbytes, flops = 4 * B * H * S * Dh * q.element_size(), 4 * B * H * pairs * Dh
+        b_ms, b_by = bound(nbytes, flops, dtype, ATT_PEAK_FLOPS)
         row = dict(shape=[B, H, S, Dh], dtype=str(dtype), variant=variant, causal=causal,
                    max_abs_err=err, tol=ATT_TOL[dtype],
                    kernel_ms=time_ms(lambda: attention(q, k, v, causal)),
                    plain_ms=time_ms(lambda: attention_reference(q, k, v, causal)),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=causal)),
-                   bound_ms=b_ms, bound_by=b_by,
+                   bound_ms=b_ms, bound_by=b_by, **_fma_bound(nbytes, flops, dtype),
                    launches=KERNEL.launches[variant] - launches0)
         emit("attention", **row)
         rows.append(row)
@@ -379,7 +415,8 @@ def check_attention_bwd(cases):
 
     rows = []
     for B, H, S, Dh, dtype, causal in cases:
-        variant = BWD_VARIANT[dtype] + ("_stream" if S > 128 else "")
+        # bf16 above 128 keys: the streamed launches; f32: one design at every S
+        variant = BWD_VARIANT[dtype] + ("_stream" if S > 128 and dtype == torch.bfloat16 else "")
         launches0 = BWD_KERNEL.launches[variant]
         q, k, v = _qkv(B, H, S, Dh, dtype)
         dout = _dout(B, H, S, Dh, dtype)
@@ -402,8 +439,8 @@ def check_attention_bwd(cases):
         pairs = S * (S + 1) // 2 if causal else S * S
         # q, k, v and dO read, dq, dk and dv written (P is recomputed, the
         # forward's output is not read)
-        b_ms, b_by = bound(7 * B * H * S * Dh * q.element_size(), 10 * B * H * pairs * Dh,
-                           dtype)
+        nbytes, flops = 7 * B * H * S * Dh * q.element_size(), 10 * B * H * pairs * Dh
+        b_ms, b_by = bound(nbytes, flops, dtype, ATT_PEAK_FLOPS)
         sdpa_fwd_ms = time_ms(sdpa)
         sdpa_both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, dout))
         row = dict(shape=[B, H, S, Dh], dtype=str(dtype), variant=variant, causal=causal,
@@ -412,11 +449,10 @@ def check_attention_bwd(cases):
                    plain_ms=time_ms(lambda: attention_reference_backward(q, k, v, dout,
                                                                          causal)),
                    library_ms=sdpa_both_ms - sdpa_fwd_ms, library_fwd_bwd_ms=sdpa_both_ms,
-                   bound_ms=b_ms, bound_by=b_by,
+                   bound_ms=b_ms, bound_by=b_by, **_fma_bound(nbytes, flops, dtype),
                    launches=BWD_KERNEL.launches[variant] - launches0)
-        if dtype == torch.bfloat16:
-            plan = bwd_plan(S)
-            row["plan"] = dict(plan._asdict(), blocks=plan.blocks(B * H))
+        plan = bwd_plan(S, dtype)
+        row["plan"] = dict(plan._asdict(), blocks=plan.blocks(B * H))
         emit("attention_bwd", **row)
         rows.append(row)
     return rows
@@ -887,36 +923,57 @@ def train_reading(clip_params, heads, db, dtype, inputs, stream="image",
     return loss, torch.cat([p.grad.flatten().double().cpu() for _, _, p in params])
 
 
-def compare_readings(card: tuple, cpu: tuple) -> dict:
+def compare_readings(card: tuple, cpu: tuple, limits=(TRAIN_LOSS_RTOL, TRAIN_GRAD_COSINE_MIN),
+                     card_dtype: str = "bf16") -> dict:
     """The check's numbers for a card and a CPU reading, and whether they
-    pass its limits.  The cosine is None where the card's gradient is 0."""
+    pass ``limits`` (loss relative difference, gradient cosine).  The cosine
+    is None where the card's gradient is 0."""
     (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    rtol, cos_min = limits
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     norm_card, norm_cpu = float(g_card.norm()), float(g_cpu.norm())
     cos = float(g_card @ g_cpu) / (norm_card * norm_cpu) if norm_card > 0 else None
-    return dict(loss_card_bf16=l_card, loss_cpu_f32=l_cpu, loss_rel_diff=rel,
-                loss_rel_max=TRAIN_LOSS_RTOL, head_grad_cosine=cos,
-                head_grad_cosine_min=TRAIN_GRAD_COSINE_MIN, head_grad_norm_card=norm_card,
-                head_grad_norm_cpu=norm_cpu,
-                passes=rel <= TRAIN_LOSS_RTOL and cos is not None
-                and cos >= TRAIN_GRAD_COSINE_MIN)
+    return {f"loss_card_{card_dtype}": l_card, "loss_cpu_f32": l_cpu, "loss_rel_diff": rel,
+            "loss_rel_max": rtol, "head_grad_cosine": cos, "head_grad_cosine_min": cos_min,
+            "head_grad_norm_card": norm_card, "head_grad_norm_cpu": norm_cpu,
+            "passes": rel <= rtol and cos is not None and cos >= cos_min}
 
 
-def train_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db) -> None:
+def train_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, kernels) -> dict:
     """One train step on the card (bf16) against the CPU (f32) from the same
     weights and batch; the card's neighbour indices go to both (idx=), so
     near-ties in the bf16 search do not decide the check, and dropout is 0
     (the two devices' generators differ; the neighbour permutation cancels
     in cross-attention).  ``kernel_sweeps.py train_check_controls`` reads
-    the same check with the attention gradient broken."""
+    the same check with the attention gradient broken.  Then the same step
+    on the card in f32 (``--precision fp32``: B2 and B2' in f32, launches
+    counted) against the same CPU step, at TRAIN_F32_LIMITS, which the bf16
+    step (the control) misses; returns the f32 step's launches."""
     t = time.perf_counter()
     inputs = train_check_batch(db)
-    r = compare_readings(train_reading(clip_params, heads, db, torch.bfloat16, inputs),
-                         train_reading(cpu_clip, cpu_heads, cpu_db, torch.float32, inputs))
-    emit("train_check", **r, seconds=time.perf_counter() - t)
+    cpu = train_reading(cpu_clip, cpu_heads, cpu_db, torch.float32, inputs)
+    r = compare_readings(train_reading(clip_params, heads, db, torch.bfloat16, inputs), cpu)
+    for k in kernels.values():
+        k.reset()
+    card32 = train_reading(clip_params, heads, db, torch.float32, inputs)
+    torch.cuda.synchronize()
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    r32 = compare_readings(card32, cpu, TRAIN_F32_LIMITS, "f32")
+    control = (r["loss_rel_diff"] <= TRAIN_F32_LIMITS[0]
+               and r["head_grad_cosine"] >= TRAIN_F32_LIMITS[1])
+    emit("train_check", **r, f32_step=r32, f32_launches=launches,
+         bf16_step_passes_f32_limits=control, seconds=time.perf_counter() - t)
     if not r["passes"]:
         raise AssertionError(f"train step card vs CPU: loss rel diff {r['loss_rel_diff']}, "
                              f"grad cosine {r['head_grad_cosine']}")
+    if not r32["passes"] or control:
+        raise AssertionError(f"f32 train step card vs CPU: {r32}; the bf16 step within the "
+                             f"f32 limits: {control}")
+    check_path_launches("train_check_f32", launches,
+                        {("attention", "bf16_tc"): 0, ("attention_bwd", "bf16"): 0,
+                         ("attention_bwd", "bf16_stream"): 0},
+                        [("attention", "f32"), ("attention_bwd", "f32")])
+    return launches
 
 
 def train_text_path(clip_params, heads, db, kernels, table: np.ndarray) -> tuple:
@@ -2634,6 +2691,11 @@ RN_CHECK_IMAGES = 4
 RN_CENTRED_MIN = {"RN101": 0.8, "RN50x4": 0.8, "RN50x16": 0.6, "RN50x64": 0.4}
 VIT336_IMAGES = 4      # the CPU's f32 encode of ViT-L/14 at 577 tokens
 VIT336_CHUNK = 16      # images/s of the card's encode at the serving chunk
+# the card's f32 encode vs the CPU's (cosine, centred cosine): the same f32
+# math in another order; B2 at TF32's precision (the control) misses them
+# (PERF.md)
+F32_COSINE_MIN = 1 - 1e-10
+F32_CENTRED_MIN = 1 - 1e-7
 SURFACE_ROWS = 2
 
 
@@ -2760,12 +2822,69 @@ def rn_family() -> None:
         torch.cuda.empty_cache()
 
 
-def vit336_check(kernels) -> dict:
+def _tf32_attention(q, k, v, causal=False):
+    """B2 on q, k and v with their low 13 mantissa bits cleared: attention
+    at TF32's precision, the control of the f32 encode gates."""
+    from keds_tpu_torch.ops.attention import attention
+
+    def cut(x):
+        return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    return attention(cut(q), cut(k), cut(v), causal)
+
+
+def f32_encode_check(phase: str, params, cfg, x, cpu, kernels) -> dict:
+    """The card's f32 encode (``--precision fp32``: B2 in f32 in every
+    block, launch counts zeroed just before and read just after) of the
+    uint8 images ``x`` against the CPU's f32 encode ``cpu``: each cosine, and
+    each centred cosine (the CPU batch mean taken out of both), at least
+    F32_COSINE_MIN and F32_CENTRED_MIN, which the control (the same encode
+    with B2's inputs cut to TF32) must miss.  Returns the launches."""
+    from unittest import mock
+
+    from keds_tpu_torch.models import clip as mclip, layers
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.runtime import disable_tf32
+
+    t = time.perf_counter()
+    disable_tf32()
+    p32 = cast_floating(params, torch.float32, DEV)
+    for k in kernels.values():
+        k.reset()
+    with torch.inference_mode():
+        card = mclip.encode_image_chunked(p32, cfg, x.to(DEV), None)
+    torch.cuda.synchronize()
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    with torch.inference_mode(), mock.patch.object(layers, "attention", _tf32_attention):
+        control = mclip.encode_image_chunked(p32, cfg, x.to(DEV), None)
+    mean = cpu.mean(dim=0)
+    cos, control_cos = _cosines(card, cpu), _cosines(control, cpu)
+    centred = _cosines(card.cpu() - mean, cpu - mean)
+    control_centred = _cosines(control.cpu() - mean, cpu - mean)
+    emit(phase, model=f"ViT-L/14@{cfg.image_resolution}px", tokens=cfg.n_patches + 1,
+         images=len(x), one_minus_cosine=[1 - c for c in cos],
+         one_minus_centred=[1 - c for c in centred],
+         control_one_minus_cosine=[1 - c for c in control_cos],
+         control_one_minus_centred=[1 - c for c in control_centred],
+         thresholds=[F32_COSINE_MIN, F32_CENTRED_MIN], launches=launches,
+         seconds=time.perf_counter() - t)
+    check_path_launches(phase, launches, {("attention", "f32"): cfg.vision_layers,
+                                          ("attention", "bf16_tc"): 0})
+    if not (min(cos) >= F32_COSINE_MIN and min(centred) >= F32_CENTRED_MIN):
+        raise AssertionError(f"{phase}: card f32 vs CPU f32 cosine {cos}, centred {centred}")
+    if min(control_cos) >= F32_COSINE_MIN and min(control_centred) >= F32_CENTRED_MIN:
+        raise AssertionError(f"{phase}: the TF32 control passes: {control_cos}, "
+                             f"{control_centred}")
+    return launches
+
+
+def vit336_check(kernels) -> tuple:
     """ViT-L/14 at 336 px (577 tokens, synthetic weights): the bf16 encode
     of a VIT336_CHUNK chunk timed, then VIT336_IMAGES images encoded on the
     card in bf16 (launch counts zeroed just before and read just after: B2
     bf16_tc at S = 577, one a block) and on the CPU in f32, cosine >=
-    COSINE_MIN."""
+    COSINE_MIN.  Then the card's f32 encode of the same images against the
+    CPU's (:func:`f32_encode_check`).  Returns the two launch counts."""
     from keds_tpu_torch import synth
     from keds_tpu_torch.models import clip as mclip
     from keds_tpu_torch.models.clip import VIT_L_14
@@ -2793,7 +2912,20 @@ def vit336_check(kernels) -> dict:
                         {("attention", "bf16_tc"): cfg.vision_layers, ("attention", "f32"): 0})
     if not min(cos) >= COSINE_MIN:
         raise AssertionError(f"vit336_check: cosine {cos} < {COSINE_MIN}")
-    return launches
+    return launches, f32_encode_check("vit336_f32_check", params, cfg, x, cpu, kernels)
+
+
+def vit224_f32_check(clip_params, cpu_clip, kernels) -> dict:
+    """The main path's ViT-L/14 (224 px, 257 tokens) encoding VIT336_IMAGES
+    images in f32 on the card against the CPU's f32 copy of the same weights
+    (:func:`f32_encode_check`).  Returns the launches."""
+    from keds_tpu_torch.models import clip as mclip
+    from keds_tpu_torch.models.clip import VIT_L_14
+
+    x = torch.randint(0, 256, (VIT336_IMAGES, 224, 224, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(53))
+    cpu = mclip.encode_image_chunked(cpu_clip, VIT_L_14, x, None)
+    return f32_encode_check("vit224_f32_check", clip_params, VIT_L_14, x, cpu, kernels)
 
 
 def surface_path(clip_params, cpu_clip, kernels) -> dict:
@@ -3350,12 +3482,14 @@ def main() -> int:
     kernels = {"attention": att_mod.KERNEL, "attention_bwd": att_mod.BWD_KERNEL,
                "mips_topk": topk_mod.KERNEL}
     card = nvidia_smi()
+    walls = Walls()
     t = time.perf_counter()
     build_all(kernels.values())
     ptxas = [ln.strip() for k in kernels.values() for ln in k.build_log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", build_s=time.perf_counter() - t, card=card,
          torch=torch.__version__, cuda=torch.version.cuda, ptxas=ptxas)
+    walls("build")
 
     bf16, f32 = torch.bfloat16, torch.float32
     att_rows = check_attention([(16, 16, 257, 64, bf16, False),    # vision chunk
@@ -3374,7 +3508,16 @@ def main() -> int:
                                 (2, 16, 65, 64, bf16, False),
                                 (2, 12, 77, 64, bf16, True),
                                 # the eval benches' prompts at the S=77 bucket
-                                (QUERY_BATCH, 12, 77, 64, bf16, True)])
+                                (QUERY_BATCH, 12, 77, 64, bf16, True),
+                                # --precision fp32: ViT-L/14 at 224 and 336 px,
+                                # the text tower at S=77
+                                (16, 16, 257, 64, f32, False), (16, 16, 577, 64, f32, False),
+                                (64, 12, 77, 64, f32, True),
+                                # the f32 paths' own shapes: the image step's prompt,
+                                # the encodes of VIT336_IMAGES at 224 and 336 px
+                                (TRAIN_BATCH, 12, 8, 64, f32, True),
+                                (VIT336_IMAGES, 16, 257, 64, f32, False),
+                                (VIT336_IMAGES, 16, 577, 64, f32, False)])
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
@@ -3384,7 +3527,12 @@ def main() -> int:
                                     # above 128: the streamed launches
                                     (4, 16, 257, 64, bf16, False),
                                     (4, 16, 577, 64, bf16, False),
-                                    (2, 4, 289, 64, f32, False)])
+                                    (2, 4, 289, 64, f32, False),
+                                    # f32 training: the image stream's prompt, the
+                                    # text stream's neighbour templates, S=577
+                                    (TRAIN_BATCH, 12, 8, 64, f32, True),
+                                    (2 * TRAIN_BATCH, 12, 32, 64, f32, True),
+                                    (4, 16, 577, 64, f32, False)])
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
                             (QUERY_BATCH, DB_ROWS // DIST_RANKS, 768, 16, bf16),  # a shard
@@ -3406,6 +3554,7 @@ def main() -> int:
                             # bf16 above 1024 on the BF16 score route
                             *((QUERY_BATCH, ANY_D_ROWS, d, 16, dt) for d, dt in ANY_D_CASES)])
     any_d_launches = any_depth_path(kernels)
+    walls("kernel_rows")
 
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
@@ -3420,27 +3569,39 @@ def main() -> int:
                                                 heads, db, run.q_images, run.q_texts)
     del engine, run
     torch.cuda.empty_cache()
+    walls("main_path")
 
     # --- int8 retrieval and the W8A8 towers ------------------------------------
     int8_rows = int8_retrieval(db)
     linear_rows = int8_linear_rows()
     quant_launches = quant_path(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, kernels)
     torch.cuda.empty_cache()
+    walls("int8")
 
     # --- the RN towers, ViT-L/14 at 336 px, the rest of the model surface ----
     rn_launches = rn_path(kernels)
     torch.cuda.empty_cache()
+    walls("rn_path")
     rn_family()
-    vit336_launches = vit336_check(kernels)
+    walls("rn_family")
+    vit336_launches, vit336_f32_launches = vit336_check(kernels)
     torch.cuda.empty_cache()
+    walls("vit336_check")
+    vit224_f32_launches = vit224_f32_check(clip_params, cpu_clip, kernels)
+    torch.cuda.empty_cache()
+    walls("vit224_f32_check")
     surface_launches = surface_path(clip_params, cpu_clip, kernels)
     torch.cuda.empty_cache()
+    walls("surface_path")
 
     # --- training path ------------------------------------------------------
     theads, opt, step, batch, train_launches = train_path(clip_params, heads, db, kernels)
     profile_train(step, theads, batch)
     del theads, opt, step, batch
-    train_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db)
+    walls("train_path")
+    train_f32_launches = train_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db,
+                                     kernels)
+    walls("train_check")
 
     # --- text-stream training path -----------------------------------------
     table = text_templates(np.random.default_rng(7), DB_ROWS, 2)   # "a photo of * * {other}"
@@ -3452,6 +3613,7 @@ def main() -> int:
     train_text_check(clip_params, heads, db, cpu_clip, cpu_heads, cpu_db, table, kernels)
     del table
     torch.cuda.empty_cache()
+    walls("train_text")
 
     # --- evaluation path ------------------------------------------------------
     build = pathlib.Path(__file__).resolve().parent / "build"
@@ -3462,6 +3624,7 @@ def main() -> int:
         profile_eval(split, profile, corpus_dev)
     del split, profile, corpus_dev
     torch.cuda.empty_cache()
+    walls("eval_path")
 
     # --- the serve and demo CLIs and raw-image training -----------------------
     with tempfile.TemporaryDirectory(dir=build) as d:
@@ -3480,34 +3643,43 @@ def main() -> int:
         del cpu_clip, cpu_heads, cpu_db
         raw_cli_runs(files)
         torch.cuda.empty_cache()
+        walls("cli_and_raw_train")
         extract_launches, features = extract_features_path(files, kernels)
         profile_dir_path(files, features)
         validate_path(files)
+    walls("tools")
 
     # --- two ranks sharing the card over gloo ----------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build) as d:
         dist_launches = dist_path(clip_params, heads, db, eval_ref, pathlib.Path(d))
+    walls("dist_path")
 
     # --- the full-scale CIRR and COCO eval benches ------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build) as d:
         fullscale_launches = fullscale_path(kernels, pathlib.Path(d))
+    walls("fullscale_path")
 
     att = ("attention", "keds_tpu_torch/csrc/attention.cu", "keds_tpu/ops/attention.py:122")
     bwd = ("attention_bwd", "keds_tpu_torch/csrc/attention_bwd.cu",
            "keds_tpu/ops/attention.py:134")
     top = ("mips_topk", "keds_tpu_torch/csrc/topk.cu", "keds_tpu/ops/pallas_topk.py:93")
     # launches: the serving main path's, the image-stream training path's for
-    # the backward, the evaluation path's for the f32 ranking at k = 101 and
-    # the serve CLI's --topn 300 run for the passes; each path's beside them
-    entries = [(att, "bf16_tc", att_rows[0], launches), (att, "f32", att_rows[2], launches),
+    # the backward, the f32 paths' for B2 and B2' in f32, the evaluation
+    # path's for the f32 ranking at k = 101 and the serve CLI's --topn 300
+    # run for the passes; each path's beside them
+    entries = [(att, "bf16_tc", att_rows[0], launches),
                (bwd, "bf16", bwd_rows[0], train_launches),
-               (bwd, "f32", bwd_rows[4], train_launches),
                # the backward above 128 keys (two streamed launches a call)
                (bwd, "bf16_stream", bwd_rows[6], train_launches),
                (bwd, "bf16_stream", bwd_rows[7], train_launches),
-               (bwd, "f32_stream", bwd_rows[8], train_launches),
+               # --precision fp32, each path beside its own shape: the f32
+               # image-stream step's prompt and the f32 encodes at 224 and 336 px
+               (att, "f32", att_rows[16], train_f32_launches),
+               (bwd, "f32", bwd_rows[9], train_f32_launches),
+               (att, "f32", att_rows[17], vit224_f32_launches),
+               (att, "f32", att_rows[18], vit336_f32_launches),
                (top, "bf16_tc", topk_rows[1], launches),
                (top, "f32", topk_rows[7], eval_launches),
                (top, "bf16", topk_rows[10], launches),
@@ -3520,7 +3692,6 @@ def main() -> int:
                (top, "bf16_tc", topk_rows[15], rn_launches),
                (top, "f32", topk_rows[16], rn_launches),
                (att, "bf16_tc", att_rows[4], vit336_launches),
-               (att, "f32", att_rows[6], vit336_launches),
                (att, "bf16_tc", att_rows[9], surface_launches["mask_ratio_1"]),
                (att, "bf16_tc", att_rows[10], surface_launches["mask_ratio_0.75"]),
                (att, "bf16_tc", att_rows[11], surface_launches["text_mid_cross"]),
@@ -3533,6 +3704,8 @@ def main() -> int:
                # the full-scale CIRR bench's text tower at S=77
                (att, "bf16_tc", att_rows[12], fullscale_launches["cirr_device"])]
     paths = {"serving": launches, "rn_serving": rn_launches, "vit336": vit336_launches,
+             "vit336_f32": vit336_f32_launches, "vit224_f32": vit224_f32_launches,
+             "train_image_f32": train_f32_launches,
              **{f"surface_{p}": c for p, c in surface_launches.items()},
              "train_image": train_launches, "train_text": text_launches,
              "eval": eval_launches, "serve_cli": serve_launches["serve"],
@@ -3548,6 +3721,7 @@ def main() -> int:
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],
          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+         **({"bound_fma_ms": row["bound_fma_ms"]} if "bound_fma_ms" in row else {}),
          "shape": row["shape"], "dtype": row["dtype"], "tiling": row.get("tiling"),
          **({"cuda_kernels_per_search": row["cuda_kernels"]} if "cuda_kernels" in row else {}),
          **({"padded_to": row["padded_to"], "pad_ms": row["pad_ms"],
@@ -3564,6 +3738,7 @@ def main() -> int:
                                          "int_mm_ms", "bf16_addmm_ms", "bound_ms", "bound_by",
                                          "bf16_bound_ms")} for r in linear_rows],
          launches_by_path={p: c["int8_mm"] for p, c in paths.items() if "int8_mm" in c})
+    emit("walls", seconds=walls.seconds, total_s=sum(walls.seconds.values()))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,9 @@
 // the fused qkv projection's (B, S, 3, H, Dh) output are read in place and
 // the context is written straight into (B, S, H, Dh) order.
 //
-// Four kernels: two for S <= kMaxResident (K and V of a (batch, head) stay
-// whole in shared memory), two that stream K and V through shared memory in
-// key chunks above that; bf16 and f32 each.  None falls back to another.
+// Three designs: bf16 for S <= kMaxResident (K and V of a (batch, head)
+// whole in shared memory) and above it (K and V streamed in key chunks),
+// and one f32 design at every S.  None falls back to another.
 //
 // attention_tc (bf16, Dh = 64, S <= 288).  What bounds it on the H100: at
 // the vision chunk (16, 16, 257, 64) the function moves 34 MB and does 4.3
@@ -54,13 +54,39 @@
 // per block; the blocks of one (batch, head) share them through L2 (a
 // (batch, head) is 74 KB at S = 577).
 //
-// attention_f32 (f32, Dh <= 128): exact f32 on CUDA cores (a tensor-core
-// version would round to TF32).  One warp per query row, scores in
-// registers, K and V staged in shared memory.  It serves the f32 engine;
-// the bf16 main path never runs it.  attention_f32_stream takes S above
-// 288, or K and V beyond the 227 KB a block may hold: 64-row query tiles,
-// K and V in kF32Chunk-key chunks, pass 1 the rows' max and sum in f32
-// (online rescaling), pass 2 P = exp(s - m) / l and P.V.
+// attention_f32 (f32, any Dh <= 128, any S).  What bounds it on the H100:
+// operations.  At ViT-L/14's 336 px chunk (16, 16, 577, 64) the function
+// does 21.8 GFLOP on 151 MB, 144 flop a byte.  The design takes the
+// products on tensor cores in three TF32 terms (common.cuh: split_tf32,
+// mma_3xtf32), which keeps about f32's accuracy at a third of the TF32 rate
+// (kernel_sweeps.py mma_rate, attention_precision; PERF.md), so its bound
+// is 0.13 ms at 494.7 / 3 TFLOP/s (0.33 ms at f32 FMA's 67 TFLOP/s):
+//   * A warp owns 16 query rows: q's fragments are split once into
+//     registers (up to Dh = 64), s = q k^T over a stage's keys and the
+//     online softmax run in the accumulator fragments (m shared by a quad,
+//     l each thread's part), and P feeds P.V as its A operand with no
+//     exchange (each 8-key step's keys taken in the accumulators' order).
+//     One pass: f32 P is not rounded before the sum, so q k^T is not
+//     recomputed as the bf16 kernels do.
+//   * K and V arrive through a two-stage cp.async ring of 16-byte rows (64
+//     keys a stage, 32 above Dh = 64), each row 4 floats longer than the
+//     head dimension (zero-padded to 32, 64 or 128), so every fragment load
+//     is free of bank conflicts.  An operand is split at its fragment load
+//     by integer rounding (faster than cvt.rna.tf32), and a product's three
+//     terms are issued across four accumulators, so that no mma waits on
+//     the one before it (a TF32 mma.sync takes about 25 cycles).
+//   * A block takes up to four 16-row tiles of one (batch, head), as many as
+//     make its blocks even.  Where the tiles alone give fewer than two warps
+//     to each of the card's four sub-partitions an SM, 2 or 4 warps take a
+//     tile's keys in turn and merge (m, l, acc) in a fixed order.  At
+//     Dh = 64 a block takes 70 KB of shared memory and 233 registers a
+//     thread, two blocks an SM; a call of S <= 64 keys holds them alone (S
+//     rounded to 16 rows).
+//   * The tensor core rounds its sums toward zero, which over a long sum of
+//     one sign drifts: q k^T sums hi.hi apart from the small terms, and each
+//     stage's P.V is summed apart and added to the output by an FMA.
+// One design serves every S, so no resident route is kept: at S <= 64 the
+// ring holds the keys alone and a call is one stage.
 
 #include "common.cuh"
 
@@ -69,8 +95,7 @@ namespace {
 using namespace keds;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxResident = 288;            // resident kernels: 9 keys a lane in f32
-constexpr int kMaxSmem = 227 * 1024;         // the H100's per-block most
+constexpr int kMaxResident = 288;            // the bf16 kernel's whole K and V
 
 struct Strides {
   long long b, s, h;
@@ -391,258 +416,341 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H
   return cudaGetLastError();
 }
 
-// --- f32 CUDA-core kernels ------------------------------------------------
+// --- f32 kernel: products on tensor cores in three TF32 terms ---------------
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQueryTile = 64;
-constexpr int kKeysPerLane = kMaxResident / 32;
+constexpr int kF32Warps = 4;                 // warps a block at most
 constexpr int kMaxHeadDim = 128;
-constexpr int kDimsPerLane = kMaxHeadDim / 32;
 
-// Shared-memory row pitch: one extra word per row so that lanes reading the
-// same column of consecutive rows hit distinct banks.
-__host__ __device__ constexpr int f32_pitch(int dh) { return dh + 1; }
+// The head dimension is padded to DHP (32, 64 or 128: zero in shared memory
+// and in q's fragments).  A ring stage holds kKeys keys of K and of V, rows
+// kPitch floats apart (= 4 mod 32: both fragment reads are conflict-free).
+template <int DHP> struct F32Shape {
+  static constexpr int kKeys = DHP <= 64 ? 64 : 32;
+  static constexpr int kPitch = DHP + 4;
+};
 
-__host__ __device__ size_t f32_kv_bytes(int s, int dh) {
-  size_t b = 2 * static_cast<size_t>(s) * f32_pitch(dh) * sizeof(float);
-  return (b + 15) & ~static_cast<size_t>(15);
+// Key rows j0 .. j0 + rows - 1 of K and V into a stage (zero past S and past
+// Dh): 16-byte cp.async where rows are 16-byte aligned (vec), else 4 bytes.
+template <int DHP>
+__device__ __forceinline__ void f32_load_stage(float* k_dst, float* v_dst, const float* kb,
+                                               const float* vb, long long kst, long long vst,
+                                               int j0, int rows, int S, int Dh, bool vec) {
+  constexpr int P = F32Shape<DHP>::kPitch;
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (DHP / 4); e += blockDim.x) {
+      const int j = e / (DHP / 4), d = e % (DHP / 4) * 4;
+      const bool in = j0 + j < S && d < Dh;
+      const long long js = in ? j0 + j : 0;
+      cp_async16(k_dst + j * P + d, kb + js * kst + (in ? d : 0), in);
+      cp_async16(v_dst + j * P + d, vb + js * vst + (in ? d : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DHP; e += blockDim.x) {
+      const int j = e / DHP, d = e % DHP;
+      const bool in = j0 + j < S && d < Dh;
+      const long long js = in ? j0 + j : 0;
+      cp_async4(k_dst + j * P + d, kb + js * kst + (in ? d : 0), in);
+      cp_async4(v_dst + j * P + d, vb + js * vst + (in ? d : 0), in);
+    }
+  }
 }
 
-size_t f32_smem_bytes(int s, int dh) {
-  return f32_kv_bytes(s, dh) + kWarps * (kMaxHeadDim + kMaxResident) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(kThreads)
+// Each warp owns 16 query rows (a tile); a block holds `tiles` tiles of one
+// (batch, head) and SPLITS warps per tile, split s taking keys s * KT ..
+// (s + 1) * KT - 1 of every stage, merged at the end.  flags: 1 = k and v
+// rows 16-byte aligned, 2 = o rows 8-byte aligned with an even Dh.
+template <int DHP, int SPLITS>
+__global__ void __launch_bounds__(32 * kF32Warps)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H, int S,
-              int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-              float scale) {
+              const float* __restrict__ v, float* __restrict__ o, int H, int S, int Dh,
+              Strides qs, Strides ks, Strides vs, Strides os, int causal, float c, int flags) {
+  constexpr int P = F32Shape<DHP>::kPitch, KEYS = F32Shape<DHP>::kKeys;
+  constexpr int KT = KEYS / SPLITS, NT = KT / 8, KK = DHP / 8;
+  constexpr int KQ = DHP <= 64 ? KK : 1;      // q kept split in registers up to 64
+  constexpr int kGroup = NT < 4 ? NT : 4;     // 8-key tiles whose products interleave
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = f32_pitch(Dh);
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + static_cast<size_t>(S) * ld;
-  float* q_s = reinterpret_cast<float*>(smem + f32_kv_bytes(S, Dh));
-  float* p_s = q_s + kWarps * kMaxHeadDim;
+  float* ring = reinterpret_cast<float*>(smem);
 
+  const int tiles = blockDim.x / 32 / SPLITS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int tile = warp % tiles, split = warp / tiles;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int r0 = blockIdx.y * kQueryTile;
-  const int r_end = min(S, r0 + kQueryTile);
-  const int n_keys = causal ? r_end : S;
-
+  const int r0 = (blockIdx.y * tiles + tile) * 16;
+  const int ra = r0 + g, rb = ra + 8;
+  const int lim_a = causal ? min(S, ra + 1) : S, lim_b = causal ? min(S, rb + 1) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;
+  const int warp_keys = r0 >= S ? 0 : (causal ? min(S, r0 + 16) : S);
+  const int block_keys = causal ? min(S, (blockIdx.y + 1) * tiles * 16) : S;
+  const int n_chunks = (block_keys + KEYS - 1) / KEYS;
+  // S <= KEYS: one stage of S keys rounded to 16; else a two-stage ring
+  const int stage_rows = S > KEYS ? KEYS : (S + 15) & ~15;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  for (int e = threadIdx.x; e < n_keys * Dh; e += kThreads) {
-    const int j = e / Dh, d = e - j * Dh;
-    k_s[j * ld + d] = kb[j * ks.s + d];
-    v_s[j * ld + d] = vb[j * vs.s + d];
+  const bool vec = flags & 1;
+
+  f32_load_stage<DHP>(ring, ring + stage_rows * P, kb, vb, ks.s, vs.s, 0, stage_rows, S, Dh,
+                      vec);
+  cp_async_commit();
+
+  // q's A fragments of rows ra and rb (zero past S and Dh)
+  float qf[KK][4];
+  {
+    const float* qb = q + b * qs.b + h * qs.h;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e % 2 ? rb : ra, d = kk * 8 + t + (e / 2) * 4;
+        qf[kk][e] = r < S && d < Dh ? __ldg(qb + r * qs.s + d) : 0.f;
+      }
   }
-  __syncthreads();
+  unsigned qh[KQ][4], ql[KQ][4];
+  if constexpr (DHP <= 64) {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(qf[kk][e], qh[kk][e], ql[kk][e]);
+  }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q_w = q_s + warp * kMaxHeadDim;
-  float* p_w = p_s + warp * kMaxResident;
-  const float* qb = q + b * qs.b + h * qs.h;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float acc[KK][4];
+#pragma unroll
+  for (int nd = 0; nd < KK; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      float* next = ring + ((ch + 1) & 1) * 2 * stage_rows * P;
+      f32_load_stage<DHP>(next, next + stage_rows * P, kb, vb, ks.s, vs.s, (ch + 1) * KEYS,
+                          stage_rows, S, Dh, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* k_st = ring + (ch & 1) * 2 * stage_rows * P + split * KT * P;
+    const float* v_st = k_st + stage_rows * P;
+    const int key0 = ch * KEYS + split * KT;
+    const int n_live = min(NT, (warp_keys - key0 + 7) / 8);   // warp-uniform 8-key tiles
+    if (n_live > 0) {
+      // s = q k^T over the warp's KT keys
+      float s[NT][4], s_lo[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = s_lo[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (DHP <= 64) {
+            ah[e] = qh[kk][e];
+            al[e] = ql[kk][e];
+          } else {
+            split_tf32(qf[kk][e], ah[e], al[e]);
+          }
+        }
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += kGroup) {
+          unsigned bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j)
+            if (n0 + j < n_live)
+              b_frag_rows(bh[j], bl[j], k_st + (n0 + j) * 8 * P + kk * 8, P, g, t);
+          mma_3xtf32_apart<kGroup>(s + n0, s_lo + n0, ah, al, bh, bl, n_live - n0);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += s_lo[nt][e];
+      // online softmax: the quad's rows share m; l is each thread's part
+      const bool masked = key0 + NT * 8 > lim_warp;
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + nt * 8 + 2 * t + e % 2;
+          if (nt >= n_live || (masked && key >= (e < 2 ? lim_a : lim_b))) s[nt][e] = -CUDART_INF_F;
+          mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+        }
+      float mc[2], alpha[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFullMask, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFullMask, mx[half], 2));
+        const float mn = fmaxf(m[half], mx[half]);
+        mc[half] = mn == -CUDART_INF_F ? 0.f : mn * c;      // no live key yet: add nothing
+        alpha[half] = exp2f(fmaf(m[half], c, -mc[half]));
+        m[half] = mn;
+        l[half] *= alpha[half];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp2f(fmaf(s[nt][e], c, -mc[e / 2]));
+          l[e / 2] += s[nt][e];
+        }
+      // acc = alpha acc + P v, the stage's P v summed apart: the tensor core
+      // rounds its sums toward zero, which over many stages of one sign drifts
+      float pv[KK][4];
+#pragma unroll
+      for (int nd = 0; nd < KK; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[nd][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < NT; ++kt) {
+        if (kt < n_live) {
+          unsigned ph[4], pl[4];
+          c_to_a(s[kt], ph, pl);
+#pragma unroll
+          for (int n0 = 0; n0 < KK; n0 += 4) {
+            unsigned bh[4][2], bl[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              b_frag_cols(bh[j], bl[j], v_st + kt * 8 * P + (n0 + j) * 8, P, g, t);
+            mma_3xtf32<4>(pv + n0, ph, pl, bh, bl, 4);
+          }
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < KK; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], alpha[e / 2], pv[nd][e]);
+    }
+    __syncthreads();                              // the stage is refilled next
+  }
+
+  if constexpr (SPLITS > 1) {
+    // splits 1.. hand their (m, l, acc) to split 0 through the idle ring
+    constexpr int kVals = 4 + 4 * KK;
+    if (split > 0) {
+      float* dst = ring + ((split - 1) * tiles + tile) * kVals * 32 + lane;
+      dst[0] = m[0];
+      dst[32] = m[1];
+      dst[64] = l[0];
+      dst[96] = l[1];
+#pragma unroll
+      for (int nd = 0; nd < KK; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[(4 + nd * 4 + e) * 32] = acc[nd][e];
+    }
+    __syncthreads();
+    if (split > 0) return;
+#pragma unroll
+    for (int sp = 1; sp < SPLITS; ++sp) {
+      const float* src = ring + ((sp - 1) * tiles + tile) * kVals * 32 + lane;
+      float fa[2], fb[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float mo = src[half * 32];
+        const float mn = fmaxf(m[half], mo);
+        const float mcn = mn == -CUDART_INF_F ? 0.f : mn * c;
+        fa[half] = exp2f(fmaf(m[half], c, -mcn));
+        fb[half] = exp2f(fmaf(mo, c, -mcn));
+        l[half] = l[half] * fa[half] + src[(2 + half) * 32] * fb[half];
+        m[half] = mn;
+      }
+#pragma unroll
+      for (int nd = 0; nd < KK; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[nd][e] = acc[nd][e] * fa[e / 2] + src[(4 + nd * 4 + e) * 32] * fb[e / 2];
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(kFullMask, l[half], 1);
+    l[half] += __shfl_xor_sync(kFullMask, l[half], 2);
+    inv[half] = 1.f / l[half];
+  }
   float* ob = o + b * os.b + h * os.h;
-
-  for (int r = r0 + warp; r < r_end; r += kWarps) {
-    for (int d = lane; d < Dh; d += 32) q_w[d] = qb[r * qs.s + d] * scale;
-    __syncwarp();
-    const int nk = causal ? r + 1 : S;   // keys >= S (and > r if causal) masked
-
-    float s[kKeysPerLane];
-    float m = -CUDART_INF_F;
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      float acc = -CUDART_INF_F;
-      if (j < nk) {
-        const float* kr = k_s + j * ld;
-        acc = 0.f;
-        for (int d = 0; d < Dh; ++d) acc = fmaf(q_w[d], kr[d], acc);
-      }
-      s[t] = acc;
-      m = fmaxf(m, acc);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
+  for (int nd = 0; nd < KK; ++nd) {
+    const int d = nd * 8 + 2 * t;
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      s[t] = (lane + 32 * t < nk) ? expf(s[t] - m) : 0.f;
-      sum += s[t];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      if (j < nk) p_w[j] = s[t] / sum;
-    }
-    __syncwarp();
-
-    float acc[kDimsPerLane];
-#pragma unroll
-    for (int u = 0; u < kDimsPerLane; ++u) acc[u] = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float p = p_w[j];
-      const float* vr = v_s + j * ld;
-#pragma unroll
-      for (int u = 0; u < kDimsPerLane; ++u) {
-        const int d = lane + 32 * u;
-        if (d < Dh) acc[u] = fmaf(p, vr[d], acc[u]);
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? rb : ra;
+      if (r >= S || d >= Dh) continue;
+      const float x0 = acc[nd][2 * half] * inv[half], x1 = acc[nd][2 * half + 1] * inv[half];
+      float* dst = ob + r * os.s + d;
+      if (flags & 2) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        dst[0] = x0;
+        if (d + 1 < Dh) dst[1] = x1;
       }
     }
-#pragma unroll
-    for (int u = 0; u < kDimsPerLane; ++u) {
-      const int d = lane + 32 * u;
-      if (d < Dh) ob[r * os.s + d] = acc[u];
-    }
-    __syncwarp();   // q_w / p_w are rewritten by the warp's next row
   }
 }
 
-// --- streaming f32 kernel --------------------------------------------------
-
-constexpr int kF32Chunk = 128;               // keys a stage: 4 a lane
-constexpr int kF32ChunkPerLane = kF32Chunk / 32;
-constexpr int kRowsPerWarp = kQueryTile / kWarps;
-
-size_t f32_stream_smem_bytes(int dh) {
-  // K and V chunks, the block's q rows (scaled), each warp's P row
-  return (2 * static_cast<size_t>(kF32Chunk) * f32_pitch(dh) +
-          static_cast<size_t>(kQueryTile) * dh + kWarps * kF32Chunk) * sizeof(float);
+// Dynamic shared memory of a block: the ring (a stage of S keys rounded to
+// 16 at S <= kKeys), or the splits' hand-over if larger.
+template <int DHP, int SPLITS>
+size_t f32_smem_bytes(int S, int tiles) {
+  using Sh = F32Shape<DHP>;
+  const size_t rows = S > Sh::kKeys ? Sh::kKeys : (S + 15) & ~15;
+  const size_t ring = (S > Sh::kKeys ? 2 : 1) * 2 * rows * Sh::kPitch * sizeof(float);
+  const size_t merge = (SPLITS - 1) * static_cast<size_t>(tiles) * (4 + DHP / 2) * 32 *
+                       sizeof(float);
+  return ring > merge ? ring : merge;
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_f32_stream(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H, int S,
-                     int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                     float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = f32_pitch(Dh);
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + static_cast<size_t>(kF32Chunk) * ld;
-  float* q_s = v_s + static_cast<size_t>(kF32Chunk) * ld;
-  float* p_s = q_s + static_cast<size_t>(kQueryTile) * Dh;
+template <int DHP, int SPLITS>
+int launch_f32_t(const float* q, const float* k, const float* v, float* o, int B, int H, int S,
+                 int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal, float c,
+                 int flags, cudaStream_t stream) {
+  static int smem_set[64];
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_f32<DHP, SPLITS>),
+                               static_cast<int>(f32_smem_bytes<DHP, SPLITS>(1 << 20, kF32Warps)),
+                               smem_set);
+  if (err != cudaSuccess) return err;
+  // as many tiles a block as make the blocks of a (batch, head) even
+  const int n_tiles = (S + 15) / 16;
+  const int most = kF32Warps / SPLITS;
+  const int blocks_y = (n_tiles + most - 1) / most;
+  const int tiles = (n_tiles + blocks_y - 1) / blocks_y;
+  const size_t smem = f32_smem_bytes<DHP, SPLITS>(S, tiles);
+  attention_f32<DHP, SPLITS><<<dim3(B * H, blocks_y), 32 * tiles * SPLITS, smem, stream>>>(
+      q, k, v, o, H, S, Dh, qs, ks, vs, os, causal, c, flags);
+  return cudaGetLastError();
+}
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int r0 = blockIdx.y * kQueryTile;
-  const int r_end = min(S, r0 + kQueryTile);
-  const int n_keys = causal ? r_end : S;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const float* qb = q + b * qs.b + h * qs.h;
-  float* ob = o + b * os.b + h * os.h;
-  for (int e = threadIdx.x; e < (r_end - r0) * Dh; e += kThreads) {
-    const int i = e / Dh, d = e - i * Dh;
-    q_s[i * Dh + d] = qb[(r0 + i) * qs.s + d] * scale;
-  }
+using F32Launch = int (*)(const float*, const float*, const float*, float*, int, int, int, int,
+                          Strides, Strides, Strides, Strides, int, float, int, cudaStream_t);
+constexpr F32Launch kF32Launch[3][3] = {
+    {launch_f32_t<32, 1>, launch_f32_t<32, 2>, launch_f32_t<32, 4>},
+    {launch_f32_t<64, 1>, launch_f32_t<64, 2>, launch_f32_t<64, 4>},
+    {launch_f32_t<128, 1>, launch_f32_t<128, 2>, launch_f32_t<128, 4>}};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* p_w = p_s + warp * kF32Chunk;
-  // row r0 + warp + kWarps * i of the tile is this warp's i-th
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int u = 0; u < kDimsPerLane; ++u) acc[i][u] = 0.f;
-  }
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int j0 = 0; j0 < n_keys; j0 += kF32Chunk) {
-      const int n = min(kF32Chunk, n_keys - j0);
-      __syncthreads();                           // the previous chunk is done
-      for (int e = threadIdx.x; e < n * Dh; e += kThreads) {
-        const int j = e / Dh, d = e - j * Dh;
-        k_s[j * ld + d] = kb[(j0 + j) * ks.s + d];
-        if (pass) v_s[j * ld + d] = vb[(j0 + j) * vs.s + d];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = r0 + warp + kWarps * i;
-        if (r >= r_end) break;                   // warp-uniform
-        const int nk = (causal ? r + 1 : S) - j0;    // live keys of the chunk
-        if (nk <= 0) continue;
-        const float* q_r = q_s + (r - r0) * Dh;
-        float s[kF32ChunkPerLane];
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int t = 0; t < kF32ChunkPerLane; ++t) {
-          const int j = lane + 32 * t;
-          float a = -CUDART_INF_F;
-          if (j < n && j < nk) {
-            const float* kr = k_s + j * ld;
-            a = 0.f;
-            for (int d = 0; d < Dh; ++d) a = fmaf(q_r[d], kr[d], a);
-          }
-          s[t] = a;
-          mx = fmaxf(mx, a);
-        }
-        if (pass == 0) {
-          mx = fmaxf(m[i], warp_max(mx));
-          float sum = 0.f;
-#pragma unroll
-          for (int t = 0; t < kF32ChunkPerLane; ++t)
-            sum += s[t] == -CUDART_INF_F ? 0.f : expf(s[t] - mx);
-          l[i] = (m[i] == -CUDART_INF_F ? 0.f : l[i] * expf(m[i] - mx)) + warp_sum(sum);
-          m[i] = mx;
-          continue;
-        }
-#pragma unroll
-        for (int t = 0; t < kF32ChunkPerLane; ++t) {
-          const int j = lane + 32 * t;
-          if (j < n) p_w[j] = s[t] == -CUDART_INF_F ? 0.f : expf(s[t] - m[i]) / l[i];
-        }
-        __syncwarp();
-        const int live = min(n, nk);
-        for (int j = 0; j < live; ++j) {
-          const float p = p_w[j];
-          const float* vr = v_s + j * ld;
-#pragma unroll
-          for (int u = 0; u < kDimsPerLane; ++u) {
-            const int d = lane + 32 * u;
-            if (d < Dh) acc[i][u] = fmaf(p, vr[d], acc[i][u]);
-          }
-        }
-        __syncwarp();                            // p_w is rewritten by the next row
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = r0 + warp + kWarps * i;
-    if (r >= r_end) break;
-#pragma unroll
-    for (int u = 0; u < kDimsPerLane; ++u) {
-      const int d = lane + 32 * u;
-      if (d < Dh) ob[r * os.s + d] = acc[i][u];
-    }
-  }
+bool aligned(const void* p, long long bytes) {
+  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
                int S, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
                int causal, float scale, cudaStream_t stream) {
-  const bool resident = S <= kMaxResident && f32_smem_bytes(S, Dh) <= kMaxSmem;
-  const void* kernel = resident ? reinterpret_cast<const void*>(attention_f32)
-                                : reinterpret_cast<const void*>(attention_f32_stream);
-  static int smem_set[2][64];
-  cudaError_t err = allow_smem(kernel, kMaxSmem, smem_set[resident ? 0 : 1]);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (S + kQueryTile - 1) / kQueryTile);
-  const float* args[3] = {static_cast<const float*>(q), static_cast<const float*>(k),
-                          static_cast<const float*>(v)};
-  if (resident)
-    attention_f32<<<grid, kThreads, f32_smem_bytes(S, Dh), stream>>>(
-        args[0], args[1], args[2], static_cast<float*>(o), H, S, Dh, qs, ks, vs, os,
-        causal, scale);
-  else
-    attention_f32_stream<<<grid, kThreads, f32_stream_smem_bytes(Dh), stream>>>(
-        args[0], args[1], args[2], static_cast<float*>(o), H, S, Dh, qs, ks, vs, os,
-        causal, scale);
-  return cudaGetLastError();
+  const int dhp = Dh <= 32 ? 0 : Dh <= 64 ? 1 : 2;
+  const int n = key_splits(static_cast<long long>(B) * H * ((S + 15) / 16));
+  const int splits = n == 1 ? 0 : n == 2 ? 1 : 2;
+  auto rows16 = [](const void* p, const Strides& s) {
+    return aligned(p, 16) && s.b % 4 == 0 && s.s % 4 == 0 && s.h % 4 == 0;
+  };
+  const int flags = (Dh % 4 == 0 && rows16(k, ks) && rows16(v, vs) ? 1 : 0) |
+                    (Dh % 2 == 0 && aligned(o, 8) && os.b % 2 == 0 && os.s % 2 == 0 &&
+                             os.h % 2 == 0 ? 2 : 0);
+  return kF32Launch[dhp][splits](static_cast<const float*>(q), static_cast<const float*>(k),
+                                 static_cast<const float*>(v), static_cast<float*>(o), B, H, S,
+                                 Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f, flags,
+                                 stream);
 }
 
 }  // namespace

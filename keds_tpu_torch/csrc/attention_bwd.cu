@@ -78,19 +78,39 @@
 //   each dkv block; the blocks of a (batch, head) share them through L2.
 //   Shared memory: 36 KB (dq), 75 KB (dkv).
 //
-// attention_bwd_f32 (f32, Dh = 64, S <= 128): exact f32 on CUDA cores (a
-// tensor-core version would round to TF32).  One block per (batch, head)
-// stages q*scale, k, v and dO as f32 rows of 65 floats (conflict-free column
-// walks) and the S x S matrix P, later dS, in shared memory (199 KB at
-// S = 128); every product is an f32 FMA.  No path runs it today.
-//
-// attention_bwd_f32_dq and attention_bwd_f32_dkv (f32, Dh = 64, S > 128):
-// the same split as the bf16 streamed kernels on CUDA cores, exact f32 FMAs.
-// dq: kF32QRows query rows a block (4 a warp), K and V in kChunk-key chunks
-// staged as 65-float rows, three sweeps (max and sum, D, dQ); the statistics
-// go to the workspace.  dkv: kChunk keys a block (8 a warp), K and V
-// resident, query rows streamed kF32QRows at a time; a lane takes one query
-// for the scores and one head dimension for dV and dK.
+// attention_bwd_f32, attention_bwd_f32_dq and attention_bwd_f32_dkv (f32,
+// Dh = 64, any S).  What bounds them on the H100: operations, 10 B H pairs
+// Dh flops on 7 B H S Dh floats (at (4, 16, 577, 64) 13.6 GFLOP on 66 MB:
+// 0.083 ms at 3xTF32's 494.7 / 3 TFLOP/s, 0.20 ms at f32 FMA's 67
+// TFLOP/s).  One design at every S, on the forward's
+// principles (attention.cu): every product on tensor cores in three TF32
+// terms (common.cuh), a warp owning 16 rows with the softmax in its
+// accumulator fragments, operands in 68-float shared rows (conflict-free
+// fragment loads), split at their load by integer rounding, a product's
+// terms issued across four accumulators.  Each gradient is written once
+// (no atomics; splits merge in a fixed order), so two calls agree bit for
+// bit.
+//   * S <= kF32Chunk: one launch, a block a (batch, head) holding q, k, v
+//     and dO (16-byte cp.async) and three statistics a row.  Warp w takes
+//     query tile w (F32Dq: two sweeps over the keys, the first taking each
+//     row's max m, sum l and D = sum P dP together, D accumulating
+//     exp(s - m) dP with the same online rescaling as l; the second
+//     dS = P (dP - D) into dQ), then key tile w (F32Dkv: P^T and dP^T
+//     recomputed from the statistics per 32 queries, dV += P^T dO,
+//     dK += dS^T q).  No workspace.
+//   * Above: two launches.  dq holds its block's q and dO rows and streams
+//     K and V through a two-stage ring of kF32Chunk rows, twice, writing the
+//     statistics to a workspace (16 S rounded to 16 floats a (batch, head)
+//     and statistic); dkv holds its keys' K and V and streams q, dO and the
+//     statistics, from the block's first key when causal.
+//   * A block takes up to four 16-row tiles of a (batch, head); where they
+//     give fewer than two warps to each sub-partition, 2 or 4 warps take a
+//     tile's keys (dq) or queries (dkv) in turn, one 32-row sub-tile of
+//     each stage (128-row stages at four), and merge their statistics after
+//     the first sweep and their sums at the end.  The A operands come from
+//     shared memory, which keeps a thread at 147-168 registers (three
+//     blocks an SM by registers; the streamed launches' shared memory:
+//     102 KB and 104 KB at four tiles).
 
 #include "common.cuh"
 
@@ -772,392 +792,598 @@ int launch_tc_stream(const void* q, const void* k, const void* v, const void* do
   return cudaGetLastError();
 }
 
-// --- f32 CUDA-core kernel -------------------------------------------------
+// --- f32 kernels: products on tensor cores in three TF32 terms ---------------
 
-constexpr int kPitch = kHeadDim + 1;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kKeysPerLane = kMaxSeq / 32;
+constexpr int kF32Warps = 4;                      // warps a block at most
+constexpr int kF32Pitch = kHeadDim + 4;           // floats a shared row (= 4 mod 32)
+constexpr int kF32Chunk = 64;                     // rows a ring stage
+constexpr int kF32Sub = 32;                       // keys (dq) or queries (dkv) a register tile
+constexpr int kF32NT = kF32Sub / 8;
+constexpr int kF32KK = kHeadDim / 8;
 
-size_t f32_smem_bytes(int S) {
-  return (4 * static_cast<size_t>(S) * kPitch + static_cast<size_t>(S) * S) * sizeof(float);
+// Above kF32Chunk keys the streamed launches: `splits` warps take each
+// 16-row tile in turn, one 32-row sub-tile of every stage each (a stage of
+// 128 rows at four splits, else 64), and merge in a fixed order at the end.
+__host__ __device__ constexpr int f32_stage_rows(int splits) {
+  return splits == 4 ? 2 * kF32Chunk : kF32Chunk;
 }
 
-__device__ __forceinline__ void stage(float* dst, const float* src, Strides st, int b, int h,
-                                      int S, float mul) {
-  const float* base = src + b * st.b + h * st.h;
-  for (int e = threadIdx.x; e < S * kHeadDim; e += kThreads) {
-    const int i = e / kHeadDim, d = e % kHeadDim;
-    dst[i * kPitch + d] = base[i * st.s + d] * mul;
+// Dynamic shared memory of the streamed launches at `splits` and `tiles`:
+// dq holds its tiles' q and dO rows, a ring of K and V and the splits'
+// statistics; dkv its keys' K and V and a ring of q, dO and statistics.
+constexpr int f32_dq_smem(int splits, int tiles) {
+  return (32 * tiles * kF32Pitch + 4 * f32_stage_rows(splits) * kF32Pitch +
+          (splits > 1 ? 6 * 32 * splits * tiles : 0)) * static_cast<int>(sizeof(float));
+}
+
+constexpr int f32_dkv_smem(int splits, int tiles) {
+  return (32 * tiles * kF32Pitch + 2 * f32_stage_rows(splits) * (2 * kF32Pitch + 3)) *
+         static_cast<int>(sizeof(float));
+}
+
+struct F32Plan {
+  int tiles, warps, resident, smem_bytes;
+};
+
+// One design at every S: a block takes `warps` 16-row tiles of one (batch,
+// head) (as many as make its blocks even, at most kF32Warps).  S <= kF32Chunk:
+// one launch holds q, k, v and dO of the (batch, head) and three statistics a
+// row.  Above: a dq launch streams K and V through a two-stage ring and
+// writes the statistics to the workspace; a dkv launch holds its keys' K and
+// V and streams q, dO and the statistics.  smem_bytes is the larger launch's
+// (dkv's) with no split.
+F32Plan f32_plan(int S) {
+  const int n = (S + 15) / 16;
+  const int by = (n + kF32Warps - 1) / kF32Warps;
+  const int w = (n + by - 1) / by;
+  if (S <= kF32Chunk)
+    return F32Plan{n, w, 1, 16 * n * (4 * kF32Pitch + 3) * static_cast<int>(sizeof(float))};
+  return F32Plan{n, w, 0, f32_dkv_smem(1, w)};
+}
+
+// Rows j0 .. j0 + rows - 1 of two (batch, head) operands into 68-float rows
+// (zero past S): 16-byte cp.async where rows are 16-byte aligned (vec).
+__device__ __forceinline__ void f32_load_rows(float* a_dst, float* b_dst, const float* a,
+                                              const float* b, long long as, long long bs,
+                                              int j0, int rows, int S, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (kHeadDim / 4); e += blockDim.x) {
+      const int j = e / (kHeadDim / 4), d = e % (kHeadDim / 4) * 4;
+      const bool in = j0 + j < S;
+      const long long js = in ? j0 + j : 0;
+      cp_async16(a_dst + j * kF32Pitch + d, a + js * as + d, in);
+      cp_async16(b_dst + j * kF32Pitch + d, b + js * bs + d, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * kHeadDim; e += blockDim.x) {
+      const int j = e / kHeadDim, d = e % kHeadDim;
+      const bool in = j0 + j < S;
+      const long long js = in ? j0 + j : 0;
+      cp_async4(a_dst + j * kF32Pitch + d, a + js * as + d, in);
+      cp_async4(b_dst + j * kF32Pitch + d, b + js * bs + d, in);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                  int H, int S, Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs,
-                  Strides dks, Strides dvs, int causal, float scale) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* q_s = smem_f;                // q * scale
-  float* k_s = q_s + S * kPitch;
-  float* v_s = k_s + S * kPitch;
-  float* g_s = v_s + S * kPitch;      // dO
-  float* p_s = g_s + S * kPitch;      // (S, S): P, then dS
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  stage(q_s, q, qs, b, h, S, scale);
-  stage(k_s, k, ks, b, h, S, 1.f);
-  stage(v_s, v, vs, b, h, S, 1.f);
-  stage(g_s, dout, gs, b, h, S, 1.f);
-  __syncthreads();
-
-  // scores; keys past the row are -inf when causal
-  for (int e = threadIdx.x; e < S * S; e += kThreads) {
-    const int i = e / S, j = e % S;
-    float acc = -CUDART_INF_F;
-    if (!causal || j <= i) {
-      const float* qr = q_s + i * kPitch;
-      const float* kr = k_s + j * kPitch;
-      acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < kHeadDim; ++d) acc = fmaf(qr[d], kr[d], acc);
-    }
-    p_s[e] = acc;
+// s[nt] = A B^T for A the 16 rows at `a_rows` and B the 8-row blocks nt of
+// `b_rows` (nt < n_live), all in shared memory.
+__device__ __forceinline__ void f32_abt(float (&s)[kF32NT][4], const float* a_rows,
+                                        const float* b_rows, int n_live, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < kF32NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kF32KK; ++kk) {
+    unsigned ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32(a_rows[(g + (e % 2) * 8) * kF32Pitch + kk * 8 + t + (e / 2) * 4], ah[e], al[e]);
+    unsigned bh[kF32NT][2], bl[kF32NT][2];
+#pragma unroll
+    for (int nt = 0; nt < kF32NT; ++nt)
+      if (nt < n_live)
+        b_frag_rows(bh[nt], bl[nt], b_rows + nt * 8 * kF32Pitch + kk * 8, kF32Pitch, g, t);
+    mma_3xtf32<kF32NT>(s, ah, al, bh, bl, n_live);
   }
-  __syncthreads();
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // row softmax, one warp per row
-  for (int i = warp; i < S; i += kWarps) {
-    float* row = p_s + i * S;
-    float s[kKeysPerLane];
-    float m = -CUDART_INF_F;
+// acc += C B for C the 16 x (8 n_live) tile `c` and B the rows of `rows`.
+__device__ __forceinline__ void f32_cb(float (&acc)[kF32KK][4], const float (&c)[kF32NT][4],
+                                       const float* rows, int n_live, int g, int t) {
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = j < S ? row[j] : -CUDART_INF_F;
-      m = fmaxf(m, s[t]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
+  for (int kt = 0; kt < kF32NT; ++kt) {
+    if (kt < n_live) {
+      unsigned ah[4], al[4];
+      c_to_a(c[kt], ah, al);
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      s[t] = s[t] == -CUDART_INF_F ? 0.f : expf(s[t] - m);
-      sum += s[t];
-    }
-    sum = warp_sum(sum);
+      for (int n0 = 0; n0 < kF32KK; n0 += 4) {
+        unsigned bh[4][2], bl[4][2];
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) row[j] = s[t] / sum;
-    }
-  }
-  __syncthreads();
-
-  // dV = P^T dO: only rows i >= j see key j when causal
-  float* dvb = dv + b * dvs.b + h * dvs.h;
-  for (int e = threadIdx.x; e < S * kHeadDim; e += kThreads) {
-    const int j = e / kHeadDim, d = e % kHeadDim;
-    float acc = 0.f;
-    for (int i = causal ? j : 0; i < S; ++i) acc = fmaf(p_s[i * S + j], g_s[i * kPitch + d], acc);
-    dvb[j * dvs.s + d] = acc;
-  }
-  __syncthreads();
-
-  // dP = dO V^T, D = rowsum(P * dP), dS = P * (dP - D), written over P
-  for (int i = warp; i < S; i += kWarps) {
-    float* row = p_s + i * S;
-    const float* gr = g_s + i * kPitch;
-    float p[kKeysPerLane], dp[kKeysPerLane];
-    float dsum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      p[t] = 0.f;
-      dp[t] = 0.f;
-      if (j < S && (!causal || j <= i)) {
-        const float* vr = v_s + j * kPitch;
-        float acc = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < kHeadDim; ++d) acc = fmaf(gr[d], vr[d], acc);
-        p[t] = row[j];
-        dp[t] = acc;
-        dsum = fmaf(p[t], acc, dsum);
+        for (int j = 0; j < 4; ++j)
+          b_frag_cols(bh[j], bl[j], rows + kt * 8 * kF32Pitch + (n0 + j) * 8, kF32Pitch, g, t);
+        mma_3xtf32<4>(acc + n0, ah, al, bh, bl, 4);
       }
     }
-    dsum = warp_sum(dsum);
+  }
+}
+
+__device__ __forceinline__ void f32_store_rows(float* base, long long stride,
+                                               const float (&acc)[kF32KK][4], float mul, int ra,
+                                               int rb, int S, int t) {
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) row[j] = p[t] * (dp[t] - dsum);
+  for (int nd = 0; nd < kF32KK; ++nd) {
+    const int d = nd * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<float2*>(base + ra * stride + d) =
+          make_float2(acc[nd][0] * mul, acc[nd][1] * mul);
+    if (rb < S)
+      *reinterpret_cast<float2*>(base + rb * stride + d) =
+          make_float2(acc[nd][2] * mul, acc[nd][3] * mul);
+  }
+}
+
+// One warp's 16 query rows r0 .. r0 + 15 of dq.  Two sweeps over the keys:
+// the first takes the rows' max m, sum l and D = sum P dP together (online
+// rescaling: D accumulates exp(s - m) dP beside l), the second dS = P (dP - D)
+// into dQ = scale dS K.
+struct F32Dq {
+  float acc[kF32KK][4];
+  float m[2], l[2], dd[2], mc[2], inv_l[2], dsum[2];
+  int ra, rb, lim_a, lim_b, lim_warp, keys;
+
+  __device__ __forceinline__ void init(int r0, int S, int causal, int g) {
+    ra = r0 + g;
+    rb = ra + 8;
+    lim_a = causal ? min(S, ra + 1) : S;
+    lim_b = causal ? min(S, rb + 1) : S;
+    lim_warp = causal ? min(S, r0 + 1) : S;
+    keys = r0 >= S ? 0 : (causal ? min(S, r0 + 16) : S);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = -CUDART_INF_F;
+      l[h] = dd[h] = mc[h] = inv_l[h] = dsum[h] = 0.f;
+    }
+#pragma unroll
+    for (int nd = 0; nd < kF32KK; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  }
+
+  // The 32 keys from key0: the warp's q and dO rows and the keys' K and V
+  // rows in shared memory.
+  __device__ __forceinline__ void sub(int sweep, const float* q_rows, const float* g_rows,
+                                      const float* k_rows, const float* v_rows, int key0,
+                                      float c, int g, int t) {
+    const int n_live = min(kF32NT, (keys - key0 + 7) / 8);
+    if (n_live <= 0) return;                           // warp-uniform
+    float s[kF32NT][4], dp[kF32NT][4];
+    f32_abt(s, q_rows, k_rows, n_live, g, t);
+    f32_abt(dp, g_rows, v_rows, n_live, g, t);
+    const bool masked = key0 + kF32Sub > lim_warp;
+    bool live[kF32NT][4];
+#pragma unroll
+    for (int nt = 0; nt < kF32NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        live[nt][e] = nt < n_live &&
+                      !(masked && key0 + nt * 8 + 2 * t + e % 2 >= (e < 2 ? lim_a : lim_b));
+    if (sweep == 0) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < kF32NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (live[nt][e]) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      float mcs[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFullMask, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFullMask, mx[h], 2));
+        const float mn = fmaxf(m[h], mx[h]);
+        mcs[h] = mn == -CUDART_INF_F ? 0.f : mn * c;   // no live key yet: add nothing
+        const float alpha = exp2f(fmaf(m[h], c, -mcs[h]));
+        m[h] = mn;
+        l[h] *= alpha;
+        dd[h] *= alpha;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kF32NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = live[nt][e] ? exp2f(fmaf(s[nt][e], c, -mcs[e / 2])) : 0.f;
+          l[e / 2] += p;
+          dd[e / 2] = fmaf(p, dp[nt][e], dd[e / 2]);
+        }
+      return;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kF32NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = live[nt][e] ? exp2f(fmaf(s[nt][e], c, -mc[e / 2])) * inv_l[e / 2] : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dsum[e / 2]);    // dS
+      }
+    f32_cb(acc, s, k_rows, n_live, g, t);
+  }
+
+  // After the first sweep: m * scale * log2(e), 1 / l and D of each row (0
+  // past S, where P = 0).
+  __device__ __forceinline__ void finish_stats(float c, int S) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l[h] += __shfl_xor_sync(kFullMask, l[h], off);
+        dd[h] += __shfl_xor_sync(kFullMask, dd[h], off);
+      }
+      const bool row_live = (h ? rb : ra) < S;
+      mc[h] = row_live ? m[h] * c : 0.f;
+      inv_l[h] = row_live ? 1.f / l[h] : 0.f;
+      dsum[h] = row_live ? dd[h] / l[h] : 0.f;
     }
   }
+
+  // The statistics into rows ra, rb of three arrays `pitch` floats apart.
+  __device__ __forceinline__ void put_stats(float* st, int pitch, int t) const {
+    if (t != 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      st[r] = mc[h];
+      st[pitch + r] = inv_l[h];
+      st[2 * pitch + r] = dsum[h];
+    }
+  }
+};
+
+// One warp's 16 key rows c0 .. c0 + 15 of dk and dv, their K and V rows at
+// k_rows and v_rows in shared memory: per 32 query rows, P^T = exp(k q^T - m)
+// / l and dP^T = V dO^T from the rows' statistics, then dV += P^T dO and
+// dK += dS^T q.
+struct F32Dkv {
+  float av[kF32KK][4], ak[kF32KK][4];
+  int c0, ja, jb;
+
+  __device__ __forceinline__ void init(int key0, int g) {
+    c0 = key0;
+    ja = c0 + g;
+    jb = ja + 8;
+#pragma unroll
+    for (int nd = 0; nd < kF32KK; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[nd][e] = ak[nd][e] = 0.f;
+  }
+
+  // Query rows i0 .. i0 + 31: q_rows and g_rows (q and dO), mc, il and dl
+  // their statistics, in shared memory.
+  __device__ __forceinline__ void sub(const float* k_rows, const float* v_rows, const float* q_rows,
+                      const float* g_rows, const float* mc, const float* il, const float* dl,
+                      int i0, int S, int causal, float c, int g, int t) {
+    // warp-uniform: no live key, no live query, or every query before every key
+    if (c0 >= S || i0 >= S || (causal && i0 + kF32Sub - 1 < c0)) return;
+    const int n_live = min(kF32NT, (S - i0 + 7) / 8);
+    float p[kF32NT][4], ds[kF32NT][4];
+    f32_abt(p, k_rows, q_rows, n_live, g, t);
+    f32_abt(ds, v_rows, g_rows, n_live, g, t);
+#pragma unroll
+    for (int nt = 0; nt < kF32NT; ++nt) {
+      const int ic = nt * 8 + 2 * t;                  // the columns' rows
+      // read only live blocks: the statistics end at the 16-rounded S
+      float2 mq = make_float2(0.f, 0.f), lq = mq, dq2 = mq;
+      if (nt < n_live) {
+        mq = *reinterpret_cast<const float2*>(mc + ic);
+        lq = *reinterpret_cast<const float2*>(il + ic);
+        dq2 = *reinterpret_cast<const float2*>(dl + ic);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool odd = e % 2;
+        const int i = i0 + ic + odd, key = e < 2 ? ja : jb;
+        const bool live = nt < n_live && i < S && !(causal && key > i);
+        const float pv =
+            live ? exp2f(fmaf(p[nt][e], c, -(odd ? mq.y : mq.x))) * (odd ? lq.y : lq.x) : 0.f;
+        p[nt][e] = pv;
+        ds[nt][e] = pv * (ds[nt][e] - (odd ? dq2.y : dq2.x));
+      }
+    }
+    f32_cb(av, p, g_rows, n_live, g, t);
+    f32_cb(ak, ds, q_rows, n_live, g, t);
+  }
+};
+
+// S <= kF32Chunk: one block a (batch, head) holds q, k, v and dO; warp w
+// takes query tile w for dq, then (the statistics in shared memory) key tile
+// w for dk and dv.  One launch, no workspace.
+__global__ void __launch_bounds__(32 * kF32Warps, 3)
+attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int H,
+                  int S, Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs, Strides dks,
+                  Strides dvs, int causal, float scale, float c, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = 16 * ((S + 15) / 16);
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* k_s = q_s + rows * kF32Pitch;
+  float* v_s = k_s + rows * kF32Pitch;
+  float* g_s = v_s + rows * kF32Pitch;
+  float* st_s = g_s + rows * kF32Pitch;              // m c, 1 / l and D, `rows` apart
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  f32_load_rows(q_s, k_s, q + b * qs.b + h * qs.h, k + b * ks.b + h * ks.h, qs.s, ks.s, 0,
+                rows, S, vec);
+  f32_load_rows(v_s, g_s, v + b * vs.b + h * vs.h, dout + b * gs.b + h * gs.h, vs.s, gs.s, 0,
+                rows, S, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  // dQ = scale * dS K (keys j <= i when causal); dK = dS^T (q * scale)
-  float* dqb = dq + b * dqs.b + h * dqs.h;
-  float* dkb = dk + b * dks.b + h * dks.h;
-  for (int e = threadIdx.x; e < S * kHeadDim; e += kThreads) {
-    const int r = e / kHeadDim, d = e % kHeadDim;
-    float acc_q = 0.f, acc_k = 0.f;
-    const int j_end = causal ? r + 1 : S;
-    for (int j = 0; j < j_end; ++j) acc_q = fmaf(p_s[r * S + j], k_s[j * kPitch + d], acc_q);
-    for (int i = causal ? r : 0; i < S; ++i)
-      acc_k = fmaf(p_s[i * S + r], q_s[i * kPitch + d], acc_k);
-    dqb[r * dqs.s + d] = acc_q * scale;
-    dkb[r * dks.s + d] = acc_k;
+  const int r0 = warp * 16;
+  {
+    F32Dq w;
+    w.init(r0, S, causal, g);
+    for (int sweep = 0; sweep < 2; ++sweep) {
+#pragma unroll 1
+      for (int j0 = 0; j0 < rows; j0 += kF32Sub)
+        w.sub(sweep, q_s + r0 * kF32Pitch, g_s + r0 * kF32Pitch, k_s + j0 * kF32Pitch,
+              v_s + j0 * kF32Pitch, j0, c, g, t);
+      if (sweep == 0) w.finish_stats(c, S);
+    }
+    w.put_stats(st_s, rows, t);
+    f32_store_rows(dq + b * dqs.b + h * dqs.h, dqs.s, w.acc, scale, w.ra, w.rb, S, t);
+  }
+  __syncthreads();
+  F32Dkv w;
+  w.init(r0, g);
+#pragma unroll 1
+  for (int i0 = 0; i0 < rows; i0 += kF32Sub)
+      w.sub(k_s + r0 * kF32Pitch, v_s + r0 * kF32Pitch, q_s + i0 * kF32Pitch,
+            g_s + i0 * kF32Pitch, st_s + i0, st_s + rows + i0, st_s + 2 * rows + i0, i0, S,
+            causal, c, g, t);
+  f32_store_rows(dv + b * dvs.b + h * dvs.h, dvs.s, w.av, 1.f, w.ja, w.jb, S, t);
+  f32_store_rows(dk + b * dks.b + h * dks.h, dks.s, w.ak, scale, w.ja, w.jb, S, t);
+}
+
+// (m, l, D) of the splits of each tile: every split warp merges them in the
+// same order into the same values.
+__device__ __forceinline__ void merge_stats(F32Dq& w, float* xchg, int split, int tile,
+                                            int tiles, int splits, float c, int lane) {
+  float* mine = xchg + (split * tiles + tile) * 6 * 32 + lane;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mine[h * 32] = w.m[h];
+    mine[(2 + h) * 32] = w.l[h];
+    mine[(4 + h) * 32] = w.dd[h];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = -CUDART_INF_F, l = 0.f, dd = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      m = fmaxf(m, xchg[((sp * tiles + tile) * 6 + h) * 32 + lane]);
+    const float mc = m == -CUDART_INF_F ? 0.f : m * c;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* x = xchg + (sp * tiles + tile) * 6 * 32 + lane;
+      const float f = exp2f(fmaf(x[h * 32], c, -mc));
+      l = fmaf(x[(2 + h) * 32], f, l);
+      dd = fmaf(x[(4 + h) * 32], f, dd);
+    }
+    w.m[h] = m;
+    w.l[h] = l;
+    w.dd[h] = dd;
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, const void* dout, void* dq,
-               void* dk, void* dv, int BH, int H, int S, const Strides* st, int causal,
-               float scale, cudaStream_t stream) {
-  static int smem_set[64];
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32),
-                               static_cast<int>(f32_smem_bytes(kMaxSeq)), smem_set);
-  if (err != cudaSuccess) return err;
-  attention_bwd_f32<<<BH, kThreads, f32_smem_bytes(S), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6], causal,
-      scale);
-  return cudaGetLastError();
+// An accumulator tile through shared memory (32 lanes apart): split warps
+// 1.. put theirs after the last stage, split 0 adds them in order.
+constexpr int kF32AccFloats = kF32KK * 4 * 32;
+
+__device__ __forceinline__ void put_acc(const float (&acc)[kF32KK][4], float* dst) {
+#pragma unroll
+  for (int nd = 0; nd < kF32KK; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[(nd * 4 + e) * 32] = acc[nd][e];
 }
 
-// --- streamed f32 kernels (S > kMaxSeq) --------------------------------------
-
-constexpr int kF32QRows = 32;                     // query rows a dq block, a dkv stage
-constexpr int kF32RowsPerWarp = kF32QRows / kWarps;
-constexpr int kF32KeysPerWarp = kChunk / kWarps;
-constexpr int kF32DqSmem = (2 * kChunk * kPitch + 2 * kF32QRows * kPitch +
-                            kWarps * kF32RowsPerWarp * kChunk) * static_cast<int>(sizeof(float));
-constexpr int kF32DkvSmem = (2 * kChunk * kPitch + 2 * kF32QRows * kPitch + 3 * kF32QRows +
-                             2 * kWarps * kF32KeysPerWarp * 32) * static_cast<int>(sizeof(float));
-
-// Rows j0 .. j0 + n - 1 of one (batch, head) into 65-float rows, times mul
-// (zero past S).
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long stride,
-                                           int j0, int n, int S, float mul) {
-  for (int e = threadIdx.x; e < n * kHeadDim; e += kThreads) {
-    const int j = e / kHeadDim, d = e % kHeadDim;
-    dst[j * kPitch + d] = j0 + j < S ? src[(j0 + j) * stride + d] * mul : 0.f;
-  }
+__device__ __forceinline__ void add_acc(float (&acc)[kF32KK][4], const float* src) {
+#pragma unroll
+  for (int nd = 0; nd < kF32KK; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] += src[(nd * 4 + e) * 32];
 }
 
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < kHeadDim; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// dq: the block's q and dO rows held, K and V through the ring, swept twice
+// (a one-stage call keeps them); the statistics go to the workspace.
+__global__ void __launch_bounds__(32 * kF32Warps, 3)
 attention_bwd_f32_dq(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      float* __restrict__ dq, float* __restrict__ stats, int H, int S,
                      Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs, int causal,
-                     float scale) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* k_s = smem_f;                        // kChunk keys
-  float* v_s = k_s + kChunk * kPitch;
-  float* q_s = v_s + kChunk * kPitch;         // the block's query rows, times scale
-  float* g_s = q_s + kF32QRows * kPitch;      // their dO rows
-  float* ds_s = g_s + kF32QRows * kPitch;     // a warp's dS rows of one chunk
+                     float scale, float c, int vec, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = f32_stage_rows(splits);
+  const int stage = rows * kF32Pitch;                // floats of K (then V) a stage
+  const int tiles = blockDim.x / 32 / splits;
+  float* q_s = reinterpret_cast<float*>(smem);       // the block's q and dO rows
+  float* g_s = q_s + 16 * tiles * kF32Pitch;
+  float* ring = g_s + 16 * tiles * kF32Pitch;
+  float* xchg = ring + 4 * stage;                    // the splits' statistics
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i0 = blockIdx.y * kF32QRows;
-  stage_rows(q_s, q + b * qs.b + h * qs.h, qs.s, i0, kF32QRows, S, scale);
-  stage_rows(g_s, dout + b * gs.b + h * gs.h, gs.s, i0, kF32QRows, S, 1.f);
+  const int g = lane / 4, t = lane % 4;
+  const int tile = warp % tiles, split = warp / tiles;
+  const int r0 = (blockIdx.y * tiles + tile) * 16;
+  const int block_keys = causal ? min(S, (blockIdx.y + 1) * tiles * 16) : S;
+  const int n_chunks = (block_keys + rows - 1) / rows;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  const int block_keys = causal ? min(S, i0 + kF32QRows) : S;
-  const int n_chunks = (block_keys + kChunk - 1) / kChunk;
-  float* ds_w = ds_s + warp * kF32RowsPerWarp * kChunk;
 
-  float m[kF32RowsPerWarp], l[kF32RowsPerWarp], dsum[kF32RowsPerWarp];
-  float acc[kF32RowsPerWarp][2];
-#pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = dsum[r] = acc[r][0] = acc[r][1] = 0.f;
-  }
-  for (int sweep = 0; sweep < 3; ++sweep) {
+  F32Dq w;
+  w.init(r0, S, causal, g);
+  f32_load_rows(q_s, g_s, q + b * qs.b + h * qs.h, dout + b * gs.b + h * gs.h, qs.s, gs.s,
+                blockIdx.y * tiles * 16, 16 * tiles, S, vec);
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    if (sweep == 0 || n_chunks > 1) {
+      f32_load_rows(ring, ring + stage, kb, vb, ks.s, vs.s, 0, rows, S, vec);
+      cp_async_commit();
+    }
     for (int ch = 0; ch < n_chunks; ++ch) {
-      __syncthreads();                        // the chunk (and, first, q and dO) in place
-      stage_rows(k_s, kb, ks.s, ch * kChunk, kChunk, S, 1.f);
-      if (sweep > 0) stage_rows(v_s, vb, vs.s, ch * kChunk, kChunk, S, 1.f);
+      if (ch + 1 < n_chunks) {
+        float* next = ring + ((ch + 1) & 1) * 2 * stage;
+        f32_load_rows(next, next + stage, kb, vb, ks.s, vs.s, (ch + 1) * rows, rows, S, vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kF32RowsPerWarp; ++r) {
-        const int il = warp * kF32RowsPerWarp + r, i = i0 + il;
-        const int lim = causal ? min(S, i + 1) : S;
-        float s[2], p[2], dp[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int jl = lane + 32 * u, j = ch * kChunk + jl;
-          s[u] = j < lim ? dot64(q_s + il * kPitch, k_s + jl * kPitch) : -CUDART_INF_F;
-        }
-        if (sweep == 0) {
-          const float mn = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
-          if (mn != -CUDART_INF_F) {
-            const float part = (s[0] == -CUDART_INF_F ? 0.f : expf(s[0] - mn)) +
-                               (s[1] == -CUDART_INF_F ? 0.f : expf(s[1] - mn));
-            l[r] = (m[r] == -CUDART_INF_F ? 0.f : l[r] * expf(m[r] - mn)) + warp_sum(part);
-            m[r] = mn;
-          }
-          continue;
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int jl = lane + 32 * u;
-          p[u] = s[u] == -CUDART_INF_F ? 0.f : expf(s[u] - m[r]) * l[r];   // l holds 1 / l
-          dp[u] = s[u] == -CUDART_INF_F ? 0.f : dot64(g_s + il * kPitch, v_s + jl * kPitch);
-        }
-        if (sweep == 1) {
-          dsum[r] = fmaf(p[0], dp[0], fmaf(p[1], dp[1], dsum[r]));
-          continue;
-        }
-        ds_w[r * kChunk + lane] = p[0] * (dp[0] - dsum[r]);
-        ds_w[r * kChunk + lane + 32] = p[1] * (dp[1] - dsum[r]);
-        __syncwarp();
-        const int n_j = min(kChunk, lim - ch * kChunk);
-        for (int jl = 0; jl < n_j; ++jl) {
-          const float d = ds_w[r * kChunk + jl];
-          acc[r][0] = fmaf(d, k_s[jl * kPitch + lane], acc[r][0]);
-          acc[r][1] = fmaf(d, k_s[jl * kPitch + lane + 32], acc[r][1]);
-        }
-        __syncwarp();
-      }
+      const float* k_st = ring + (ch & 1) * 2 * stage;
+#pragma unroll 1
+      for (int j0 = split * kF32Sub; j0 < rows; j0 += splits * kF32Sub)
+        w.sub(sweep, q_s + tile * 16 * kF32Pitch, g_s + tile * 16 * kF32Pitch,
+              k_st + j0 * kF32Pitch, k_st + stage + j0 * kF32Pitch, ch * rows + j0, c, g, t);
+      __syncthreads();                               // the stage is refilled next
     }
-#pragma unroll
-    for (int r = 0; r < kF32RowsPerWarp; ++r) {
-      const bool live = i0 + warp * kF32RowsPerWarp + r < S;
-      if (sweep == 0) {
-        // from here on m is finite and l holds 1 / l (0 for rows >= S)
-        m[r] = live ? m[r] : 0.f;
-        l[r] = live ? 1.f / l[r] : 0.f;
-      } else if (sweep == 1) {
-        dsum[r] = warp_sum(dsum[r]);
-      }
+    if (sweep == 0) {
+      if (splits > 1) merge_stats(w, xchg, split, tile, tiles, splits, c, lane);
+      w.finish_stats(c, S);
     }
   }
-  const int pitch = stream_rows(S);
-  float* st = stats + static_cast<long long>(bh) * 3 * pitch;
-  float* dqb = dq + b * dqs.b + h * dqs.h;
-#pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r) {
-    const int i = i0 + warp * kF32RowsPerWarp + r;
-    if (lane == 0) {
-      st[i] = m[r];
-      st[pitch + i] = l[r];
-      st[2 * pitch + i] = dsum[r];
-    }
-    if (i < S) {
-      dqb[i * dqs.s + lane] = acc[r][0] * scale;
-      dqb[i * dqs.s + lane + 32] = acc[r][1] * scale;
-    }
+  if (splits > 1) {                                  // the ring is idle
+    if (split > 0) put_acc(w.acc, ring + ((split - 1) * tiles + tile) * kF32AccFloats + lane);
+    __syncthreads();
+    if (split > 0) return;
+    for (int sp = 1; sp < splits; ++sp)
+      add_acc(w.acc, ring + ((sp - 1) * tiles + tile) * kF32AccFloats + lane);
   }
+  const int pitch = 16 * ((S + 15) / 16);
+  if (r0 < S) w.put_stats(stats + static_cast<long long>(bh) * 3 * pitch, pitch, t);
+  f32_store_rows(dq + b * dqs.b + h * dqs.h, dqs.s, w.acc, scale, w.ra, w.rb, S, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// dkv: the block's keys' K and V held, the query rows that see them (from
+// the block's first key when causal) streamed with their dO rows and
+// statistics through the ring.
+__global__ void __launch_bounds__(32 * kF32Warps, 3)
 attention_bwd_f32_dkv(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       float* __restrict__ dk, float* __restrict__ dv,
                       const float* __restrict__ stats, int H, int S, Strides qs, Strides ks,
-                      Strides vs, Strides gs, Strides dks, Strides dvs, int causal,
-                      float scale) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* k_s = smem_f;                        // the block's kChunk keys, resident
-  float* v_s = k_s + kChunk * kPitch;
-  float* q_s = v_s + kChunk * kPitch;         // kF32QRows query rows, times scale
-  float* g_s = q_s + kF32QRows * kPitch;      // their dO rows
-  float* st_s = g_s + kF32QRows * kPitch;     // their m, 1 / l and D
-  float* pd_s = st_s + 3 * kF32QRows;         // a warp's P and dS of one stage
+                      Strides vs, Strides gs, Strides dks, Strides dvs, int causal, float scale,
+                      float c, int vec, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = f32_stage_rows(splits);
+  const int stage = rows * (2 * kF32Pitch + 3);      // q, dO, then m c, 1 / l and D
+  const int tiles = blockDim.x / 32 / splits;
+  float* k_s = reinterpret_cast<float*>(smem);       // the block's keys
+  float* v_s = k_s + 16 * tiles * kF32Pitch;
+  float* ring = v_s + 16 * tiles * kF32Pitch;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j0 = blockIdx.y * kChunk;
-  stage_rows(k_s, k + b * ks.b + h * ks.h, ks.s, j0, kChunk, S, 1.f);
-  stage_rows(v_s, v + b * vs.b + h * vs.h, vs.s, j0, kChunk, S, 1.f);
+  const int g = lane / 4, t = lane % 4;
+  const int tile = warp % tiles, split = warp / tiles;
+  const int kb0 = blockIdx.y * tiles * 16;           // the block's first key
   const float* qb = q + b * qs.b + h * qs.h;
   const float* gb = dout + b * gs.b + h * gs.h;
-  const int pitch = stream_rows(S);
+  const int pitch = 16 * ((S + 15) / 16);
   const float* st = stats + static_cast<long long>(bh) * 3 * pitch;
-  float* p_w = pd_s + warp * 2 * kF32KeysPerWarp * 32;
-  float* d_w = p_w + kF32KeysPerWarp * 32;
-  const int q0 = causal ? j0 : 0;             // a multiple of kF32QRows
-  float av[kF32KeysPerWarp][2], ak[kF32KeysPerWarp][2];
-#pragma unroll
-  for (int u = 0; u < kF32KeysPerWarp; ++u) av[u][0] = av[u][1] = ak[u][0] = ak[u][1] = 0.f;
+  const int q0 = causal ? kb0 : 0;                   // no earlier query sees the block's keys
+  const int n_chunks = (S - q0 + rows - 1) / rows;
 
-  for (int i0 = q0; i0 < S; i0 += kF32QRows) {
-    __syncthreads();
-    stage_rows(q_s, qb, qs.s, i0, kF32QRows, S, scale);
-    stage_rows(g_s, gb, gs.s, i0, kF32QRows, S, 1.f);
-    for (int e = threadIdx.x; e < 3 * kF32QRows; e += kThreads)
-      st_s[e] = st[(e / kF32QRows) * pitch + i0 + e % kF32QRows];
-    __syncthreads();
-    // scores: lane = query i0 + lane, for each of the warp's keys
-    const int i = i0 + lane;
-    const float mi = st_s[lane], il = st_s[kF32QRows + lane], di = st_s[2 * kF32QRows + lane];
-#pragma unroll
-    for (int u = 0; u < kF32KeysPerWarp; ++u) {
-      const int jl = warp * kF32KeysPerWarp + u, j = j0 + jl;
-      float p = 0.f, ds = 0.f;
-      if (i < S && j < S && !(causal && j > i)) {
-        p = expf(dot64(q_s + lane * kPitch, k_s + jl * kPitch) - mi) * il;
-        ds = p * (dot64(g_s + lane * kPitch, v_s + jl * kPitch) - di);
-      }
-      p_w[u * 32 + lane] = p;
-      d_w[u * 32 + lane] = ds;
+  auto load_stage = [&](int ch) {
+    float* dst = ring + (ch & 1) * stage;
+    const int i0 = q0 + ch * rows;
+    f32_load_rows(dst, dst + rows * kF32Pitch, qb, gb, qs.s, gs.s, i0, rows, S, vec);
+    float* st_dst = dst + 2 * rows * kF32Pitch;
+    for (int e = threadIdx.x; e < 3 * rows; e += blockDim.x) {
+      const int which = e / rows, i = i0 + e % rows;
+      cp_async4(st_dst + e, st + which * pitch + (i < S ? i : 0), i < S);
     }
-    __syncwarp();
-    // dV and dK: lane = head dimensions lane and lane + 32
-#pragma unroll
-    for (int u = 0; u < kF32KeysPerWarp; ++u)
-      for (int r = 0; r < kF32QRows; ++r) {
-        const float p = p_w[u * 32 + r], ds = d_w[u * 32 + r];
-        av[u][0] = fmaf(p, g_s[r * kPitch + lane], av[u][0]);
-        av[u][1] = fmaf(p, g_s[r * kPitch + lane + 32], av[u][1]);
-        ak[u][0] = fmaf(ds, q_s[r * kPitch + lane], ak[u][0]);
-        ak[u][1] = fmaf(ds, q_s[r * kPitch + lane + 32], ak[u][1]);
-      }
-    __syncwarp();
+  };
+  f32_load_rows(k_s, v_s, k + b * ks.b + h * ks.h, v + b * vs.b + h * vs.h, ks.s, vs.s, kb0,
+                16 * tiles, S, vec);
+  load_stage(0);
+  cp_async_commit();
+
+  F32Dkv w;
+  w.init(kb0 + tile * 16, g);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      load_stage(ch + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* q_st = ring + (ch & 1) * stage;
+    const float* g_st = q_st + rows * kF32Pitch;
+    const float* st_st = g_st + rows * kF32Pitch;
+#pragma unroll 1
+    for (int j0 = split * kF32Sub; j0 < rows; j0 += splits * kF32Sub)
+      w.sub(k_s + tile * 16 * kF32Pitch, v_s + tile * 16 * kF32Pitch, q_st + j0 * kF32Pitch,
+            g_st + j0 * kF32Pitch, st_st + j0, st_st + rows + j0, st_st + 2 * rows + j0,
+            q0 + ch * rows + j0, S, causal, c, g, t);
+    __syncthreads();                                 // the stage is refilled next
   }
-  float* dvb = dv + b * dvs.b + h * dvs.h;
-  float* dkb = dk + b * dks.b + h * dks.h;
-#pragma unroll
-  for (int u = 0; u < kF32KeysPerWarp; ++u) {
-    const int j = j0 + warp * kF32KeysPerWarp + u;
-    if (j < S) {
-      dvb[j * dvs.s + lane] = av[u][0];
-      dvb[j * dvs.s + lane + 32] = av[u][1];
-      dkb[j * dks.s + lane] = ak[u][0];
-      dkb[j * dks.s + lane + 32] = ak[u][1];
+  if (splits > 1) {                                  // the ring is idle
+    float* x = ring + ((split - 1) * tiles + tile) * 2 * kF32AccFloats + lane;
+    if (split > 0) {
+      put_acc(w.av, x);
+      put_acc(w.ak, x + kF32AccFloats);
+    }
+    __syncthreads();
+    if (split > 0) return;
+    for (int sp = 1; sp < splits; ++sp) {
+      const float* y = ring + ((sp - 1) * tiles + tile) * 2 * kF32AccFloats + lane;
+      add_acc(w.av, y);
+      add_acc(w.ak, y + kF32AccFloats);
     }
   }
+  f32_store_rows(dv + b * dvs.b + h * dvs.h, dvs.s, w.av, 1.f, w.ja, w.jb, S, t);
+  f32_store_rows(dk + b * dks.b + h * dks.h, dks.s, w.ak, scale, w.ja, w.jb, S, t);
 }
 
-int launch_f32_stream(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                      void* dk, void* dv, int BH, int H, int S, const Strides* st, int causal,
-                      float scale, float* stats, cudaStream_t stream) {
-  static int dq_set[64], dkv_set[64];
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32_dq), kF32DqSmem,
-                               dq_set);
+int launch_f32(const void* q, const void* k, const void* v, const void* dout, void* dq,
+               void* dk, void* dv, int BH, int H, int S, const Strides* st, int causal,
+               float scale, float* stats, int vec, cudaStream_t stream) {
+  static int res_set[64], dq_set[64], dkv_set[64];
+  const F32Plan p = f32_plan(S);
+  const float c = scale * 1.4426950408889634f;
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout);
+  cudaError_t err;
+  if (p.resident) {
+    err = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32),
+                     f32_plan(kF32Chunk).smem_bytes, res_set);
+    if (err != cudaSuccess) return err;
+    attention_bwd_f32<<<BH, 32 * p.warps, p.smem_bytes, stream>>>(
+        qf, kf, vf, gf, static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), H, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6], causal,
+        scale, c, vec);
+    return cudaGetLastError();
+  }
+  err = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32_dq), f32_dq_smem(4, 1),
+                   dq_set);
   if (err == cudaSuccess)
-    err = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32_dkv), kF32DkvSmem, dkv_set);
+    err = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32_dkv), f32_dkv_smem(4, 1),
+                     dkv_set);
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_dq<<<dim3(BH, (S + kF32QRows - 1) / kF32QRows), kThreads, kF32DqSmem,
-                         stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<float*>(dq), stats, H, S, st[0], st[1], st[2],
-      st[3], st[4], causal, scale);
+  // as many tiles a block as make the blocks of a (batch, head) even
+  const int splits = key_splits(static_cast<long long>(BH) * p.tiles);
+  const int most = kF32Warps / splits;
+  const int blocks_y = (p.tiles + most - 1) / most;
+  const int tiles = (p.tiles + blocks_y - 1) / blocks_y;
+  const dim3 grid(BH, blocks_y);
+  attention_bwd_f32_dq<<<grid, 32 * tiles * splits, f32_dq_smem(splits, tiles), stream>>>(
+      qf, kf, vf, gf, static_cast<float*>(dq), stats, H, S, st[0], st[1], st[2], st[3], st[4],
+      causal, scale, c, vec, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_dkv<<<dim3(BH, (S + kChunk - 1) / kChunk), kThreads, kF32DkvSmem,
-                          stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), stats,
-      H, S, st[0], st[1], st[2], st[3], st[5], st[6], causal, scale);
+  attention_bwd_f32_dkv<<<grid, 32 * tiles * splits, f32_dkv_smem(splits, tiles), stream>>>(
+      qf, kf, vf, gf, static_cast<float*>(dk), static_cast<float*>(dv), stats, H, S, st[0],
+      st[1], st[2], st[3], st[5], st[6], causal, scale, c, vec, splits);
   return cudaGetLastError();
 }
 
@@ -1171,13 +1397,21 @@ constexpr Launch kTcLaunch[kMaxSeq / 16] = {launch_tc<1>, launch_tc<2>, launch_t
 
 extern "C" int keds_attention_bwd_head_dim() { return kHeadDim; }
 
-// The launch plan at sequence length S: out[0..4] = 16-row tiles, (batch,
-// head) slices a block, warps a block, dynamic shared bytes (of the bf16
-// kernel, the larger of the two above kMaxSeq) and the f32 workspace rows a
-// (batch, head) takes for each of three statistics (0 at S <= kMaxSeq).
-extern "C" int keds_attention_bwd_plan(int S, int* out) {
-  if (S < 1) return cudaErrorInvalidValue;
-  if (S <= kMaxSeq) {
+// The launch plan at sequence length S for `dtype`: out[0..4] = 16-row
+// tiles, (batch, head) slices a block, warps a block, dynamic shared bytes
+// (of the larger of two launches) and the f32 workspace rows a (batch, head)
+// takes for each of three statistics (0 where one launch needs none: bf16
+// at S <= kMaxSeq, f32 at S <= kF32Chunk).
+extern "C" int keds_attention_bwd_plan(int S, int dtype, int* out) {
+  if (S < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return cudaErrorInvalidValue;
+  if (dtype == kFloat32) {
+    const F32Plan p = f32_plan(S);
+    out[0] = p.tiles;
+    out[1] = 1;
+    out[2] = p.warps;
+    out[3] = p.smem_bytes;
+    out[4] = p.resident ? 0 : 16 * p.tiles;
+  } else if (S <= kMaxSeq) {
     const Plan p = tc_plan(S);
     out[0] = p.key_tiles;
     out[1] = p.slices;
@@ -1196,24 +1430,32 @@ extern "C" int keds_attention_bwd_plan(int S, int* out) {
 
 // strides: 21 int64 values, (batch, seq, head) element strides of q, k, v,
 // dO, dq, dk, dv in that order; every head dimension has unit stride.  The
-// bf16 kernels also need 16-byte aligned rows of q, k, v and dO.  Above
-// kMaxSeq, `workspace` holds 3 * B * H * plan[4] floats (16-byte aligned).
+// bf16 kernels also need 16-byte aligned rows of q, k, v and dO, and the f32
+// kernels 8-byte aligned rows of dq, dk and dv.  f32 above kF32Chunk and
+// bf16 above kMaxSeq take a `workspace` of 3 * B * H * plan[4] floats
+// (16-byte aligned).
 extern "C" int keds_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, void* dq, void* dk, void* dv,
                                   int dtype, int B, int H, int S, int Dh,
                                   const long long* strides, int causal, float scale,
                                   void* workspace, void* stream) {
   if (S < 1 || Dh != kHeadDim || B * H < 1) return cudaErrorInvalidValue;
-  if (S > kMaxSeq && workspace == nullptr) return cudaErrorInvalidValue;
+  if (S > (dtype == kFloat32 ? kF32Chunk : kMaxSeq) && workspace == nullptr)
+    return cudaErrorInvalidValue;
   Strides st[7];
   for (int t = 0; t < 7; ++t)
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
-  if (dtype == kFloat32)
-    return S > kMaxSeq
-               ? launch_f32_stream(q, k, v, dout, dq, dk, dv, B * H, H, S, st, causal, scale, ws, s)
-               : launch_f32(q, k, v, dout, dq, dk, dv, B * H, H, S, st, causal, scale, s);
+  if (dtype == kFloat32) {
+    // 16-byte cp.async rows where q, k, v and dO allow them
+    bool vec = true;
+    const void* in[4] = {q, k, v, dout};
+    for (int i = 0; i < 4; ++i)
+      vec = vec && reinterpret_cast<unsigned long long>(in[i]) % 16 == 0 && st[i].b % 4 == 0 &&
+            st[i].s % 4 == 0 && st[i].h % 4 == 0;
+    return launch_f32(q, k, v, dout, dq, dk, dv, B * H, H, S, st, causal, scale, ws, vec, s);
+  }
   if (dtype == kBFloat16)
     return S > kMaxSeq
                ? launch_tc_stream(q, k, v, dout, dq, dk, dv, B * H, H, S, st, causal, scale, ws, s)

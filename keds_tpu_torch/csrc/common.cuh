@@ -143,6 +143,110 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// 4-byte global -> shared copy (rows that are not 16-byte aligned);
+// zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// --- f32 products on tensor cores, in three TF32 terms -----------------------
+//
+// x = hi + lo with hi = x rounded to TF32 (10 mantissa bits) and lo the
+// remainder, which the tensor core truncates to TF32: hi + lo keeps about 21
+// bits of x.  A product
+// a b is taken as a_hi b_hi + a_hi b_lo + a_lo b_hi (the dropped a_lo b_lo
+// is below 2^-22 of |a b|), each term an exact TF32 product accumulated in
+// f32: about f32's accuracy, where one TF32 product keeps 11 bits.
+//
+// mma.sync m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4):
+//   A (16x8, row major): a[0] (g, t), a[1] (g+8, t), a[2] (g, t+4), a[3] (g+8, t+4)
+//   B (8x8, k x n):      b[0] (k t, n g), b[1] (k t+4, n g)
+//   C (16x8):            c[0..1] (g, 2t..2t+1), c[2..3] (g+8, 2t..2t+1)
+// A C tile becomes the A operand of the next product with no exchange if the
+// contraction's 8 indices are taken in the order 0, 2, 4, 6, 1, 3, 5, 7:
+// a = {c[0], c[2], c[1], c[3]}, and B's rows k = t and t+4 are then 2t and
+// 2t+1.
+
+// hi rounded to nearest (ties away) with integer operations, which issue
+// faster than cvt.rna.tf32; lo = x - hi is exact, and the tensor core reads
+// its top 19 bits (rounding it too cost the backward 30-50 %).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a, const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[j] += a b[j] for the N products with j < live (warp-uniform), in three
+// TF32 terms, the small ones first; each term is issued across the N
+// accumulators before the next, so that no product waits on the one before.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*c)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[N][2],
+                                           const unsigned (&bl)[N][2], int live) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < live) mma_tf32(c[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < live) mma_tf32(c[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < live) mma_tf32(c[j], ah, bh[j]);
+}
+
+// c_hi[j] += a_hi b_hi[j] and c_lo[j] += a_hi b_lo[j] + a_lo b_hi[j]: the
+// small terms summed apart from the large, so that the tensor core's
+// rounding of its sums toward zero acts on each at its own scale.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_apart(float (*c_hi)[4], float (*c_lo)[4],
+                                                 const unsigned (&ah)[4], const unsigned (&al)[4],
+                                                 const unsigned (&bh)[N][2],
+                                                 const unsigned (&bl)[N][2], int live) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < live) mma_tf32(c_lo[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < live) mma_tf32(c_hi[j], ah, bh[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < live) mma_tf32(c_lo[j], ah, bl[j]);
+}
+
+// The A operand of a C tile (see above), split.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], unsigned (&ah)[4], unsigned (&al)[4]) {
+  split_tf32(c[0], ah[0], al[0]);
+  split_tf32(c[2], ah[1], al[1]);
+  split_tf32(c[1], ah[2], al[2]);
+  split_tf32(c[3], ah[3], al[3]);
+}
+
+// B fragment of an 8 x 8 block of B^T rows (n) by columns (k) in shared
+// memory, `rows` at (n 0, k 0) with a row pitch of `pitch` floats: b[0] =
+// (n g, k t), b[1] = (n g, k t+4).  Conflict-free for a pitch = 4 mod 32.
+__device__ __forceinline__ void b_frag_rows(unsigned (&bh)[2], unsigned (&bl)[2],
+                                            const float* rows, int pitch, int g, int t) {
+  split_tf32(rows[g * pitch + t], bh[0], bl[0]);
+  split_tf32(rows[g * pitch + t + 4], bh[1], bl[1]);
+}
+
+// B fragment of an 8 x 8 block of B, rows (k) in shared memory taken in the
+// C-to-A order: b[0] = (k 2t, n g), b[1] = (k 2t+1, n g).  Conflict-free for
+// a pitch = 4 mod 16.
+__device__ __forceinline__ void b_frag_cols(unsigned (&bh)[2], unsigned (&bl)[2],
+                                            const float* rows, int pitch, int g, int t) {
+  split_tf32(rows[2 * t * pitch + g], bh[0], bl[0]);
+  split_tf32(rows[(2 * t + 1) * pitch + g], bh[1], bl[1]);
+}
+
 // Two floats rounded to bf16 (nearest even) and packed, lo in the low half.
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -161,6 +265,25 @@ inline cudaError_t allow_smem(const void* kernel, int bytes, int (&done)[64]) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < 64) done[dev] = bytes;
   return err;
+}
+
+// Streaming multiprocessors of the current device, read once per device.
+inline int sm_count() {
+  static int count[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 132;
+  if (!count[dev] &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    count[dev] = 132;
+  return count[dev];
+}
+
+// Warps that take one 16-row tile's keys in turn (1, 2 or 4), from the
+// tiles of a call: more when the tiles alone give fewer than two warps to
+// each of the card's four sub-partitions an SM.
+inline int key_splits(long long tiles) {
+  const int sms = sm_count();
+  return tiles >= 8LL * sms ? 1 : tiles >= 4LL * sms ? 2 : 4;
 }
 
 }  // namespace keds

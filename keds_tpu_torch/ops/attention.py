@@ -4,18 +4,20 @@
 :func:`attention` is the op every tower block calls.  On a CUDA tensor it
 launches a hand-written kernel of ``csrc/attention.cu`` (which replaces the
 Pallas ``flash_attention``) or raises: bf16 runs the tensor-core kernel
-(variant ``bf16_tc``, Dh = 64), f32 the exact-f32 CUDA-core kernel
-(variant ``f32``), at any sequence length (above 288 the kernels stream
-K and V through shared memory).  On a CPU tensor it runs the plain version
-:func:`attention_reference`.  Keys at or past the real sequence length
-never enter a softmax, so no sequence padding is needed.
+(variant ``bf16_tc``, Dh = 64; above 288 keys it streams K and V through
+shared memory), f32 the f32 kernel (variant ``f32``, any Dh <= 128), whose
+products run on tensor cores in three TF32 terms: about f32's accuracy,
+where one TF32 product keeps 11 bits (its note in the source says what it
+measured), at any sequence length.  On a CPU tensor it runs the plain
+version :func:`attention_reference`.  Keys at or past the real sequence
+length never enter a softmax, so no sequence padding is needed.
 
 Gradients (the counterpart of the JAX op's ``custom_vjp``): when grad mode
 is on and q, k or v requires grad, a CUDA call goes through an autograd
 Function whose backward launches ``csrc/attention_bwd.cu``
-(:func:`attention_backward`, variants ``bf16`` and ``f32``, and above 128
-keys the streamed ``bf16_stream`` and ``f32_stream``); on the CPU
-autograd runs through :func:`attention_reference`.  Otherwise (serving,
+(:func:`attention_backward`: variants ``bf16``, above 128 keys the streamed
+``bf16_stream``, and ``f32``, one design at any S); on the CPU autograd
+runs through :func:`attention_reference`.  Otherwise (serving,
 ``torch.inference_mode``) the forward kernel runs alone and nothing is
 saved.
 """
@@ -42,39 +44,53 @@ _VARIANTS = {torch.bfloat16: ("bf16_tc", 1), torch.float32: ("f32", 0)}
 BWD_KERNEL = CudaKernel("attention_bwd", {
     "keds_attention_bwd": [_P] * 7 + [_I] * 5 + [_P, _I, ctypes.c_float, _P, _P],
     "keds_attention_bwd_head_dim": [],
-    "keds_attention_bwd_plan": [_I, _P],
-}, variants=("bf16", "f32", "bf16_stream", "f32_stream"))
+    "keds_attention_bwd_plan": [_I, _I, _P],
+}, variants=("bf16", "f32", "bf16_stream"))
 _BWD_VARIANTS = {torch.bfloat16: ("bf16", 1), torch.float32: ("f32", 0)}
 
 
 class BwdPlan(NamedTuple):
-    """Launch plan of the bf16 backward kernels (``csrc/attention_bwd.cu``)."""
+    """Launch plan of the backward kernels (``csrc/attention_bwd.cu``)."""
 
     key_tiles: int      # 16-row tiles of the sequence
     slices: int         # (batch, head) slices a block takes
     warps: int          # warps a block
-    smem_bytes: int     # dynamic shared memory a block (the dkv kernel's above 128)
-    workspace_rows: int  # f32 rows a (batch, head) per statistic (0 at S <= 128)
+    smem_bytes: int     # dynamic shared memory a block (the larger launch's)
+    workspace_rows: int  # f32 rows a (batch, head) per statistic (0: one launch)
 
     def blocks(self, batch_heads: int) -> int:
         return -(-batch_heads // self.slices)
 
 
 # Mirror of csrc/attention_bwd.cu's keds_attention_bwd_plan (a card test
-# checks one against the other).  S <= BWD_RESIDENT_SEQ: one block holds a
-# (batch, head), q, k, v and dO in 144-byte rows and three f32 statistics a
-# row, per slice; S <= 16 packs BWD_SMALL_SLICES slices into a block, one
-# warp each.  Above it two streamed launches (dq, then dk and dv) of
-# BWD_STREAM_WARPS warps, K and V of 128 keys resident in the dkv kernel
+# checks one against the other).  bf16 at S <= BWD_RESIDENT_SEQ: one block
+# holds a (batch, head), q, k, v and dO in 144-byte rows and three f32
+# statistics a row, per slice; S <= 16 packs BWD_SMALL_SLICES slices into a
+# block, one warp each.  Above it two streamed launches (dq, then dk and dv)
+# of BWD_STREAM_WARPS warps, K and V of 128 keys resident in the dkv kernel
 # plus two 64-row stages of q and dO and of the statistics, which a
-# workspace of S rounded up to 128 rows carries between the two.
+# workspace of S rounded up to 128 rows carries between the two.  f32: a
+# block takes up to BWD_F32_WARPS 16-row tiles of a (batch, head) (as many
+# as make its blocks even) in 68-float rows; S <= BWD_F32_CHUNK one launch
+# holding q, k, v, dO and three statistics a row; above, the same two
+# launches, dq streaming K and V through a ring of two BWD_F32_CHUNK-row
+# stages, dkv holding its keys and streaming q, dO and the statistics, which
+# a workspace of S rounded up to 16 rows carries.
 BWD_SMALL_SLICES = 4
 BWD_RESIDENT_SEQ = 128
 BWD_STREAM_WARPS = 8
+BWD_F32_WARPS = 4
+BWD_F32_CHUNK = 64
 
 
-def bwd_plan(S: int) -> BwdPlan:
+def bwd_plan(S: int, dtype: torch.dtype = torch.bfloat16) -> BwdPlan:
     n = -(-S // 16)
+    if dtype == torch.float32:
+        warps = -(-n // -(-n // BWD_F32_WARPS))
+        if S <= BWD_F32_CHUNK:
+            return BwdPlan(n, 1, warps, 16 * n * (4 * 68 + 3) * 4, 0)
+        return BwdPlan(n, 1, warps, (2 * BWD_F32_CHUNK * (2 * 68 + 3) + 32 * warps * 68) * 4,
+                       16 * n)
     if S > BWD_RESIDENT_SEQ:
         rows = 16 * BWD_STREAM_WARPS
         smem = (2 * rows * 144 + 2 * 2 * 64 * 144) + 2 * 3 * 64 * 4
@@ -168,9 +184,9 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`attention` for the output gradient ``dout``.
 
     On CUDA it launches ``csrc/attention_bwd.cu`` (Dh = 64, any S >= 1, f32
-    or bf16; above 128 two streamed launches with an f32 workspace of
-    3 * B * H * ``bwd_plan(S).workspace_rows`` floats) or raises; q, k and v
-    may be strided views, and a ``dout`` whose
+    or bf16; bf16 above 128 and f32 above 64 as two launches with an f32
+    workspace of 3 * B * H * ``bwd_plan(S, dtype).workspace_rows`` floats)
+    or raises; q, k and v may be strided views, and a ``dout`` whose
     head dimension is not contiguous is made contiguous here, as is, for
     bf16, any input whose rows are not 16-byte aligned.  The three
     gradients are views of one (B, S, 3, H, Dh) buffer, laid out as the
@@ -199,7 +215,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grads = torch.empty((B, S, 3, H, Dh), dtype=q.dtype, device=q.device)
     dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
     strides = _strides(q, k, v, dout, dq, dk, dv)
-    rows = bwd_plan(S).workspace_rows
+    rows = bwd_plan(S, q.dtype).workspace_rows
     workspace = torch.empty((3 * B * H * rows,), dtype=torch.float32, device=q.device) \
         if rows else None
     err = lib.keds_attention_bwd(
@@ -208,9 +224,9 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.cast(strides, ctypes.c_void_p), int(causal), 1.0 / math.sqrt(Dh),
         workspace.data_ptr() if rows else None, stream_ptr(q))
     BWD_KERNEL.check(err)
-    # above BWD_RESIDENT_SEQ the call's two streamed launches count once,
-    # apart from the resident kernel's
-    BWD_KERNEL.launches[variant + ("_stream" if rows else "")] += 1
+    # bf16 above BWD_RESIDENT_SEQ: the call's two streamed launches count
+    # once, apart from the resident kernel's; f32: a call counts once
+    BWD_KERNEL.launches[variant + ("_stream" if rows and variant == "bf16" else "")] += 1
     return dq, dk, dv
 
 

@@ -3,7 +3,8 @@
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
     python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k] [topk_split]
-                             [attention] [attention_bwd] [train_check_controls]
+                             [attention] [attention_bwd] [attention_precision] [mma_rate]
+                             [train_check_controls]
                              [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
                              [int8_layouts]
 
@@ -38,22 +39,40 @@ topk_split        where one top-k search's device time goes, by CUDA kernel
                   the selection at the rows of narrow_k and wide_k, and the
                   one-launch f32 ranking at k = 1 (its score tiles and
                   launch alone), 10 and N.  Takes ``--impl``.
-attention         the attention forward at the rows of chip_smoke.py at
-                  S <= 288 (the vision chunk (16, 16, 257, 64) and the text
-                  (64, 12, 32, 64) bf16, (2, 4, 77, 64) f32 causal) and above
-                  (ViT-L/14 at 336 px (16, 16, 577, 64) bf16), on the inputs
-                  and the graph-replay timing of ``chip_smoke.py``.  Takes
-                  ``--impl`` as ``rank`` does (an implementation that refuses
-                  a shape times it as null).
+attention         the attention forward at the rows of chip_smoke.py: bf16 at
+                  the vision chunk (16, 16, 257, 64), the text (64, 12, 32,
+                  64) and ViT-L/14 at 336 px (16, 16, 577, 64); f32 at (2, 4,
+                  77, 64) causal, (2, 4, {289, 577}, 64) and the shapes
+                  --precision fp32 gives: (16, 16, {257, 577}, 64) and the
+                  text tower's (64, 12, 77, 64) causal, and the f32 paths'
+                  own: (128, 12, 8, 64) causal, (4, 16, {257, 577}, 64); on
+                  the inputs and the graph-replay timing of
+                  ``chip_smoke.py``, SDPA's time beside each.  Takes ``--impl`` as ``rank`` does (an
+                  implementation that refuses a shape times it as null).
 attention_bwd     the attention backward (``attention_backward``): bf16
                   causal at the train prompt (128, 12, 8, 64) and the text
-                  buckets (64, 12, {16, 32, 77, 128}, 64), f32 causal at
-                  (2, 4, 77, 64), and above 128 (the streamed launches) bf16
-                  at (4, 16, {257, 577}, 64) and f32 at (2, 4, 289, 64), on
-                  the inputs and the graph-replay timing of
-                  ``chip_smoke.py``.  Takes ``--impl`` as ``rank`` does
-                  (an implementation that refuses a shape times it as
-                  null): run parent, change, change, parent.
+                  buckets (64, 12, {16, 32, 77, 128}, 64), above 128 (the
+                  streamed launches) at (4, 16, {257, 577}, 64); f32 at (2,
+                  4, 77, 64) causal, (2, 4, 289, 64), the f32 train prompt
+                  (128, 12, 8, 64) and neighbour templates (256, 12, 32, 64)
+                  causal and (4, 16, 577, 64); on the inputs and the
+                  graph-replay timing of ``chip_smoke.py``, SDPA's backward
+                  (its forward and backward less its forward) beside each.
+                  Takes ``--impl`` as ``rank`` does (an implementation that
+                  refuses a shape times it as null): run parent, change,
+                  change, parent.
+attention_precision
+                  the f32 attention forward and backward against float64:
+                  the kernels' largest error beside the plain version's and
+                  beside the plain version's on inputs cut to TF32 (their low
+                  13 mantissa bits cleared), at (2, 4, 289, 64), (16, 16, 257,
+                  64) and (64, 12, 77, 64) causal, and with q scaled by 8
+                  (nearly one-hot softmax) at (2, 4, 289, 64) and (2, 6, 77,
+                  64) causal.
+mma_rate          mma.sync m16n8k8 TF32 (and m16n8k16 bf16): its latency (one
+                  chain of dependent products), a warp's issue interval
+                  (independent products) and the card's rate, from a small
+                  CUDA program built with nvcc under build/mma_rate/.
 train_check_controls
                   what ``chip_smoke.py``'s train_check reads when the
                   attention gradient is broken on purpose, beside the sound
@@ -108,16 +127,25 @@ import numpy as np
 import torch
 
 from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, SERVE_CORPUS, SERVE_WIDE_TOPN,
-                        TRAIN_BATCH, _dout, _qkv, _unit_rows, compare_readings, emit,
-                        jpeg_bytes, raw_reading, time_ms, train_check_batch, train_reading)
+                        TRAIN_BATCH, VIT336_IMAGES, _dout, _qkv, _unit_rows, compare_readings,
+                        emit, jpeg_bytes, raw_reading, time_ms, train_check_batch,
+                        train_reading)
 
 PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "topk_split", "attention",
-          "attention_bwd", "train_check_controls", "raw_check_controls", "rn_gain_controls",
-          "rn_encode_chunks", "int8_layouts")
+          "attention_bwd", "attention_precision", "mma_rate", "train_check_controls",
+          "raw_check_controls", "rn_gain_controls", "rn_encode_chunks", "int8_layouts")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "topk_split", "attention",
                "attention_bwd")   # --impl's
 FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.bfloat16, True),
-              (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False))
+              (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False),
+              (2, 4, 289, 64, torch.float32, False), (2, 4, 577, 64, torch.float32, False),
+              # --precision fp32: ViT-L/14 at 224 and 336 px, the text tower at S=77
+              (16, 16, 257, 64, torch.float32, False), (16, 16, 577, 64, torch.float32, False),
+              (64, 12, 77, 64, torch.float32, True),
+              # chip_smoke.py's f32 paths: the image step's prompt, the encodes
+              (TRAIN_BATCH, 12, 8, 64, torch.float32, True),
+              (VIT336_IMAGES, 16, 257, 64, torch.float32, False),
+              (VIT336_IMAGES, 16, 577, 64, torch.float32, False))
 NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
                  (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
                  (QUERY_BATCH, 10_000, 10, torch.float32))
@@ -134,7 +162,12 @@ BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
               # above 128: the streamed launches (an implementation that refuses
               # them times them as null)
               (4, 16, 257, 64, torch.bfloat16, False), (4, 16, 577, 64, torch.bfloat16, False),
-              (2, 4, 289, 64, torch.float32, False))
+              (2, 4, 289, 64, torch.float32, False),
+              # f32 training: the image stream's prompt, the text stream's
+              # neighbour templates, and beside the bf16 streamed row
+              (TRAIN_BATCH, 12, 8, 64, torch.float32, True),
+              (2 * TRAIN_BATCH, 12, 32, 64, torch.float32, True),
+              (4, 16, 577, 64, torch.float32, False))
 CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
 
@@ -231,36 +264,174 @@ def topk_split(impl: str, D: int = 768) -> None:
 
 
 def attention(impl: str) -> None:
+    import torch.nn.functional as F
+
     from keds_tpu_torch.ops.attention import attention as fwd
 
-    ms = {}
+    ms, sdpa = {}, {}
     for B, H, S, Dh, dtype, causal in FWD_SHAPES:
         q, k, v = _qkv(B, H, S, Dh, dtype)
         name = f"{B}x{H}x{S}x{Dh} {str(dtype)[6:]}{' causal' if causal else ''}"
+        sdpa[name] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
         try:
             fwd(q, k, v, causal)
         except ValueError:          # an implementation that refuses the shape
             ms[name] = None
             continue
         ms[name] = time_ms(lambda: fwd(q, k, v, causal))
-    emit("attention", impl=impl, kernel_ms=ms)
+    emit("attention", impl=impl, kernel_ms=ms, sdpa_ms=sdpa, sdpa_f32_kernels=_sdpa_kernels())
+
+
+def _sdpa_kernels() -> list:
+    """The CUDA kernels of SDPA's f32 forward and backward, by name."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in _qkv(2, 4, 577, 64, torch.float32)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = F.scaled_dot_product_attention(*leaves)
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+        torch.cuda.synchronize()
+    return sorted({e.key.split("(")[0] for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and "fmha" in e.key})
 
 
 def attention_bwd(impl: str) -> None:
+    import torch.nn.functional as F
+
     from keds_tpu_torch.ops.attention import attention_backward
 
-    ms = {}
+    ms, sdpa = {}, {}
     for B, H, S, Dh, dtype, causal in BWD_SHAPES:
         q, k, v = _qkv(B, H, S, Dh, dtype)
         dout = _dout(B, H, S, Dh, dtype)
         name = f"{B}x{H}x{S}x{Dh} {str(dtype)[6:]}{' causal' if causal else ''}"
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+        # SDPA's backward alone: its forward and backward less its forward
+        sdpa[name] = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, dout))
+                      - time_ms(sdpa_fwd))
         try:
             attention_backward(q, k, v, dout, causal)
         except ValueError:          # an implementation that refuses the shape
             ms[name] = None
             continue
         ms[name] = time_ms(lambda: attention_backward(q, k, v, dout, causal))
-    emit("attention_bwd", impl=impl, kernel_ms=ms)
+    emit("attention_bwd", impl=impl, kernel_ms=ms, sdpa_backward_ms=sdpa)
+
+
+def _attention_f64(q, k, v, causal):
+    q, k, v = q.double(), k.double(), v.double()
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1),
+                          float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+def attention_precision() -> None:
+    from keds_tpu_torch.ops.attention import (attention, attention_backward,
+                                              attention_reference, attention_reference_backward)
+
+    def tf32(x):
+        return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    def err(a, b):
+        return max((x.double() - y).abs().max().item() for x, y in zip(a, b))
+
+    rows = []
+    for B, H, S, causal, q_scale in ((2, 4, 289, False, 1), (16, 16, 257, False, 1),
+                                     (64, 12, 77, True, 1), (2, 4, 289, False, 8),
+                                     (2, 6, 77, True, 8)):
+        q, k, v = _qkv(B, H, S, 64, torch.float32)
+        q = q * q_scale
+        dout = _dout(B, H, S, 64, torch.float32)
+        exact = _attention_f64(q, k, v, causal)
+        leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+        grads = torch.autograd.grad(_attention_f64(*leaves, causal), leaves, dout.double())
+        rows.append(dict(
+            shape=[B, H, S, 64], causal=causal, q_scale=q_scale,
+            fwd=dict(kernel=err([attention(q, k, v, causal)], [exact]),
+                     plain=err([attention_reference(q, k, v, causal)], [exact]),
+                     plain_tf32_inputs=err([attention_reference(tf32(q), tf32(k), tf32(v), causal)],
+                                           [exact])),
+            bwd=dict(kernel=err(attention_backward(q, k, v, dout, causal), grads),
+                     plain=err(attention_reference_backward(q, k, v, dout, causal), grads),
+                     plain_tf32_inputs=err(attention_reference_backward(
+                         *map(tf32, (q, k, v, dout)), causal), grads)),
+            grad_max=max(g.abs().max().item() for g in grads)))
+    emit("attention_precision", against="float64", rows=rows)
+
+
+MMA_RATE_CU = r"""
+#include <cstdio>
+template <int CHAINS, bool TF32>
+__global__ void chain(float* out, int iters, long long* cycles) {
+  float c[CHAINS][4];
+  for (int j = 0; j < CHAINS; ++j) for (int e = 0; e < 4; ++e) c[j][e] = threadIdx.x + j;
+  unsigned a[4] = {threadIdx.x, 2u, 3u, 4u}, b[2] = {5u, threadIdx.x};
+  long long t0 = clock64();
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < CHAINS; ++j) {
+      if (TF32)
+        asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+            "{%8,%9}, {%0,%1,%2,%3};" : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      else
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+            "{%8,%9}, {%0,%1,%2,%3};" : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
+  long long t1 = clock64();
+  float s = 0;
+  for (int j = 0; j < CHAINS; ++j) for (int e = 0; e < 4; ++e) s += c[j][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0 && blockIdx.x == 0) *cycles = t1 - t0;
+}
+template <int CHAINS, bool TF32>
+void run(int blocks, int threads) {
+  float* out; long long* cyc; cudaMalloc(&out, blocks * threads * 4); cudaMalloc(&cyc, 8);
+  const int iters = 4096;
+  chain<CHAINS, TF32><<<blocks, threads>>>(out, iters, cyc);
+  cudaEvent_t e0, e1; cudaEventCreate(&e0); cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  chain<CHAINS, TF32><<<blocks, threads>>>(out, iters, cyc);
+  cudaEventRecord(e1); cudaEventSynchronize(e1);
+  float ms; cudaEventElapsedTime(&ms, e0, e1);
+  long long c; cudaMemcpy(&c, cyc, 8, cudaMemcpyDeviceToHost);
+  double flops = (double)blocks * threads / 32 * iters * CHAINS * (TF32 ? 2048 : 4096);
+  printf("{\"type\": \"%s\", \"chains\": %d, \"blocks\": %d, \"threads\": %d, "
+         "\"cycles_per_mma_per_warp\": %.3f, \"tflops\": %.1f}\n", TF32 ? "tf32" : "bf16",
+         CHAINS, blocks, threads, (double)c / (iters * CHAINS), flops / ms / 1e9);
+  cudaFree(out); cudaFree(cyc);
+}
+int main() {
+  run<1, true>(1, 32); run<4, true>(1, 32); run<8, true>(132, 128); run<8, true>(528, 128);
+  run<1, false>(1, 32); run<8, false>(528, 128);
+  return cudaGetLastError();
+}
+"""
+
+
+def mma_rate() -> None:
+    import json
+    import pathlib
+    import shutil
+    import subprocess
+
+    build = pathlib.Path(__file__).resolve().parent / "build" / "mma_rate"
+    build.mkdir(parents=True, exist_ok=True)
+    (build / "mma_rate.cu").write_text(MMA_RATE_CU)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
+                    str(build / "mma_rate"), str(build / "mma_rate.cu")], check=True)
+    out = subprocess.run([str(build / "mma_rate")], capture_output=True, text=True, check=True)
+    emit("mma_rate", note="one 16x8 tile's mma.sync: cycles between dependent (chains 1) "
+         "or independent issues per warp, and the card's rate over 132 or 528 blocks of 4 "
+         "warps", rows=[json.loads(line) for line in out.stdout.splitlines()])
 
 
 def _fault(name: str):

@@ -73,3 +73,21 @@ def test_backward_plan_fits_and_covers_every_slice(bh):
         assert sorted(x for x in slices if x < bh) == list(range(bh))
         assert len(slices) - bh < p.slices
     assert bwd_plan(77).smem_bytes == 47_040 and bwd_plan(128).smem_bytes == 75_264
+
+
+def test_backward_plan_f32_fits_every_sequence():
+    """The f32 backward kernel's launch plan at every S: a warp per 16-row
+    tile, at most four a block and as many as make a (batch, head)'s blocks
+    even; one launch and no workspace at S <= 64, else a workspace row per
+    query row; and shared memory that lets two blocks share an SM (the split
+    launches of small grids aside)."""
+    for s in range(1, 1100):
+        p = bwd_plan(s, torch.float32)
+        assert (p.key_tiles - 1) * 16 < s <= p.key_tiles * 16
+        assert p.slices == 1 and 1 <= p.warps <= 4
+        blocks = -(-p.key_tiles // p.warps)
+        assert (blocks - 1) * p.warps < p.key_tiles and blocks == -(-p.key_tiles // 4)
+        assert 2 * (p.smem_bytes + 1024) <= 228 * 1024
+        assert p.workspace_rows == (0 if s <= 64 else 16 * p.key_tiles)
+    assert bwd_plan(64, torch.float32).smem_bytes == 70_400
+    assert bwd_plan(577, torch.float32).smem_bytes == 105_984

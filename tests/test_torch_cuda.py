@@ -636,20 +636,22 @@ def test_attention_backward_plan_mirrors_the_library(cuda):
 
     lib = att_mod.BWD_KERNEL.lib()
     out = (ctypes.c_int * 5)()
-    for s in range(1, 1100):
-        assert lib.keds_attention_bwd_plan(s, ctypes.cast(out, ctypes.c_void_p)) == 0
-        assert tuple(out) == tuple(att_mod.bwd_plan(s))
-    assert lib.keds_attention_bwd_plan(0, ctypes.cast(out, ctypes.c_void_p)) != 0
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for s in range(1, 1100):
+            assert lib.keds_attention_bwd_plan(s, code, ctypes.cast(out, ctypes.c_void_p)) == 0
+            assert tuple(out) == tuple(att_mod.bwd_plan(s, dtype))
+        assert lib.keds_attention_bwd_plan(0, code, ctypes.cast(out, ctypes.c_void_p)) != 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("s", [129, 257, 577, 1025])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_backward_streams_long_sequences(cuda, dtype, s, causal):
-    """Above 128 the two streamed launches (dq, then dk and dv), through
-    autograd as the towers reach them; two calls agree bit for bit."""
+    """Above 128 the two launches (dq, then dk and dv; f32 takes them at
+    every S), through autograd as the towers reach them; two calls agree
+    bit for bit."""
     qkv, (q, k, v), dout = _grad_inputs(cuda, 2, 3, s, dtype, s)
-    variant = BWD_VARIANT[dtype] + "_stream"
+    variant = "bf16_stream" if dtype == torch.bfloat16 else "f32"   # f32: one design at any S
     before = dict(att_mod.BWD_KERNEL.launches)
     grads = torch.autograd.grad(attention(q, k, v, causal), (q, k, v), dout)
     again = att_mod.attention_backward(q, k, v, dout, causal)
@@ -1107,8 +1109,7 @@ def test_sharded_topk_two_ranks_sharing_the_card(cuda, tmp_path):
 
 
 def test_attention_head_dim_128_f32_streams_past_the_resident_limit(cuda):
-    """f32 at Dh = 128: S = 288 would need more than 227 KB resident, so it
-    streams, as does S = 577."""
+    """f32 at Dh = 128 streams K and V through the ring at S = 288 and 577."""
     for s in (288, 577):
         q = torch.randn((2, 3, s, 128), generator=_gen(cuda, s), device=cuda)
         out = attention(q, 0.5 * q, q.flip(-1))
@@ -1411,3 +1412,109 @@ def test_fullscale_benches_at_tiny_scale_card_equal_cpu(cuda, tmp_path, monkeypa
             assert sum(att_mod.KERNEL.launches.values()) > before[1]
     assert len(tables) == 2 and tables[0] == tables[1]
     assert {j for j, _ in tables[0]} == {1, 2}
+
+
+def _tf32(x):
+    """x with its low 13 mantissa bits cleared: the operand a TF32 product sees."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("dh", [1, 33, 100, 128])
+@pytest.mark.parametrize("s", [288, 289, 577])
+def test_attention_f32_head_dims_off_the_tile(cuda, dh, s):
+    """f32 at a head dimension the kernel pads (to 32, 64 or 128, zero in
+    shared memory), strided views of one qkv buffer, causal and not."""
+    qkv = torch.randn((2, s, 3, 3, dh), generator=_gen(cuda, s + dh), device=cuda)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for causal in (False, True):
+        out = attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 3, s, dh)
+        torch.testing.assert_close(out, attention_reference(q, k, v, causal),
+                                   atol=ATT_TOL[torch.float32], rtol=0)
+
+
+def _attention_f64(q, k, v, causal):
+    q, k, v = q.double(), k.double(), v.double()
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        s = s + att_mod.causal_mask(s.shape[-1], s.device).double()
+    return torch.softmax(s, -1) @ v
+
+
+@pytest.mark.parametrize("s", [77, 289, 577])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_f32_near_one_hot_softmax(cuda, s, causal):
+    """q scaled by 8: each row's softmax is nearly one-hot, so a score's
+    rounding moves the output most: f32 math in any order is 1e-5 to 3e-5
+    off float64 here, the plain version too.  So both are held to float64:
+    the kernel's products keep about 22 bits where f32's keep 24, and its
+    sums run in another order, so it stays within three times the plain
+    version's error (measured up to twice on the H100)."""
+    qkv = torch.randn((2, s, 3, 4, 64), generator=_gen(cuda, s), device=cuda)
+    qkv[:, :, 0] *= 8
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = attention(q, k, v, causal)
+    exact = _attention_f64(q, k, v, causal)
+    plain = attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    err, plain_err = ((x.double() - exact).abs().max().item() for x in (out, plain))
+    assert err <= 3 * plain_err + 1e-6, (err, plain_err)
+
+
+@pytest.mark.parametrize("s", [129, 257, 577])
+def test_attention_backward_f32_streamed_near_one_hot_softmax(cuda, s):
+    qkv = torch.randn((2, s, 3, 4, 64), generator=_gen(cuda, s), device=cuda)
+    qkv[:, :, 0] *= 8
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    dout = torch.randn((2, 4, s, 64), generator=_gen(cuda, s + 1), device=cuda)
+    for causal in (False, True):
+        _check_backward(q, k, v, dout, causal)
+
+
+@pytest.mark.parametrize("b,h", [(1, 1), (40, 16)])
+@pytest.mark.parametrize("s", [8, 77, 289])
+def test_attention_f32_batch_heads(cuda, b, h, s):
+    """B*H = 1 (the keys split over four warps) and 640, above 132 SMs x 4
+    warps (one warp a tile), forward and backward, causal."""
+    qkv, (q, k, v), dout = _grad_inputs(cuda, b, h, s, torch.float32, 70 + s)
+    out = attention(q, k, v, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_reference(q, k, v, True),
+                               atol=ATT_TOL[torch.float32], rtol=0)
+    _check_backward(q, k, v, dout, True)
+
+
+@pytest.mark.parametrize("s", [8, 77, 289, 577])
+def test_attention_backward_f32_is_deterministic(cuda, s):
+    """No atomics, and the splits merge in a fixed order: two calls agree
+    bit for bit."""
+    _, (q, k, v), dout = _grad_inputs(cuda, 4, 12, s, torch.float32, 80)
+    first = att_mod.attention_backward(q, k, v, dout, s % 2 == 1)
+    second = att_mod.attention_backward(q, k, v, dout, s % 2 == 1)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("s", [77, 257, 577])
+def test_attention_f32_is_not_tf32(cuda, s):
+    """The f32 kernels keep f32's precision where TF32 would not: on inputs
+    whose low mantissa bits matter (uniform in [1, 2), so that TF32 keeps
+    only 10 of 23 fraction bits), the kernels' error against the plain
+    version is at most a tenth of the error of the plain version run on the
+    same inputs cut to TF32, forward and backward."""
+    gen = _gen(cuda, s)
+    q, k, v, dout = (1 + torch.rand((2, 4, s, 64), generator=gen, device=cuda)
+                     for _ in range(4))
+    q = q - 1.5                          # scores of both signs
+    out = attention(q, k, v, True)
+    ref = attention_reference(q, k, v, True)
+    cut = attention_reference(_tf32(q), _tf32(k), _tf32(v), True)
+    grads = att_mod.attention_backward(q, k, v, dout, True)
+    gref = att_mod.attention_reference_backward(q, k, v, dout, True)
+    gcut = att_mod.attention_reference_backward(*map(_tf32, (q, k, v, dout)), True)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 0.1 * (cut - ref).abs().max()
+    for g, r, c in zip(grads, gref, gcut):
+        assert (g - r).abs().max() <= 0.1 * (c - r).abs().max()
