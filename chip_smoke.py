@@ -3517,7 +3517,9 @@ def main() -> int:
                                 # the encodes of VIT336_IMAGES at 224 and 336 px
                                 (TRAIN_BATCH, 12, 8, 64, f32, True),
                                 (VIT336_IMAGES, 16, 257, 64, f32, False),
-                                (VIT336_IMAGES, 16, 577, 64, f32, False)])
+                                (VIT336_IMAGES, 16, 577, 64, f32, False),
+                                # the bf16 336 px check's own shape (streamed)
+                                (VIT336_IMAGES, 16, 577, 64, bf16, False)])
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
@@ -3532,7 +3534,8 @@ def main() -> int:
                                     # text stream's neighbour templates, S=577
                                     (TRAIN_BATCH, 12, 8, 64, f32, True),
                                     (2 * TRAIN_BATCH, 12, 32, 64, f32, True),
-                                    (4, 16, 577, 64, f32, False)])
+                                    (4, 16, 577, 64, f32, False),
+                                    (4, 12, 1025, 64, bf16, False)])   # streamed
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
                             (QUERY_BATCH, DB_ROWS // DIST_RANKS, 768, 16, bf16),  # a shard
@@ -3674,6 +3677,7 @@ def main() -> int:
                # the backward above 128 keys (two streamed launches a call)
                (bwd, "bf16_stream", bwd_rows[6], train_launches),
                (bwd, "bf16_stream", bwd_rows[7], train_launches),
+               (bwd, "bf16_stream", bwd_rows[12], train_launches),
                # --precision fp32, each path beside its own shape: the f32
                # image-stream step's prompt and the f32 encodes at 224 and 336 px
                (att, "f32", att_rows[16], train_f32_launches),
@@ -3687,11 +3691,12 @@ def main() -> int:
                (top, "bf16", topk_rows[12], serve_launches["serve_topn300"]),
                (top, "f32", topk_rows[5], launches),    # the served corpus ranking
                # RN50's serving (the D = 1024 rows) and the streamed
-               # attention above 288 keys (ViT-L/14 at 336 px)
+               # attention above 288 keys (ViT-L/14 at 336 px: the bf16
+               # check encodes VIT336_IMAGES images, its own row's shape)
                (att, "bf16_tc", att_rows[8], rn_launches),
                (top, "bf16_tc", topk_rows[15], rn_launches),
                (top, "f32", topk_rows[16], rn_launches),
-               (att, "bf16_tc", att_rows[4], vit336_launches),
+               (att, "bf16_tc", att_rows[19], vit336_launches),
                (att, "bf16_tc", att_rows[9], surface_launches["mask_ratio_1"]),
                (att, "bf16_tc", att_rows[10], surface_launches["mask_ratio_0.75"]),
                (att, "bf16_tc", att_rows[11], surface_launches["text_mid_cross"]),

@@ -44,16 +44,36 @@
 //     log2(e) into the fma that feeds exp2), and only key tiles that reach
 //     a row's limit (S, or the diagonal when causal) are masked.
 //
-// attention_tc_stream (bf16, Dh = 64, S > 288).  The same two passes and
-// per-tile arithmetic (the helpers below are shared), so the result equals
-// the resident kernel's.  Whole K and V no longer fit at every S (227 KB
-// holds about 800 keys), so each block takes kStreamWarps 16-row query
-// tiles of one (batch, head), one per warp, and streams K (pass 1) and then
-// K and V (pass 2) through a two-stage ring of kChunk-key buffers filled by
-// cp.async while the previous chunk is in use.  K is read twice and V once
-// per block; the blocks of one (batch, head) share them through L2 (a
-// (batch, head) is 74 KB at S = 577).
-//
+// attention_tc_stream (bf16, Dh = 64, S > 288).  Two passes, so that P is
+// normalised before it is rounded, where the reference rounds it: one pass
+// with an online softmax rounds it before, which moved near-one-hot rows
+// (q scaled by 8) one bf16 step off the plain version, 0.03125 at |out| >=
+// 4, past the card test's 2e-2.  What bounds it on the H100: at ViT-L/14's
+// 336 px chunk (16, 16, 577, 64) the function moves 38 MB (0.011 ms) and
+// does 21.8 GFLOP (0.022 ms at 989 TFLOP/s); two passes take 1.5 times the
+// products and two exp2 a score.  Measured, the tile stream alone (no
+// arithmetic) took about half the kernel's time and the arithmetic added to
+// it rather than hiding under it: the kernel is latency-bound, so blocks an
+// SM (one block's loads under another's products) mattered most.  The
+// design:
+//   * A block takes 128 query rows of one (batch, head), its four warps 32
+//     rows each (two 16-row tiles, so each K or V fragment feeds two
+//     products), held in shared memory in 144-byte rows; 168 registers and
+//     67 KB, three blocks an SM.
+//   * K (pass 1), then K and V (pass 2) arrive as 64 x 64 tiles through a
+//     three-stage ring that the copy engine fills two chunks ahead: thread
+//     0 issues one tensor-map load a tile (tile_map, 128-byte swizzle, rows
+//     past S zero) counted on the stage's mbarrier, so no thread spends
+//     instructions or registers on the copies (cp.async by every thread,
+//     and a bulk copy a row, were slower).
+//   * Pass 1 takes each row's max and sum a chunk at a time (the quad's
+//     threads share the max; one rescale a chunk); pass 2 forms P =
+//     exp2(c s - c m) / l, rounds it to bf16 in the mma A-fragment layout
+//     and accumulates P.V.  No branch splits a chunk's products: a masked
+//     key (past S, or past the row when causal) is -inf before the softmax.
+//   * mma.sync m16n8k16, as the resident kernel; wgmma was not tried
+//     (PERF.md, open questions).
+
 // attention_f32 (f32, any Dh <= 128, any S).  What bounds it on the H100:
 // operations.  At ViT-L/14's 336 px chunk (16, 16, 577, 64) the function
 // does 21.8 GFLOP on 151 MB, 144 flop a byte.  The design takes the
@@ -285,107 +305,186 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --- streaming bf16 kernel (S > kMaxResident) ------------------------------
+// --- streamed bf16 kernel (S > kMaxResident) -------------------------------
 
-constexpr int kStreamWarps = 8;              // 16-row query tiles a block
-constexpr int kChunk = 64;                   // keys a shared-memory stage
-constexpr size_t kChunkElems = static_cast<size_t>(kChunk) * kTcPitch;
+constexpr int kMt = 2;                       // 16-row query tiles a warp
+constexpr int kStreamWarps = 4;              // warps a block
+constexpr int kWarpRows = 16 * kMt;          // query rows a warp
+constexpr int kBlockRows = kStreamWarps * kWarpRows;
+constexpr int kChunk = 64;                   // keys a ring stage
+constexpr int kStages = 3;
+constexpr int kTileBytes = kChunk * kTcHeadDim * static_cast<int>(sizeof(bf16));  // 8 KB
+// 1024-byte aligned: the ring (a K tile and a V tile a stage, 128-byte rows
+// swizzled), the block's query rows, the stages' barriers
+constexpr int kStreamSmem = 1024 + kStages * 2 * kTileBytes +
+                            kBlockRows * kTcPitch * static_cast<int>(sizeof(bf16)) +
+                            kStages * static_cast<int>(sizeof(unsigned long long));
 
-constexpr size_t stream_smem_bytes() { return 2 * 2 * kChunkElems * sizeof(bf16); }
+// The block's warps each own 32 query rows of one (batch, head), all of
+// them in shared memory.  K tiles (pass 1), then K and V tiles (pass 2) of
+// 64 keys stream through a three-stage ring that the copy engine fills two
+// chunks ahead (one tensor-map load a tile, issued by thread 0, counted on
+// the stage's barrier); pass 1 takes each row's max and sum (rescaled a
+// chunk at a time), pass 2 the normalised probabilities, rounded, into P.V.
+__global__ void __launch_bounds__(32 * kStreamWarps, 3)
+attention_tc_stream(const bf16* __restrict__ q, bf16* __restrict__ o, int H, int S,
+                    Strides qs, Strides os, int causal, float scale_log2e,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, TileCoords k_tc,
+                    TileCoords v_tc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<unsigned long long>(smem_raw) + 1023) & ~1023ull);
+  bf16* q_s = reinterpret_cast<bf16*>(ring + kStages * 2 * kTileBytes);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(q_s + kBlockRows * kTcPitch);
 
-// cp.async the kChunk key rows from j0 of one (batch, head) into `dst`
-// (rows past S zero-filled).
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, long long stride,
-                                           int j0, int S) {
-  for (int e = threadIdx.x; e < kChunk * (kTcHeadDim / 8); e += blockDim.x) {
-    const int j = e / (kTcHeadDim / 8), c = (e % (kTcHeadDim / 8)) * 8;
-    const bool in = j0 + j < S;
-    cp_async16(dst + j * kTcPitch + c, src + (in ? j0 + j : 0) * stride + c, in);
-  }
-}
-
-__global__ void __launch_bounds__(32 * kStreamWarps)
-attention_tc_stream(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S,
-                    Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                    float scale_log2e) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);       // two stages of kChunk keys
-  bf16* v_s = k_s + 2 * kChunkElems;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = (blockIdx.y * kStreamWarps + warp) * kTcRows;
-  const int ra = r0 + g, rb = ra + 8;
-  const bf16* kb_ptr = k + b * ks.b + h * ks.h;
-  const bf16* vb_ptr = v + b * vs.b + h * vs.h;
-  bf16* ob = o + b * os.b + h * os.h;
-
-  unsigned qf[4][4];
-  tc_load_q(qf, q + b * qs.b + h * qs.h, qs.s, ra, rb, S, t);
-  const TcLimits lim{causal ? min(S, ra + 1) : S, causal ? min(S, rb + 1) : S,
-                     causal ? min(S, r0 + 1) : S};
-  // keys any of this warp's rows sees (none for a tile past S), and any of
-  // the block's
-  const int warp_keys = r0 >= S ? 0 : (causal ? min(S, r0 + kTcRows) : S);
-  const int block_keys = causal ? min(S, (blockIdx.y + 1) * kStreamWarps * kTcRows) : S;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int units = (S + kWarpRows - 1) / kWarpRows;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, units);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, units);
+  // keys any of the block's rows sees
+  const int block_keys = causal ? min(S, u_end * kWarpRows) : S;
   const int n_chunks = (block_keys + kChunk - 1) / kChunk;
+  const int total = 2 * n_chunks;              // pass 1's chunks, then pass 2's
+  auto load = [&](int it) {                    // thread 0: chunk it into its stage
+    const int st = it % kStages, j0 = (it % n_chunks) * kChunk;
+    const bool with_v = it >= n_chunks;
+    mbar_arrive_tx(&full[st], kTileBytes * (with_v ? 2 : 1));
+    tma_tile(ring + st * 2 * kTileBytes, k_map, k_tc, j0, h, b, &full[st]);
+    if (with_v)
+      tma_tile(ring + st * 2 * kTileBytes + kTileBytes, v_map, v_tc, j0, h, b, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+    for (int i = 0; i < kStages - 1 && i < total; ++i) load(i);
+  }
+  // the block's query rows, zero past S
+  rows_async(q_s, q + b * qs.b + h * qs.h, qs.s, u_first * kWarpRows,
+             (u_end - u_first) * kWarpRows, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  const int g = lane / 4, t = lane % 4;
+  const int unit = u_first + warp;
+  const bool live = unit < u_end;
+  const int r0 = unit * kWarpRows;
+  const bf16* q_rows = q_s + warp * kWarpRows * kTcPitch;
+  int lim[kMt][2];                              // keys < lim are live for the row
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      lim[mt][half] = causal ? min(S, r0 + mt * 16 + g + 8 * half + 1) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;   // the least of the rows' limits
+  const int warp_keys = !live ? 0 : causal ? min(S, r0 + kWarpRows) : S;
   const float c = scale_log2e;
 
-  // 16-key tiles of chunk ch that this warp computes
-  auto chunk_tiles = [&](int ch) { return max(0, min(kChunk, warp_keys - ch * kChunk) + 15) / 16; };
-
-  // Pass 1: K alone through the ring.
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  load_chunk(k_s, kb_ptr, ks.s, 0, S);
-  cp_async_commit();
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      load_chunk(k_s + ((ch + 1) & 1) * kChunkElems, kb_ptr, ks.s, (ch + 1) * kChunk, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kc = k_s + (ch & 1) * kChunkElems;
-    const int n_kb = chunk_tiles(ch);
-    for (int kb = 0; kb < n_kb; ++kb)
-      tc_stats_tile(m, l, qf, kc + kb * 16 * kTcPitch, ch * kChunk + kb * 16, lim, c, lane);
-    __syncthreads();                             // the stage is refilled next
-  }
-  float mc[2], inv_l[2];
-  tc_finish_stats(m, l, c, mc, inv_l);
-
-  // Pass 2: K and V through the ring.
-  float acc[kTcHeadDim / 8][4];
+  float m[kMt][2], l[kMt][2], acc[kMt][kTcHeadDim / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < kTcHeadDim / 8; ++nt)
+  for (int mt = 0; mt < kMt; ++mt) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  load_chunk(k_s, kb_ptr, ks.s, 0, S);
-  load_chunk(v_s, vb_ptr, vs.s, 0, S);
-  cp_async_commit();
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      const size_t off = ((ch + 1) & 1) * kChunkElems;
-      load_chunk(k_s + off, kb_ptr, ks.s, (ch + 1) * kChunk, S);
-      load_chunk(v_s + off, vb_ptr, vs.s, (ch + 1) * kChunk, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int half = 0; half < 2; ++half) {
+      m[mt][half] = -CUDART_INF_F;
+      l[mt][half] = 0.f;
     }
-    __syncthreads();
-    const size_t off = (ch & 1) * kChunkElems;
-    const int n_kb = chunk_tiles(ch);
-    for (int kb = 0; kb < n_kb; ++kb)
-      tc_pv_tile(acc, qf, k_s + off + kb * 16 * kTcPitch, v_s + off + kb * 16 * kTcPitch,
-                 ch * kChunk + kb * 16, lim, c, mc, inv_l, lane);
-    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < kTcHeadDim / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   }
-  tc_store(ob, os.s, acc, ra, rb, S, t);
+
+  for (int it = 0; it < total; ++it) {
+    __syncthreads();                           // every thread is done with it - 1 (and q is in)
+    if (threadIdx.x == 0 && it + kStages - 1 < total) load(it + kStages - 1);  // into it - 1's stage
+    const bool pass2 = it >= n_chunks;
+    if (it == n_chunks) {                      // pass 1's statistics: m c and 1 / l
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          l[mt][half] += __shfl_xor_sync(kFullMask, l[mt][half], 1);
+          l[mt][half] += __shfl_xor_sync(kFullMask, l[mt][half], 2);
+          m[mt][half] *= c;
+          l[mt][half] = 1.f / l[mt][half];
+        }
+    }
+    const int key0 = (it % n_chunks) * kChunk;
+    if (key0 >= warp_keys) continue;           // warp-uniform
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    const unsigned char* kc = ring + (it % kStages) * 2 * kTileBytes;
+    float s[kMt][4][2][4];
+    mma_abt_tiles<kTcPitch, kMt, 4>(s, q_rows, kc, 0, lane);
+    if (key0 + kChunk > lim_warp) {            // some key reaches a row's limit: mask
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (key0 + kb * 16 + nt * 8 + 2 * t + (e % 2) >= lim[mt][e / 2])
+                s[mt][kb][nt][e] = -CUDART_INF_F;
+    }
+    if (!pass2) {
+      // the quad's threads share their rows' max; the sum so far is
+      // rescaled once a chunk (every row has a live key in the first)
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float x = -CUDART_INF_F;
+#pragma unroll
+          for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+              x = fmaxf(x, fmaxf(s[mt][kb][nt][2 * half], s[mt][kb][nt][2 * half + 1]));
+          x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+          const float mn = fmaxf(m[mt][half], x);
+          const float mcr = mn * c;
+          float sum = l[mt][half] * exp2_ftz(fmaf(m[mt][half], c, -mcr));
+#pragma unroll
+          for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+              sum += exp2_ftz(fmaf(s[mt][kb][nt][2 * half], c, -mcr)) +
+                     exp2_ftz(fmaf(s[mt][kb][nt][2 * half + 1], c, -mcr));
+          l[mt][half] = sum;
+          m[mt][half] = mn;
+        }
+      continue;
+    }
+    // P = exp2(c s - c m) / l rounded to bf16 (0 where masked), then P.V,
+    // each V fragment feeding both row tiles
+    const unsigned char* vc = kc + kTileBytes;
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      unsigned pa[kMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[nt][e] = exp2_ftz(fmaf(s[mt][kb][nt][e], c, -m[mt][e / 2])) * l[mt][e / 2];
+        pa[mt][0] = pack_bf16(p[0][0], p[0][1]);
+        pa[mt][1] = pack_bf16(p[0][2], p[0][3]);
+        pa[mt][2] = pack_bf16(p[1][0], p[1][1]);
+        pa[mt][3] = pack_bf16(p[1][2], p[1][3]);
+      }
+      mma_ab_tiles<kMt>(acc, pa, vc, kb * 16, lane);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+    const int ra = r0 + mt * 16 + g;
+    tc_store(o + b * os.b + h * os.h, os.s, acc[mt], ra, ra + 8, S, t);
+  }
 }
 
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H,
@@ -393,11 +492,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H
               float scale, cudaStream_t stream) {
   const float c = scale * 1.4426950408889634f;
   if (S > kMaxResident) {
-    // one block per (batch, head) and kStreamWarps query tiles
-    dim3 grid(B * H, (S + kStreamWarps * kTcRows - 1) / (kStreamWarps * kTcRows));
-    attention_tc_stream<<<grid, 32 * kStreamWarps, stream_smem_bytes(), stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), H, S, qs, ks, vs, os, causal, c);
+    static int smem_set[64];
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_tc_stream),
+                                 kStreamSmem, smem_set);
+    if (err != cudaSuccess) return err;
+    CUtensorMap k_map, v_map;
+    TileCoords k_tc, v_tc;
+    err = tile_map(&k_map, &k_tc, k, B, H, S, ks.s, ks.h, ks.b);
+    if (err == cudaSuccess) err = tile_map(&v_map, &v_tc, v, B, H, S, vs.s, vs.h, vs.b);
+    if (err != cudaSuccess) return err;
+    // a block per (batch, head) and up to kStreamWarps 32-row units of its
+    // queries, as even as the units allow
+    const int units = (S + kWarpRows - 1) / kWarpRows;
+    const dim3 grid(B * H, (units + kStreamWarps - 1) / kStreamWarps);
+    attention_tc_stream<<<grid, 32 * kStreamWarps, kStreamSmem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<bf16*>(o), H, S, qs, os, causal, c, k_map,
+        v_map, k_tc, v_tc);
     return cudaGetLastError();
   }
   static int smem_set[64];

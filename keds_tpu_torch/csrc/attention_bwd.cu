@@ -58,26 +58,33 @@
 // attention_bwd_tc_dq and attention_bwd_tc_dkv (bf16, Dh = 64, S > 128).
 // Above 128 keys a warp's row of scores no longer fits in registers and a
 // (batch, head) no longer fits in one block's shared memory, so the work is
-// split in two launches that stream through shared memory, with no atomics:
-//   * dq: each block takes kStreamWarps 16-row query tiles of one (batch,
-//     head), one per warp, with q and dO fragments in registers, and sweeps
-//     the keys three times through a two-stage cp.async ring of kChunk K
-//     (and V) rows, as attention_tc_stream does: the rows' max and sum
-//     (online rescaling), then D = sum P * round(dP), then dS = P * (dP - D)
-//     as hi + lo bf16 terms into dQ = scale * dS K.  It writes each row's
-//     m * scale * log2(e), 1 / l and D to a workspace (0 past S).
-//   * dkv: each block takes kStreamWarps 16-row key tiles, with K and V of
-//     its keys resident in shared memory, and streams the query rows (from
-//     the block's first key when causal) with their dO rows and statistics
-//     through the same kind of ring; each warp recomputes P^T and dP^T per
-//     query tile exactly as pass B does and accumulates dV and dK in
-//     registers.
-//   The per-element arithmetic is the resident kernel's (round(P) for dV, dP
-//   rounded to bf16, dS as hi + lo), so the two agree to rounding.  Bytes:
-//   K is read three times and V twice by each dq block, Q and dO once by
-//   each dkv block; the blocks of a (batch, head) share them through L2.
-//   Shared memory: 36 KB (dq), 75 KB (dkv).
-//
+// split in two launches that stream tiles through shared memory, with no
+// atomics.  What bounds them on the H100: at (4, 16, 577, 64) the function
+// moves 33 MB (0.010 ms) and does 13.6 GFLOP, but the VJP's numerics need
+// 11 products of 2 S^2 Dh a (batch, head) (dS enters dQ and dK as two
+// terms) and 3 exp2 a score; as in the forward, the tile stream and the
+// arithmetic add up, so blocks an SM mattered most.  The design:
+//   * dq: a block takes 64 query rows (four warps of 16), their q and dO
+//     rows held in shared memory; K and V arrive as 64 x 64 tiles through a
+//     three-stage ring that the copy engine fills (thread 0, one tensor-map
+//     load a tile, counted on the stage's mbarrier; rows past S zero), two
+//     sweeps: the first takes each row's max m, sum l and D = sum P
+//     round(dP) together, D rescaled with l as m grows (32 keys at a time);
+//     the second dS = P (dP - D) as hi + lo bf16 terms into dQ = scale dS K.
+//     It writes each row's m * scale * log2(e), 1 / l and D to a workspace
+//     (0 for rows past S).
+//   * dkv: a block takes 64 key rows, their K and V rows held in shared
+//     memory, and streams the query rows (from the block's first key when
+//     causal) as q and dO tiles the same way, their statistics by cp.async;
+//     each warp recomputes P^T and dP^T per 16 queries and accumulates dV =
+//     round(P)^T dO and dK = scale dS^T q in registers.
+//   * 128 threads and three blocks an SM each (64-row blocks measured faster
+//     than 128-row ones at every shape timed, though they stream K, V, q
+//     and dO twice as often); no branch splits a tile's products.
+//   The per-element arithmetic is the resident kernel's (round(P) for dV,
+//   dP rounded to bf16, dS as hi + lo), so the two agree to rounding.
+//   Shared memory: 67 KB (dq), 69 KB (dkv).
+
 // attention_bwd_f32, attention_bwd_f32_dq and attention_bwd_f32_dkv (f32,
 // Dh = 64, any S).  What bounds them on the H100: operations, 10 B H pairs
 // Dh flops on 7 B H S Dh floats (at (4, 16, 577, 64) 13.6 GFLOP on 66 MB:
@@ -426,347 +433,409 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout, voi
 
 // --- streamed bf16 kernels (S > kMaxSeq) ------------------------------------
 
-constexpr int kStreamWarps = 8;
-constexpr int kStreamRows = 16 * kStreamWarps;   // query (dq) or key (dkv) rows a block
+constexpr int kMt = 1;                            // 16-row tiles a warp (two spilled)
+constexpr int kWarpRows = 16 * kMt;
+constexpr int kStreamWarps = 4;                   // warps a block
+constexpr int kStreamRows = kWarpRows * kStreamWarps;   // query (dq) or key (dkv) rows a block
 constexpr int kChunk = 64;                        // rows a ring stage
-constexpr int kChunkElems = kChunk * kTcPitch;
-constexpr int kDqSmem = 2 * 2 * kChunkElems * static_cast<int>(sizeof(bf16));
-constexpr int kDkvSmem = (2 * kStreamRows * kTcPitch + 2 * 2 * kChunkElems) *
-                             static_cast<int>(sizeof(bf16)) +
-                         2 * 3 * kChunk * static_cast<int>(sizeof(float));
+constexpr int kStages = 3;
+constexpr int kTileBytes = kChunk * kHeadDim * static_cast<int>(sizeof(bf16));   // 8 KB
+// 1024-byte aligned: the ring (two swizzled tiles a stage: dq's K and V,
+// dkv's q and dO), the block's own rows (dq: q and dO; dkv: K and V, in
+// 144-byte rows), the barriers, dkv's three statistics a streamed row
+constexpr int kDqSmem = 1024 + kStages * 2 * kTileBytes +
+                        2 * kStreamRows * kTcPitch * static_cast<int>(sizeof(bf16)) +
+                        kStages * static_cast<int>(sizeof(unsigned long long));
+constexpr int kDkvSmem = kDqSmem + kStages * 3 * kChunk * static_cast<int>(sizeof(float));
 
-// Workspace rows a (batch, head) per statistic: S rounded up to the blocks.
-__host__ __device__ constexpr int stream_rows(int S) {
-  return (S + kStreamRows - 1) / kStreamRows * kStreamRows;
-}
+// Workspace rows a (batch, head) per statistic: the query rows of its tiles.
+__host__ __device__ constexpr int stream_rows(int S) { return (S + 15) / 16 * 16; }
 
-// cp.async rows j0 .. j0 + n - 1 of one (batch, head) into 144-byte rows at
-// `dst` (rows past S zero-filled).
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride, int j0,
-                                          int n, int S) {
-  for (int e = threadIdx.x; e < n * (kHeadDim / 8); e += blockDim.x) {
-    const int j = e / (kHeadDim / 8), c = (e % (kHeadDim / 8)) * 8;
-    const bool in = j0 + j < S;
-    cp_async16(dst + j * kTcPitch + c, src + (in ? j0 + j : 0) * stride + c, in);
-  }
-}
-
-// A fragments of rows ra and rb = ra + 8 straight from global memory (zero
-// for rows >= S).
-__device__ __forceinline__ void load_frag(unsigned (&f)[4][4], const bf16* base, long long stride,
-                                          int ra, int rb, int S, int t) {
-  const unsigned* pa = reinterpret_cast<const unsigned*>(base + (ra < S ? ra : 0) * stride);
-  const unsigned* pb = reinterpret_cast<const unsigned*>(base + (rb < S ? rb : 0) * stride);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    f[kk][0] = ra < S ? __ldg(pa + kk * 8 + t) : 0u;
-    f[kk][1] = rb < S ? __ldg(pb + kk * 8 + t) : 0u;
-    f[kk][2] = ra < S ? __ldg(pa + kk * 8 + 4 + t) : 0u;
-    f[kk][3] = rb < S ? __ldg(pb + kk * 8 + 4 + t) : 0u;
-  }
-}
-
-// P of one 16-key tile in place of its raw scores s: exp2(c * s - mc) / l,
-// 0 where a key lies at or past its row's limit.
-__device__ __forceinline__ void tile_probs(float (&s)[2][4], int key0, int lim_a, int lim_b,
-                                          bool masked, float c, const float (&mc)[2],
-                                          const float (&inv_l)[2], int t) {
+// The A fragments of d = hi + lo, hi = d rounded to bf16 and lo = d - hi
+// rounded, for one 16-column tile of d in accumulator layout.
+__device__ __forceinline__ void split_bf16(const float (&d)[2][4], unsigned (&ha)[4],
+                                           unsigned (&la)[4]) {
+  float hi[2][4], lo[2][4];
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int half = e / 2;
-      const float p = exp2f(fmaf(s[nt][e], c, -mc[half])) * inv_l[half];
-      s[nt][e] = masked && key0 + nt * 8 + 2 * t + (e % 2) >= (half ? lim_b : lim_a) ? 0.f : p;
+      hi[nt][e] = round_bf16(d[nt][e]);
+      lo[nt][e] = d[nt][e] - hi[nt][e];
     }
+  ha[0] = pack_bf16(hi[0][0], hi[0][1]);
+  ha[1] = pack_bf16(hi[0][2], hi[0][3]);
+  ha[2] = pack_bf16(hi[1][0], hi[1][1]);
+  ha[3] = pack_bf16(hi[1][2], hi[1][3]);
+  la[0] = pack_bf16(lo[0][0], lo[0][1]);
+  la[1] = pack_bf16(lo[0][2], lo[0][3]);
+  la[2] = pack_bf16(lo[1][0], lo[1][1]);
+  la[3] = pack_bf16(lo[1][2], lo[1][3]);
 }
 
-__global__ void __launch_bounds__(32 * kStreamWarps)
-attention_bwd_tc_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// dq: the block's warps each own 32 query rows of one (batch, head), their
+// q and dO rows in shared memory; K and V stream through a kStages-stage
+// cp.async ring twice, which the block's threads fill kStages - 1 chunks
+// ahead.
+__global__ void __launch_bounds__(32 * kStreamWarps, 3)
+attention_bwd_tc_dq(const bf16* __restrict__ q, const bf16* __restrict__ dout,
                     bf16* __restrict__ dq, float* __restrict__ stats, int H, int S,
-                    Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs, int causal,
-                    float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);       // two stages of kChunk keys
-  bf16* v_s = k_s + 2 * kChunkElems;
+                    Strides qs, Strides gs, Strides dqs, int causal, float scale,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, TileCoords k_tc,
+                    TileCoords v_tc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<unsigned long long>(smem_raw) + 1023) & ~1023ull);
+  bf16* q_s = reinterpret_cast<bf16*>(ring + kStages * 2 * kTileBytes);
+  bf16* g_s = q_s + kStreamRows * kTcPitch;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(g_s + kStreamRows * kTcPitch);
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = (blockIdx.y * kStreamWarps + warp) * 16;
-  const int ra = r0 + g, rb = ra + 8;
-  const bf16* kb_ptr = k + b * ks.b + h * ks.h;
-  const bf16* vb_ptr = v + b * vs.b + h * vs.h;
-
-  unsigned qf[4][4], gf[4][4];
-  load_frag(qf, q + b * qs.b + h * qs.h, qs.s, ra, rb, S, t);
-  load_frag(gf, dout + b * gs.b + h * gs.h, gs.s, ra, rb, S, t);
-  const int lim_a = causal ? min(S, ra + 1) : S;
-  const int lim_b = causal ? min(S, rb + 1) : S;
-  const int lim_warp = causal ? min(S, r0 + 1) : S;
-  const int warp_keys = r0 >= S ? 0 : (causal ? min(S, r0 + 16) : S);
-  const int block_keys = causal ? min(S, (blockIdx.y + 1) * kStreamRows) : S;
+  const int units = (S + kWarpRows - 1) / kWarpRows;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, units);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, units);
+  const int block_keys = causal ? min(S, u_end * kWarpRows) : S;
   const int n_chunks = (block_keys + kChunk - 1) / kChunk;
+  const int total = 2 * n_chunks;                   // sweep 0's chunks, then sweep 1's
+  auto load = [&](int it) {                         // thread 0: K and V of chunk it
+    const int st = it % kStages, j0 = (it % n_chunks) * kChunk;
+    mbar_arrive_tx(&full[st], 2 * kTileBytes);
+    tma_tile(ring + st * 2 * kTileBytes, k_map, k_tc, j0, h, b, &full[st]);
+    tma_tile(ring + st * 2 * kTileBytes + kTileBytes, v_map, v_tc, j0, h, b, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+    for (int i = 0; i < kStages - 1 && i < total; ++i) load(i);
+  }
+  const int rows0 = u_first * kWarpRows, n_rows = (u_end - u_first) * kWarpRows;
+  rows_async(q_s, q + b * qs.b + h * qs.h, qs.s, rows0, n_rows, S);
+  rows_async(g_s, dout + b * gs.b + h * gs.h, gs.s, rows0, n_rows, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  const int g = lane / 4, t = lane % 4;
+  const int unit = u_first + warp;
+  const bool live = unit < u_end;
+  const int r0 = unit * kWarpRows;
+  const bf16* q_rows = q_s + warp * kWarpRows * kTcPitch;
+  const bf16* g_rows = g_s + warp * kWarpRows * kTcPitch;
+  int lim[kMt][2];                                  // keys < lim are live for the row
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      lim[mt][half] = causal ? min(S, r0 + mt * 16 + g + 8 * half + 1) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;
+  const int warp_keys = !live ? 0 : causal ? min(S, r0 + kWarpRows) : S;
   const float c = scale * 1.4426950408889634f;
-  auto chunk_tiles = [&](int ch) { return max(0, min(kChunk, warp_keys - ch * kChunk) + 15) / 16; };
 
-  // Sweep 0 over K: the rows' max and sum.  Sweeps 1 and 2 over K and V: D,
-  // then dS into dQ.
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  float mc[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
-  float acc[8][4];
+  // Sweep 0: each row's max m, sum l and D = sum P round(dP), the last two
+  // rescaled together as m grows (32 keys at a time); then m becomes m c,
+  // l becomes 1 / l and D is divided by l.  Sweep 1: dS = P (dP - D) into dQ.
+  float m[kMt][2], l[kMt][2], dsum[kMt][2], acc[kMt][8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int mt = 0; mt < kMt; ++mt) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    for (int half = 0; half < 2; ++half) {
+      m[mt][half] = -CUDART_INF_F;
+      l[mt][half] = dsum[mt][half] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  }
 
-  for (int sweep = 0; sweep < 3; ++sweep) {
-    const bool with_v = sweep > 0;
-    load_rows(k_s, kb_ptr, ks.s, 0, kChunk, S);
-    if (with_v) load_rows(v_s, vb_ptr, vs.s, 0, kChunk, S);
-    cp_async_commit();
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      if (ch + 1 < n_chunks) {
-        const int off = ((ch + 1) & 1) * kChunkElems;
-        load_rows(k_s + off, kb_ptr, ks.s, (ch + 1) * kChunk, kChunk, S);
-        if (with_v) load_rows(v_s + off, vb_ptr, vs.s, (ch + 1) * kChunk, kChunk, S);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int off = (ch & 1) * kChunkElems;
-      const int n_kb = chunk_tiles(ch);
-      for (int kb = 0; kb < n_kb; ++kb) {
-        const int key0 = ch * kChunk + kb * 16;
-        const bf16* kt = k_s + off + kb * 16 * kTcPitch;
-        const bool masked = key0 + 16 > lim_warp;      // warp-uniform
-        float s[2][4];
-        mma_abt<kTcPitch>(s, qf, kt, lane);
-        if (sweep == 0) {
+  for (int it = 0; it < total; ++it) {
+    __syncthreads();                                // every thread is done with it - 1
+    if (threadIdx.x == 0 && it + kStages - 1 < total) load(it + kStages - 1);  // into its stage
+    if (it == n_chunks) {                           // sweep 0's statistics
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            l[mt][half] += __shfl_xor_sync(kFullMask, l[mt][half], off);
+            dsum[mt][half] += __shfl_xor_sync(kFullMask, dsum[mt][half], off);
+          }
+          // rows >= S (and a warp with no rows): P = 0, and a finite mc for dkv
+          const bool row_live = live && r0 + mt * 16 + g + 8 * half < S;
+          m[mt][half] = row_live ? m[mt][half] * c : 0.f;
+          l[mt][half] = row_live ? 1.f / l[mt][half] : 0.f;
+          dsum[mt][half] *= l[mt][half];
+        }
+    }
+    const int chunk0 = (it % n_chunks) * kChunk;
+    if (chunk0 >= warp_keys) continue;              // warp-uniform
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    const unsigned char* kc = ring + (it % kStages) * 2 * kTileBytes;
+    const unsigned char* vc = kc + kTileBytes;
+    const bool masked = chunk0 + kChunk > lim_warp;    // some key reaches a row's limit
+    if (it < n_chunks) {
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk) {              // 32 keys at a time
+        const int k32 = chunk0 + hk * 32;
+        float s[kMt][2][2][4], dp[kMt][2][2][4];
+        mma_abt_tiles<kTcPitch, kMt, 2>(s, q_rows, kc, hk * 32, lane);
+        mma_abt_tiles<kTcPitch, kMt, 2>(dp, g_rows, vc, hk * 32, lane);
+        if (masked) {
+#pragma unroll
+          for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (k32 + kt * 16 + nt * 8 + 2 * t + (e % 2) >= lim[mt][e / 2])
+                    s[mt][kt][nt][e] = -CUDART_INF_F;
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            float x[4];
+            float x = -CUDART_INF_F;
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              x[u] = s[u / 2][2 * half + u % 2];
-              if (masked && key0 + (u / 2) * 8 + 2 * t + (u % 2) >= (half ? lim_b : lim_a))
-                x[u] = -CUDART_INF_F;
-            }
-            const float mx = fmaxf(m[half], fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
-            if (mx != -CUDART_INF_F) {
-              const float mxc = mx * c;
-              float sum = l[half] * exp2f(fmaf(m[half], c, -mxc));
+            for (int kt = 0; kt < 2; ++kt)
 #pragma unroll
-              for (int u = 0; u < 4; ++u) sum += exp2f(fmaf(x[u], c, -mxc));
-              l[half] = sum;
-              m[half] = mx;
-            }
+              for (int nt = 0; nt < 2; ++nt)
+                x = fmaxf(x, fmaxf(s[mt][kt][nt][2 * half], s[mt][kt][nt][2 * half + 1]));
+            x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+            x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+            const float mn = fmaxf(m[mt][half], x);
+            const float mcr = mn == -CUDART_INF_F ? 0.f : mn * c;   // no live key yet
+            const float alpha = exp2_ftz(fmaf(m[mt][half], c, -mcr));
+            float sum = l[mt][half] * alpha, dd = dsum[mt][half] * alpha;
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                for (int e = 2 * half; e < 2 * half + 2; ++e) {
+                  const float p = exp2_ftz(fmaf(s[mt][kt][nt][e], c, -mcr));
+                  sum += p;
+                  dd = fmaf(p, round_bf16(dp[mt][kt][nt][e]), dd);
+                }
+            l[mt][half] = sum;
+            dsum[mt][half] = dd;
+            m[mt][half] = mn;
           }
-          continue;
-        }
-        tile_probs(s, key0, lim_a, lim_b, masked, c, mc, inv_l, t);   // s is now P
-        float dp[2][4];
-        mma_abt<kTcPitch>(dp, gf, v_s + off + kb * 16 * kTcPitch, lane);
-        if (sweep == 1) {
+      }
+      continue;
+    }
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
+    for (int kt = 0; kt < kChunk / 16; ++kt) {
+      float s[kMt][1][2][4], dp[kMt][1][2][4];
+      mma_abt_tiles<kTcPitch, kMt, 1>(s, q_rows, kc, kt * 16, lane);
+      mma_abt_tiles<kTcPitch, kMt, 1>(dp, g_rows, vc, kt * 16, lane);
+      // dS = P (round(dP) - D), P = exp2(c s - mc) / l (0 past a row's
+      // limit), as hi + lo bf16 terms into dQ
+      unsigned ha[kMt][4], la[kMt][4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              dsum[e / 2] = fmaf(s[nt][e], round_bf16(dp[nt][e]), dsum[e / 2]);
-          continue;
-        }
-        float hi[2][4], lo[2][4];
+      for (int mt = 0; mt < kMt; ++mt) {
+        float d[2][4];
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float d = s[nt][e] * (round_bf16(dp[nt][e]) - dsum[e / 2]);
-            hi[nt][e] = round_bf16(d);
-            lo[nt][e] = d - hi[nt][e];
+            float p = exp2_ftz(fmaf(s[mt][0][nt][e], c, -m[mt][e / 2])) * l[mt][e / 2];
+            if (masked && chunk0 + kt * 16 + nt * 8 + 2 * t + (e % 2) >= lim[mt][e / 2]) p = 0.f;
+            d[nt][e] = p * (round_bf16(dp[mt][0][nt][e]) - dsum[mt][e / 2]);
           }
-        const unsigned ha[4] = {pack_bf16(hi[0][0], hi[0][1]), pack_bf16(hi[0][2], hi[0][3]),
-                                pack_bf16(hi[1][0], hi[1][1]), pack_bf16(hi[1][2], hi[1][3])};
-        const unsigned la[4] = {pack_bf16(lo[0][0], lo[0][1]), pack_bf16(lo[0][2], lo[0][3]),
-                                pack_bf16(lo[1][0], lo[1][1]), pack_bf16(lo[1][2], lo[1][3])};
-        mma_ab2<kTcPitch>(acc, ha, la, kt, lane);
+        split_bf16(d, ha[mt], la[mt]);
       }
-      __syncthreads();                             // the stage is refilled next
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const bool row_live = (half ? rb : ra) < S;
-      if (sweep == 0) {
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          const float mo = __shfl_xor_sync(kFullMask, m[half], off);
-          const float lo = __shfl_xor_sync(kFullMask, l[half], off);
-          const float mn = fmaxf(m[half], mo);
-          l[half] = (m[half] == -CUDART_INF_F ? 0.f : l[half] * exp2f((m[half] - mn) * c)) +
-                    (mo == -CUDART_INF_F ? 0.f : lo * exp2f((mo - mn) * c));
-          m[half] = mn;
-        }
-        // rows >= S: P = 0, and a finite mc for the dkv kernel
-        mc[half] = row_live ? m[half] * c : 0.f;
-        inv_l[half] = row_live ? 1.f / l[half] : 0.f;
-      } else if (sweep == 1) {
-        dsum[half] += __shfl_xor_sync(kFullMask, dsum[half], 1);
-        dsum[half] += __shfl_xor_sync(kFullMask, dsum[half], 2);
-      }
+      mma_ab2_tiles<kMt>(acc, ha, la, kc, kt * 16, lane);
     }
   }
+  if (!live) return;
 
   const int pitch = stream_rows(S);
   float* st = stats + static_cast<long long>(bh) * 3 * pitch;
-  if (t == 0) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? rb : ra;
-      st[r] = mc[half];
-      st[pitch + r] = inv_l[half];
-      st[2 * pitch + r] = dsum[half];
-    }
-  }
   bf16* dqb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<unsigned*>(dqb + ra * dqs.s + d) =
-          pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
-    if (rb < S)
-      *reinterpret_cast<unsigned*>(dqb + rb * dqs.s + d) =
-          pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
+  for (int mt = 0; mt < kMt; ++mt) {
+    const int ra = r0 + mt * 16 + g, rb = ra + 8;
+    if (t == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? rb : ra;
+        st[r] = m[mt][half];
+        st[pitch + r] = l[mt][half];
+        st[2 * pitch + r] = dsum[mt][half];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int d = nt * 8 + 2 * t;
+      if (ra < S)
+        *reinterpret_cast<unsigned*>(dqb + ra * dqs.s + d) =
+            pack_bf16(acc[mt][nt][0] * scale, acc[mt][nt][1] * scale);
+      if (rb < S)
+        *reinterpret_cast<unsigned*>(dqb + rb * dqs.s + d) =
+            pack_bf16(acc[mt][nt][2] * scale, acc[mt][nt][3] * scale);
+    }
   }
 }
 
-__global__ void __launch_bounds__(32 * kStreamWarps)
-attention_bwd_tc_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// dkv: the block's warps each own 32 key rows of one (batch, head), their K
+// and V rows in shared memory; the query rows (from the block's first key
+// when causal) stream through the ring with their dO rows and statistics.
+__global__ void __launch_bounds__(32 * kStreamWarps, 3)
+attention_bwd_tc_dkv(const bf16* __restrict__ k, const bf16* __restrict__ v,
                      bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     const float* __restrict__ stats, int H, int S, Strides qs, Strides ks,
-                     Strides vs, Strides gs, Strides dks, Strides dvs, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);       // the block's keys, resident
+                     const float* __restrict__ stats, int H, int S, Strides ks, Strides vs,
+                     Strides dks, Strides dvs, int causal, float scale,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap g_map, TileCoords q_tc,
+                     TileCoords g_tc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<unsigned long long>(smem_raw) + 1023) & ~1023ull);
+  bf16* k_s = reinterpret_cast<bf16*>(ring + kStages * 2 * kTileBytes);
   bf16* v_s = k_s + kStreamRows * kTcPitch;
-  bf16* q_s = v_s + kStreamRows * kTcPitch;        // two stages of kChunk query rows
-  bf16* g_s = q_s + 2 * kChunkElems;               // and of their dO rows
-  float* st_s = reinterpret_cast<float*>(g_s + 2 * kChunkElems);   // two stages of 3 x kChunk
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(v_s + kStreamRows * kTcPitch);
+  float* st_s = reinterpret_cast<float*>(full + kStages);   // three statistics a row a stage
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kb0 = blockIdx.y * kStreamRows;        // the block's first key
-  const bf16* qb_ptr = q + b * qs.b + h * qs.h;
-  const bf16* gb_ptr = dout + b * gs.b + h * gs.h;
-  const int pitch = stream_rows(S);
-  const float* st = stats + static_cast<long long>(bh) * 3 * pitch;
-
-  load_rows(k_s, k + b * ks.b + h * ks.h, ks.s, kb0, kStreamRows, S);
-  load_rows(v_s, v + b * vs.b + h * vs.h, vs.s, kb0, kStreamRows, S);
-  cp_async_commit();
+  const int units = (S + kWarpRows - 1) / kWarpRows;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, units);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, units);
   // query rows from q0: when causal no earlier row sees the block's keys
-  const int q0 = causal ? kb0 : 0;
+  const int q0 = causal ? u_first * kWarpRows : 0;
   const int n_chunks = (S - q0 + kChunk - 1) / kChunk;
-  auto load_stage = [&](int ch) {
-    const int i0 = q0 + ch * kChunk, stage = ch & 1;
-    load_rows(q_s + stage * kChunkElems, qb_ptr, qs.s, i0, kChunk, S);
-    load_rows(g_s + stage * kChunkElems, gb_ptr, gs.s, i0, kChunk, S);
-    for (int e = threadIdx.x; e < 3 * kChunk / 4; e += blockDim.x) {
-      const int which = e / (kChunk / 4), c4 = (e % (kChunk / 4)) * 4;
-      cp_async16(st_s + (stage * 3 + which) * kChunk + c4, st + which * pitch + i0 + c4, true);
+  const int pitch = stream_rows(S);
+  const float* sb = stats + static_cast<long long>(bh) * 3 * pitch;
+  auto load = [&](int it) {                         // thread 0: q and dO of chunk it
+    const int st = it % kStages, i0 = q0 + it * kChunk;
+    mbar_arrive_tx(&full[st], 2 * kTileBytes);
+    tma_tile(ring + st * 2 * kTileBytes, q_map, q_tc, i0, h, b, &full[st]);
+    tma_tile(ring + st * 2 * kTileBytes + kTileBytes, g_map, g_tc, i0, h, b, &full[st]);
+  };
+  auto load_stats = [&](int it) {                   // every thread: mc, 1 / l and D, 0 past S
+    const int i0 = q0 + it * kChunk;
+    float* dst = st_s + (it % kStages) * 3 * kChunk;
+    for (int e = threadIdx.x; e < 3 * kChunk; e += blockDim.x) {
+      const int which = e / kChunk, i = i0 + e % kChunk;
+      const bool in = i < S;
+      cp_async4(dst + e, sb + which * pitch + (in ? i : 0), in);
     }
   };
-  load_stage(0);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+    for (int i = 0; i < kStages - 1 && i < n_chunks; ++i) load(i);
+  }
+  const int rows0 = u_first * kWarpRows, n_rows = (u_end - u_first) * kWarpRows;
+  rows_async(k_s, k + b * ks.b + h * ks.h, ks.s, rows0, n_rows, S);
+  rows_async(v_s, v + b * vs.b + h * vs.h, vs.s, rows0, n_rows, S);
   cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {           // the first chunks' statistics
+    if (i < n_chunks) load_stats(i);
+    cp_async_commit();
+  }
 
-  const int c0 = kb0 + warp * 16;                  // the warp's 16 keys
-  const int ja = c0 + g, jb = ja + 8;
+  const int g = lane / 4, t = lane % 4;
+  const int unit = u_first + warp;
+  const bool live = unit < u_end;
+  const int c0 = unit * kWarpRows;                  // the warp's keys
+  const bf16* k_rows = k_s + warp * kWarpRows * kTcPitch;
+  const bf16* v_rows = v_s + warp * kWarpRows * kTcPitch;
   const float c = scale * 1.4426950408889634f;
-  float av[8][4], ak[8][4];
+  float av[kMt][8][4], ak[kMt][8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[mt][nt][e] = ak[mt][nt][e] = 0.f;
 
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      load_stage(ch + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int it = 0; it < n_chunks; ++it) {
+    cp_async_wait<kStages - 2>();                   // chunk it's statistics have landed
+    __syncthreads();                                // ... for every thread; it - 1 is done
+    if (it + kStages - 1 < n_chunks) {              // into it - 1's stage
+      if (threadIdx.x == 0) load(it + kStages - 1);
+      load_stats(it + kStages - 1);
     }
-    __syncthreads();
-    const int stage = ch & 1;
-    const bf16* qc = q_s + stage * kChunkElems;
-    const bf16* gc = g_s + stage * kChunkElems;
-    const float* mc_s = st_s + stage * 3 * kChunk;
+    cp_async_commit();
+    if (!live) continue;
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    const unsigned char* qc = ring + (it % kStages) * 2 * kTileBytes;
+    const unsigned char* gc = qc + kTileBytes;
+    const float* mc_s = st_s + (it % kStages) * 3 * kChunk;
     const float* il_s = mc_s + kChunk;
     const float* d_s = il_s + kChunk;
+#pragma unroll
     for (int qt = 0; qt < kChunk / 16; ++qt) {
-      const int i0 = q0 + ch * kChunk + qt * 16;
-      // warp-uniform: no live query, no live key, or every query before every key
-      if (i0 >= S || c0 >= S || (causal && i0 + 15 < c0)) continue;
-      float stt[2][4], dpt[2][4];
-      {
-        unsigned af[4][4];       // reloaded each tile: fewer live registers
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          ldmatrix_a<kTcPitch>(af[kk], k_s + warp * 16 * kTcPitch + kk * 16, lane);
-        mma_abt<kTcPitch>(stt, af, qc + qt * 16 * kTcPitch, lane);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          ldmatrix_a<kTcPitch>(af[kk], v_s + warp * 16 * kTcPitch + kk * 16, lane);
-        mma_abt<kTcPitch>(dpt, af, gc + qt * 16 * kTcPitch, lane);
-      }
-      const bool diag = causal && i0 < c0 + 16;
-      float p[2][4], hi[2][4], lo[2][4];
+      const int i0 = q0 + it * kChunk + qt * 16;
+      // warp-uniform: no live query, or every query before every key
+      if (i0 >= S || (causal && i0 + 15 < c0)) continue;
+      // P^T and dP^T of the warp's keys x queries i0 + nt*8 + 2t (+1), as
+      // dq made them; keys >= S give rows that are never stored
+      float stt[kMt][1][2][4], dpt[kMt][1][2][4];
+      mma_abt_tiles<kTcPitch, kMt, 1>(stt, k_rows, qc, qt * 16, lane);
+      mma_abt_tiles<kTcPitch, kMt, 1>(dpt, v_rows, gc, qt * 16, lane);
+      const bool diag = causal && i0 < c0 + kWarpRows;   // a key after a query
+      float2 mc[2], il[2], dd[2];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const int ic = qt * 16 + nt * 8 + 2 * t;    // index in the chunk
-        const int i = i0 + nt * 8 + 2 * t;
-        const float2 mc = *reinterpret_cast<const float2*>(mc_s + ic);
-        const float2 il = *reinterpret_cast<const float2*>(il_s + ic);
-        const float2 dd = *reinterpret_cast<const float2*>(d_s + ic);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool odd = e % 2;
-          float pv = exp2f(fmaf(stt[nt][e], c, -(odd ? mc.y : mc.x))) * (odd ? il.y : il.x);
-          if (diag && (e < 2 ? ja : jb) > i + odd) pv = 0.f;
-          const float d = pv * (round_bf16(dpt[nt][e]) - (odd ? dd.y : dd.x));
-          p[nt][e] = pv;
-          hi[nt][e] = round_bf16(d);
-          lo[nt][e] = d - hi[nt][e];
-        }
+        mc[nt] = *reinterpret_cast<const float2*>(mc_s + ic);
+        il[nt] = *reinterpret_cast<const float2*>(il_s + ic);
+        dd[nt] = *reinterpret_cast<const float2*>(d_s + ic);
       }
-      const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-      const unsigned ha[4] = {pack_bf16(hi[0][0], hi[0][1]), pack_bf16(hi[0][2], hi[0][3]),
-                              pack_bf16(hi[1][0], hi[1][1]), pack_bf16(hi[1][2], hi[1][3])};
-      const unsigned la[4] = {pack_bf16(lo[0][0], lo[0][1]), pack_bf16(lo[0][2], lo[0][3]),
-                              pack_bf16(lo[1][0], lo[1][1]), pack_bf16(lo[1][2], lo[1][3])};
-      mma_ab<kTcPitch>(av, pa, gc + qt * 16 * kTcPitch, lane);
-      mma_ab2<kTcPitch>(ak, ha, la, qc + qt * 16 * kTcPitch, lane);
+      unsigned pa[kMt][4], ha[kMt][4], la[kMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        const int ja = c0 + mt * 16 + g;
+        float p[2][4], d[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e % 2;
+            float pv = exp2_ftz(fmaf(stt[mt][0][nt][e], c, -(odd ? mc[nt].y : mc[nt].x))) *
+                       (odd ? il[nt].y : il[nt].x);
+            if (diag && ja + (e < 2 ? 0 : 8) > i0 + nt * 8 + 2 * t + odd) pv = 0.f;
+            p[nt][e] = pv;
+            d[nt][e] = pv * (round_bf16(dpt[mt][0][nt][e]) - (odd ? dd[nt].y : dd[nt].x));
+          }
+        pa[mt][0] = pack_bf16(p[0][0], p[0][1]);
+        pa[mt][1] = pack_bf16(p[0][2], p[0][3]);
+        pa[mt][2] = pack_bf16(p[1][0], p[1][1]);
+        pa[mt][3] = pack_bf16(p[1][2], p[1][3]);
+        split_bf16(d, ha[mt], la[mt]);
+      }
+      mma_ab_tiles<kMt>(av, pa, gc, qt * 16, lane);
+      mma_ab2_tiles<kMt>(ak, ha, la, qc, qt * 16, lane);
     }
-    __syncthreads();                               // the stage is refilled next
   }
+  if (!live) return;
   bf16* dvb = dv + b * dvs.b + h * dvs.h;
   bf16* dkb = dk + b * dks.b + h * dks.h;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (ja < S) {
-      *reinterpret_cast<unsigned*>(dvb + ja * dvs.s + d) = pack_bf16(av[nt][0], av[nt][1]);
-      *reinterpret_cast<unsigned*>(dkb + ja * dks.s + d) =
-          pack_bf16(ak[nt][0] * scale, ak[nt][1] * scale);
-    }
-    if (jb < S) {
-      *reinterpret_cast<unsigned*>(dvb + jb * dvs.s + d) = pack_bf16(av[nt][2], av[nt][3]);
-      *reinterpret_cast<unsigned*>(dkb + jb * dks.s + d) =
-          pack_bf16(ak[nt][2] * scale, ak[nt][3] * scale);
+  for (int mt = 0; mt < kMt; ++mt) {
+    const int ja = c0 + mt * 16 + g, jb = ja + 8;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int d = nt * 8 + 2 * t;
+      if (ja < S) {
+        *reinterpret_cast<unsigned*>(dvb + ja * dvs.s + d) =
+            pack_bf16(av[mt][nt][0], av[mt][nt][1]);
+        *reinterpret_cast<unsigned*>(dkb + ja * dks.s + d) =
+            pack_bf16(ak[mt][nt][0] * scale, ak[mt][nt][1] * scale);
+      }
+      if (jb < S) {
+        *reinterpret_cast<unsigned*>(dvb + jb * dvs.s + d) =
+            pack_bf16(av[mt][nt][2], av[mt][nt][3]);
+        *reinterpret_cast<unsigned*>(dkb + jb * dks.s + d) =
+            pack_bf16(ak[mt][nt][2] * scale, ak[mt][nt][3] * scale);
+      }
     }
   }
 }
@@ -774,21 +843,35 @@ attention_bwd_tc_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 int launch_tc_stream(const void* q, const void* k, const void* v, const void* dout, void* dq,
                      void* dk, void* dv, int BH, int H, int S, const Strides* st, int causal,
                      float scale, float* stats, cudaStream_t stream) {
-  static int smem_set[64];
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_tc_dkv), kDkvSmem,
-                               smem_set);
+  static int dq_set[64], dkv_set[64];
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_tc_dq), kDqSmem,
+                               dq_set);
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(attention_bwd_tc_dkv), kDkvSmem, dkv_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (S + kStreamRows - 1) / kStreamRows);
+  // the streamed tiles: K and V (dq), q and dO (dkv)
+  CUtensorMap maps[4];
+  TileCoords tcs[4];
+  const void* base[4] = {k, v, q, dout};
+  const int which[4] = {1, 2, 0, 3};                // their strides' places in st
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    const Strides& s = st[which[i]];
+    err = tile_map(&maps[i], &tcs[i], base[i], BH / H, H, S, s.s, s.h, s.b);
+  }
+  if (err != cudaSuccess) return err;
+  // a block per (batch, head) and kStreamWarps 16-row tiles of its query
+  // (dq) or key (dkv) rows, as even as the tiles allow
+  const int tiles = (S + 15) / 16;
+  const dim3 grid(BH, (tiles + kStreamWarps - 1) / kStreamWarps);
   attention_bwd_tc_dq<<<grid, 32 * kStreamWarps, kDqSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), stats, H, S, st[0], st[1], st[2],
-      st[3], st[4], causal, scale);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+      stats, H, S, st[0], st[3], st[4], causal, scale, maps[0], maps[1], tcs[0], tcs[1]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_bwd_tc_dkv<<<grid, 32 * kStreamWarps, kDkvSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, H,
-      S, st[0], st[1], st[2], st[3], st[5], st[6], causal, scale);
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), stats, H, S, st[1], st[2], st[5], st[6], causal, scale, maps[2],
+      maps[3], tcs[2], tcs[3]);
   return cudaGetLastError();
 }
 

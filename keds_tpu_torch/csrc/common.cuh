@@ -1,6 +1,7 @@
 // Shared helpers for the port's CUDA kernels (plain C interface, ctypes).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -128,6 +129,174 @@ __device__ __forceinline__ void mma_ab2(float (&acc)[8][4], const unsigned (&a0)
   }
 }
 
+// --- 64 x 64 bf16 tiles loaded by the copy engine (tensor maps) ------------
+//
+// A tile holds 64 rows of 64 values (128 bytes) stored with the 128-byte
+// swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r mod 8), so the
+// eight rows an ldmatrix reads fall on distinct banks.  Rows past the
+// tensor's extent are zero.
+
+__host__ __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// Where a tensor map puts the sequence, head and batch among its dims 1..3.
+struct TileCoords {
+  int s_dim, h_dim, b_dim;                     // positions of S, H and B among dims 1..3
+};
+
+// The copy engine loads the 64 x 64 tile of rows j0.. of (b, h) from `map`
+// into `dst` (1024-byte aligned; rows past S zero), counted on `bar`.
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap& map, TileCoords tc, int j0,
+                                         int h, int b, unsigned long long* bar) {
+  int c[4] = {0, 0, 0, 0};
+  c[tc.s_dim] = j0;
+  c[tc.h_dim] = h;
+  c[tc.b_dim] = b;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<unsigned long long>(&map)), "r"(c[0]),
+         "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(smem_addr(bar)) : "memory");
+}
+
+// A tensor map of a (B, H, S, 64) bf16 view with the given (batch, seq,
+// head) element strides, for 64 x 64 tiles of (S, Dh) stored with the
+// 128-byte swizzle; dims 1..3 (S, H, B) are taken in order of stride.
+inline cudaError_t tile_map(CUtensorMap* map, TileCoords* tc, const void* base, int B, int H,
+                            int S, long long s_stride, long long h_stride, long long b_stride) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  // dims 1..3 in order of stride
+  long long ext[3] = {S, H, B}, str[3] = {s_stride, h_stride, b_stride};
+  int order[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (str[order[j]] < str[order[i]]) {
+        const int x = order[i];
+        order[i] = order[j];
+        order[j] = x;
+      }
+  cuuint64_t dims[4] = {64, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  int pos[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(ext[order[i]]);
+    strides[i] = static_cast<cuuint64_t>(str[order[i]]) * sizeof(__nv_bfloat16);
+    pos[order[i]] = i + 1;
+  }
+  box[pos[0]] = 64;
+  *tc = TileCoords{pos[0], pos[1], pos[2]};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// x[mt][kb] = A_mt B_kb^T for MT 16-row tiles of A at `a_rows` (rows
+// kPitch elements apart) and NK 16-row tiles of B, rows b0 + 16 kb .. of
+// the swizzled tile at `b` (each 16 x 64): each A fragment feeds every B
+// tile and each B fragment every A tile, and the 2 MT NK products of a
+// k-step are independent.
+template <int kPitch, int MT, int NK>
+__device__ __forceinline__ void mma_abt_tiles(float (&x)[MT][NK][2][4],
+                                              const __nv_bfloat16* a_rows,
+                                              const unsigned char* b, int b0, int lane) {
+  const int mi = lane / 8;
+  const int r = b0 + (mi / 2) * 8 + lane % 8;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[mt][kb][nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    unsigned af[MT][4], bf[NK][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldmatrix_a<kPitch>(af[mt], a_rows + mt * 16 * kPitch + ks * 16, lane);
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb) ldmatrix_x4(bf[kb], b + swz(r + kb * 16, ks * 2 + mi % 2));
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(x[mt][kb][0], af[mt], bf[kb]);
+        mma_bf16(x[mt][kb][1], af[mt], bf[kb] + 2);
+      }
+  }
+}
+
+// acc[mt] += A_mt B for MT 16 x 16 A fragments a[mt] and B rows b0 .. b0 +
+// 15 of the swizzled tile at `b` (k x n): each B fragment feeds every A.
+template <int MT>
+__device__ __forceinline__ void mma_ab_tiles(float (&acc)[MT][8][4], const unsigned (&a)[MT][4],
+                                             const unsigned char* b, int b0, int lane) {
+  const int mi = lane / 8;
+  const int r = b0 + (mi % 2) * 8 + lane % 8;
+  unsigned bf[4][4];
+#pragma unroll
+  for (int np = 0; np < 4; ++np) ldmatrix_x4_trans(bf[np], b + swz(r, np * 2 + mi / 2));
+#pragma unroll
+  for (int np = 0; np < 4; ++np)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(acc[mt][2 * np], a[mt], bf[np]);
+      mma_bf16(acc[mt][2 * np + 1], a[mt], bf[np] + 2);
+    }
+}
+
+// As mma_ab_tiles for two A fragments a0[mt] + a1[mt] (a product's hi and
+// lo terms), a0's sums taken first.
+template <int MT>
+__device__ __forceinline__ void mma_ab2_tiles(float (&acc)[MT][8][4], const unsigned (&a0)[MT][4],
+                                              const unsigned (&a1)[MT][4], const unsigned char* b,
+                                              int b0, int lane) {
+  const int mi = lane / 8;
+  const int r = b0 + (mi % 2) * 8 + lane % 8;
+  unsigned bf[4][4];
+#pragma unroll
+  for (int np = 0; np < 4; ++np) ldmatrix_x4_trans(bf[np], b + swz(r, np * 2 + mi / 2));
+#pragma unroll
+  for (int np = 0; np < 4; ++np)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(acc[mt][2 * np], a0[mt], bf[np]);
+      mma_bf16(acc[mt][2 * np + 1], a0[mt], bf[np] + 2);
+    }
+#pragma unroll
+  for (int np = 0; np < 4; ++np)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(acc[mt][2 * np], a1[mt], bf[np]);
+      mma_bf16(acc[mt][2 * np + 1], a1[mt], bf[np] + 2);
+    }
+}
+
+// 2^x in one MUFU operation (ex2.approx.ftz: subnormal results flush to 0,
+// where exp2f spends instructions on them).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // 16-byte global -> shared copy that bypasses L1; zero-fills when !valid
 // (src is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -141,6 +310,53 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// cp.async `rows` rows of 64 bf16 values from row j0 of `src` (rows
+// `stride` elements apart) into rows of 72 at `dst` (144 bytes: ldmatrix
+// reads them without bank conflicts), zero past row S, the block's threads
+// sharing them.
+__device__ __forceinline__ void rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long stride, int j0, int rows, int S) {
+  for (int e = threadIdx.x; e < rows * 8; e += blockDim.x) {
+    const int j = e / 8, c = (e % 8) * 8;
+    const bool in = j0 + j < S;
+    cp_async16(dst + j * 72 + c, src + (in ? j0 + j : 0) * stride + c, in);
+  }
+}
+
+// --- mbarriers for tiles in flight --------------------------------------------
+//
+// Stage s of a ring has one barrier: the thread that issues the stage's
+// tile loads arrives on it announcing their bytes (its one expected
+// arrival), and it completes a phase when the bytes have landed.  Round r
+// of the stage waits at parity r & 1.
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// After the inits, before any other thread uses the barriers (with a
+// __syncthreads).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` more of tile loads to wait for.
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // 4-byte global -> shared copy (rows that are not 16-byte aligned);
@@ -284,6 +500,12 @@ inline int sm_count() {
 inline int key_splits(long long tiles) {
   const int sms = sm_count();
   return tiles >= 8LL * sms ? 1 : tiles >= 4LL * sms ? 2 : 4;
+}
+
+// The first of the tiles that block y of `blocks` takes of `tiles`: blocks
+// take ranges of tiles as even as integers allow.
+__host__ __device__ __forceinline__ int tile_begin(int y, int blocks, int tiles) {
+  return static_cast<int>(static_cast<long long>(y) * tiles / blocks);
 }
 
 }  // namespace keds

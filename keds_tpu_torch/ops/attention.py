@@ -4,8 +4,8 @@
 :func:`attention` is the op every tower block calls.  On a CUDA tensor it
 launches a hand-written kernel of ``csrc/attention.cu`` (which replaces the
 Pallas ``flash_attention``) or raises: bf16 runs the tensor-core kernel
-(variant ``bf16_tc``, Dh = 64; above 288 keys it streams K and V through
-shared memory), f32 the f32 kernel (variant ``f32``, any Dh <= 128), whose
+(variant ``bf16_tc``, Dh = 64; above 288 keys a producer warp streams K and V
+through shared memory and the rows take them in one pass), f32 the f32 kernel (variant ``f32``, any Dh <= 128), whose
 products run on tensor cores in three TF32 terms: about f32's accuracy,
 where one TF32 product keeps 11 bits (its note in the source says what it
 measured), at any sequence length.  On a CPU tensor it runs the plain
@@ -49,6 +49,11 @@ BWD_KERNEL = CudaKernel("attention_bwd", {
 _BWD_VARIANTS = {torch.bfloat16: ("bf16", 1), torch.float32: ("f32", 0)}
 
 
+# Keys the bf16 forward holds whole in shared memory (csrc/attention.cu
+# kMaxResident); above it K and V stream through it in tiles.
+FWD_RESIDENT_SEQ = 288
+
+
 class BwdPlan(NamedTuple):
     """Launch plan of the backward kernels (``csrc/attention_bwd.cu``)."""
 
@@ -67,18 +72,20 @@ class BwdPlan(NamedTuple):
 # holds a (batch, head), q, k, v and dO in 144-byte rows and three f32
 # statistics a row, per slice; S <= 16 packs BWD_SMALL_SLICES slices into a
 # block, one warp each.  Above it two streamed launches (dq, then dk and dv)
-# of BWD_STREAM_WARPS warps, K and V of 128 keys resident in the dkv kernel
-# plus two 64-row stages of q and dO and of the statistics, which a
-# workspace of S rounded up to 128 rows carries between the two.  f32: a
-# block takes up to BWD_F32_WARPS 16-row tiles of a (batch, head) (as many
-# as make its blocks even) in 68-float rows; S <= BWD_F32_CHUNK one launch
-# holding q, k, v, dO and three statistics a row; above, the same two
-# launches, dq streaming K and V through a ring of two BWD_F32_CHUNK-row
-# stages, dkv holding its keys and streaming q, dO and the statistics, which
-# a workspace of S rounded up to 16 rows carries.
+# of blocks of BWD_STREAM_ROWS rows, a warp per 16: a block holds its rows
+# (dq: q and dO; dkv: K and V) and a ring of BWD_STREAM_STAGES stages of two
+# 64-row tiles that the copy engine fills (dq: K and V; dkv: q and dO, and
+# three statistics a row); a workspace of S rounded up to 16 rows carries
+# the statistics between the two.  f32: a block takes up to BWD_F32_WARPS 16-row tiles of a (batch,
+# head) (as many as make its blocks even) in 68-float rows; S <=
+# BWD_F32_CHUNK one launch holding q, k, v, dO and three statistics a row;
+# above, the same two launches, dq streaming K and V through a ring of two
+# BWD_F32_CHUNK-row stages, dkv holding its keys and streaming q, dO and the
+# statistics, which a workspace of S rounded up to 16 rows carries.
 BWD_SMALL_SLICES = 4
 BWD_RESIDENT_SEQ = 128
-BWD_STREAM_WARPS = 8
+BWD_STREAM_ROWS = 64
+BWD_STREAM_STAGES = 3
 BWD_F32_WARPS = 4
 BWD_F32_CHUNK = 64
 
@@ -92,9 +99,12 @@ def bwd_plan(S: int, dtype: torch.dtype = torch.bfloat16) -> BwdPlan:
         return BwdPlan(n, 1, warps, (2 * BWD_F32_CHUNK * (2 * 68 + 3) + 32 * warps * 68) * 4,
                        16 * n)
     if S > BWD_RESIDENT_SEQ:
-        rows = 16 * BWD_STREAM_WARPS
-        smem = (2 * rows * 144 + 2 * 2 * 64 * 144) + 2 * 3 * 64 * 4
-        return BwdPlan(n, 1, BWD_STREAM_WARPS, smem, -(-S // rows) * rows)
+        # the dkv launch's: 1024 bytes of alignment, the stages' q and dO
+        # tiles (8 KB each) and barriers, its keys' K and V rows, three
+        # statistics a streamed row
+        smem = (1024 + BWD_STREAM_STAGES * (2 * 8192 + 8 + 3 * 64 * 4)
+                + 2 * BWD_STREAM_ROWS * 144)
+        return BwdPlan(n, 1, BWD_STREAM_ROWS // 16, smem, 16 * n)
     slice_bytes = 16 * n * (4 * 144 + 3 * 4)
     slices = BWD_SMALL_SLICES if n == 1 else 1
     return BwdPlan(n, slices, BWD_SMALL_SLICES if n == 1 else n, slices * slice_bytes, 0)
@@ -160,10 +170,13 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         head_dim = lib.keds_attention_tc_head_dim()
         if Dh != head_dim:
             raise ValueError(f"bf16 attention kernel supports Dh = {head_dim}, got {Dh}")
-        # 16-byte cp.async rows of k and v, 4-byte loads of q
+        # 16-byte rows of k and v (copies, tensor-map tiles), 4-byte loads of
+        # q; above FWD_RESIDENT_SEQ q's rows are copied in 16 bytes too
         if any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (k, v)) \
                 or q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3]):
             raise ValueError("bf16 attention kernel needs 16-byte aligned k/v rows")
+        if S > FWD_RESIDENT_SEQ and (q.data_ptr() % 16 or any(s % 8 for s in q.stride()[:3])):
+            q = q.contiguous()
     elif Dh > lib.keds_attention_max_head_dim():
         raise ValueError(f"f32 attention kernel supports Dh <= "
                          f"{lib.keds_attention_max_head_dim()}, got {Dh}")

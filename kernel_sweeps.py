@@ -45,14 +45,17 @@ attention         the attention forward at the rows of chip_smoke.py: bf16 at
                   77, 64) causal, (2, 4, {289, 577}, 64) and the shapes
                   --precision fp32 gives: (16, 16, {257, 577}, 64) and the
                   text tower's (64, 12, 77, 64) causal, and the f32 paths'
-                  own: (128, 12, 8, 64) causal, (4, 16, {257, 577}, 64); on
+                  own: (128, 12, 8, 64) causal, (4, 16, {257, 577}, 64); bf16
+                  streamed at the 336 px check's (4, 16, 577, 64) and at (4,
+                  12, 1025, 64); on
                   the inputs and the graph-replay timing of
                   ``chip_smoke.py``, SDPA's time beside each.  Takes ``--impl`` as ``rank`` does (an
                   implementation that refuses a shape times it as null).
 attention_bwd     the attention backward (``attention_backward``): bf16
                   causal at the train prompt (128, 12, 8, 64) and the text
                   buckets (64, 12, {16, 32, 77, 128}, 64), above 128 (the
-                  streamed launches) at (4, 16, {257, 577}, 64); f32 at (2,
+                  streamed launches) at (4, 16, {257, 577}, 64) and (4, 12,
+                  1025, 64); f32 at (2,
                   4, 77, 64) causal, (2, 4, 289, 64), the f32 train prompt
                   (128, 12, 8, 64) and neighbour templates (256, 12, 32, 64)
                   causal and (4, 16, 577, 64); on the inputs and the
@@ -145,7 +148,10 @@ FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.b
               # chip_smoke.py's f32 paths: the image step's prompt, the encodes
               (TRAIN_BATCH, 12, 8, 64, torch.float32, True),
               (VIT336_IMAGES, 16, 257, 64, torch.float32, False),
-              (VIT336_IMAGES, 16, 577, 64, torch.float32, False))
+              (VIT336_IMAGES, 16, 577, 64, torch.float32, False),
+              # the streamed bf16 route: the 336 px check's own shape, 1025 tokens
+              (VIT336_IMAGES, 16, 577, 64, torch.bfloat16, False),
+              (4, 12, 1025, 64, torch.bfloat16, False))
 NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
                  (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
                  (QUERY_BATCH, 10_000, 10, torch.float32))
@@ -162,6 +168,7 @@ BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
               # above 128: the streamed launches (an implementation that refuses
               # them times them as null)
               (4, 16, 257, 64, torch.bfloat16, False), (4, 16, 577, 64, torch.bfloat16, False),
+              (4, 12, 1025, 64, torch.bfloat16, False),
               (2, 4, 289, 64, torch.float32, False),
               # f32 training: the image stream's prompt, the text stream's
               # neighbour templates, and beside the bf16 streamed row

@@ -63,9 +63,11 @@ def test_backward_plan_fits_and_covers_every_slice(bh):
         p = bwd_plan(s)
         assert (p.key_tiles - 1) * 16 < s <= p.key_tiles * 16
         assert p.smem_bytes <= 227 * 1024
-        if s > 128:     # the streamed launches: 8 warps, a workspace row per query row
-            assert (p.slices, p.warps, p.smem_bytes) == (1, 8, 75_264)
-            assert s <= p.workspace_rows < s + 128 and p.workspace_rows % 128 == 0
+        if s > 128:     # the streamed launches: blocks of 64 rows, a warp per 16,
+            # a three-stage ring, a workspace row per query row of the warps
+            assert (p.slices, p.warps, p.smem_bytes) == (1, 4, 70_936)
+            assert p.workspace_rows == 16 * p.key_tiles
+            assert 3 * (p.smem_bytes + 1024) <= 228 * 1024
             continue
         assert p.workspace_rows == 0
         assert p.warps == (p.slices if p.key_tiles == 1 else p.key_tiles)

@@ -49,7 +49,7 @@ def _qkv(dev, b, h, s, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("s", [1, 15, 16, 17, 33, 63, 64, 65, 77, 197, 257, 288,
-                               289, 577, 1025])
+                               289, 320, 321, 384, 385, 577, 640, 641, 1025, 1089])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_kernel_matches_plain(cuda, dtype, s, causal):
     B, H, Dh = 3, 5, 64        # B*H = 15: not a multiple of any tile
@@ -61,6 +61,34 @@ def test_attention_kernel_matches_plain(cuda, dtype, s, causal):
     assert out.shape == (B, H, s, Dh) and out.dtype == dtype
     ref = attention_reference(q, k, v, causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATT_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("s", [289, 577, 1025])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_streamed_near_one_hot_softmax(cuda, s, causal):
+    """q scaled by 8: each row's softmax is nearly one-hot.  The streamed
+    bf16 forward rounds each probability before normalising it (one pass),
+    the plain version after; both are one bf16 rounding a probability."""
+    qkv = torch.randn((2, s, 3, 6, 64), generator=_gen(cuda, s), device=cuda)
+    qkv[:, :, 0] *= 8
+    q, k, v = (qkv.to(torch.bfloat16)[:, :, i].transpose(1, 2) for i in range(3))
+    out = attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref = attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATT_TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("b,h,s", [(7, 19, 577), (16, 16, 577), (4, 12, 1025)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_streams_partial_waves(cuda, b, h, s, causal):
+    """The streamed bf16 forward at grids that leave the card's last wave
+    partly empty (B*H = 133) and at the ViT-L/14 336 px and 1025-token
+    shapes, where the launch takes 8 consumer warps a block."""
+    q, k, v = _qkv(cuda, b, h, s, torch.bfloat16, b * h)
+    out = attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref = attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATT_TOL[torch.bfloat16], rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -644,7 +672,7 @@ def test_attention_backward_plan_mirrors_the_library(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("s", [129, 257, 577, 1025])
+@pytest.mark.parametrize("s", [129, 145, 192, 193, 257, 320, 321, 577, 640, 641, 1025])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_backward_streams_long_sequences(cuda, dtype, s, causal):
     """Above 128 the two launches (dq, then dk and dv; f32 takes them at
@@ -673,6 +701,20 @@ def test_attention_backward_streamed_near_one_hot_softmax(cuda, s):
     dout = torch.randn((2, 4, s, 64), generator=_gen(cuda, s + 1), device=cuda).to(torch.bfloat16)
     for causal in (False, True):
         _check_backward(q, k, v, dout, causal)
+
+
+@pytest.mark.parametrize("b,h,s", [(7, 19, 577), (4, 12, 1025)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_backward_streams_partial_waves(cuda, b, h, s, causal):
+    """The streamed bf16 backward at a grid that leaves the card's last wave
+    partly empty (B*H = 133) and at (4, 12, 1025), where both launches take
+    8 consumer warps a block; two calls agree bit for bit."""
+    _, (q, k, v), dout = _grad_inputs(cuda, b, h, s, torch.bfloat16, b * h)
+    grads = _check_backward(q, k, v, dout, causal)
+    again = att_mod.attention_backward(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
 
 
 def test_attention_backward_copies_unaligned_rows(cuda):
