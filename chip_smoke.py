@@ -213,6 +213,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            plain version; an int8 Retriever over a 4096 x 100 DB (tables
            padded once to depth 104, the queries per call) with the CPU's
            neighbours but for near-ties.
+2b. head_widths
+           B2 and B2' at head widths off 64 (rows as in 2): the wide-head
+           kernels at (4, 16, 257, 80) and (4, 8, 77, 128) causal in bf16
+           and (2, 4, 77, 256) causal in f32, and the tensor-core kernels on
+           heads zero-padded to 64 at (64, 2, 32, 32) bf16 causal; the
+           shapes the two configs below give the kernels, all causal: the
+           wide one's engine batch at (64, 2, 32, 160) bf16 and its train
+           steps' prompts at (64, 2, 8, 160) bf16 and f32, the tiny one's at
+           (64, 2, 8, 32) bf16 and f32 (the backward at those four); then two
+           tiny configs through the entry points (head_width_path):
+           tests/test_api_surface.py's (text heads of 32) and the same with
+           text heads of 160, each a bf16 engine batch of 64 composed
+           queries and a bf16 and an f32 image-stream train step, launch
+           and pad counts zeroed just before and read just after (padded
+           and wide launches > 0), against the CPU's f32; and
+           transforms.device_preprocess on an (8, 480, 640, 3) batch
+           against the CPU's.
 17a. extract_features, profile_dir, validate_artifacts
            keds_tpu_torch.tools.extract_features over the 4096 JPEGs and
            their captions with the ViT-L/14 checkpoint: images/s, names in
@@ -243,8 +260,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     dist path's rank 0 among them; RN50's serving for the D = 1024 top-k
     rows and its text tower's attention, the 336 px encode for the rows
     above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
-    rows with their pads, extract_features for the vision attention, the
-    device-ranked CIRR bench for the text attention at S=77; the f32
+    rows with their pads, head_widths' two configs beside the rows of their
+    own shapes (the padded rows with their pads; every entry's row must have
+    launched the variant it is printed under), extract_features for
+    the vision attention, the device-ranked CIRR bench for the text
+    attention at S=77; the f32
     image step and f32 encodes each beside its own shape), the walls line
     (seconds of each part of the run), then the card's name and power
     limit from nvidia-smi, then the result line.
@@ -290,7 +310,6 @@ COSINE_MIN = 0.995
 # another order; bf16 gradients rounded to bf16, and a probability or
 # dP = dO V^T, which both round to bf16, may round the other way
 BWD_TOL = {torch.bfloat16: (3e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
-BWD_VARIANT = {torch.bfloat16: "bf16", torch.float32: "f32"}
 TRAIN_BATCH = 128
 TRAIN_LOSS_RTOL = 0.01       # train_check: card bf16 vs CPU f32 (PERF.md)
 TRAIN_GRAD_COSINE_MIN = 0.99
@@ -301,7 +320,6 @@ TRAIN_OPT = SimpleNamespace(lr=5e-4, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.2, wa
                             skip_scheduler=False)   # ViT-L/14 defaults, short warm-up
 TRAIN_PROMPT = np.array([[49406, 320, 1125, 539, 49407] + [0] * 72])   # "a photo of"
 OTHER_LEN = (4, 20)    # ids in a text-stream "other" caption (CC3M: about 10 words)
-VARIANT = {torch.bfloat16: "bf16_tc", torch.float32: "f32"}   # per kernel, by dtype
 SPLIT_ID = 265         # '*' in the CLIP BPE vocab (bench.py's prompt)
 DB_ROWS = 500_000
 QUERY_BATCH = 64
@@ -381,10 +399,10 @@ def check_attention(cases):
 
     rows = []
     for B, H, S, Dh, dtype, causal in cases:
-        variant = VARIANT[dtype]
-        launches0 = KERNEL.launches[variant]
         q, k, v = _qkv(B, H, S, Dh, dtype)
+        launches0, pads0 = dict(KERNEL.launches), dict(KERNEL.pads)
         out = attention(q, k, v, causal)
+        variant = _launched(KERNEL.launches, launches0)
         ref = attention_reference(q, k, v, causal)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -401,7 +419,8 @@ def check_attention(cases):
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=causal)),
                    bound_ms=b_ms, bound_by=b_by, **_fma_bound(nbytes, flops, dtype),
-                   launches=KERNEL.launches[variant] - launches0)
+                   launches=KERNEL.launches[variant] - launches0[variant],
+                   **_padded(KERNEL.pads[variant] - pads0[variant]))
         emit("attention", **row)
         rows.append(row)
     return rows
@@ -411,16 +430,15 @@ def check_attention_bwd(cases):
     import torch.nn.functional as F
 
     from keds_tpu_torch.ops.attention import (BWD_KERNEL, attention_backward,
-                                              attention_reference_backward, bwd_plan)
+                                              attention_reference_backward)
 
     rows = []
     for B, H, S, Dh, dtype, causal in cases:
-        # bf16 above 128 keys: the streamed launches; f32: one design at every S
-        variant = BWD_VARIANT[dtype] + ("_stream" if S > 128 and dtype == torch.bfloat16 else "")
-        launches0 = BWD_KERNEL.launches[variant]
         q, k, v = _qkv(B, H, S, Dh, dtype)
         dout = _dout(B, H, S, Dh, dtype)
+        launches0, pads0 = dict(BWD_KERNEL.launches), dict(BWD_KERNEL.pads)
         grads = attention_backward(q, k, v, dout, causal)
+        variant = _launched(BWD_KERNEL.launches, launches0)
         ref = attention_reference_backward(q, k, v, dout, causal)
         torch.cuda.synchronize()
         atol, rtol = BWD_TOL[dtype]
@@ -450,12 +468,41 @@ def check_attention_bwd(cases):
                                                                          causal)),
                    library_ms=sdpa_both_ms - sdpa_fwd_ms, library_fwd_bwd_ms=sdpa_both_ms,
                    bound_ms=b_ms, bound_by=b_by, **_fma_bound(nbytes, flops, dtype),
-                   launches=BWD_KERNEL.launches[variant] - launches0)
-        plan = bwd_plan(S, dtype)
-        row["plan"] = dict(plan._asdict(), blocks=plan.blocks(B * H))
+                   launches=BWD_KERNEL.launches[variant] - launches0[variant],
+                   **_padded(BWD_KERNEL.pads[variant] - pads0[variant]))
+        if not variant.endswith("_wide"):     # the tuned kernels' plan
+            row["plan"] = _bwd_plan(B * H, S, dtype)
         emit("attention_bwd", **row)
         rows.append(row)
     return rows
+
+
+def _bwd_plan(batch_heads: int, S: int, dtype) -> dict:
+    """The tuned backward kernels' launch plan, as keds_attention_bwd_plan
+    gives it, and the blocks of a call over ``batch_heads`` slices."""
+    import ctypes
+
+    from keds_tpu_torch.ops.attention import BWD_KERNEL
+
+    out = (ctypes.c_int * 5)()
+    code = 1 if dtype == torch.bfloat16 else 0
+    if BWD_KERNEL.lib().keds_attention_bwd_plan(S, code, ctypes.cast(out, ctypes.c_void_p)):
+        raise AssertionError(f"keds_attention_bwd_plan refused S={S} {dtype}")
+    plan = dict(zip(("key_tiles", "slices", "warps", "smem_bytes", "workspace_rows"), out))
+    return dict(plan, blocks=-(-batch_heads // plan["slices"]))
+
+
+def _launched(launches: dict, before: dict) -> str:
+    """The one variant whose count rose since ``before``."""
+    rose = [v for v in launches if launches[v] != before[v]]
+    if len(rose) != 1 or launches[rose[0]] != before[rose[0]] + 1:
+        raise AssertionError(f"one launch expected, counts {before} -> {launches}")
+    return rose[0]
+
+
+def _padded(pads: int) -> dict:
+    """A row's pad fields where the wrapper zero-padded the head to 64."""
+    return {"padded_to": 64, "pads": pads} if pads else {}
 
 
 def _qkv(B, H, S, Dh, dtype):
@@ -736,12 +783,12 @@ def compose_check(phase: str, engine, cfg, clip_params, heads, db, q_images, q_t
 
 def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat16,
                  total_steps=20, stream="image", db_other_tokens=None, retriever=None,
-                 grad_scale=1.0, mesh=None):
+                 grad_scale=1.0, mesh=None, cfg=None):
     """f32 trainable copies of the heads, their optimizer and the train step
-    (over ``retriever``, by default a Retriever of ``db``; data-parallel
-    over ``mesh``).  The copies are new tensors even where ``heads`` are f32
-    on ``device`` already (the CPU's), which the step would otherwise train
-    in place."""
+    of ``cfg`` (ViT-L/14 by default; over ``retriever``, by default a
+    Retriever of ``db``; data-parallel over ``mesh``).  The copies are new
+    tensors even where ``heads`` are f32 on ``device`` already (the CPU's),
+    which the step would otherwise train in place."""
     from keds_tpu_torch.models.clip import VIT_L_14
     from keds_tpu_torch.models.convert import cast_floating
     from keds_tpu_torch.retrieval.database import Retriever
@@ -749,7 +796,7 @@ def _train_setup(clip_params, heads, db, device, dropout=0.1, dtype=torch.bfloat
 
     theads = cast_floating(copy.deepcopy(heads), torch.float32, device)
     opt, sched = make_optimizer(TRAIN_OPT, total_steps, theads)
-    step = make_train_step(clip_params, VIT_L_14, retriever or Retriever(db), opt, sched,
+    step = make_train_step(clip_params, cfg or VIT_L_14, retriever or Retriever(db), opt, sched,
                            stream=stream, prompt_tokens=TRAIN_PROMPT, split_id=SPLIT_ID,
                            dropout=dropout, db_other_tokens=db_other_tokens,
                            compute_dtype=dtype, device=device, grad_scale=grad_scale,
@@ -897,7 +944,7 @@ def train_check_batch(db):
 
 
 def train_reading(clip_params, heads, db, dtype, inputs, stream="image",
-                  db_other_tokens=None) -> tuple:
+                  db_other_tokens=None, cfg=None) -> tuple:
     """(loss, flattened f64 head gradient) of train step 0 on ``db``'s device
     in ``dtype``, dropout 0, over ``inputs`` (:func:`train_check_batch`, or
     :func:`train_text_check_batch` with the text stream).  In the text
@@ -909,7 +956,7 @@ def train_reading(clip_params, heads, db, dtype, inputs, stream="image",
     img, cap, idx = inputs[:3]
     dev = db.image_db.device
     theads, _, _, step = _train_setup(clip_params, heads, db, dev, dropout=0.0, dtype=dtype,
-                                      stream=stream, db_other_tokens=db_other_tokens)
+                                      stream=stream, db_other_tokens=db_other_tokens, cfg=cfg)
     extra = {}
     if stream == "text":
         extra = dict(cap2_idx=idx[2].to(dev), other_tokens=inputs[3].to(dev))
@@ -3110,6 +3157,112 @@ def any_depth_path(kernels) -> dict:
     return launches
 
 
+# tests/test_api_surface.py's tiny config (a text tower of two 32-wide heads:
+# the tuned kernels on heads zero-padded to 64) and the same with two
+# 160-wide heads (the wide-head kernels, f32 too: above its kernel's 128)
+HEAD_WIDTH_CFGS = {"tiny": dict(embed_dim=64, image_resolution=32, vision_layers=2,
+                                vision_width=64, vision_patch_size=16, transformer_width=64,
+                                transformer_heads=2, transformer_layers=2)}
+HEAD_WIDTH_CFGS["wide"] = dict(HEAD_WIDTH_CFGS["tiny"], transformer_width=320)
+HEAD_WIDTH_DB_ROWS = 4096
+# each path's counts: these exactly (a step's backward once a text layer),
+# and those at least once
+HEAD_WIDTH_WANT = {
+    "tiny": ({("attention", "bf16_wide"): 0, ("attention", "f32_wide"): 0,
+              ("attention_bwd", "bf16_wide"): 0, ("attention_bwd", "f32_wide"): 0,
+              ("attention_bwd_pads", "bf16"): 2, ("attention_bwd_pads", "f32"): 2},
+             [("attention_pads", "bf16_tc")]),
+    "wide": ({("attention_pads", "bf16_tc"): 0, ("attention_bwd_pads", "bf16"): 0,
+              ("attention_bwd_pads", "f32"): 0, ("attention_bwd", "bf16_wide"): 2,
+              ("attention_bwd", "f32_wide"): 2},
+             [("attention", "bf16_wide"), ("attention", "f32_wide")]),
+}
+PREPROCESS_SHAPE = (8, 480, 640, 3)    # a batch of VGA photos to 224 px
+PREPROCESS_TOL = 1e-4    # normalised units: the card's resize sums in another order
+
+
+def head_width_path(name: str, kernels) -> dict:
+    """A HEAD_WIDTH_CFGS config through the entry points on the card: one
+    bf16 ComposedQueryEngine batch of 64 composed queries (S=32 prompts)
+    and a bf16 and an f32 image-stream train step (64 feature pairs, the
+    card's neighbours fed to every step), launch and pad counts zeroed just
+    before and read just after (HEAD_WIDTH_WANT); then the same on the CPU
+    in f32 from the same weights: composed features at cosine >=
+    COSINE_MIN, the bf16 step within train_check's limits, the f32 step
+    within TRAIN_F32_LIMITS.  Returns the counts."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.ops.topk import mips_topk
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    t = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = ClipConfig(**HEAD_WIDTH_CFGS[name])
+    clip_params, heads, db = synth.build(cfg, db_rows=HEAD_WIDTH_DB_ROWS, dtype=bf16, seed=31,
+                                         device=DEV)
+    rng = np.random.default_rng(32)
+    px = cfg.image_resolution
+    images = rng.integers(0, 256, (QUERY_BATCH, px, px, 3), dtype=np.uint8)
+    texts = prompt_batch(rng, QUERY_BATCH)
+    img, cap = synth.feature_pairs(QUERY_BATCH, cfg.embed_dim, seed=33, device=db.image_db.device)
+    q = (img / img.norm(dim=1, keepdim=True)).to(bf16)
+    inputs = (img, cap, [mips_topk(q, a, 16)[1] for a in (db.image_db, db.text_db)])
+    engine = ComposedQueryEngine(clip_params, cfg, heads, db, split_id=SPLIT_ID, device=DEV)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    card = engine.compose([images], [texts])
+    steps = {dt: train_reading(clip_params, heads, db, dt, inputs, cfg=cfg) for dt in (bf16, f32)}
+    torch.cuda.synchronize()
+    launches = {n: dict(k.launches) for n, k in kernels.items()}
+    launches.update({f"{n}_pads": dict(kernels[n].pads) for n in ("attention", "attention_bwd")})
+    check_path_launches(f"head_widths_{name}", launches, *HEAD_WIDTH_WANT[name])
+
+    cpu_clip, cpu_heads = cast_floating(clip_params, f32, "cpu"), cast_floating(heads, f32, "cpu")
+    cpu_db = KnowledgeDB(db.image_db.cpu().float(), db.text_db.cpu().float(), db.names)
+    cpu = ComposedQueryEngine(cpu_clip, cfg, cpu_heads, cpu_db, split_id=SPLIT_ID,
+                              compute_dtype=f32, device="cpu").compose([images], [texts])
+    cos = (card * cpu).sum(1) / (np.linalg.norm(card, axis=1) * np.linalg.norm(cpu, axis=1))
+    cpu_step = train_reading(cpu_clip, cpu_heads, cpu_db, f32, inputs, cfg=cfg)
+    r16 = compare_readings(steps[bf16], cpu_step)
+    r32 = compare_readings(steps[f32], cpu_step, TRAIN_F32_LIMITS, "f32")
+    out = dict(config=HEAD_WIDTH_CFGS[name], text_head_width=cfg.transformer_width // 2,
+               compose_min_cosine=float(cos.min()), cosine_min=COSINE_MIN, bf16_step=r16,
+               f32_step=r32, launches=launches, seconds=time.perf_counter() - t)
+    emit(f"head_widths_{name}", **out)
+    if not (np.isfinite(cos).all() and cos.min() >= COSINE_MIN and r16["passes"]
+            and r32["passes"]):
+        raise AssertionError(f"head_widths_{name}: card vs CPU {out}")
+    return launches
+
+
+def preprocess_check() -> dict:
+    """transforms.device_preprocess on a PREPROCESS_SHAPE uint8 batch on the
+    card, held against the same call on the CPU within PREPROCESS_TOL."""
+    from keds_tpu_torch.transforms import device_preprocess
+
+    images = np.random.default_rng(34).integers(0, 256, PREPROCESS_SHAPE, dtype=np.uint8)
+    on_card = torch.from_numpy(images).to(DEV)
+    card = device_preprocess(on_card, 224, device=DEV)
+    err = (card.cpu() - device_preprocess(images, 224, device="cpu")).abs().max().item()
+    # eager calls on the card's uint8 batch (its CLIP constants are copied
+    # in each call, which a CUDA graph cannot capture), host launches in
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        device_preprocess(on_card, 224, device=DEV)
+    end.record()
+    torch.cuda.synchronize()
+    row = dict(shape=list(PREPROCESS_SHAPE), n_px=224, max_abs_err=err, tol=PREPROCESS_TOL,
+               eager_ms=start.elapsed_time(end) / 20)
+    emit("device_preprocess", **row)
+    if not (tuple(card.shape) == (8, 224, 224, 3) and err <= PREPROCESS_TOL):
+        raise AssertionError(f"device_preprocess card vs CPU: {row}")
+    return row
+
+
 def extract_features_path(f, kernels) -> dict:
     """``keds_tpu_torch.tools.extract_features`` over the SERVE_CORPUS JPEGs
     and their captions with the ViT-L/14 checkpoint (launch counts zeroed
@@ -3559,6 +3712,21 @@ def main() -> int:
     any_d_launches = any_depth_path(kernels)
     walls("kernel_rows")
 
+    # --- every head width: B2 and B2' off Dh = 64 ------------------------------
+    head_width_cases = [(4, 16, 257, 80, bf16, False), (4, 8, 77, 128, bf16, True),
+                        (2, 4, 77, 256, f32, True),     # the wide-head kernels
+                        (64, 2, 32, 32, bf16, True)]    # the tiny config's text, padded
+    # the shapes head_width_path gives the kernels: each config's engine
+    # batch (S=32 prompts) and its train steps' prompts (S=8), bf16 and f32
+    hw_path_cases = [(QUERY_BATCH, 2, 32, 160, bf16, True),
+                     *((QUERY_BATCH, 2, 8, dh, dt, True) for dh in (160, 32) for dt in (bf16, f32))]
+    hw_att_rows = check_attention(head_width_cases + hw_path_cases)
+    hw_bwd_rows = check_attention_bwd(head_width_cases + hw_path_cases[1:])
+    hw_launches = {name: head_width_path(name, kernels) for name in HEAD_WIDTH_CFGS}
+    preprocess_check()
+    torch.cuda.empty_cache()
+    walls("head_widths")
+
     # --- main path ---------------------------------------------------------
     t = time.perf_counter()
     clip_params, heads, db = synth.build(VIT_L_14, db_rows=DB_ROWS, dtype=bf16, seed=0)
@@ -3707,7 +3875,27 @@ def main() -> int:
                (top, "bf16", topk_rows[19], any_d_launches["D1280"]),
                (att, "bf16_tc", att_rows[0], extract_launches),
                # the full-scale CIRR bench's text tower at S=77
-               (att, "bf16_tc", att_rows[12], fullscale_launches["cirr_device"])]
+               (att, "bf16_tc", att_rows[12], fullscale_launches["cirr_device"]),
+               # every head width, each path beside its own shapes: the wide
+               # config's engine batch and bf16 and f32 train steps on the
+               # wide-head kernels, the tiny config's on padded heads (the f32
+               # forward at Dh = 32 unpadded)
+               (att, "bf16_wide", hw_att_rows[4], hw_launches["wide"]),
+               (att, "bf16_wide", hw_att_rows[5], hw_launches["wide"]),
+               (att, "f32_wide", hw_att_rows[6], hw_launches["wide"]),
+               (att, "bf16_tc", hw_att_rows[3], hw_launches["tiny"]),
+               (att, "bf16_tc", hw_att_rows[7], hw_launches["tiny"]),
+               (att, "f32", hw_att_rows[8], hw_launches["tiny"]),
+               (bwd, "bf16_wide", hw_bwd_rows[4], hw_launches["wide"]),
+               (bwd, "f32_wide", hw_bwd_rows[5], hw_launches["wide"]),
+               (bwd, "bf16", hw_bwd_rows[6], hw_launches["tiny"]),
+               (bwd, "f32", hw_bwd_rows[7], hw_launches["tiny"])]
+    # a row's own launch named its variant: it must be the one the entry
+    # prints its times under
+    wrong = [(name, variant, row["shape"], row["variant"])
+             for (name, _, _), variant, row, _ in entries if row["variant"] != variant]
+    if wrong:
+        raise AssertionError(f"kernels line: rows timed on another variant {wrong}")
     paths = {"serving": launches, "rn_serving": rn_launches, "vit336": vit336_launches,
              "vit336_f32": vit336_f32_launches, "vit224_f32": vit224_f32_launches,
              "train_image_f32": train_f32_launches,
@@ -3720,6 +3908,7 @@ def main() -> int:
              "serve_cli_int8": serve_int8_launches, "extract_features": extract_launches,
              **{f"any_depth_{p}": c for p, c in any_d_launches.items()},
              **{f"fullscale_{p}": c for p, c in fullscale_launches.items()},
+             **{f"head_widths_{p}": c for p, c in hw_launches.items()},
              **{f"dist_{p}_rank0": c for p, c in dist_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
@@ -3729,8 +3918,9 @@ def main() -> int:
          **({"bound_fma_ms": row["bound_fma_ms"]} if "bound_fma_ms" in row else {}),
          "shape": row["shape"], "dtype": row["dtype"], "tiling": row.get("tiling"),
          **({"cuda_kernels_per_search": row["cuda_kernels"]} if "cuda_kernels" in row else {}),
-         **({"padded_to": row["padded_to"], "pad_ms": row["pad_ms"],
-             "pads": counts["mips_topk_pads"][variant]} if "padded_to" in row else {}),
+         **({"padded_to": row["padded_to"], "pads": counts[f"{name}_pads"][variant],
+             **({"pad_ms": row["pad_ms"]} if "pad_ms" in row else {})}
+            if "padded_to" in row else {}),
          "launches_by_path": {p: c[name][variant] for p, c in paths.items()}}
         for (name, src, rep), variant, row, counts in entries]}), flush=True)
     emit("library_calls", note="int8 products of the int8 retrieval backend and the W8A8 "

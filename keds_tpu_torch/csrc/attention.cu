@@ -15,9 +15,12 @@
 // the fused qkv projection's (B, S, 3, H, Dh) output are read in place and
 // the context is written straight into (B, S, H, Dh) order.
 //
-// Three designs: bf16 for S <= kMaxResident (K and V of a (batch, head)
-// whole in shared memory) and above it (K and V streamed in key chunks),
-// and one f32 design at every S.  None falls back to another.
+// Four designs: bf16 at Dh = 64 for S <= kMaxResident (K and V of a
+// (batch, head) whole in shared memory) and above it (K and V streamed in
+// key chunks), one f32 design at every S and Dh <= 128, and the wide-head
+// kernel for the widths no other takes.  None falls back to another;
+// bf16 heads narrower than 64 are zero-padded to it by the caller
+// (keds_attention_fwd_route says which route takes which width).
 //
 // attention_tc (bf16, Dh = 64, S <= 288).  What bounds it on the H100: at
 // the vision chunk (16, 16, 257, 64) the function moves 34 MB and does 4.3
@@ -107,6 +110,18 @@
 //     stage's P.V is summed apart and added to the output by an FMA.
 // One design serves every S, so no resident route is kept: at S <= 64 the
 // ring holds the keys alone and a call is one stage.
+//
+// attention_wide<T> (bf16 above Dh = 64, f32 above 128, any S).  No CLIP
+// preset reaches it (every tower's heads are 64 wide); a custom config
+// does.  It is right first and simple: f32 FMA on CUDA cores, one element
+// loaded at a time (any stride and alignment), 64-column steps over the
+// head for q.k^T and 64 output columns a block (grid.z), so registers and
+// shared memory stay bounded at any width.  What bounds it on the H100:
+// the work is 4 B H S^2 Dh flops (causal: about half) on 4 B H S Dh
+// elements, but the kernel executes a shared-memory load for each FMA of
+// q.k^T, reads K twice (two passes, as the bf16 kernels, so P is
+// normalised before it is rounded) and repeats q.k^T in each column block,
+// so its shared-memory loads bound it far above either (PERF.md, its rows).
 
 #include "common.cuh"
 
@@ -863,25 +878,134 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
                                  stream);
 }
 
+// --- wide-head kernel (the widths no tuned kernel takes) --------------------
+
+// A block takes kWideRows query rows of one (batch, head) and kWideCols of
+// the output's columns (common.cuh, wide-head attention).  Two passes over
+// 64-key tiles, as the bf16 kernels: each row's max and sum, then P =
+// exp2(c s - c m) / l rounded to T, into P.V over the block's columns.  The
+// scores q.k^T are f32 FMA over 64-column steps of q and K staged in shared
+// memory, so each pass reads K whole and every column block repeats them.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, int H, int S, int Dh, Strides qs, Strides ks, Strides vs,
+               Strides os, int causal, float c) {
+  __shared__ float q_s[kWideRows * kWidePitch], k_s[kWideTile * kWidePitch],
+      p_s[kWideRows * kWidePitch];
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int r0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
+  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8;
+  const int lim = causal ? min(S, r0 + r + 1) : S;      // keys < lim are live for the row
+  // every tile starts at a key <= r0, live for each of the block's rows
+  const int n_tiles = ((causal ? min(S, r0 + kWideRows) : S) + kWideTile - 1) / kWideTile;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+
+  float s[8];
+  auto scores = [&](int key0) {                  // s[j] = q_row . k_(key0 + t8 + 8 j)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = 0.f;
+    for (int d0 = 0; d0 < Dh; d0 += kWideCols) {
+      __syncthreads();                           // the staged rows' readers are done
+      wide_load(q_s, qb, qs.s, r0, kWideRows, S, d0, Dh);
+      wide_load(k_s, kb, ks.s, key0, kWideTile, S, d0, Dh);
+      __syncthreads();
+      wide_dot(s, q_s + r * kWidePitch, k_s, t8);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (key0 + t8 + 8 * j >= lim) s[j] = -CUDART_INF_F;
+  };
+
+  float m = -CUDART_INF_F, l = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    scores(tile * kWideTile);
+    float mx = s[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[j]);
+    const float mn = fmaxf(m, row_max(mx)), mc = mn * c;
+    float sum = l * exp2f(fmaf(m, c, -mc));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += exp2f(fmaf(s[j], c, -mc));
+    l = sum;
+    m = mn;
+  }
+  const float mc = m * c, inv_l = 1.f / row_sum(l);
+
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int key0 = tile * kWideTile;
+    scores(key0);
+    __syncthreads();                             // k_s's readers are done
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      p_s[r * kWidePitch + t8 + 8 * j] = round_to<T>(exp2f(fmaf(s[j], c, -mc)) * inv_l);
+    wide_load(k_s, vb + c0, vs.s, key0, kWideTile, S, 0, Dh - c0);   // V's block columns
+    __syncthreads();
+    wide_acc(acc, p_s + r * kWidePitch, k_s, t8);
+  }
+  const int row = r0 + r;
+  if (row >= S) return;
+  T* orow = o + b * os.b + h * os.h + row * os.s;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (c0 + t8 + 8 * j < Dh) orow[c0 + t8 + 8 * j] = from_f32<T>(acc[j]);
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+                int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal, float scale,
+                cudaStream_t stream) {
+  const dim3 grid(B * H, (S + kWideRows - 1) / kWideRows, (Dh + kWideCols - 1) / kWideCols);
+  attention_wide<T><<<grid, kWideThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, S, Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// Routes of keds_attention_fwd.
+enum FwdRoute : int { kRouteF32 = 0, kRouteTc = 1, kRouteWide = 2 };
+
+// The route for `dtype` at head width Dh (-1: not taken), and in *width the
+// width it runs at: bf16 below kTcHeadDim runs the tensor-core kernels on
+// inputs zero-padded to it (the caller pads), f32 up to kMaxHeadDim its own
+// kernel (padded in shared memory), and wider heads the wide-head kernel.
+int fwd_route(int dtype, int Dh, int* width) {
+  if (Dh < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
+  *width = dtype == kBFloat16 && Dh < kTcHeadDim ? kTcHeadDim : Dh;
+  if (dtype == kFloat32) return Dh <= kMaxHeadDim ? kRouteF32 : kRouteWide;
+  return Dh <= kTcHeadDim ? kRouteTc : kRouteWide;
+}
+
 }  // namespace
 
-extern "C" int keds_attention_max_head_dim() { return kMaxHeadDim; }
-extern "C" int keds_attention_tc_head_dim() { return kTcHeadDim; }
+extern "C" int keds_attention_fwd_route(int dtype, int Dh, int* width) {
+  return fwd_route(dtype, Dh, width);
+}
 
 // strides: 12 int64 values, (batch, seq, head) element strides of q, k, v, o.
+// Dh is the width the route runs at (keds_attention_fwd_route's *width).
 extern "C" int keds_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, int dtype, int B, int H, int S,
                                   int Dh, const long long* strides, int causal,
                                   float scale, void* stream) {
-  if (S < 1 || B * H < 1) return cudaErrorInvalidValue;
+  int width = 0;
+  const int route = fwd_route(dtype, Dh, &width);
+  if (S < 1 || B * H < 1 || route < 0 || width != Dh) return cudaErrorInvalidValue;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && Dh >= 1 && Dh <= kMaxHeadDim)
+  if (route == kRouteF32)
     return launch_f32(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);
-  if (dtype == kBFloat16 && Dh == kTcHeadDim)
+  if (route == kRouteTc)
     return launch_tc(q, k, v, o, B, H, S, qs, ks, vs, os, causal, scale, st);
-  return cudaErrorInvalidValue;
+  return dtype == kFloat32
+             ? launch_wide<float>(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st)
+             : launch_wide<bf16>(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);
 }

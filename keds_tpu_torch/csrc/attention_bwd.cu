@@ -52,7 +52,8 @@
 //   * S <= 16: one block takes kSmallSlices (batch, head) slices, one warp
 //     each, as the Pallas kernel groups heads per program; otherwise one
 //     block per (batch, head) with one warp per 16-row tile.  The plan is
-//     exported (keds_attention_bwd_plan) and mirrored in ops/attention.py.
+//     exported (keds_attention_bwd_plan); the wrapper reads its workspace
+//     rows through keds_attention_bwd_route.
 //   Shared memory: 47 KB a block at S = 77, 74 KB at S = 128.
 //
 // attention_bwd_tc_dq and attention_bwd_tc_dkv (bf16, Dh = 64, S > 128).
@@ -118,6 +119,20 @@
 //     shared memory, which keeps a thread at 147-168 registers (three
 //     blocks an SM by registers; the streamed launches' shared memory:
 //     102 KB and 104 KB at four tiles).
+
+// attention_bwd_wide_dq and attention_bwd_wide_dkv (bf16 or f32 above Dh =
+// 64, any S; narrower heads are zero-padded to 64 by the caller and take
+// the kernels above).  No CLIP preset reaches them.  Two launches without
+// atomics, as the streamed routes: dq per 16 query rows (two sweeps over
+// 64-key tiles: the statistics m, l and D, then dS = P (round(dP) - D)
+// into dq), writing m c, 1 / l and D to an f32 workspace; then dk and dv
+// per 16 key rows, P^T and dP^T recomputed from the workspace's
+// statistics.  The VJP's roundings are the resident kernel's (P rounded
+// for dV, dP = dO V^T rounded to the input type); dS stays f32 (f32 FMA
+// keeps it whole).  Each block writes 64 of the gradients' columns
+// (grid.z) and recomputes q k^T and dO V^T over the whole width, in f32
+// FMA with a shared-memory load each (common.cuh, wide-head attention):
+// right first, bound by its shared-memory loads (PERF.md, its rows).
 
 #include "common.cuh"
 
@@ -1470,6 +1485,223 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, vo
   return cudaGetLastError();
 }
 
+// --- wide-head kernels (Dh > kHeadDim, f32 or bf16) -------------------------
+
+// Shared floats of a wide block: its kWideRows rows of two tensors (a, c),
+// then a tile of kWideTile rows of two more (b, d).
+constexpr int kWideSmem = (2 * kWideRows + 2 * kWideTile) * kWidePitch;
+
+// x[j] = a_row . b_(b0 + t8 + 8 j) and y[j] = c_row . d_(b0 + t8 + 8 j)
+// over the whole head width, the block's rows from row a0 (a and c) against
+// the tile's (b and d), staged 64 columns at a time.
+template <typename T>
+__device__ __forceinline__ void wide_products(float (&x)[8], float (&y)[8], float* sm,
+                                              const T* a, long long as, const T* c,
+                                              long long cs, int a0, const T* b, long long bs,
+                                              const T* d, long long ds, int b0, int S, int Dh) {
+  float* a_s = sm;
+  float* c_s = a_s + kWideRows * kWidePitch;
+  float* b_s = c_s + kWideRows * kWidePitch;
+  float* d_s = b_s + kWideTile * kWidePitch;
+  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = y[j] = 0.f;
+  for (int d0 = 0; d0 < Dh; d0 += kWideCols) {
+    __syncthreads();                             // the staged rows' readers are done
+    wide_load(a_s, a, as, a0, kWideRows, S, d0, Dh);
+    wide_load(c_s, c, cs, a0, kWideRows, S, d0, Dh);
+    wide_load(b_s, b, bs, b0, kWideTile, S, d0, Dh);
+    wide_load(d_s, d, ds, b0, kWideTile, S, d0, Dh);
+    __syncthreads();
+    wide_dot(x, a_s + r * kWidePitch, b_s, t8);
+    wide_dot(y, c_s + r * kWidePitch, d_s, t8);
+  }
+}
+
+// dq: a block takes kWideRows query rows and kWideCols of dq's columns.
+// Sweep 1 over 64-key tiles takes each row's max m, sum l and D = sum_j P_j
+// round(dP_j) (D's sum rescaled with l as m grows); the column block 0
+// writes m c, 1 / l and D to the workspace (3 x BH x S floats).  Sweep 2
+// forms dS = P (round(dP) - D) into dq = scale dS K over the block's
+// columns.  s = q k^T and dP = dO v^T are f32 FMA over the whole width.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+attention_bwd_wide_dq(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
+                      float* __restrict__ stats, int BH, int H, int S, int Dh, Strides qs,
+                      Strides ks, Strides vs, Strides gs, Strides dqs, int causal, float scale,
+                      float c) {
+  __shared__ float sm[kWideSmem];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int r0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
+  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8, row = r0 + r;
+  const int lim = causal ? min(S, row + 1) : S;          // keys < lim are live for the row
+  // every tile starts at a key <= r0, live for each of the block's rows
+  const int n_tiles = ((causal ? min(S, r0 + kWideRows) : S) + kWideTile - 1) / kWideTile;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const T* gb = dout + b * gs.b + h * gs.h;
+
+  float s[8], dp[8];
+  auto products = [&](int key0) {
+    wide_products(s, dp, sm, qb, qs.s, gb, gs.s, r0, kb, ks.s, vb, vs.s, key0, S, Dh);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (key0 + t8 + 8 * j >= lim) s[j] = -CUDART_INF_F;
+  };
+
+  float m = -CUDART_INF_F, l = 0.f, dsum = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    products(tile * kWideTile);
+    float mx = s[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[j]);
+    const float mn = fmaxf(m, row_max(mx)), mcn = mn * c;
+    const float alpha = exp2f(fmaf(m, c, -mcn));
+    l *= alpha;
+    dsum *= alpha;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float e = exp2f(fmaf(s[j], c, -mcn));
+      l += e;
+      dsum = fmaf(e, round_to<T>(dp[j]), dsum);
+    }
+    m = mn;
+  }
+  const float mc = m * c, inv_l = 1.f / row_sum(l), D = row_sum(dsum) * inv_l;
+  if (blockIdx.z == 0 && t8 == 0 && row < S) {
+    const long long at = static_cast<long long>(bh) * S + row, n = static_cast<long long>(BH) * S;
+    stats[at] = mc;
+    stats[n + at] = inv_l;
+    stats[2 * n + at] = D;
+  }
+
+  float* ds_s = sm;                                // the block's rows of dS
+  float* k_s = sm + 2 * kWideRows * kWidePitch;    // K's tile, the block's columns
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int key0 = tile * kWideTile;
+    products(key0);
+    __syncthreads();                               // the staged rows' readers are done
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = exp2f(fmaf(s[j], c, -mc)) * inv_l;
+      ds_s[r * kWidePitch + t8 + 8 * j] = p * (round_to<T>(dp[j]) - D);
+    }
+    wide_load(k_s, kb + c0, ks.s, key0, kWideTile, S, 0, Dh - c0);
+    __syncthreads();
+    wide_acc(acc, ds_s + r * kWidePitch, k_s, t8);
+  }
+  if (row >= S) return;
+  T* out = dq + b * dqs.b + h * dqs.h + row * dqs.s;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (c0 + t8 + 8 * j < Dh) out[c0 + t8 + 8 * j] = from_f32<T>(acc[j] * scale);
+}
+
+// dk and dv: a block takes kWideRows key rows and kWideCols of the columns,
+// and sweeps the 64-query tiles (from the tile of its first key when
+// causal) with the workspace's statistics: P^T and dP^T recomputed over the
+// whole width, dv += round(P)^T dO and dk += scale dS^T q over the block's
+// columns.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+attention_bwd_wide_dkv(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
+                       int BH, int H, int S, int Dh, Strides qs, Strides ks, Strides vs,
+                       Strides gs, Strides dks, Strides dvs, int causal, float scale, float c) {
+  __shared__ float sm[kWideSmem];
+  __shared__ float st[3 * kWideTile];              // m c, 1 / l and D of the tile's queries
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int j0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
+  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8, key = j0 + r;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const T* gb = dout + b * gs.b + h * gs.h;
+  const long long n = static_cast<long long>(BH) * S;
+  const float* sb = stats + static_cast<long long>(bh) * S;
+
+  float* p_s = sm;                                  // the block's rows of round(P)^T
+  float* ds_s = sm + kWideRows * kWidePitch;        // and of dS^T
+  float* q_s = sm + 2 * kWideRows * kWidePitch;     // the tile's q and dO, the block's columns
+  float* g_s = q_s + kWideTile * kWidePitch;
+  float s[8], dp[8], av[8], ak[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) av[j] = ak[j] = 0.f;
+  const int n_tiles = (S + kWideTile - 1) / kWideTile;
+  for (int tile = causal ? j0 / kWideTile : 0; tile < n_tiles; ++tile) {
+    const int i0 = tile * kWideTile;
+    // st's last readers passed the previous tile's second barrier
+    for (int e = threadIdx.x; e < 3 * kWideTile; e += blockDim.x) {
+      const int qq = i0 + e % kWideTile;
+      st[e] = qq < S ? sb[e / kWideTile * n + qq] : 0.f;
+    }
+    wide_products(s, dp, sm, kb, ks.s, vb, vs.s, j0, qb, qs.s, gb, gs.s, i0, S, Dh);
+    __syncthreads();                               // the staged rows' readers are done
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qi = t8 + 8 * j, qq = i0 + qi;
+      const bool live = qq < S && (!causal || qq >= key);
+      const float p = live ? exp2f(fmaf(s[j], c, -st[qi])) * st[kWideTile + qi] : 0.f;
+      p_s[r * kWidePitch + qi] = round_to<T>(p);
+      ds_s[r * kWidePitch + qi] = p * (round_to<T>(dp[j]) - st[2 * kWideTile + qi]);
+    }
+    wide_load(q_s, qb + c0, qs.s, i0, kWideTile, S, 0, Dh - c0);
+    wide_load(g_s, gb + c0, gs.s, i0, kWideTile, S, 0, Dh - c0);
+    __syncthreads();
+    wide_acc(av, p_s + r * kWidePitch, g_s, t8);
+    wide_acc(ak, ds_s + r * kWidePitch, q_s, t8);
+  }
+  if (key >= S) return;
+  T* dv_row = dv + b * dvs.b + h * dvs.h + key * dvs.s;
+  T* dk_row = dk + b * dks.b + h * dks.h + key * dks.s;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = c0 + t8 + 8 * j;
+    if (col < Dh) {
+      dv_row[col] = from_f32<T>(av[j]);
+      dk_row[col] = from_f32<T>(ak[j] * scale);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                void* dk, void* dv, int BH, int H, int S, int Dh, const Strides* st, int causal,
+                float scale, float* stats, cudaStream_t stream) {
+  const dim3 grid(BH, (S + kWideRows - 1) / kWideRows, (Dh + kWideCols - 1) / kWideCols);
+  const float c = scale * 1.4426950408889634f;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(dout);
+  attention_bwd_wide_dq<T><<<grid, kWideThreads, 0, stream>>>(
+      qt, kt, vt, gt, static_cast<T*>(dq), stats, BH, H, S, Dh, st[0], st[1], st[2], st[3],
+      st[4], causal, scale, c);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_wide_dkv<T><<<grid, kWideThreads, 0, stream>>>(
+      qt, kt, vt, gt, static_cast<T*>(dk), static_cast<T*>(dv), stats, BH, H, S, Dh, st[0],
+      st[1], st[2], st[3], st[5], st[6], causal, scale, c);
+  return cudaGetLastError();
+}
+
+// Routes of keds_attention_bwd: the tuned kernels (bf16 tensor cores or f32
+// 3xTF32, at kHeadDim) and the wide-head pair.
+enum BwdRoute : int { kRouteTuned = 0, kRouteWide = 1 };
+
+// The route for `dtype` at head width Dh (-1: not taken), and in *width the
+// width it runs at: below kHeadDim the tuned kernels on inputs zero-padded
+// to it (the caller pads), above it the wide-head pair.
+int bwd_route(int dtype, int Dh, int* width) {
+  if (Dh < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
+  *width = Dh < kHeadDim ? kHeadDim : Dh;
+  return Dh <= kHeadDim ? kRouteTuned : kRouteWide;
+}
+
 using Launch =int (*)(const void*, const void*, const void*, const void*, void*, void*,
                        void*, int, int, int, const Strides*, int, float, cudaStream_t);
 constexpr Launch kTcLaunch[kMaxSeq / 16] = {launch_tc<1>, launch_tc<2>, launch_tc<3>,
@@ -1477,8 +1709,6 @@ constexpr Launch kTcLaunch[kMaxSeq / 16] = {launch_tc<1>, launch_tc<2>, launch_t
                                             launch_tc<7>, launch_tc<8>};
 
 }  // namespace
-
-extern "C" int keds_attention_bwd_head_dim() { return kHeadDim; }
 
 // The launch plan at sequence length S for `dtype`: out[0..4] = 16-row
 // tiles, (batch, head) slices a block, warps a block, dynamic shared bytes
@@ -1511,25 +1741,49 @@ extern "C" int keds_attention_bwd_plan(int S, int dtype, int* out) {
   return cudaSuccess;
 }
 
+// The route of keds_attention_bwd for `dtype` at head width Dh and sequence
+// length S (-1: not taken): out[0] = the width it runs at (the caller
+// zero-pads narrower inputs), out[1] = the f32 workspace rows a (batch,
+// head) takes for each of three statistics (0: none).
+extern "C" int keds_attention_bwd_route(int dtype, int Dh, int S, int* out) {
+  const int route = S < 1 ? -1 : bwd_route(dtype, Dh, &out[0]);
+  if (route == kRouteWide) {
+    out[1] = S;
+  } else if (route == kRouteTuned) {
+    int plan[5];
+    keds_attention_bwd_plan(S, dtype, plan);
+    out[1] = plan[4];
+  }
+  return route;
+}
+
 // strides: 21 int64 values, (batch, seq, head) element strides of q, k, v,
-// dO, dq, dk, dv in that order; every head dimension has unit stride.  The
-// bf16 kernels also need 16-byte aligned rows of q, k, v and dO, and the f32
-// kernels 8-byte aligned rows of dq, dk and dv.  f32 above kF32Chunk and
-// bf16 above kMaxSeq take a `workspace` of 3 * B * H * plan[4] floats
+// dO, dq, dk, dv in that order; every head dimension has unit stride.  Dh
+// is the width the route runs at (keds_attention_bwd_route's out[0]).  The
+// bf16 tuned kernels also need 16-byte aligned rows of q, k, v and dO, and
+// the f32 ones 8-byte aligned rows of dq, dk and dv.  A route with
+// workspace rows (out[1]) takes a `workspace` of 3 * B * H * out[1] floats
 // (16-byte aligned).
 extern "C" int keds_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, void* dq, void* dk, void* dv,
                                   int dtype, int B, int H, int S, int Dh,
                                   const long long* strides, int causal, float scale,
                                   void* workspace, void* stream) {
-  if (S < 1 || Dh != kHeadDim || B * H < 1) return cudaErrorInvalidValue;
-  if (S > (dtype == kFloat32 ? kF32Chunk : kMaxSeq) && workspace == nullptr)
-    return cudaErrorInvalidValue;
+  int plan[2] = {0, 0};
+  const int route = keds_attention_bwd_route(dtype, Dh, S, plan);
+  if (route < 0 || plan[0] != Dh || B * H < 1) return cudaErrorInvalidValue;
+  if (plan[1] > 0 && workspace == nullptr) return cudaErrorInvalidValue;
   Strides st[7];
   for (int t = 0; t < 7; ++t)
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
+  if (route == kRouteWide)
+    return dtype == kFloat32
+               ? launch_wide<float>(q, k, v, dout, dq, dk, dv, B * H, H, S, Dh, st, causal,
+                                    scale, ws, s)
+               : launch_wide<bf16>(q, k, v, dout, dq, dk, dv, B * H, H, S, Dh, st, causal,
+                                   scale, ws, s);
   if (dtype == kFloat32) {
     // 16-byte cp.async rows where q, k, v and dO allow them
     bool vec = true;

@@ -508,6 +508,83 @@ __host__ __device__ __forceinline__ int tile_begin(int y, int blocks, int tiles)
   return static_cast<int>(static_cast<long long>(y) * tiles / blocks);
 }
 
+// --- wide-head attention (any Dh, f32 or bf16, CUDA cores) -------------------
+//
+// The wide-head kernels (attention.cu attention_wide, attention_bwd.cu
+// attention_bwd_wide_*) read one element at a time into f32 shared rows, so
+// any head width, stride and alignment is taken.  A block takes kWideRows
+// rows of one (batch, head) against tiles of kWideTile rows, its threads 8 a
+// row: thread t takes row t / 8 and the tile's rows (or columns) t % 8 + 8 j.
+// Products step over the head dimension kWideCols columns at a time, and a
+// block writes kWideCols of the output's columns (grid.z), recomputing the
+// scores, so that registers and shared memory stay bounded at any Dh.
+
+constexpr int kWideRows = 16;
+constexpr int kWideTile = 64;
+constexpr int kWideCols = 64;
+constexpr int kWidePitch = kWideCols + 1;    // floats a shared row: conflict-free
+constexpr int kWideThreads = 8 * kWideRows;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// x rounded to T's precision (P and dP round where the plain version rounds them)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// rows x kWideCols elements of src (rows `stride` elements apart), from row
+// r0 and column d0, into shared rows of kWidePitch floats; zero past row
+// n_rows and column n_cols.
+template <typename T>
+__device__ __forceinline__ void wide_load(float* dst, const T* src, long long stride, int r0,
+                                          int rows, int n_rows, int d0, int n_cols) {
+  for (int e = threadIdx.x; e < rows * kWideCols; e += blockDim.x) {
+    const int i = e / kWideCols, d = e % kWideCols;
+    const int r = r0 + i, col = d0 + d;
+    dst[i * kWidePitch + d] = r < n_rows && col < n_cols ? to_f32(src[r * stride + col]) : 0.f;
+  }
+}
+
+// x[j] += a_row . (row t8 + 8 j of the tile b) over one step's kWideCols columns
+__device__ __forceinline__ void wide_dot(float (&x)[8], const float* a_row, const float* b,
+                                         int t8) {
+#pragma unroll 8
+  for (int d = 0; d < kWideCols; ++d) {
+    const float a = a_row[d];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = fmaf(a, b[(t8 + 8 * j) * kWidePitch + d], x[j]);
+  }
+}
+
+// acc[j] += sum_i w_row[i] b[i][t8 + 8 j] over the tile's kWideTile rows of b
+__device__ __forceinline__ void wide_acc(float (&acc)[8], const float* w_row, const float* b,
+                                         int t8) {
+#pragma unroll 8
+  for (int i = 0; i < kWideTile; ++i) {
+    const float w = w_row[i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = fmaf(w, b[i * kWidePitch + t8 + 8 * j], acc[j]);
+  }
+}
+
+// Reductions over the 8 threads of a row (adjacent lanes of one warp).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(kFullMask, x, o);
+  return x;
+}
+
 }  // namespace keds
 
 extern "C" const char* keds_error_string(int err) {

@@ -111,6 +111,10 @@ class DataLoader:
         n = len(self.indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    @property
+    def num_samples(self) -> int:
+        return len(self.dataset)
+
     def __len__(self) -> int:
         return self.num_batches
 

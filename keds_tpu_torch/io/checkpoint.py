@@ -22,9 +22,9 @@ from typing import Optional, Tuple
 import torch
 
 from keds_tpu_torch.models.composition import FusionHeads
-from keds_tpu_torch.models.convert import (clip_to_state_dict, head_parameter_groups,
-                                           head_parameters, heads_from_checkpoint,
-                                           heads_to_state_dicts)
+from keds_tpu_torch.models.convert import (clip_from_state_dict, clip_to_state_dict,
+                                           head_parameter_groups, head_parameters,
+                                           heads_from_checkpoint, heads_to_state_dicts)
 from keds_tpu_torch.runtime import DeviceLike
 
 
@@ -81,6 +81,15 @@ def load_heads_checkpoint(path: str, device: DeviceLike = None,
     epoch = int(ckpt.get("epoch", 0))
     logging.info("=> loaded checkpoint '%s' (epoch %d)", path, epoch)
     return heads, epoch
+
+
+def load_full_checkpoint(path: str, device: DeviceLike = None):
+    """(CLIP parameters, config, heads, epoch) of a train checkpoint, f32 on
+    ``device``, from one read of the file."""
+    ckpt = load_checkpoint(path)
+    clip_params, cfg = clip_from_state_dict(ckpt["state_dict"], device=device)
+    heads, epoch = load_heads_checkpoint(path, device, ckpt=ckpt)
+    return clip_params, cfg, heads, epoch
 
 
 def restore_optimizer(optimizer: torch.optim.Optimizer, ckpt: dict,

@@ -16,9 +16,9 @@ template stars (text-stream training); a fourth replaces each row's own
 ``*`` (:func:`encode_text_img_vis`).  The rest of the model surface: the
 full token sequence and every block's output of the ViT tower, the
 visual-invert and textual-invert compositions, MAE masking and
-:func:`clip_forward`.  The causal mask (``causal_mask`` in the JAX
+:func:`clip_forward`.  The causal mask (:func:`causal_mask`, as in the JAX
 package's clip module) lives with the attention op, which applies it
-itself.
+itself; it is re-exported here.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from keds_tpu_torch.models.layers import (_layer, _n_layers, layer_norm, residua
                                           transformer, transformer_collect,
                                           transformer_pooled)
 from keds_tpu_torch.models.resnet import encode_image_resnet
+from keds_tpu_torch.ops.attention import causal_mask  # noqa: F401  (public name)
 from keds_tpu_torch.transforms import device_normalize
 
 

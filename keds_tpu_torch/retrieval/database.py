@@ -358,3 +358,10 @@ class Retriever:
         if idx is None:
             idx = self.caption_indices(feature, k)
         return self._gather(self.db.text_db, idx).to(feature.dtype), idx
+
+    def names_for(self, idx) -> List[str]:
+        """The DB names at ``idx``, flattened: a numpy array or a tensor on
+        any device, of global rows (a sharded DB's names are the whole
+        DB's)."""
+        flat = idx.reshape(-1).tolist() if torch.is_tensor(idx) else np.asarray(idx).reshape(-1)
+        return [self.db.names[i] for i in flat]

@@ -35,11 +35,12 @@ import html
 import os
 import re
 import unicodedata
-from typing import List, Sequence, Union
+from typing import Iterable, List, Sequence, Union
 
 import numpy as np
 
 CONTEXT_LENGTH = 77
+VOCAB_SIZE = 49408
 SOT_TOKEN = 49406
 EOT_TOKEN = 49407
 
@@ -162,6 +163,8 @@ class ClipBPE:
         tokens += ["".join(m) for m in merges]
         tokens += list(_SPECIALS)
         self.encoder = {tok: i for i, tok in enumerate(tokens)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
+        self._u2b = {u: b for b, u in self._b2u.items()}
         self._rank = {m: i for i, m in enumerate(merges)}
         self._cache: dict = {s: (s,) for s in _SPECIALS}
 
@@ -198,6 +201,18 @@ class ClipBPE:
             mapped = "".join(self._b2u[b] for b in tok.encode("utf-8"))
             ids.extend(self.encoder[sub] for sub in self._merge_word(mapped))
         return ids
+
+    def encode_batch(self, texts: Sequence[str]) -> List[List[int]]:
+        """:meth:`encode` of each text (the JAX package's native core is
+        left out, so every text takes the Python path)."""
+        return [self.encode(t) for t in texts]
+
+    def decode(self, ids: Iterable[int]) -> str:
+        """Token ids back to text: bytes that do not form UTF-8 are
+        replaced, and each word end ``</w>`` becomes a space."""
+        text = "".join(self.decoder[int(i)] for i in ids)
+        raw = bytearray(self._u2b[c] for c in text if c in self._u2b)
+        return raw.decode("utf-8", errors="replace").replace("</w>", " ")
 
 
 @functools.lru_cache()

@@ -11,6 +11,10 @@ reference torchvision pipeline, ``src/model/clip.py:107-123`` and
 * train: RandomResizedCrop(n_px, scale=(0.9, 1.0), BICUBIC), then as val;
 * COCO region queries: resize to (n_px, n_px), no crop.
 
+Device path: :func:`device_normalize` (uint8 in, the CLIP normalisation on
+the device: the main path's), and :func:`device_preprocess`, the JAX
+package's batched resize, centre crop and normalisation on the device.
+
 The train crop draws from a ``random.Random`` (``rng``; the module's
 global generator when None, as the JAX package's CLI runs it) in the JAX
 package's order, so one seeded generator gives both packages the same crops.
@@ -26,6 +30,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from keds_tpu_torch.runtime import DeviceLike, resolve_device
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -162,3 +168,29 @@ def device_normalize(images: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=images.device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=images.device)
     return (images.to(torch.float32) / 255.0 - mean) / std
+
+
+def device_preprocess(images_u8, n_px: int = 224, device: DeviceLike = None) -> torch.Tensor:
+    """Batched preprocessing on the device: (B, H, W, 3) uint8 (array or
+    tensor) -> (B, n_px, n_px, 3) float32, as the JAX package's
+    ``device_preprocess``: [0, 1], a bicubic resize of the shorter side to
+    ``n_px`` (the other side Python-``round``ed), a centre crop and the CLIP
+    normalisation.  ``jax.image.resize``'s bicubic is Keys' cubic at a =
+    -0.5, antialiased when it shrinks, its weights renormalised at the
+    borders: ``interpolate``'s bicubic with ``antialias=True`` (its default,
+    a = -0.75 without antialiasing, is not).  Runs on the current CUDA
+    device unless ``device`` says otherwise; the main path sends uint8 and
+    calls :func:`device_normalize` instead."""
+    device = resolve_device(device)
+    x = torch.as_tensor(images_u8).to(device).permute(0, 3, 1, 2).to(torch.float32) / 255.0
+    h, w = x.shape[2:]
+    scale = n_px / min(h, w)
+    nh, nw = round(h * scale), round(w * scale)
+    if (nh, nw) != (h, w):
+        x = torch.nn.functional.interpolate(x, size=(nh, nw), mode="bicubic",
+                                            align_corners=False, antialias=True)
+    top, left = (nh - n_px) // 2, (nw - n_px) // 2
+    x = x[:, :, top:top + n_px, left:left + n_px].permute(0, 2, 3, 1)
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device)
+    return (x - mean) / std

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 from keds_tpu.ops.attention import attention_reference as jax_reference
 from keds_tpu.ops.attention import flash_attention
 
-from keds_tpu_torch.ops.attention import attention, attention_reference, bwd_plan
+from keds_tpu_torch.ops.attention import attention, attention_reference
 
 torch.set_num_threads(1)
 
@@ -51,45 +51,3 @@ def test_attention_bf16_rounds_probs_to_v_dtype():
     ref = np.asarray(flash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
                                        for t in (q, k, v)), False, True), np.float32)
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=2e-2)
-
-
-@pytest.mark.parametrize("bh", [1, 3, 4, 5, 15, 1536])
-def test_backward_plan_fits_and_covers_every_slice(bh):
-    """The bf16 backward kernel's launch plan at every S it takes: a block
-    fits the H100's 227 KB of shared memory, has a warp per 16-row tile (or
-    per slice at S <= 16), and the blocks' slices cover each (batch, head)
-    exactly once."""
-    for s in range(1, 1100):
-        p = bwd_plan(s)
-        assert (p.key_tiles - 1) * 16 < s <= p.key_tiles * 16
-        assert p.smem_bytes <= 227 * 1024
-        if s > 128:     # the streamed launches: blocks of 64 rows, a warp per 16,
-            # a three-stage ring, a workspace row per query row of the warps
-            assert (p.slices, p.warps, p.smem_bytes) == (1, 4, 70_936)
-            assert p.workspace_rows == 16 * p.key_tiles
-            assert 3 * (p.smem_bytes + 1024) <= 228 * 1024
-            continue
-        assert p.workspace_rows == 0
-        assert p.warps == (p.slices if p.key_tiles == 1 else p.key_tiles)
-        slices = [blk * p.slices + w for blk in range(p.blocks(bh)) for w in range(p.slices)]
-        assert sorted(x for x in slices if x < bh) == list(range(bh))
-        assert len(slices) - bh < p.slices
-    assert bwd_plan(77).smem_bytes == 47_040 and bwd_plan(128).smem_bytes == 75_264
-
-
-def test_backward_plan_f32_fits_every_sequence():
-    """The f32 backward kernel's launch plan at every S: a warp per 16-row
-    tile, at most four a block and as many as make a (batch, head)'s blocks
-    even; one launch and no workspace at S <= 64, else a workspace row per
-    query row; and shared memory that lets two blocks share an SM (the split
-    launches of small grids aside)."""
-    for s in range(1, 1100):
-        p = bwd_plan(s, torch.float32)
-        assert (p.key_tiles - 1) * 16 < s <= p.key_tiles * 16
-        assert p.slices == 1 and 1 <= p.warps <= 4
-        blocks = -(-p.key_tiles // p.warps)
-        assert (blocks - 1) * p.warps < p.key_tiles and blocks == -(-p.key_tiles // 4)
-        assert 2 * (p.smem_bytes + 1024) <= 228 * 1024
-        assert p.workspace_rows == (0 if s <= 64 else 16 * p.key_tiles)
-    assert bwd_plan(64, torch.float32).smem_bytes == 70_400
-    assert bwd_plan(577, torch.float32).smem_bytes == 105_984

@@ -427,9 +427,17 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                atol=ATT_TOL[torch.float32], rtol=0)
     with pytest.raises(ValueError, match="S >= 1"):
         attention(*(torch.zeros((1, 1, 0, 64), device=cuda),) * 3)
-    y = torch.zeros((1, 1, 10, 32), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Dh = 64"):
-        attention(y, y, y)
+    # bf16 at Dh = 32 is zero-padded to the tensor-core kernel's 64 (its
+    # refusal is gone)
+    y = torch.randn((1, 1, 10, 32), generator=_gen(cuda, 10), device=cuda).to(torch.bfloat16)
+    pads = att_mod.KERNEL.pads["bf16_tc"]
+    out = attention(y, 0.5 * y, y.flip(-1))
+    torch.cuda.synchronize()
+    assert att_mod.KERNEL.pads["bf16_tc"] == pads + 1 and out.shape == y.shape
+    torch.testing.assert_close(out.float(), attention_reference(y, 0.5 * y, y.flip(-1)).float(),
+                               atol=ATT_TOL[torch.bfloat16], rtol=0)
+    with pytest.raises(ValueError, match="Dh >= 1"):
+        attention(*(torch.zeros((1, 1, 4, 0), device=cuda),) * 3)
 
 
 def test_tiny_composed_query_card_matches_cpu(cuda):
@@ -659,16 +667,65 @@ def test_attention_backward_is_deterministic(cuda, s):
         assert torch.equal(a, b)
 
 
-def test_attention_backward_plan_mirrors_the_library(cuda):
+def _bwd_plan(s, dtype):
+    """keds_attention_bwd_plan at S = ``s``: (16-row tiles, slices a block,
+    warps a block, shared bytes a block, workspace rows a statistic)."""
     import ctypes
 
-    lib = att_mod.BWD_KERNEL.lib()
     out = (ctypes.c_int * 5)()
-    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
-        for s in range(1, 1100):
-            assert lib.keds_attention_bwd_plan(s, code, ctypes.cast(out, ctypes.c_void_p)) == 0
-            assert tuple(out) == tuple(att_mod.bwd_plan(s, dtype))
-        assert lib.keds_attention_bwd_plan(0, code, ctypes.cast(out, ctypes.c_void_p)) != 0
+    code = 1 if dtype == torch.bfloat16 else 0
+    assert att_mod.BWD_KERNEL.lib().keds_attention_bwd_plan(
+        s, code, ctypes.cast(out, ctypes.c_void_p)) == 0
+    return tuple(out)
+
+
+@pytest.mark.parametrize("bh", [1, 3, 4, 5, 15, 1536])
+def test_backward_plan_fits_and_covers_every_slice(cuda, bh):
+    """The bf16 backward kernel's launch plan at every S it takes: a block
+    fits the H100's 227 KB of shared memory, has a warp per 16-row tile (or
+    per slice at S <= 16), and the blocks' slices cover each (batch, head)
+    exactly once."""
+    import ctypes
+
+    for s in range(1, 1100):
+        tiles, slices, warps, smem, rows = _bwd_plan(s, torch.bfloat16)
+        assert (tiles - 1) * 16 < s <= tiles * 16
+        assert smem <= 227 * 1024
+        if s > 128:     # the streamed launches: blocks of 64 rows, a warp per 16,
+            # a three-stage ring, a workspace row per query row of the warps
+            assert (slices, warps, smem) == (1, 4, 70_936)
+            assert rows == 16 * tiles
+            assert 3 * (smem + 1024) <= 228 * 1024
+            continue
+        assert rows == 0
+        assert warps == (slices if tiles == 1 else tiles)
+        got = [blk * slices + w for blk in range(-(-bh // slices)) for w in range(slices)]
+        assert sorted(x for x in got if x < bh) == list(range(bh))
+        assert len(got) - bh < slices
+    assert _bwd_plan(77, torch.bfloat16)[3] == 47_040
+    assert _bwd_plan(128, torch.bfloat16)[3] == 75_264
+    out = (ctypes.c_int * 5)()
+    for code in (0, 1):
+        assert att_mod.BWD_KERNEL.lib().keds_attention_bwd_plan(
+            0, code, ctypes.cast(out, ctypes.c_void_p)) != 0
+
+
+def test_backward_plan_f32_fits_every_sequence(cuda):
+    """The f32 backward kernel's launch plan at every S: a warp per 16-row
+    tile, at most four a block and as many as make a (batch, head)'s blocks
+    even; one launch and no workspace at S <= 64, else a workspace row per
+    query row; and shared memory that lets two blocks share an SM (the split
+    launches of small grids aside)."""
+    for s in range(1, 1100):
+        tiles, slices, warps, smem, rows = _bwd_plan(s, torch.float32)
+        assert (tiles - 1) * 16 < s <= tiles * 16
+        assert slices == 1 and 1 <= warps <= 4
+        blocks = -(-tiles // warps)
+        assert (blocks - 1) * warps < tiles and blocks == -(-tiles // 4)
+        assert 2 * (smem + 1024) <= 228 * 1024
+        assert rows == (0 if s <= 64 else 16 * tiles)
+    assert _bwd_plan(64, torch.float32)[3] == 70_400
+    assert _bwd_plan(577, torch.float32)[3] == 105_984
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -732,9 +789,14 @@ def test_attention_backward_rejects_what_it_does_not_take(cuda):
     # S = 129 is taken since the streamed kernels: it runs against the plain version
     x = torch.randn((1, 1, 129, 64), generator=_gen(cuda, 60), device=cuda)
     _check_backward(x, x * 0.5, x * 0.25, x.flip(2), False)
-    y = torch.zeros((1, 1, 8, 32), device=cuda)
-    with pytest.raises(ValueError, match="Dh = 64"):
-        att_mod.attention_backward(y, y, y, y)
+    # Dh = 32 is zero-padded to the tuned kernels' 64 (its refusal is gone)
+    y = torch.randn((1, 1, 8, 32), generator=_gen(cuda, 61), device=cuda)
+    pads = att_mod.BWD_KERNEL.pads["f32"]
+    grads = _check_backward(y, y * 0.5, y * 0.25, y.flip(2), True)
+    assert att_mod.BWD_KERNEL.pads["f32"] == pads + 1
+    assert all(g.shape == y.shape for g in grads)
+    with pytest.raises(ValueError, match="S >= 1"):
+        att_mod.attention_backward(*(torch.zeros((1, 1, 0, 64), device=cuda),) * 4)
     z = torch.zeros((1, 1, 8, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         att_mod.attention_backward(z, z, z, z)
@@ -1560,3 +1622,241 @@ def test_attention_f32_is_not_tf32(cuda, s):
     assert (out - ref).abs().max() <= 0.1 * (cut - ref).abs().max()
     for g, r, c in zip(grads, gref, gcut):
         assert (g - r).abs().max() <= 0.1 * (c - r).abs().max()
+
+
+# --- every head width (B2 and B2' at Dh != 64, unaligned rows) ----------------
+
+HEAD_WIDTHS = [1, 32, 48, 80, 96, 128, 160, 256]
+
+
+def _fwd_variant(dtype, dh):
+    """The forward route the library gives (its card test below): bf16 pads
+    Dh < 64 to the tensor-core kernel, f32 runs Dh <= 128 itself, wider
+    heads take the wide-head kernel."""
+    if dtype == torch.bfloat16:
+        return ("bf16_tc", dh < 64) if dh <= 64 else ("bf16_wide", False)
+    return ("f32", False) if dh <= 128 else ("f32_wide", False)
+
+
+def _bwd_variant(dtype, dh, s):
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    if dh > 64:
+        return name + "_wide", False
+    return name + ("_stream" if name == "bf16" and s > 128 else ""), dh < 64
+
+
+def _head_qkv(dev, b, h, s, dh, dtype, seed, grad=False):
+    """Strided q/k/v views of one (B, S, 3, H, Dh) buffer, and a (B, H, S,
+    Dh) view of a (B, S, H, Dh) output gradient."""
+    qkv = torch.randn((b, s, 3, h, dh), generator=_gen(dev, seed), device=dev).to(dtype)
+    qkv.requires_grad_(grad)
+    dout = torch.randn((b, s, h, dh), generator=_gen(dev, seed + 1),
+                       device=dev).to(dtype).transpose(1, 2)
+    return qkv, tuple(qkv[:, :, i].transpose(1, 2) for i in range(3)), dout
+
+
+def test_attention_routes_by_head_width(cuda):
+    """The libraries' routes and widths are the ones the tests expect."""
+    import ctypes
+
+    out = (ctypes.c_int * 2)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    fwd, bwd = att_mod.KERNEL.lib(), att_mod.BWD_KERNEL.lib()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dh in range(1, 300):
+            route = fwd.keds_attention_fwd_route(code, dh, ptr)
+            variant, padded = _fwd_variant(dtype, dh)
+            assert ("f32", "bf16_tc", variant)[route] == variant
+            assert out[0] == (64 if padded else dh)
+            for s in (1, 77, 300):
+                route = bwd.keds_attention_bwd_route(code, dh, s, ptr)
+                variant, padded = _bwd_variant(dtype, dh, s)
+                assert route == int(dh > 64) and out[0] == (64 if padded else dh)
+                assert out[1] == (s if dh > 64 else _bwd_plan(s, dtype)[4])
+        assert fwd.keds_attention_fwd_route(code, 0, ptr) < 0
+        assert bwd.keds_attention_bwd_route(code, 0, 8, ptr) < 0
+        assert bwd.keds_attention_bwd_route(code, 64, 0, ptr) < 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", HEAD_WIDTHS)
+@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_every_head_width_matches_plain(cuda, dtype, dh, s, causal):
+    """B2 at every head width: strided views of one qkv buffer, one launch of
+    the route's variant (a pad counted below Dh = 64 in bf16)."""
+    _, (q, k, v), _ = _head_qkv(cuda, 2, 3, s, dh, dtype, s + dh)
+    variant, padded = _fwd_variant(dtype, dh)
+    launches, pads = dict(att_mod.KERNEL.launches), dict(att_mod.KERNEL.pads)
+    out = attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert att_mod.KERNEL.launches == dict(launches, **{variant: launches[variant] + 1})
+    assert att_mod.KERNEL.pads[variant] == pads[variant] + padded
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, causal).float(),
+                               atol=ATT_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", HEAD_WIDTHS)
+@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_backward_every_head_width_matches_plain(cuda, dtype, dh, s, causal):
+    """B2' at every head width through autograd, as the towers reach it; two
+    calls agree bit for bit (no atomics on any route)."""
+    qkv, (q, k, v), dout = _head_qkv(cuda, 2, 3, s, dh, dtype, s + dh, grad=True)
+    variant, padded = _bwd_variant(dtype, dh, s)
+    launches, pads = dict(att_mod.BWD_KERNEL.launches), dict(att_mod.BWD_KERNEL.pads)
+    grads = torch.autograd.grad(attention(q, k, v, causal), (q, k, v), dout)
+    again = att_mod.attention_backward(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    assert att_mod.BWD_KERNEL.launches == dict(launches, **{variant: launches[variant] + 2})
+    assert att_mod.BWD_KERNEL.pads[variant] == pads[variant] + 2 * padded
+    ref = att_mod.attention_reference_backward(q, k, v, dout, causal)
+    atol, rtol = BWD_TOL[dtype]
+    for g, a, r in zip(grads, again, ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", [32, 64, 80])
+@pytest.mark.parametrize("s", [77, 300])
+def test_attention_unaligned_rows_every_route(cuda, dtype, dh, s):
+    """x[..., :Dh] views of (..., Dh + 1) tensors: rows that are not 16-byte
+    aligned (bf16's tuned kernels take a copy; the other routes read them in
+    place), forward and backward."""
+    base = torch.randn((3, 2, 3, s, dh + 1), generator=_gen(cuda, s * dh), device=cuda)
+    q, k, v = (base[i].to(dtype)[..., :dh] for i in range(3))
+    assert k.stride(2) * k.element_size() % 16
+    for causal in (False, True):
+        out = attention(q, k, v, causal)
+        torch.testing.assert_close(out.float(), attention_reference(q, k, v, causal).float(),
+                                   atol=ATT_TOL[dtype], rtol=0)
+        _check_backward(q, k, v, v.flip(2), causal)
+
+
+def test_attention_padded_head_grad_reaches_the_qkv_projection(cuda):
+    """One autograd run from a loss back to a bf16 qkv projection's weight
+    at Dh = 32 (padded) and Dh = 80 (wide): the qkv activations' gradient
+    equals the plain version's at BWD_TOL, and the weight's points as its
+    does (cosine >= 0.999)."""
+    for dh, variant in ((32, "bf16"), (80, "bf16_wide")):
+        h, width = 2, 2 * dh
+        gen = _gen(cuda, dh)
+        x = torch.randn((4, 77, width), generator=gen, device=cuda).to(torch.bfloat16)
+        w0 = (torch.randn((3 * width, width), generator=gen, device=cuda)
+              / width ** 0.5).to(torch.bfloat16)
+        target = torch.randn((4, 77, width), generator=gen, device=cuda)
+        grads = []
+        for fn in (attention, attention_reference):
+            w = w0.clone().requires_grad_(True)
+            qkv = (x @ w.t()).view(4, 77, 3, h, dh)
+            qkv.retain_grad()
+            out = fn(*(qkv[:, :, i].transpose(1, 2) for i in range(3)), True)
+            bwd0 = att_mod.BWD_KERNEL.launches[variant]
+            (out.transpose(1, 2).reshape(4, 77, width).float() * target).sum().backward()
+            torch.cuda.synchronize()
+            assert att_mod.BWD_KERNEL.launches[variant] == bwd0 + (fn is attention)
+            grads.append((qkv.grad.float(), w.grad.float()))
+        (g_qkv, g_w), (r_qkv, r_w) = grads
+        atol, rtol = BWD_TOL[torch.bfloat16]
+        torch.testing.assert_close(g_qkv, r_qkv, atol=atol, rtol=rtol)
+        cos = float((g_w * r_w).sum() / (g_w.norm() * r_w.norm()))
+        assert cos >= 0.999, (dh, cos)
+
+
+# tests/test_api_surface.py's tiny config: text width 64 over 2 heads (Dh =
+# 32), vision width 64 (one head of 64)
+_API_CFG = dict(embed_dim=64, image_resolution=32, vision_layers=2, vision_width=64,
+                vision_patch_size=16, transformer_width=64, transformer_heads=2,
+                transformer_layers=2)
+
+
+def test_api_surface_tiny_config_engine_card_matches_cpu(cuda):
+    """The JAX tests' tiny config, whose text tower has Dh = 32, through
+    ComposedQueryEngine on the card: f32 (the f32 kernel takes Dh = 32
+    itself) equals the CPU's f32, and bf16 (padded to 64, counted) points
+    as it does."""
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.engine import ComposedQueryEngine
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    cfg = ClipConfig(**_API_CFG)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=7,
+                                    device="cpu")
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)]
+    text = np.zeros((4, 77), np.int32)
+    text[:, :6] = [49406, 320, 1125, 539, 265, 267]
+    text[:, 6:12] = rng.integers(1000, 40000, (4, 6))
+    text[:, 12] = 49407
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), (cuda, torch.float32), (cuda, torch.bfloat16)):
+        ddb = KnowledgeDB(db.image_db.to(dev, dtype), db.text_db.to(dev, dtype), db.names)
+        eng = ComposedQueryEngine(cast_floating(params, dtype, dev), cfg,
+                                  cast_floating(heads, torch.float32, dev), ddb,
+                                  split_id=265, compute_dtype=dtype, db_topk=8,
+                                  encode_chunk=2, device=dev)
+        pads = att_mod.KERNEL.pads["bf16_tc"]
+        out[(str(dev), dtype)] = eng.compose(images, [text])
+        if dtype == torch.bfloat16:
+            torch.cuda.synchronize()
+            assert att_mod.KERNEL.pads["bf16_tc"] > pads
+    cpu = out[("cpu", torch.float32)]
+    np.testing.assert_allclose(out[("cuda", torch.float32)], cpu, atol=1e-4)
+    card = np.asarray(out[("cuda", torch.bfloat16)], np.float64)
+    cos = (card * cpu).sum(-1) / np.linalg.norm(card, axis=-1) / np.linalg.norm(cpu, axis=-1)
+    assert cos.min() >= 0.99, cos
+
+
+def test_api_surface_tiny_config_bf16_train_step_card_matches_cpu(cuda):
+    """One bf16 image-stream train step of the tiny config on the card (the
+    text tower's forward and backward padded from Dh = 32, counted) against
+    the CPU's f32 step: loss within 1 %, head gradients' cosine >= 0.99
+    (train_check's limits)."""
+    from types import SimpleNamespace
+
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
+    from keds_tpu_torch.train.losses import TrainBatch
+    from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    cfg = ClipConfig(**_API_CFG)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.float32, seed=9,
+                                    device="cpu")
+    img, cap = synth.feature_pairs(16, 64, 11, torch.device("cpu"))
+    # one neighbour set for both devices (a bf16 search may order near-ties
+    # otherwise)
+    q = img / img.norm(dim=1, keepdim=True)
+    idx = [mips_topk(q, a, 8)[1] for a in (db.image_db, db.text_db)]
+    ocfg = SimpleNamespace(lr=1e-3, beta1=0.9, beta2=0.98, eps=1e-6, wd=0.1, warmup=2,
+                           skip_scheduler=False)
+    prompt = np.zeros((1, 77), np.int64)
+    prompt[0, :5] = [49406, 320, 1125, 539, 49407]
+    out = {}
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.float32)):
+        h = cast_floating(heads, torch.float32, dev)
+        ddb = KnowledgeDB(db.image_db.to(dev, dtype), db.text_db.to(dev, dtype), db.names)
+        opt, sched = make_optimizer(ocfg, 10, h)
+        step = make_train_step(cast_floating(params, dtype, dev), cfg, Retriever(ddb), opt,
+                               sched, stream="image", prompt_tokens=prompt, split_id=265,
+                               dropout=0.0, db_topk=8, compute_dtype=dtype, device=dev)
+        fwd, bwd = att_mod.KERNEL.pads["bf16_tc"], att_mod.BWD_KERNEL.pads["bf16"]
+        loss = float(step(h, TrainBatch(img.to(dev), cap.to(dev), img_idx=idx[0].to(dev),
+                                        txt_idx=idx[1].to(dev)), 0))
+        grad = torch.cat([p.grad.detach().double().cpu().flatten()
+                          for p in h.img2text["layers"][0].values()])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert att_mod.KERNEL.pads["bf16_tc"] > fwd
+            assert att_mod.BWD_KERNEL.pads["bf16"] == bwd + cfg.transformer_layers
+        out[str(dev)] = loss, grad
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_card - l_cpu) <= 0.01 * abs(l_cpu)
+    assert float(g_card @ g_cpu) / float(g_card.norm() * g_cpu.norm()) >= 0.99
