@@ -221,7 +221,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            shapes the two configs below give the kernels, all causal: the
            wide one's engine batch at (64, 2, 32, 160) bf16 and its train
            steps' prompts at (64, 2, 8, 160) bf16 and f32, the tiny one's at
-           (64, 2, 8, 32) bf16 and f32 (the backward at those four); then two
+           (64, 2, 8, 32) bf16 and f32 (the backward at those four); the
+           main path's widths re-split into 128-wide heads in bf16, each
+           beside its Dh = 64 row of 2 (the same bytes): forward (16, 8,
+           257, 128), (64, 6, 32, 128) and (128, 6, 8, 128) causal, backward
+           (128, 6, 8, 128) and (256, 6, 32, 128) causal; then two
            tiny configs through the entry points (head_width_path):
            tests/test_api_surface.py's (text heads of 32) and the same with
            text heads of 160, each a bf16 engine batch of 64 composed
@@ -3720,8 +3724,15 @@ def main() -> int:
     # batch (S=32 prompts) and its train steps' prompts (S=8), bf16 and f32
     hw_path_cases = [(QUERY_BATCH, 2, 32, 160, bf16, True),
                      *((QUERY_BATCH, 2, 8, dh, dt, True) for dh in (160, 32) for dt in (bf16, f32))]
-    hw_att_rows = check_attention(head_width_cases + hw_path_cases)
-    hw_bwd_rows = check_attention_bwd(head_width_cases + hw_path_cases[1:])
+    # the main path's widths re-split into 128-wide heads (the same bytes as
+    # their Dh = 64 rows in step 2): ViT-L/14's vision chunk, the text
+    # tower's engine batch, the image stream's prompt, the neighbour templates
+    wide128_fwd = [(16, 8, 257, 128, bf16, False), (QUERY_BATCH, 6, 32, 128, bf16, True),
+                   (TRAIN_BATCH, 6, 8, 128, bf16, True)]
+    wide128_bwd = [(TRAIN_BATCH, 6, 8, 128, bf16, True),
+                   (2 * TRAIN_BATCH, 6, 32, 128, bf16, True)]
+    hw_att_rows = check_attention(head_width_cases + hw_path_cases + wide128_fwd)
+    hw_bwd_rows = check_attention_bwd(head_width_cases + hw_path_cases[1:] + wide128_bwd)
     hw_launches = {name: head_width_path(name, kernels) for name in HEAD_WIDTH_CFGS}
     preprocess_check()
     torch.cuda.empty_cache()

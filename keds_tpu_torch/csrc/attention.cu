@@ -15,12 +15,12 @@
 // the fused qkv projection's (B, S, 3, H, Dh) output are read in place and
 // the context is written straight into (B, S, H, Dh) order.
 //
-// Four designs: bf16 at Dh = 64 for S <= kMaxResident (K and V of a
+// Five designs: bf16 at Dh = 64 for S <= kMaxResident (K and V of a
 // (batch, head) whole in shared memory) and above it (K and V streamed in
-// key chunks), one f32 design at every S and Dh <= 128, and the wide-head
-// kernel for the widths no other takes.  None falls back to another;
-// bf16 heads narrower than 64 are zero-padded to it by the caller
-// (keds_attention_fwd_route says which route takes which width).
+// key chunks), bf16 above Dh = 64 (the wide-head tensor-core kernel), one
+// f32 design at every S and Dh <= 128, and f32 above it.  None falls back
+// to another; bf16 heads narrower than 64 are zero-padded to it by the
+// caller (keds_attention_fwd_route says which route takes which width).
 //
 // attention_tc (bf16, Dh = 64, S <= 288).  What bounds it on the H100: at
 // the vision chunk (16, 16, 257, 64) the function moves 34 MB and does 4.3
@@ -111,17 +111,43 @@
 // One design serves every S, so no resident route is kept: at S <= 64 the
 // ring holds the keys alone and a call is one stage.
 //
-// attention_wide<T> (bf16 above Dh = 64, f32 above 128, any S).  No CLIP
-// preset reaches it (every tower's heads are 64 wide); a custom config
-// does.  It is right first and simple: f32 FMA on CUDA cores, one element
-// loaded at a time (any stride and alignment), 64-column steps over the
-// head for q.k^T and 64 output columns a block (grid.z), so registers and
-// shared memory stay bounded at any width.  What bounds it on the H100:
-// the work is 4 B H S^2 Dh flops (causal: about half) on 4 B H S Dh
-// elements, but the kernel executes a shared-memory load for each FMA of
-// q.k^T, reads K twice (two passes, as the bf16 kernels, so P is
-// normalised before it is rounded) and repeats q.k^T in each column block,
-// so its shared-memory loads bound it far above either (PERF.md, its rows).
+// attention_wide_tc (bf16 above Dh = 64, any Dh and S).  No CLIP preset
+// reaches it (every tower's heads are 64 wide); a custom config does.  What
+// bounds it on the H100: at (4, 16, 257, 80) the function moves 10.5 MB
+// (0.0031 ms) and does 1.35 GFLOP (0.0014 ms), so bytes; as at Dh = 64, the
+// tile stream's latency sets the time.  The design is the tuned kernels'
+// (two passes, so P is normalised before it is rounded; mma.sync m16n8k16,
+// a warp owning 16 query rows with the softmax in its accumulators) made
+// to take any width at bounded cost:
+//   * The head dimension is zero-padded to a multiple of 16 in shared
+//     memory alone (cp.async's zero fill past Dh: no host copy), and cut
+//     into nd = ceil(Dh / 128) chunks (common.cuh, bf16 wide-head
+//     attention).  q.k^T sums over the chunks' 16-column steps in
+//     registers; a block writes the output columns of one chunk (grid.z),
+//     so O stays at most 16 x 128 f32 a warp.
+//   * A block takes up to eight 16-row query tiles, as even as the tiles
+//     allow; at nd = 1 its query rows are staged once.  K tiles of 64 keys
+//     (S rounded to 16 at most: S = 8 stages 16 rows; the live keys alone,
+//     and no causal tile past the block's last row) stream through a
+//     two-stage cp.async ring, one barrier an item, each over the nd chunks
+//     with the block's own chunk last, V's rows of that chunk arriving with
+//     it in pass 2 (and at nd > 1 the query rows' chunk with each).
+//   * Latency-bound, so resident warps an SM set the time: in trials on the
+//     card, four warps a block and a third ring stage lost occupancy to
+//     shared memory and ran slower at S = 257, 32-key tiles (more items)
+//     lost at Dh = 80, and a stage sized for 64 keys at S = 8 held four
+//     times the rows S needs.  164 registers; at S = 257, 61 KB (Dh = 80)
+//     and 94 KB (Dh = 128) a block of six warps, two blocks an SM; at most
+//     136 KB.
+//   * Rows must be 16-byte aligned; the caller copies others (Dh = 100:
+//     200-byte rows into 208).
+//
+// attention_wide (f32 above Dh = 128, any S).  Right first and simple: f32
+// FMA on CUDA cores, one element loaded at a time (any stride and
+// alignment), 64-column steps over the head for q.k^T and 64 output columns
+// a block (grid.z), so registers and shared memory stay bounded at any
+// width; its shared-memory loads bound it far above its bytes and
+// operations (PERF.md, its rows).
 
 #include "common.cuh"
 
@@ -878,19 +904,18 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
                                  stream);
 }
 
-// --- wide-head kernel (the widths no tuned kernel takes) --------------------
+// --- f32 wide-head kernel (f32 above Dh = 128) ------------------------------
 
 // A block takes kWideRows query rows of one (batch, head) and kWideCols of
-// the output's columns (common.cuh, wide-head attention).  Two passes over
-// 64-key tiles, as the bf16 kernels: each row's max and sum, then P =
-// exp2(c s - c m) / l rounded to T, into P.V over the block's columns.  The
-// scores q.k^T are f32 FMA over 64-column steps of q and K staged in shared
-// memory, so each pass reads K whole and every column block repeats them.
-template <typename T>
+// the output's columns (common.cuh, f32 wide-head attention).  Two passes
+// over 64-key tiles: each row's max and sum, then P = exp2(c s - c m) / l,
+// into P.V over the block's columns.  The scores q.k^T are f32 FMA over
+// 64-column steps of q and K staged in shared memory, so each pass reads K
+// whole and every column block repeats them.
 __global__ void __launch_bounds__(kWideThreads)
-attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, int H, int S, int Dh, Strides qs, Strides ks, Strides vs,
-               Strides os, int causal, float c) {
+attention_wide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int H, int S, int Dh,
+               Strides qs, Strides ks, Strides vs, Strides os, int causal, float c) {
   __shared__ float q_s[kWideRows * kWidePitch], k_s[kWideTile * kWidePitch],
       p_s[kWideRows * kWidePitch];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -899,9 +924,9 @@ attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int lim = causal ? min(S, r0 + r + 1) : S;      // keys < lim are live for the row
   // every tile starts at a key <= r0, live for each of the block's rows
   const int n_tiles = ((causal ? min(S, r0 + kWideRows) : S) + kWideTile - 1) / kWideTile;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
 
   float s[8];
   auto scores = [&](int key0) {                  // s[j] = q_row . k_(key0 + t8 + 8 j)
@@ -943,27 +968,237 @@ attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     __syncthreads();                             // k_s's readers are done
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      p_s[r * kWidePitch + t8 + 8 * j] = round_to<T>(exp2f(fmaf(s[j], c, -mc)) * inv_l);
+      p_s[r * kWidePitch + t8 + 8 * j] = exp2f(fmaf(s[j], c, -mc)) * inv_l;
     wide_load(k_s, vb + c0, vs.s, key0, kWideTile, S, 0, Dh - c0);   // V's block columns
     __syncthreads();
     wide_acc(acc, p_s + r * kWidePitch, k_s, t8);
   }
   const int row = r0 + r;
   if (row >= S) return;
-  T* orow = o + b * os.b + h * os.h + row * os.s;
+  float* orow = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    if (c0 + t8 + 8 * j < Dh) orow[c0 + t8 + 8 * j] = from_f32<T>(acc[j]);
+    if (c0 + t8 + 8 * j < Dh) orow[c0 + t8 + 8 * j] = acc[j];
 }
 
-template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
                 int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal, float scale,
                 cudaStream_t stream) {
   const dim3 grid(B * H, (S + kWideRows - 1) / kWideRows, (Dh + kWideCols - 1) / kWideCols);
-  attention_wide<T><<<grid, kWideThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, S, Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f);
+  attention_wide<<<grid, kWideThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, S, Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// --- bf16 wide-head kernel (bf16 above Dh = 64, tensor cores) ----------------
+
+constexpr int kWideWarps = 8;                // 16-row query tiles a block at most
+constexpr int kWideKeys = 64;                // keys a streamed tile at most
+constexpr int kWideNK = kWideKeys / 16;
+// Elements of a ring stage: a K tile and a V tile of `keys` rows, and at
+// nd > 1 the block's `rows` query rows of the item's chunk.
+__host__ __device__ inline int wide_stage_elems(const WideChunks& ch, int rows, int keys) {
+  return (2 * keys + (ch.nd > 1 ? rows : 0)) * ch.pitch();
+}
+
+// Dynamic shared bytes of a block: a two-stage ring, and at nd = 1 the
+// query rows.
+inline int wide_smem_bytes(const WideChunks& ch, int rows, int keys) {
+  return static_cast<int>(sizeof(bf16)) *
+         (2 * wide_stage_elems(ch, rows, keys) + (ch.nd > 1 ? 0 : rows * ch.pitch()));
+}
+
+// A block takes up to kWideWarps 16-row query tiles of one (batch, head),
+// a warp each, and writes the output columns of chunk blockIdx.z (common.cuh,
+// bf16 wide-head attention).  Its items, in order: pass 1's key tiles, then
+// pass 2's, each over the nd chunks with the block's own chunk last.  A
+// two-stage cp.async ring, filled one item ahead (one barrier an item),
+// holds an item's K chunk (`keys` rows a tile, the live keys alone), at nd
+// > 1 the query rows' chunk (at nd = 1 they are staged once), and at pass
+// 2's last chunk V's rows of the block's chunk.  s = q k^T accumulates over
+// the chunks in registers; at a tile's last chunk pass 1 takes each row's
+// max and sum, and pass 2 forms P = exp2(c s - c m) / l, rounds it to bf16
+// in the mma A-fragment layout and accumulates P.V.  pairs: o's rows take
+// 4-byte stores.
+__global__ void __launch_bounds__(32 * kWideWarps)
+attention_wide_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S, int Dh,
+                  Strides qs, Strides ks, Strides vs, Strides os, int causal, float c,
+                  int keys, int pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WideChunks ch(Dh);
+  const int P = ch.pitch(), nd = ch.nd, z = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int tiles16 = (S + 15) / 16;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, tiles16);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, tiles16);
+  const int r_first = u_first * 16, n_rows = (u_end - u_first) * 16;
+  const int rows = blockDim.x / 32 * 16;         // query rows a stage holds
+  const int block_keys = causal ? min(S, u_end * 16) : S;   // keys any of its rows sees
+  const int n_tiles = (block_keys + keys - 1) / keys;
+  const int per_pass = n_tiles * nd, n_items = 2 * per_pass;
+  const int stage_elems = wide_stage_elems(ch, rows, keys);
+  bf16* q_res = reinterpret_cast<bf16*>(smem);   // nd = 1: the query rows
+  bf16* ring = q_res + (nd > 1 ? 0 : rows * P);
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+
+  // item it's copies (every thread), one commit group an item, empty past
+  // the last
+  auto load = [&](int it) {
+    if (it < n_items) {
+      bf16* st = ring + (it & 1) * stage_elems;
+      const WideItem w(it, n_tiles, nd, z);
+      const int k0 = w.tile * keys, c0 = ch.begin(w.chunk), wd = ch.width(w.chunk);
+      const int n_keys = (min(keys, block_keys - k0) + 15) & ~15;
+      chunk_async(st, P, kb, ks.s, k0, n_keys, S, c0, wd, Dh);
+      if (it >= per_pass && w.i == nd - 1)
+        chunk_async(st + keys * P, P, vb, vs.s, k0, n_keys, S, c0, wd, Dh);
+      if (nd > 1) chunk_async(st + 2 * keys * P, P, qb, qs.s, r_first, n_rows, S, c0, wd, Dh);
+    }
+    cp_async_commit();
+  };
+  if (nd == 1) chunk_async(q_res, P, qb, qs.s, r_first, n_rows, S, 0, ch.width(0), Dh);
+  load(0);
+
+  const int unit = u_first + warp;
+  const bool live = unit < u_end;
+  const int r0 = unit * 16;
+  const int lim_a = causal ? min(S, r0 + g + 1) : S;   // keys < lim are live for the row
+  const int lim_b = causal ? min(S, r0 + g + 9) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;    // the least of the rows' limits
+  const int warp_keys = !live ? 0 : causal ? min(S, r0 + 16) : S;
+  const int zc0 = ch.begin(z), z16 = ch.width(z) / 16;
+
+  float s[kWideNK][2][4], acc[2 * kWideUnits][4];
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 2 * kWideUnits; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<0>();                          // item it has landed ...
+    __syncthreads();                             // ... for every thread; it - 1 is done
+    load(it + 1);                                // into it - 1's stage
+    if (it == per_pass) {                        // pass 1's statistics: m c and 1 / l
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        l[half] += __shfl_xor_sync(kFullMask, l[half], 1);
+        l[half] += __shfl_xor_sync(kFullMask, l[half], 2);
+        m[half] *= c;
+        l[half] = 1.f / l[half];
+      }
+    }
+    const bf16* st = ring + (it & 1) * stage_elems;
+    const WideItem w(it, n_tiles, nd, z);
+    const int k0 = w.tile * keys;
+    const int live16 = min(keys / 16, (warp_keys - k0 + 15) / 16);   // warp-uniform
+    if (live16 <= 0) continue;
+    if (w.i == 0) {
+#pragma unroll
+      for (int kb = 0; kb < kWideNK; ++kb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[kb][nt][e] = 0.f;
+    }
+    const bf16* a = nd > 1 ? st + (2 * keys + warp * 16) * P : q_res + warp * 16 * P;
+    mma_abt_rows<kWideNK>(s, a, P, st, P, ch.width(w.chunk) / 16, live16, lane);
+    if (w.i < nd - 1) continue;                  // the tile's scores are whole at its last chunk
+    if (k0 + 16 * live16 > lim_warp) {           // some key reaches a row's limit: mask
+#pragma unroll
+      for (int kb = 0; kb < kWideNK; ++kb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + kb * 16 + nt * 8 + 2 * t + (e % 2) >= (e < 2 ? lim_a : lim_b))
+              s[kb][nt][e] = -CUDART_INF_F;
+    }
+    if (it < per_pass) {
+      // the quad's threads share their rows' max; the sum so far is
+      // rescaled once a tile (every row has a live key in the first)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = -CUDART_INF_F;
+#pragma unroll
+        for (int kb = 0; kb < kWideNK; ++kb)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            if (kb < live16) x = fmaxf(x, fmaxf(s[kb][nt][2 * half], s[kb][nt][2 * half + 1]));
+        x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+        const float mn = fmaxf(m[half], x), mcr = mn * c;
+        float sum = l[half] * exp2_ftz(fmaf(m[half], c, -mcr));
+#pragma unroll
+        for (int kb = 0; kb < kWideNK; ++kb)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            if (kb < live16)
+              sum += exp2_ftz(fmaf(s[kb][nt][2 * half], c, -mcr)) +
+                     exp2_ftz(fmaf(s[kb][nt][2 * half + 1], c, -mcr));
+        l[half] = sum;
+        m[half] = mn;
+      }
+      continue;
+    }
+    // P = exp2(c s - c m) / l rounded to bf16 (0 where masked), then P.V over
+    // the block's columns
+#pragma unroll
+    for (int kb = 0; kb < kWideNK; ++kb) {
+      if (kb >= live16) break;
+      float p[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[nt][e] = exp2_ftz(fmaf(s[kb][nt][e], c, -m[e / 2])) * l[e / 2];
+      unsigned pa[4];
+      c_to_a_bf16(p, pa);
+      mma_ab_rows(acc, pa, st + (keys + kb * 16) * P, P, z16, lane);
+    }
+  }
+  if (live)
+    wide_store(o + b * os.b + h * os.h, os.s, acc, 1.f, r0 + g, S, zc0,
+               min(Dh, zc0 + 16 * z16), pairs, t);
+}
+
+int launch_wide_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+                   int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                   float scale, cudaStream_t stream) {
+  // 16-byte cp.async rows of q, k and v (the caller copies others)
+  const void* in[3] = {q, k, v};
+  const Strides* st[3] = {&qs, &ks, &vs};
+  for (int i = 0; i < 3; ++i)
+    if (!aligned(in[i], 16) || st[i]->b % 8 || st[i]->s % 8 || st[i]->h % 8)
+      return cudaErrorInvalidValue;
+  static int smem_set[64];
+  // the most any width takes: two 128-column chunks (Dh = 256), 128 query
+  // rows and 64 keys (136 KB)
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_wide_tc),
+                                     wide_smem_bytes(WideChunks(256), 16 * kWideWarps, kWideKeys),
+                                     smem_set);
+  if (err != cudaSuccess) return err;
+  // a block per (batch, head), up to kWideWarps 16-row tiles of its queries
+  // as even as the tiles allow, and chunk z of the output's columns; tiles
+  // of up to kWideKeys keys, S rounded to 16 at most
+  const WideChunks ch(Dh);
+  const int tiles16 = (S + 15) / 16;
+  const int keys = min(kWideKeys, (S + 15) & ~15);
+  const int blocks_y = (tiles16 + kWideWarps - 1) / kWideWarps;
+  const int warps = (tiles16 + blocks_y - 1) / blocks_y;
+  const int pairs = Dh % 2 == 0 && aligned(o, 4) && os.b % 2 == 0 && os.s % 2 == 0 &&
+                    os.h % 2 == 0;
+  attention_wide_tc<<<dim3(B * H, blocks_y, ch.nd), 32 * warps,
+                       wide_smem_bytes(ch, 16 * warps, keys), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), H, S, Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f,
+      keys, pairs);
   return cudaGetLastError();
 }
 
@@ -1006,6 +1241,6 @@ extern "C" int keds_attention_fwd(const void* q, const void* k, const void* v,
   if (route == kRouteTc)
     return launch_tc(q, k, v, o, B, H, S, qs, ks, vs, os, causal, scale, st);
   return dtype == kFloat32
-             ? launch_wide<float>(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st)
-             : launch_wide<bf16>(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);
+             ? launch_wide(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st)
+             : launch_wide_tc(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);
 }

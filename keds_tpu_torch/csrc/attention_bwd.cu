@@ -120,19 +120,48 @@
 //     blocks an SM by registers; the streamed launches' shared memory:
 //     102 KB and 104 KB at four tiles).
 
-// attention_bwd_wide_dq and attention_bwd_wide_dkv (bf16 or f32 above Dh =
-// 64, any S; narrower heads are zero-padded to 64 by the caller and take
-// the kernels above).  No CLIP preset reaches them.  Two launches without
-// atomics, as the streamed routes: dq per 16 query rows (two sweeps over
-// 64-key tiles: the statistics m, l and D, then dS = P (round(dP) - D)
-// into dq), writing m c, 1 / l and D to an f32 workspace; then dk and dv
-// per 16 key rows, P^T and dP^T recomputed from the workspace's
-// statistics.  The VJP's roundings are the resident kernel's (P rounded
-// for dV, dP = dO V^T rounded to the input type); dS stays f32 (f32 FMA
-// keeps it whole).  Each block writes 64 of the gradients' columns
-// (grid.z) and recomputes q k^T and dO V^T over the whole width, in f32
-// FMA with a shared-memory load each (common.cuh, wide-head attention):
-// right first, bound by its shared-memory loads (PERF.md, its rows).
+// attention_bwd_wide_tc_dq and attention_bwd_wide_tc_dkv (bf16 above Dh =
+// 64, any Dh and S; narrower heads are zero-padded to 64 by the caller and
+// take the kernels above).  No CLIP preset reaches them; a custom config
+// does.  What bounds them on the H100: at (4, 16, 257, 80) the function
+// moves 18.4 MB (0.0055 ms) and does 3.4 GFLOP, so bytes; as at Dh = 64,
+// the tile stream's latency and the VJP's 11 products of 2 S^2 Dh set the
+// time.  The streamed routes' design (two launches, no atomics, the same
+// per-element arithmetic: round(P) for dV, dP rounded to bf16, dS as hi +
+// lo bf16 terms) made to take any width at bounded cost, as the forward's
+// attention_wide_tc (attention.cu):
+//   * The head dimension is zero-padded to a multiple of 16 in shared
+//     memory alone and cut into nd = ceil(Dh / 128) chunks (common.cuh);
+//     the products over the width (s = q k^T and dP = dO V^T) sum over the
+//     chunks in registers, and a block writes the gradients' columns of
+//     one chunk (grid.z), so dQ (or dK and dV) stay at most 16 x 128 f32
+//     a warp each.
+//   * dq: a block takes up to four 16-row query tiles, its q and dO rows
+//     staged once at nd = 1; K and V stream through a two-stage cp.async
+//     ring (one barrier an item) in tiles of 64 keys (S rounded to 16 at
+//     most; the live keys alone), each over the nd chunks with the block's
+//     own chunk last, twice: the statistics m, l and D, then dS = P
+//     (round(dP) - D) into dQ.  It writes m c, 1 / l and D to an f32
+//     workspace (S rows a (batch, head) and statistic).
+//   * dkv: a block takes up to four 16-row key tiles, its K and V rows
+//     staged once at nd = 1; the query rows that see them (from the
+//     block's first key when causal) stream in tiles of 32 with their dO
+//     rows and, at a tile's last chunk, their statistics; P^T and dP^T are
+//     recomputed and dV += round(P)^T dO, dK += scale dS^T q, 16 queries at
+//     a time.
+//   * In trials on the card dq's 64-key tiles beat 32 (and 32 beat 16);
+//     eight warps a block and a third ring stage moved nothing.  219
+//     registers (dq) and 241 (dkv: two 16 x 128 accumulators), no spills,
+//     two blocks an SM; at most 136 KB and 103 KB of shared memory.  Rows
+//     must be 16-byte aligned; the caller copies others.
+
+// attention_bwd_wide_dq and attention_bwd_wide_dkv (f32 above Dh = 64).
+// The same two launches on CUDA cores: dq per 16 query rows (two sweeps
+// over 64-key tiles), then dk and dv per 16 key rows; each block writes 64
+// of the gradients' columns (grid.z) and recomputes q k^T and dO V^T over
+// the whole width, in f32 FMA with a shared-memory load each (common.cuh,
+// f32 wide-head attention): right first, bound by its shared-memory loads
+// (PERF.md, its rows).
 
 #include "common.cuh"
 
@@ -1485,7 +1514,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, vo
   return cudaGetLastError();
 }
 
-// --- wide-head kernels (Dh > kHeadDim, f32 or bf16) -------------------------
+// --- f32 wide-head kernels (f32 above Dh = kHeadDim) -------------------------
 
 // Shared floats of a wide block: its kWideRows rows of two tensors (a, c),
 // then a tile of kWideTile rows of two more (b, d).
@@ -1494,11 +1523,10 @@ constexpr int kWideSmem = (2 * kWideRows + 2 * kWideTile) * kWidePitch;
 // x[j] = a_row . b_(b0 + t8 + 8 j) and y[j] = c_row . d_(b0 + t8 + 8 j)
 // over the whole head width, the block's rows from row a0 (a and c) against
 // the tile's (b and d), staged 64 columns at a time.
-template <typename T>
 __device__ __forceinline__ void wide_products(float (&x)[8], float (&y)[8], float* sm,
-                                              const T* a, long long as, const T* c,
-                                              long long cs, int a0, const T* b, long long bs,
-                                              const T* d, long long ds, int b0, int S, int Dh) {
+                                              const float* a, long long as, const float* c,
+                                              long long cs, int a0, const float* b, long long bs,
+                                              const float* d, long long ds, int b0, int S, int Dh) {
   float* a_s = sm;
   float* c_s = a_s + kWideRows * kWidePitch;
   float* b_s = c_s + kWideRows * kWidePitch;
@@ -1520,17 +1548,16 @@ __device__ __forceinline__ void wide_products(float (&x)[8], float (&y)[8], floa
 
 // dq: a block takes kWideRows query rows and kWideCols of dq's columns.
 // Sweep 1 over 64-key tiles takes each row's max m, sum l and D = sum_j P_j
-// round(dP_j) (D's sum rescaled with l as m grows); the column block 0
+// dP_j (D's sum rescaled with l as m grows); the column block 0
 // writes m c, 1 / l and D to the workspace (3 x BH x S floats).  Sweep 2
-// forms dS = P (round(dP) - D) into dq = scale dS K over the block's
+// forms dS = P (dP - D) into dq = scale dS K over the block's
 // columns.  s = q k^T and dP = dO v^T are f32 FMA over the whole width.
-template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
-attention_bwd_wide_dq(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
-                      float* __restrict__ stats, int BH, int H, int S, int Dh, Strides qs,
-                      Strides ks, Strides vs, Strides gs, Strides dqs, int causal, float scale,
-                      float c) {
+attention_bwd_wide_dq(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      float* __restrict__ dq, float* __restrict__ stats, int BH, int H, int S,
+                      int Dh, Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs,
+                      int causal, float scale, float c) {
   __shared__ float sm[kWideSmem];
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int r0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
@@ -1538,10 +1565,10 @@ attention_bwd_wide_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int lim = causal ? min(S, row + 1) : S;          // keys < lim are live for the row
   // every tile starts at a key <= r0, live for each of the block's rows
   const int n_tiles = ((causal ? min(S, r0 + kWideRows) : S) + kWideTile - 1) / kWideTile;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* gb = dout + b * gs.b + h * gs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const float* gb = dout + b * gs.b + h * gs.h;
 
   float s[8], dp[8];
   auto products = [&](int key0) {
@@ -1565,7 +1592,7 @@ attention_bwd_wide_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
       const float e = exp2f(fmaf(s[j], c, -mcn));
       l += e;
-      dsum = fmaf(e, round_to<T>(dp[j]), dsum);
+      dsum = fmaf(e, dp[j], dsum);
     }
     m = mn;
   }
@@ -1589,29 +1616,29 @@ attention_bwd_wide_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float p = exp2f(fmaf(s[j], c, -mc)) * inv_l;
-      ds_s[r * kWidePitch + t8 + 8 * j] = p * (round_to<T>(dp[j]) - D);
+      ds_s[r * kWidePitch + t8 + 8 * j] = p * (dp[j] - D);
     }
     wide_load(k_s, kb + c0, ks.s, key0, kWideTile, S, 0, Dh - c0);
     __syncthreads();
     wide_acc(acc, ds_s + r * kWidePitch, k_s, t8);
   }
   if (row >= S) return;
-  T* out = dq + b * dqs.b + h * dqs.h + row * dqs.s;
+  float* out = dq + b * dqs.b + h * dqs.h + row * dqs.s;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    if (c0 + t8 + 8 * j < Dh) out[c0 + t8 + 8 * j] = from_f32<T>(acc[j] * scale);
+    if (c0 + t8 + 8 * j < Dh) out[c0 + t8 + 8 * j] = acc[j] * scale;
 }
 
 // dk and dv: a block takes kWideRows key rows and kWideCols of the columns,
 // and sweeps the 64-query tiles (from the tile of its first key when
 // causal) with the workspace's statistics: P^T and dP^T recomputed over the
-// whole width, dv += round(P)^T dO and dk += scale dS^T q over the block's
+// whole width, dv += P^T dO and dk += scale dS^T q over the block's
 // columns.
-template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
-attention_bwd_wide_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
+attention_bwd_wide_dkv(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       const float* __restrict__ stats,
                        int BH, int H, int S, int Dh, Strides qs, Strides ks, Strides vs,
                        Strides gs, Strides dks, Strides dvs, int causal, float scale, float c) {
   __shared__ float sm[kWideSmem];
@@ -1619,14 +1646,14 @@ attention_bwd_wide_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int j0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
   const int r = threadIdx.x / 8, t8 = threadIdx.x % 8, key = j0 + r;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* gb = dout + b * gs.b + h * gs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const float* gb = dout + b * gs.b + h * gs.h;
   const long long n = static_cast<long long>(BH) * S;
   const float* sb = stats + static_cast<long long>(bh) * S;
 
-  float* p_s = sm;                                  // the block's rows of round(P)^T
+  float* p_s = sm;                                  // the block's rows of P^T
   float* ds_s = sm + kWideRows * kWidePitch;        // and of dS^T
   float* q_s = sm + 2 * kWideRows * kWidePitch;     // the tile's q and dO, the block's columns
   float* g_s = q_s + kWideTile * kWidePitch;
@@ -1648,8 +1675,8 @@ attention_bwd_wide_dkv(const T* __restrict__ q, const T* __restrict__ k,
       const int qi = t8 + 8 * j, qq = i0 + qi;
       const bool live = qq < S && (!causal || qq >= key);
       const float p = live ? exp2f(fmaf(s[j], c, -st[qi])) * st[kWideTile + qi] : 0.f;
-      p_s[r * kWidePitch + qi] = round_to<T>(p);
-      ds_s[r * kWidePitch + qi] = p * (round_to<T>(dp[j]) - st[2 * kWideTile + qi]);
+      p_s[r * kWidePitch + qi] = p;
+      ds_s[r * kWidePitch + qi] = p * (dp[j] - st[2 * kWideTile + qi]);
     }
     wide_load(q_s, qb + c0, qs.s, i0, kWideTile, S, 0, Dh - c0);
     wide_load(g_s, gb + c0, gs.s, i0, kWideTile, S, 0, Dh - c0);
@@ -1658,34 +1685,451 @@ attention_bwd_wide_dkv(const T* __restrict__ q, const T* __restrict__ k,
     wide_acc(ak, ds_s + r * kWidePitch, q_s, t8);
   }
   if (key >= S) return;
-  T* dv_row = dv + b * dvs.b + h * dvs.h + key * dvs.s;
-  T* dk_row = dk + b * dks.b + h * dks.h + key * dks.s;
+  float* dv_row = dv + b * dvs.b + h * dvs.h + key * dvs.s;
+  float* dk_row = dk + b * dks.b + h * dks.h + key * dks.s;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = c0 + t8 + 8 * j;
     if (col < Dh) {
-      dv_row[col] = from_f32<T>(av[j]);
-      dk_row[col] = from_f32<T>(ak[j] * scale);
+      dv_row[col] = av[j];
+      dk_row[col] = ak[j] * scale;
     }
   }
 }
 
-template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, const void* dout, void* dq,
                 void* dk, void* dv, int BH, int H, int S, int Dh, const Strides* st, int causal,
                 float scale, float* stats, cudaStream_t stream) {
   const dim3 grid(BH, (S + kWideRows - 1) / kWideRows, (Dh + kWideCols - 1) / kWideCols);
   const float c = scale * 1.4426950408889634f;
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-          *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(dout);
-  attention_bwd_wide_dq<T><<<grid, kWideThreads, 0, stream>>>(
-      qt, kt, vt, gt, static_cast<T*>(dq), stats, BH, H, S, Dh, st[0], st[1], st[2], st[3],
+  const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
+              *vt = static_cast<const float*>(v), *gt = static_cast<const float*>(dout);
+  attention_bwd_wide_dq<<<grid, kWideThreads, 0, stream>>>(
+      qt, kt, vt, gt, static_cast<float*>(dq), stats, BH, H, S, Dh, st[0], st[1], st[2], st[3],
       st[4], causal, scale, c);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_wide_dkv<T><<<grid, kWideThreads, 0, stream>>>(
-      qt, kt, vt, gt, static_cast<T*>(dk), static_cast<T*>(dv), stats, BH, H, S, Dh, st[0],
-      st[1], st[2], st[3], st[5], st[6], causal, scale, c);
+  attention_bwd_wide_dkv<<<grid, kWideThreads, 0, stream>>>(
+      qt, kt, vt, gt, static_cast<float*>(dk), static_cast<float*>(dv), stats, BH, H, S, Dh,
+      st[0], st[1], st[2], st[3], st[5], st[6], causal, scale, c);
+  return cudaGetLastError();
+}
+
+// --- bf16 wide-head kernels (bf16 above Dh = kHeadDim, tensor cores) ----------
+
+constexpr int kWideWarps = 4;                 // 16-row tiles a block at most
+constexpr int kWideDqTile16 = 4;              // 16-row groups of dq's streamed tile at most
+constexpr int kWideTile16 = 2;                // ... and of dkv's (two accumulators a warp)
+
+// Elements of a ring stage: the streamed tile's two operands (dq: K and V;
+// dkv: q and dO) of `tile` rows and, at nd > 1, the block's `rows` rows of
+// its own two operands' chunk (at nd = 1 they are staged once); dkv adds
+// three statistics a streamed row (`extra` elements).
+__host__ __device__ inline int wide_stage_elems(const WideChunks& ch, int rows, int tile,
+                                                int extra) {
+  return (2 * tile + (ch.nd > 1 ? 2 * rows : 0)) * ch.pitch() + extra;
+}
+// bf16 elements that hold 3 floats a streamed row
+__host__ __device__ constexpr int wide_dkv_extra(int tile) { return 3 * tile * 2; }
+
+inline int wide_smem_bytes(const WideChunks& ch, int rows, int tile, int extra) {
+  return static_cast<int>(sizeof(bf16)) *
+         (2 * wide_stage_elems(ch, rows, tile, extra) +
+          (ch.nd > 1 ? 0 : 2 * rows * ch.pitch()));
+}
+
+// dq: a block takes up to kWideWarps 16-row query tiles of one (batch, head),
+// a warp each, and dq's columns of chunk blockIdx.z (common.cuh, bf16
+// wide-head attention).  K and V stream through a two-stage cp.async ring,
+// filled one item ahead (one barrier an item), in tiles of `tile` keys
+// (the live keys alone), each over the nd chunks, twice; the block's q and
+// dO rows are staged once at nd = 1, else with each item's chunk.  s = q k^T and
+// dP = dO V^T accumulate over the chunks in registers.  Sweep 1 takes each
+// row's max m, sum l and D = sum P round(dP) (D rescaled with l as m
+// grows); sweep 2 forms dS = P (round(dP) - D) as hi + lo bf16 terms into
+// dQ = scale dS K over the block's columns.  The column block 0 writes m c,
+// 1 / l and D (0 past S) to the workspace (3 x BH x S floats).
+__global__ void __launch_bounds__(32 * kWideWarps)
+attention_bwd_wide_tc_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         bf16* __restrict__ dq, float* __restrict__ stats, int BH, int H, int S,
+                         int Dh, Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs,
+                         int causal, float scale, int tile, int pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WideChunks ch(Dh);
+  const int P = ch.pitch(), nd = ch.nd, z = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tiles16 = (S + 15) / 16;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, tiles16);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, tiles16);
+  const int r_first = u_first * 16, n_rows = (u_end - u_first) * 16;
+  const int rows = blockDim.x / 32 * 16;
+  const int block_keys = causal ? min(S, u_end * 16) : S;
+  const int n_tiles = (block_keys + tile - 1) / tile;
+  const int per_sweep = n_tiles * nd, n_items = 2 * per_sweep;
+  const int stage_elems = wide_stage_elems(ch, rows, tile, 0);
+  bf16* own = reinterpret_cast<bf16*>(smem);     // nd = 1: q's rows, then dO's
+  bf16* ring = own + (nd > 1 ? 0 : 2 * rows * P);
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* gb = dout + b * gs.b + h * gs.h;
+
+  // item it's copies, one commit group an item (empty past the last): K's
+  // tile, V's, then (nd > 1) q's rows and dO's
+  auto load = [&](int it) {
+    if (it < n_items) {
+      bf16* st = ring + (it & 1) * stage_elems;
+      const WideItem w(it, n_tiles, nd, z);
+      const int k0 = w.tile * tile, c0 = ch.begin(w.chunk), wd = ch.width(w.chunk);
+      const int n_keys = (min(tile, block_keys - k0) + 15) & ~15;
+      chunk_async(st, P, kb, ks.s, k0, n_keys, S, c0, wd, Dh);
+      chunk_async(st + tile * P, P, vb, vs.s, k0, n_keys, S, c0, wd, Dh);
+      if (nd > 1) {
+        chunk_async(st + 2 * tile * P, P, qb, qs.s, r_first, n_rows, S, c0, wd, Dh);
+        chunk_async(st + (2 * tile + rows) * P, P, gb, gs.s, r_first, n_rows, S, c0, wd, Dh);
+      }
+    }
+    cp_async_commit();
+  };
+  if (nd == 1) {
+    chunk_async(own, P, qb, qs.s, r_first, n_rows, S, 0, ch.width(0), Dh);
+    chunk_async(own + rows * P, P, gb, gs.s, r_first, n_rows, S, 0, ch.width(0), Dh);
+  }
+  load(0);
+
+  const int unit = u_first + warp;
+  const bool live = unit < u_end;
+  const int r0 = unit * 16;
+  const int lim_a = causal ? min(S, r0 + g + 1) : S;   // keys < lim are live for the row
+  const int lim_b = causal ? min(S, r0 + g + 9) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;
+  const int warp_keys = !live ? 0 : causal ? min(S, r0 + 16) : S;
+  const int zc0 = ch.begin(z), z16 = ch.width(z) / 16;
+  const float c = scale * 1.4426950408889634f;
+
+  float s[kWideDqTile16][2][4], dp[kWideDqTile16][2][4], acc[2 * kWideUnits][4];
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 2 * kWideUnits; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<0>();                          // item it has landed ...
+    __syncthreads();                             // ... for every thread; it - 1 is done
+    load(it + 1);                                // into it - 1's stage
+    if (it == per_sweep) {                       // sweep 1's statistics
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          l[half] += __shfl_xor_sync(kFullMask, l[half], off);
+          dsum[half] += __shfl_xor_sync(kFullMask, dsum[half], off);
+        }
+        // rows >= S (and a warp with no rows): P = 0, and a finite m c for dkv
+        const bool row_live = live && r0 + g + 8 * half < S;
+        m[half] = row_live ? m[half] * c : 0.f;
+        l[half] = row_live ? 1.f / l[half] : 0.f;
+        dsum[half] *= l[half];
+      }
+    }
+    const bf16* st = ring + (it & 1) * stage_elems;
+    const WideItem w(it, n_tiles, nd, z);
+    const int k0 = w.tile * tile;
+    const int live16 = min(tile / 16, (warp_keys - k0 + 15) / 16);   // warp-uniform
+    if (live16 <= 0) continue;
+    if (w.i == 0) {
+#pragma unroll
+      for (int kb = 0; kb < kWideDqTile16; ++kb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[kb][nt][e] = dp[kb][nt][e] = 0.f;
+    }
+    const bf16* qa = nd > 1 ? st + (2 * tile + warp * 16) * P : own + warp * 16 * P;
+    const bf16* ga = qa + rows * P;
+    const int steps = (ch.width(w.chunk)) / 16;
+    mma_abt_rows<kWideDqTile16>(s, qa, P, st, P, steps, live16, lane);
+    mma_abt_rows<kWideDqTile16>(dp, ga, P, st + tile * P, P, steps, live16, lane);
+    if (w.i < nd - 1) continue;                  // the tile's products are whole at its last chunk
+    if (k0 + 16 * live16 > lim_warp) {           // some key reaches a row's limit: mask
+#pragma unroll
+      for (int kb = 0; kb < kWideDqTile16; ++kb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + kb * 16 + nt * 8 + 2 * t + (e % 2) >= (e < 2 ? lim_a : lim_b))
+              s[kb][nt][e] = -CUDART_INF_F;
+    }
+    if (it < per_sweep) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = -CUDART_INF_F;
+#pragma unroll
+        for (int kb = 0; kb < kWideDqTile16; ++kb)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            if (kb < live16) x = fmaxf(x, fmaxf(s[kb][nt][2 * half], s[kb][nt][2 * half + 1]));
+        x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+        const float mn = fmaxf(m[half], x);
+        const float mcr = mn == -CUDART_INF_F ? 0.f : mn * c;   // no live key yet
+        const float alpha = exp2_ftz(fmaf(m[half], c, -mcr));
+        float sum = l[half] * alpha, dd = dsum[half] * alpha;
+#pragma unroll
+        for (int kb = 0; kb < kWideDqTile16; ++kb)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 2 * half; e < 2 * half + 2; ++e)
+              if (kb < live16) {
+                const float p = exp2_ftz(fmaf(s[kb][nt][e], c, -mcr));
+                sum += p;
+                dd = fmaf(p, round_bf16(dp[kb][nt][e]), dd);
+              }
+        l[half] = sum;
+        dsum[half] = dd;
+        m[half] = mn;
+      }
+      continue;
+    }
+    // dS = P (round(dP) - D), P = exp2(c s - m c) / l (0 past a row's limit),
+    // as hi + lo bf16 terms into dQ over the block's columns
+#pragma unroll
+    for (int kb = 0; kb < kWideDqTile16; ++kb) {
+      if (kb >= live16) break;
+      float d[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_ftz(fmaf(s[kb][nt][e], c, -m[e / 2])) * l[e / 2];
+          d[nt][e] = p * (round_bf16(dp[kb][nt][e]) - dsum[e / 2]);
+        }
+      unsigned ha[4], la[4];
+      split_bf16(d, ha, la);
+      mma_ab2_rows(acc, ha, la, st + kb * 16 * P, P, z16, lane);
+    }
+  }
+  if (!live) return;
+  if (z == 0 && t == 0) {
+    const long long n = static_cast<long long>(BH) * S;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + g + 8 * half;
+      if (r >= S) continue;
+      const long long at = static_cast<long long>(bh) * S + r;
+      stats[at] = m[half];
+      stats[n + at] = l[half];
+      stats[2 * n + at] = dsum[half];
+    }
+  }
+  wide_store(dq + b * dqs.b + h * dqs.h, dqs.s, acc, scale, r0 + g, S, zc0,
+             min(Dh, zc0 + 16 * z16), pairs, t);
+}
+
+// dk and dv: a block takes up to kWideWarps 16-row tiles of keys of one
+// (batch, head), a warp each, and the columns of chunk blockIdx.z.  The
+// query rows (from the block's first key when causal) stream through the
+// ring with their dO rows in tiles of `tile`, each over the nd chunks,
+// once, and with the last chunk their statistics from dq's workspace; the
+// block's K and V rows are staged once at nd = 1, else with each item's
+// chunk.  P^T = exp2(c k q^T - m c) / l and dP^T = V dO^T accumulate over
+// the chunks; at a tile's last chunk dV += round(P)^T dO and dK += scale
+// dS^T q (dS as hi + lo) over the block's columns, 16 queries at a time.
+__global__ void __launch_bounds__(32 * kWideWarps)
+attention_bwd_wide_tc_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          const float* __restrict__ stats, int BH, int H, int S, int Dh,
+                          Strides qs, Strides ks, Strides vs, Strides gs, Strides dks,
+                          Strides dvs, int causal, float scale, int tile, int pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WideChunks ch(Dh);
+  const int P = ch.pitch(), nd = ch.nd, z = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tiles16 = (S + 15) / 16;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, tiles16);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, tiles16);
+  const int j_first = u_first * 16, n_rows = (u_end - u_first) * 16;
+  const int rows = blockDim.x / 32 * 16;
+  // query rows from q0: when causal no earlier row sees the block's keys
+  const int q0 = causal ? j_first : 0;
+  const int n_tiles = (S - q0 + tile - 1) / tile;
+  const int n_items = n_tiles * nd;
+  const int stats_at = (2 * tile + (nd > 1 ? 2 * rows : 0)) * P;   // in a stage
+  const int stage_elems = wide_stage_elems(ch, rows, tile, wide_dkv_extra(tile));
+  bf16* own = reinterpret_cast<bf16*>(smem);     // nd = 1: K's rows, then V's
+  bf16* ring = own + (nd > 1 ? 0 : 2 * rows * P);
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* gb = dout + b * gs.b + h * gs.h;
+  const long long n = static_cast<long long>(BH) * S;
+  const float* sb = stats + static_cast<long long>(bh) * S;
+
+  // item it's copies, one commit group an item (empty past the last): q's
+  // tile, dO's, (nd > 1) K's rows and V's, then the statistics
+  auto load = [&](int it) {
+    if (it < n_items) {
+      bf16* st = ring + (it & 1) * stage_elems;
+      const WideItem w(it, n_tiles, nd, z);
+      const int i0 = q0 + w.tile * tile, c0 = ch.begin(w.chunk), wd = ch.width(w.chunk);
+      const int n_q = (min(tile, S - i0) + 15) & ~15;
+      chunk_async(st, P, qb, qs.s, i0, n_q, S, c0, wd, Dh);
+      chunk_async(st + tile * P, P, gb, gs.s, i0, n_q, S, c0, wd, Dh);
+      if (nd > 1) {
+        chunk_async(st + 2 * tile * P, P, kb, ks.s, j_first, n_rows, S, c0, wd, Dh);
+        chunk_async(st + (2 * tile + rows) * P, P, vb, vs.s, j_first, n_rows, S, c0, wd, Dh);
+      }
+      if (w.i == nd - 1) {                       // mc, 1 / l and D, 0 past S
+        float* dst = reinterpret_cast<float*>(st + stats_at);
+        for (int e = threadIdx.x; e < 3 * tile; e += blockDim.x) {
+          const int which = e / tile, i = i0 + e % tile;
+          const bool in = i < S;
+          cp_async4(dst + e, sb + which * n + (in ? i : 0), in);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (nd == 1) {
+    chunk_async(own, P, kb, ks.s, j_first, n_rows, S, 0, ch.width(0), Dh);
+    chunk_async(own + rows * P, P, vb, vs.s, j_first, n_rows, S, 0, ch.width(0), Dh);
+  }
+  load(0);
+
+  const int unit = u_first + warp;
+  const bool live = unit < u_end;
+  const int c0w = unit * 16;                     // the warp's keys
+  const int ja = c0w + g, jb = ja + 8;
+  const int zc0 = ch.begin(z), z16 = ch.width(z) / 16;
+  const float c = scale * 1.4426950408889634f;
+
+  float stt[kWideTile16][2][4], dpt[kWideTile16][2][4];
+  float av[2 * kWideUnits][4], ak[2 * kWideUnits][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * kWideUnits; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<0>();                          // item it has landed ...
+    __syncthreads();                             // ... for every thread; it - 1 is done
+    load(it + 1);                                // into it - 1's stage
+    const bf16* st = ring + (it & 1) * stage_elems;
+    const WideItem w(it, n_tiles, nd, z);
+    const int i0 = q0 + w.tile * tile;
+    // the tile's live 16-query groups: below S, and (causal) not all before
+    // the warp's first key
+    const int first = causal && live ? max(0, min(tile / 16, (c0w - i0) / 16)) : 0;
+    const int n16 = !live ? 0 : min(tile / 16, (S - i0 + 15) / 16) - first;   // warp-uniform
+    if (n16 <= 0) continue;
+    if (w.i == 0) {
+#pragma unroll
+      for (int kb = 0; kb < kWideTile16; ++kb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) stt[kb][nt][e] = dpt[kb][nt][e] = 0.f;
+    }
+    const bf16* ka = nd > 1 ? st + (2 * tile + warp * 16) * P : own + warp * 16 * P;
+    const bf16* va = ka + rows * P;
+    const int steps = (ch.width(w.chunk)) / 16;
+    mma_abt_rows<kWideTile16>(stt, ka, P, st + first * 16 * P, P, steps, n16, lane);
+    mma_abt_rows<kWideTile16>(dpt, va, P, st + (tile + first * 16) * P, P, steps, n16, lane);
+    if (w.i < nd - 1) continue;                  // the tile's products are whole at its last chunk
+    const float* mc_s = reinterpret_cast<const float*>(st + stats_at);
+    const float* il_s = mc_s + tile;
+    const float* d_s = il_s + tile;
+#pragma unroll
+    for (int kb = 0; kb < kWideTile16; ++kb) {
+      if (kb >= n16) break;
+      const int qg = (first + kb) * 16;          // the group's first query in the tile
+      float p[2][4], d[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int ic = qg + nt * 8 + 2 * t;
+        const float2 mc = *reinterpret_cast<const float2*>(mc_s + ic);
+        const float2 il = *reinterpret_cast<const float2*>(il_s + ic);
+        const float2 dd = *reinterpret_cast<const float2*>(d_s + ic);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e % 2;
+          float pv = exp2_ftz(fmaf(stt[kb][nt][e], c, -(odd ? mc.y : mc.x))) *
+                     (odd ? il.y : il.x);
+          if (causal && (e < 2 ? ja : jb) > i0 + ic + odd) pv = 0.f;   // a key after a query
+          p[nt][e] = pv;
+          d[nt][e] = pv * (round_bf16(dpt[kb][nt][e]) - (odd ? dd.y : dd.x));
+        }
+      }
+      unsigned pa[4], ha[4], la[4];
+      c_to_a_bf16(p, pa);
+      split_bf16(d, ha, la);
+      mma_ab_rows(av, pa, st + (tile + qg) * P, P, z16, lane);
+      mma_ab2_rows(ak, ha, la, st + qg * P, P, z16, lane);
+    }
+  }
+  if (!live) return;
+  const int c_end = min(Dh, zc0 + 16 * z16);
+  wide_store(dv + b * dvs.b + h * dvs.h, dvs.s, av, 1.f, ja, S, zc0, c_end, pairs, t);
+  wide_store(dk + b * dks.b + h * dks.h, dks.s, ak, scale, ja, S, zc0, c_end, pairs, t);
+}
+
+int launch_wide_tc(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                   void* dk, void* dv, int BH, int H, int S, int Dh, const Strides* st,
+                   int causal, float scale, float* stats, cudaStream_t stream) {
+  // 16-byte cp.async rows of q, k, v and dO (the caller copies others);
+  // 4-byte stores where dq, dk and dv allow them
+  const void* in[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<unsigned long long>(in[i]) % 16 || st[i].b % 8 || st[i].s % 8 ||
+        st[i].h % 8)
+      return cudaErrorInvalidValue;
+  int pairs = Dh % 2 == 0;
+  const void* out[3] = {dq, dk, dv};
+  for (int i = 0; i < 3; ++i)
+    pairs = pairs && reinterpret_cast<unsigned long long>(out[i]) % 4 == 0 &&
+            st[4 + i].b % 2 == 0 && st[4 + i].s % 2 == 0 && st[4 + i].h % 2 == 0;
+  static int dq_set[64], dkv_set[64];
+  // the most any width takes: two 128-column chunks (Dh = 256), 64 rows
+  const WideChunks widest(256);
+  const int dq_most = 16 * kWideDqTile16, dkv_most = 16 * kWideTile16;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_wide_tc_dq),
+                               wide_smem_bytes(widest, 16 * kWideWarps, dq_most, 0), dq_set);
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(attention_bwd_wide_tc_dkv),
+                     wide_smem_bytes(widest, 16 * kWideWarps, dkv_most, wide_dkv_extra(dkv_most)),
+                     dkv_set);
+  if (err != cudaSuccess) return err;
+  // a block per (batch, head), up to kWideWarps 16-row tiles of its query
+  // (dq) or key (dkv) rows as even as the tiles allow, and chunk z of the
+  // gradients' columns; streamed tiles of S rounded to 16 at most
+  const WideChunks ch(Dh);
+  const int dq_tile = min(dq_most, (S + 15) & ~15), tile = min(dkv_most, (S + 15) & ~15);
+  const int tiles16 = (S + 15) / 16;
+  const int blocks_y = (tiles16 + kWideWarps - 1) / kWideWarps;
+  const int warps = (tiles16 + blocks_y - 1) / blocks_y;
+  const dim3 grid(BH, blocks_y, ch.nd);
+  const bf16 *qt = static_cast<const bf16*>(q), *kt = static_cast<const bf16*>(k),
+             *vt = static_cast<const bf16*>(v), *gt = static_cast<const bf16*>(dout);
+  attention_bwd_wide_tc_dq<<<grid, 32 * warps, wide_smem_bytes(ch, 16 * warps, dq_tile, 0),
+                             stream>>>(qt, kt, vt, gt, static_cast<bf16*>(dq), stats, BH, H, S,
+                                       Dh, st[0], st[1], st[2], st[3], st[4], causal, scale,
+                                       dq_tile, pairs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_wide_tc_dkv<<<grid, 32 * warps,
+                              wide_smem_bytes(ch, 16 * warps, tile, wide_dkv_extra(tile)),
+                              stream>>>(
+      qt, kt, vt, gt, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, BH, H, S, Dh,
+      st[0], st[1], st[2], st[3], st[5], st[6], causal, scale, tile, pairs);
   return cudaGetLastError();
 }
 
@@ -1780,10 +2224,10 @@ extern "C" int keds_attention_bwd(const void* q, const void* k, const void* v,
   float* ws = static_cast<float*>(workspace);
   if (route == kRouteWide)
     return dtype == kFloat32
-               ? launch_wide<float>(q, k, v, dout, dq, dk, dv, B * H, H, S, Dh, st, causal,
-                                    scale, ws, s)
-               : launch_wide<bf16>(q, k, v, dout, dq, dk, dv, B * H, H, S, Dh, st, causal,
-                                   scale, ws, s);
+               ? launch_wide(q, k, v, dout, dq, dk, dv, B * H, H, S, Dh, st, causal, scale, ws,
+                             s)
+               : launch_wide_tc(q, k, v, dout, dq, dk, dv, B * H, H, S, Dh, st, causal, scale,
+                                ws, s);
   if (dtype == kFloat32) {
     // 16-byte cp.async rows where q, k, v and dO allow them
     bool vec = true;

@@ -508,9 +508,9 @@ __host__ __device__ __forceinline__ int tile_begin(int y, int blocks, int tiles)
   return static_cast<int>(static_cast<long long>(y) * tiles / blocks);
 }
 
-// --- wide-head attention (any Dh, f32 or bf16, CUDA cores) -------------------
+// --- f32 wide-head attention (CUDA cores) -------------------------------------
 //
-// The wide-head kernels (attention.cu attention_wide, attention_bwd.cu
+// The f32 wide-head kernels (attention.cu attention_wide, attention_bwd.cu
 // attention_bwd_wide_*) read one element at a time into f32 shared rows, so
 // any head width, stride and alignment is taken.  A block takes kWideRows
 // rows of one (batch, head) against tiles of kWideTile rows, its threads 8 a
@@ -525,28 +525,15 @@ constexpr int kWideCols = 64;
 constexpr int kWidePitch = kWideCols + 1;    // floats a shared row: conflict-free
 constexpr int kWideThreads = 8 * kWideRows;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to T's precision (P and dP round where the plain version rounds them)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 // rows x kWideCols elements of src (rows `stride` elements apart), from row
 // r0 and column d0, into shared rows of kWidePitch floats; zero past row
 // n_rows and column n_cols.
-template <typename T>
-__device__ __forceinline__ void wide_load(float* dst, const T* src, long long stride, int r0,
+__device__ __forceinline__ void wide_load(float* dst, const float* src, long long stride, int r0,
                                           int rows, int n_rows, int d0, int n_cols) {
   for (int e = threadIdx.x; e < rows * kWideCols; e += blockDim.x) {
     const int i = e / kWideCols, d = e % kWideCols;
     const int r = r0 + i, col = d0 + d;
-    dst[i * kWidePitch + d] = r < n_rows && col < n_cols ? to_f32(src[r * stride + col]) : 0.f;
+    dst[i * kWidePitch + d] = r < n_rows && col < n_cols ? src[r * stride + col] : 0.f;
   }
 }
 
@@ -584,6 +571,172 @@ __device__ __forceinline__ float row_sum(float x) {
   for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(kFullMask, x, o);
   return x;
 }
+
+// --- bf16 wide-head attention (Dh > 64, tensor cores) --------------------------
+//
+// The bf16 wide-head kernels (attention.cu attention_wide_tc, attention_bwd.cu
+// attention_bwd_wide_tc_*) take any head width on mma.sync.  The head
+// dimension, zero-padded to DP = Dh rounded up to 16 in shared memory, is cut
+// into nd = ceil(DP / 128) chunks of 16-column units as even as integers
+// allow (WideChunks); a block writes the output columns of one chunk
+// (grid.z) and sums its scores over every chunk.  Operands are staged by
+// 16-byte cp.async (rows 16-byte aligned: the caller copies others) into
+// rows of the widest chunk's width + 8 elements, an odd multiple of 16
+// bytes, so every ldmatrix is free of bank conflicts.
+
+constexpr int kWideUnits = 8;                // 16-column units a chunk at most (128 columns)
+
+struct WideChunks {
+  int nd, units;                             // chunks, 16-column units of DP
+  __host__ __device__ WideChunks(int Dh) : units((Dh + 15) / 16) {
+    nd = (units + kWideUnits - 1) / kWideUnits;
+  }
+  __host__ __device__ int begin(int c) const { return c * units / nd * 16; }
+  __host__ __device__ int width(int c) const { return begin(c + 1) - begin(c); }
+  // elements a staged row: the widest chunk + 8
+  __host__ __device__ int pitch() const { return (units + nd - 1) / nd * 16 + 8; }
+};
+
+// Item `it` of a wide block: its sweeps run over n_tiles streamed tiles,
+// each over the nd chunks with the block's own chunk z last, so that the
+// last item of a tile holds the chunk of the block's output columns.
+struct WideItem {
+  int tile, i, chunk;                        // the tile, the item's place in it, its chunk
+  __device__ WideItem(int it, int n_tiles, int nd, int z) {
+    const int rem = it % (n_tiles * nd);
+    tile = rem / nd;
+    i = rem % nd;
+    chunk = (z + 1 + i) % nd;
+  }
+};
+
+// 16-byte global -> shared copy of `bytes` (0..16) bytes, the rest zero
+// (src is not read when bytes is 0).
+__device__ __forceinline__ void cp_async_part(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+// Rows j0 .. j0 + rows - 1 of a (batch, head) operand `src` (rows `stride`
+// elements apart, 16-byte aligned), its columns c0 .. c0 + width - 1 (width
+// a multiple of 8), into shared rows `pitch` elements apart at `dst`, the
+// block's threads sharing them: zero past row S and column Dh.
+__device__ __forceinline__ void chunk_async(__nv_bfloat16* dst, int pitch,
+                                            const __nv_bfloat16* src, long long stride, int j0,
+                                            int rows, int S, int c0, int width, int Dh) {
+  // thread e takes the 8-column pieces e, e + blockDim.x, ... in row-major
+  // order, stepped without a division
+  const int per_row = width / 8;
+  const int dj = blockDim.x / per_row, dc = blockDim.x % per_row;
+  int j = threadIdx.x / per_row, c = threadIdx.x % per_row;
+  while (j < rows) {
+    const int col = c0 + 8 * c;
+    const int bytes = j0 + j < S ? 2 * max(0, min(8, Dh - col)) : 0;
+    cp_async_part(dst + j * pitch + 8 * c, bytes ? src + (j0 + j) * stride + col : src, bytes);
+    j += dj;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++j;
+    }
+  }
+}
+
+// x[kb] += A B_kb^T for A the 16 rows at `a` (ap elements apart) and B_kb
+// rows 16 kb .. 16 kb + 15 at `b` (bp apart), kb < live, over `steps` 16-column
+// steps: each A fragment feeds every B tile.
+template <int NK>
+__device__ __forceinline__ void mma_abt_rows(float (&x)[NK][2][4], const __nv_bfloat16* a,
+                                             int ap, const __nv_bfloat16* b, int bp, int steps,
+                                             int live, int lane) {
+  const int mi = lane / 8;
+  const __nv_bfloat16* ar = a + ((mi % 2) * 8 + lane % 8) * ap + (mi / 2) * 8;
+  const __nv_bfloat16* br = b + ((mi / 2) * 8 + lane % 8) * bp + (mi % 2) * 8;
+#pragma unroll
+  for (int ks = 0; ks < kWideUnits; ++ks) {
+    if (ks >= steps) break;
+    unsigned af[4];
+    ldmatrix_x4(af, ar + ks * 16);
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb) {
+      if (kb >= live) break;
+      unsigned bf[4];
+      ldmatrix_x4(bf, br + kb * 16 * bp + ks * 16);
+      mma_bf16(x[kb][0], af, bf);
+      mma_bf16(x[kb][1], af, bf + 2);
+    }
+  }
+}
+
+// acc += A B for A (16 x 16, fragment a) and B the 16 rows at `b` (bp
+// elements apart), its first 16 n16 columns: acc[nt] holds columns 8 nt ..
+__device__ __forceinline__ void mma_ab_rows(float (&acc)[2 * kWideUnits][4], const unsigned (&a)[4],
+                                            const __nv_bfloat16* b, int bp, int n16, int lane) {
+  const int mi = lane / 8;
+  const __nv_bfloat16* row = b + ((mi % 2) * 8 + lane % 8) * bp + (mi / 2) * 8;
+#pragma unroll
+  for (int np = 0; np < kWideUnits; ++np) {
+    if (np >= n16) break;
+    unsigned bf[4];
+    ldmatrix_x4_trans(bf, row + np * 16);
+    mma_bf16(acc[2 * np], a, bf);
+    mma_bf16(acc[2 * np + 1], a, bf + 2);
+  }
+}
+
+// As mma_ab_rows for A = a0 + a1 (a product's hi and lo bf16 terms).
+__device__ __forceinline__ void mma_ab2_rows(float (&acc)[2 * kWideUnits][4],
+                                             const unsigned (&a0)[4], const unsigned (&a1)[4],
+                                             const __nv_bfloat16* b, int bp, int n16, int lane) {
+  const int mi = lane / 8;
+  const __nv_bfloat16* row = b + ((mi % 2) * 8 + lane % 8) * bp + (mi / 2) * 8;
+#pragma unroll
+  for (int np = 0; np < kWideUnits; ++np) {
+    if (np >= n16) break;
+    unsigned bf[4];
+    ldmatrix_x4_trans(bf, row + np * 16);
+    mma_bf16(acc[2 * np], a0, bf);
+    mma_bf16(acc[2 * np + 1], a0, bf + 2);
+    mma_bf16(acc[2 * np], a1, bf);
+    mma_bf16(acc[2 * np + 1], a1, bf + 2);
+  }
+}
+
+// The mma A fragment of a 16 x 16 tile held as two C tiles (x[0], x[1]:
+// columns 0..7 and 8..15), rounded to bf16.
+__device__ __forceinline__ void c_to_a_bf16(const float (&x)[2][4], unsigned (&a)[4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// Store rows ra and rb = ra + 8 (those < S) of a 16-row C tile set acc,
+// times `mul`, as columns c0 + 8 nt + 2t (+1) below c_end, to the bf16 rows
+// at `dst` (`stride` elements apart); `pairs`: 4-byte stores (even Dh,
+// rows 4-byte aligned).
+__device__ __forceinline__ void wide_store(__nv_bfloat16* dst, long long stride,
+                                           const float (&acc)[2 * kWideUnits][4], float mul,
+                                           int ra, int S, int c0, int c_end, bool pairs, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 2 * kWideUnits; ++nt) {
+    const int col = c0 + nt * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = ra + 8 * half;
+      if (r >= S || col >= c_end) continue;
+      __nv_bfloat16* p = dst + r * stride + col;
+      const float x0 = acc[nt][2 * half] * mul, x1 = acc[nt][2 * half + 1] * mul;
+      if (pairs) {
+        *reinterpret_cast<unsigned*>(p) = pack_bf16(x0, x1);
+      } else {
+        p[0] = __float2bfloat16_rn(x0);
+        if (col + 1 < c_end) p[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
 
 }  // namespace keds
 

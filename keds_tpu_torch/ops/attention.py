@@ -9,7 +9,9 @@ kernel (variant ``bf16_tc``, Dh = 64, narrower heads zero-padded to it; above
 f32 kernel (variant ``f32``), whose products run on tensor cores in three
 TF32 terms: about f32's accuracy, where one TF32 product keeps 11 bits (its
 note in the source says what it measured), at any sequence length.  Wider
-heads run the wide-head kernel on CUDA cores (``bf16_wide``, ``f32_wide``).
+heads run the wide-head kernels: bf16 above 64 on tensor cores
+(``bf16_wide``: the head zero-padded to a multiple of 16 in shared memory,
+128-column chunks), f32 above 128 on CUDA cores (``f32_wide``).
 On a CPU tensor it runs the plain version :func:`attention_reference`.  Keys
 at or past the real sequence length never enter a softmax, so no sequence
 padding is needed.
@@ -28,7 +30,9 @@ Which route a call takes, and the head width it runs at, the libraries say
 head is zero-padded to that width here, its output sliced back: the padded
 columns add exact zeros to q.k^T and P.V and give zero gradient columns.
 The scale stays 1/sqrt(Dh) of the caller's Dh.  ``pads[variant]`` counts
-those calls.
+those calls; the wide routes run at the caller's width and pad nothing
+here.  The bf16 kernels stage rows with 16-byte copies: an input whose
+rows are not 16-byte aligned is copied first (:func:`_aligned_rows`).
 """
 
 from __future__ import annotations
@@ -117,11 +121,15 @@ def _route(fn, *args) -> Tuple[int, int, int]:
 
 
 def _aligned_rows(t: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """``t``, or a contiguous copy where its rows are not ``nbytes``-aligned."""
+    """``t``, or a copy whose rows are ``nbytes``-aligned where its own are
+    not: a view of a contiguous buffer whose rows are rounded up to
+    ``nbytes`` (Dh = 100 in bf16, 200-byte rows, is copied into 208-byte
+    rows).  The head width stays Dh: the copy pads nothing the kernel reads."""
     step = nbytes // t.element_size()
     if t.data_ptr() % nbytes == 0 and all(st % step == 0 for st in t.stride()[:3]):
         return t
-    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+    width = -(-t.shape[-1] // step) * step
+    return t.new_empty((*t.shape[:-1], width))[..., :t.shape[-1]].copy_(t)
 
 
 def _zero_padded(width: int, *tensors: torch.Tensor):
@@ -152,6 +160,8 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # q; above FWD_RESIDENT_SEQ q's rows are copied in 16 bytes too
         q = _aligned_rows(q, 16 if S > FWD_RESIDENT_SEQ else 4)
         k, v = _aligned_rows(k, 16), _aligned_rows(v, 16)
+    elif variant == "bf16_wide":                # 16-byte cp.async rows
+        q, k, v = (_aligned_rows(t, 16) for t in (q, k, v))
     out = torch.empty((B, S, H, width), dtype=q.dtype, device=q.device).transpose(1, 2)
     _launch_forward(lib, code, q, k, v, out, causal, 1.0 / math.sqrt(Dh))
     KERNEL.launches[variant] += 1
@@ -179,7 +189,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     two launches; a workspace of 3 * B * H * rows floats, the rows from
     ``keds_attention_bwd_route``); q, k and v may be strided views, and a
     ``dout`` whose head dimension is not contiguous is made contiguous
-    here, as is, for the bf16 tuned kernels, any input whose rows are not
+    here, as is, for every bf16 route, any input whose rows are not
     16-byte aligned.  The three gradients are views of one (B, S, 3, H, Dh)
     buffer (the padded width's, sliced), laid out as the fused qkv
     projection's output.  On the CPU it runs
@@ -211,7 +221,7 @@ def _backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if width != Dh:
         q, k, v, dout = _zero_padded(width, q, k, v, dout)
         BWD_KERNEL.pads[variant] += 1
-    elif prefix == "bf16" and route == 0:       # 16-byte cp.async rows
+    elif prefix == "bf16":                      # 16-byte cp.async rows, every route
         q, k, v, dout = (_aligned_rows(t, 16) for t in (q, k, v, dout))
     grads = torch.empty((B, S, 3, H, width), dtype=q.dtype, device=q.device)
     dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))

@@ -47,7 +47,14 @@ attention         the attention forward at the rows of chip_smoke.py: bf16 at
                   text tower's (64, 12, 77, 64) causal, and the f32 paths'
                   own: (128, 12, 8, 64) causal, (4, 16, {257, 577}, 64); bf16
                   streamed at the 336 px check's (4, 16, 577, 64) and at (4,
-                  12, 1025, 64); on
+                  12, 1025, 64); bf16 above Dh = 64 (the wide-head
+                  kernels) at (4, 16, 257, 80), (4, 8, 77, 128) causal,
+                  (64, 2, {32, 8}, 160) causal and the main path's widths
+                  re-split into 128-wide heads: (16, 8, 257, 128), (64, 6,
+                  32, 128) causal and (128, 6, 8, 128) causal, with the
+                  image stream's prompt at Dh = 64 beside them; f32
+                  above Dh = 128 (the f32 wide-head kernel) at (2, 4, 77,
+                  256) and (64, 2, 8, 160) causal; on
                   the inputs and the graph-replay timing of
                   ``chip_smoke.py``, SDPA's time beside each.  Takes ``--impl`` as ``rank`` does (an
                   implementation that refuses a shape times it as null).
@@ -58,7 +65,12 @@ attention_bwd     the attention backward (``attention_backward``): bf16
                   1025, 64); f32 at (2,
                   4, 77, 64) causal, (2, 4, 289, 64), the f32 train prompt
                   (128, 12, 8, 64) and neighbour templates (256, 12, 32, 64)
-                  causal and (4, 16, 577, 64); on the inputs and the
+                  causal and (4, 16, 577, 64); bf16 above Dh = 64 at (4,
+                  16, 257, 80), (4, 8, 77, 128) causal, (64, 2, 8, 160)
+                  causal, (128, 6, 8, 128) causal and (256, 6, 32, 128)
+                  causal, with the neighbour templates at Dh = 64 beside
+                  them; f32 above Dh = 64 at (2, 4, 77, 256) and (64, 2,
+                  8, 160) causal; on the inputs and the
                   graph-replay timing of ``chip_smoke.py``, SDPA's backward
                   (its forward and backward less its forward) beside each.
                   Takes ``--impl`` as ``rank`` does (an implementation that
@@ -139,6 +151,22 @@ PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "topk_split", "attention
           "raw_check_controls", "rn_gain_controls", "rn_encode_chunks", "int8_layouts")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "topk_split", "attention",
                "attention_bwd")   # --impl's
+# bf16 above Dh = 64 (the wide-head kernels): chip_smoke.py's rows, and the
+# main path's widths re-split into 128-wide heads (the same bytes as their
+# Dh = 64 rows)
+WIDE_FWD_SHAPES = ((4, 16, 257, 80, torch.bfloat16, False), (4, 8, 77, 128, torch.bfloat16, True),
+                   (QUERY_BATCH, 2, 32, 160, torch.bfloat16, True),
+                   (QUERY_BATCH, 2, 8, 160, torch.bfloat16, True),
+                   (16, 8, 257, 128, torch.bfloat16, False),
+                   (QUERY_BATCH, 6, 32, 128, torch.bfloat16, True),
+                   (TRAIN_BATCH, 6, 8, 128, torch.bfloat16, True))
+WIDE_BWD_SHAPES = ((4, 16, 257, 80, torch.bfloat16, False), (4, 8, 77, 128, torch.bfloat16, True),
+                   (QUERY_BATCH, 2, 8, 160, torch.bfloat16, True),
+                   (TRAIN_BATCH, 6, 8, 128, torch.bfloat16, True),
+                   (2 * TRAIN_BATCH, 6, 32, 128, torch.bfloat16, True))
+# f32 above Dh = 128 forward, 64 backward (the f32 wide-head kernels): chip_smoke.py's rows
+F32_WIDE_SHAPES = ((2, 4, 77, 256, torch.float32, True),
+                   (QUERY_BATCH, 2, 8, 160, torch.float32, True))
 FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.bfloat16, True),
               (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False),
               (2, 4, 289, 64, torch.float32, False), (2, 4, 577, 64, torch.float32, False),
@@ -151,7 +179,10 @@ FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.b
               (VIT336_IMAGES, 16, 577, 64, torch.float32, False),
               # the streamed bf16 route: the 336 px check's own shape, 1025 tokens
               (VIT336_IMAGES, 16, 577, 64, torch.bfloat16, False),
-              (4, 12, 1025, 64, torch.bfloat16, False))
+              (4, 12, 1025, 64, torch.bfloat16, False),
+              # the image stream's prompt at Dh = 64, beside its 128-wide twin
+              (TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
+              *WIDE_FWD_SHAPES, *F32_WIDE_SHAPES)
 NARROW_SHAPES = ((QUERY_BATCH, DB_ROWS, 16, torch.bfloat16), (TRAIN_BATCH, DB_ROWS, 16, torch.bfloat16),
                  (TRAIN_BATCH, DB_ROWS, 2, torch.bfloat16), (QUERY_BATCH, 256, 10, torch.float32),
                  (QUERY_BATCH, 10_000, 10, torch.float32))
@@ -174,7 +205,10 @@ BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
               # neighbour templates, and beside the bf16 streamed row
               (TRAIN_BATCH, 12, 8, 64, torch.float32, True),
               (2 * TRAIN_BATCH, 12, 32, 64, torch.float32, True),
-              (4, 16, 577, 64, torch.float32, False))
+              (4, 16, 577, 64, torch.float32, False),
+              # the neighbour templates at Dh = 64, beside their 128-wide twin
+              (2 * TRAIN_BATCH, 12, 32, 64, torch.bfloat16, True),
+              *WIDE_BWD_SHAPES, *F32_WIDE_SHAPES)
 CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
 

@@ -51,3 +51,39 @@ def test_attention_bf16_rounds_probs_to_v_dtype():
     ref = np.asarray(flash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
                                        for t in (q, k, v)), False, True), np.float32)
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=2e-2)
+
+
+# Every head width the port routes apart on the card (64: the tuned kernels;
+# above it the wide-head kernels, 128 columns a chunk), in f32 and bf16.
+WIDE_HEAD_WIDTHS = [64, 80, 128, 160]
+# bf16: the two round P to bf16 after f32 sums taken in another order, so a
+# probability may round the other way (one bf16 step of P), and the output
+# rounds to bf16 (a step of 2^-8 relative)
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("dh", WIDE_HEAD_WIDTHS)
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [8, 37])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_every_head_width_matches_jax(dh, dtype, s, causal):
+    """The port's plain attention at Dh off 64 against flash_attention in
+    interpret mode (f32: and the JAX plain reference), on the same inputs."""
+    rng = np.random.default_rng(dh + s)
+    q, k, v = (rng.standard_normal((1, 2, s, dh)).astype(np.float32) for _ in range(3))
+    if dtype == "bfloat16":
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+                      for a in (jq, jk, jv))
+        want = np.asarray(flash_attention(jq, jk, jv, causal, True).astype(jnp.float32))
+        out = attention(tq, tk, tv, causal)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(out.float().numpy(), want, atol=BF16_TOL, rtol=BF16_TOL)
+        return
+    want = np.asarray(flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                                      True))
+    plain = np.asarray(jax_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal))
+    out = attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                    causal).numpy()
+    np.testing.assert_allclose(out, want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, plain, atol=2e-5, rtol=2e-5)

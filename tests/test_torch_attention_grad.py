@@ -61,3 +61,37 @@ def test_pseudo_token_grads_through_text_tower_match_jax():
     assert not any(p.requires_grad for p in tparams["text"]["blocks"].values())
     assert np.abs(ref).max() > 0
     np.testing.assert_allclose(t.grad.numpy(), ref, atol=TOL, rtol=1e-4)
+
+
+# bf16: the JAX VJP (of attention_reference on bf16 arrays) rounds q * scale,
+# the probabilities' cotangent and the gradients' products to bf16 where the
+# port's (autograd through its plain version) keeps f32 until the gradients
+# round to bf16: a few bf16 steps of an O(1) gradient apart (at most 0.0157
+# on these inputs).  The card tests' bf16 backward tolerance.
+BF16_GRAD_TOL = (3e-2, 2e-2)    # (atol, rtol)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128, 160])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("s", [8, 37])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_grad_every_head_width_matches_jax_vjp(dh, dtype, s, causal):
+    """The VJP at Dh off 64 (the card's wide-head routes above 64), f32 and
+    bf16: autograd through the port's attention and its attention_backward
+    against jax.vjp of flash_attention in interpret mode."""
+    rng = np.random.default_rng(dh * s)
+    arrays = [rng.standard_normal((1, 2, s, dh)).astype(np.float32) for _ in range(4)]
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16,
+                                                                     torch.bfloat16)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in arrays)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention(a, b, c, causal, True), jq, jk, jv)
+    ref = [np.asarray(t.astype(jnp.float32)) for t in vjp(jg)]
+    tq, tk, tv, tg = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+                      for a in (jq, jk, jv, jg))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    grads = torch.autograd.grad(attention(*leaves, causal), leaves, tg)
+    plain = attention_backward(tq, tk, tv, tg, causal)
+    atol, rtol = (TOL, TOL) if dtype == "f32" else BF16_GRAD_TOL
+    for got, pl, want in zip(grads, plain, ref):
+        assert got.dtype == tdt and torch.equal(got, pl)
+        np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)

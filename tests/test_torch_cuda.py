@@ -1626,7 +1626,11 @@ def test_attention_f32_is_not_tf32(cuda, s):
 
 # --- every head width (B2 and B2' at Dh != 64, unaligned rows) ----------------
 
-HEAD_WIDTHS = [1, 32, 48, 80, 96, 128, 160, 256]
+# past the tuned width (65, 72), widths that are no multiple of 16 (72, 100,
+# 200, 1000), rows that are not 16-byte aligned (65, 100: bf16 copies them),
+# and more than one 128-column chunk of the bf16 wide kernels (160 and up;
+# 1000: eight)
+HEAD_WIDTHS = [1, 32, 48, 65, 72, 80, 96, 100, 128, 160, 200, 256, 320, 1000]
 
 
 def _fwd_variant(dtype, dh):
@@ -1680,7 +1684,7 @@ def test_attention_routes_by_head_width(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("dh", HEAD_WIDTHS)
-@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("s", [1, 8, 77, 300])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_every_head_width_matches_plain(cuda, dtype, dh, s, causal):
     """B2 at every head width: strided views of one qkv buffer, one launch of
@@ -1699,7 +1703,7 @@ def test_attention_every_head_width_matches_plain(cuda, dtype, dh, s, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("dh", HEAD_WIDTHS)
-@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("s", [1, 8, 77, 300])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_backward_every_head_width_matches_plain(cuda, dtype, dh, s, causal):
     """B2' at every head width through autograd, as the towers reach it; two
@@ -1725,8 +1729,8 @@ def test_attention_backward_every_head_width_matches_plain(cuda, dtype, dh, s, c
 @pytest.mark.parametrize("s", [77, 300])
 def test_attention_unaligned_rows_every_route(cuda, dtype, dh, s):
     """x[..., :Dh] views of (..., Dh + 1) tensors: rows that are not 16-byte
-    aligned (bf16's tuned kernels take a copy; the other routes read them in
-    place), forward and backward."""
+    aligned (every bf16 kernel takes a copy with aligned rows; the f32
+    routes read them in place), forward and backward."""
     base = torch.randn((3, 2, 3, s, dh + 1), generator=_gen(cuda, s * dh), device=cuda)
     q, k, v = (base[i].to(dtype)[..., :dh] for i in range(3))
     assert k.stride(2) * k.element_size() % 16

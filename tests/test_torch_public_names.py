@@ -356,3 +356,17 @@ def test_padded_attention_saves_the_callers_inputs(plain_kernels):
     assert [t.shape for t in out.grad_fn.saved_tensors] == [q.shape] * 3
     assert all(a is b or a.data_ptr() == b.data_ptr()
                for a, b in zip(out.grad_fn.saved_tensors, (q, k, v)))
+
+
+@pytest.mark.parametrize("dh", [64, 65, 80, 100, 320])
+def test_aligned_rows_copies_into_16_byte_rows(dh):
+    """The bf16 kernels stage 16-byte rows: a strided view whose rows are not
+    16-byte aligned (Dh = 100: 200-byte rows) is copied into rows rounded up
+    to 8 elements, a view of the same shape and values; aligned rows are
+    passed through uncopied."""
+    qkv = torch.randn((2, 5, 3, 3, dh), generator=torch.Generator().manual_seed(dh))
+    q = qkv.to(torch.bfloat16)[:, :, 0].transpose(1, 2)
+    out = att_mod._aligned_rows(q, 16)
+    assert out.shape == q.shape and torch.equal(out, q)
+    assert out.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in out.stride()[:3])
+    assert (out.data_ptr() == q.data_ptr()) == (dh % 8 == 0)
