@@ -225,7 +225,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            main path's widths re-split into 128-wide heads in bf16, each
            beside its Dh = 64 row of 2 (the same bytes): forward (16, 8,
            257, 128), (64, 6, 32, 128) and (128, 6, 8, 128) causal, backward
-           (128, 6, 8, 128) and (256, 6, 32, 128) causal; then two
+           (128, 6, 8, 128) and (256, 6, 32, 128) causal, and in f32 (the
+           f32 wide-head kernels) ViT-L/14's vision chunk in 256-wide heads,
+           (16, 4, 257, 256), both ways and the backward's two 128-wide
+           rows; then two
            tiny configs through the entry points (head_width_path):
            tests/test_api_surface.py's (text heads of 32) and the same with
            text heads of 160, each a bf16 engine batch of 64 composed
@@ -249,7 +252,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            keds_tpu_torch.tools.bench_cirr_fullscale as a user runs it, at
            the CIRR val protocol's size: 4181 queries over 2297 noise PNGs at
            224 px, the 0.5M x 768 f32 DB in the reference's .pt layout, a full
-           ViT-L/14 resume.pt and heads-only branches of 2 epochs (of 30),
+           ViT-L/14 resume.pt and heads-only branches of 1 epoch (of 30),
            staged once under build/ (timed apart), then device- and
            host-ranked in bf16 at batch 64 with 8 decode threads: each JSON
            line, the two recall tables equal but for near-ties within 1e-5
@@ -266,7 +269,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
     rows with their pads, head_widths' two configs beside the rows of their
     own shapes (the padded rows with their pads; every entry's row must have
-    launched the variant it is printed under), extract_features for
+    launched the variant it is printed under), and beside the wide config
+    the f32 wide-head rows of other shapes, extract_features for
     the vision attention, the device-ranked CIRR bench for the text
     attention at S=77; the f32
     image step and f32 encodes each beside its own shape), the walls line
@@ -3076,7 +3080,7 @@ EXTRACT_CHECK_ROWS = 64
 EXTRACT_TOL = 2e-2         # the JAX tool's own test tolerance (tests/test_data_tools.py)
 PROFILE_BATCH = 128        # 4096 feature pairs: 32 steps, the window 10-20 inside
 VALIDATE_IMAGES = 256      # a CIRR val tree of this many PNGs and as many queries
-FULLSCALE_CIRR_EPOCHS = 2  # of the protocol's 30 sweep epochs a branch
+FULLSCALE_CIRR_EPOCHS = 1  # of the protocol's 30 sweep epochs a branch
 FULLSCALE_COCO_ROWS = 5000     # the protocol's val2017 split
 FULLSCALE_COCO_EPOCHS = 1  # of 25: the sweep's first two checkpoints
 FULLSCALE_WORKERS = 8      # the eval CLI's decode threads (--workers)
@@ -3731,8 +3735,14 @@ def main() -> int:
                    (TRAIN_BATCH, 6, 8, 128, bf16, True)]
     wide128_bwd = [(TRAIN_BATCH, 6, 8, 128, bf16, True),
                    (2 * TRAIN_BATCH, 6, 32, 128, bf16, True)]
-    hw_att_rows = check_attention(head_width_cases + hw_path_cases + wide128_fwd)
-    hw_bwd_rows = check_attention_bwd(head_width_cases + hw_path_cases[1:] + wide128_bwd)
+    # the f32 wide-head kernels at the same bytes: the vision chunk in
+    # 256-wide heads, and the backward's prompt and templates in 128-wide ones
+    wide_f32_fwd = [(16, 4, 257, 256, f32, False)]
+    wide_f32_bwd = [(16, 4, 257, 256, f32, False), (TRAIN_BATCH, 6, 8, 128, f32, True),
+                    (2 * TRAIN_BATCH, 6, 32, 128, f32, True)]
+    hw_att_rows = check_attention(head_width_cases + hw_path_cases + wide128_fwd + wide_f32_fwd)
+    hw_bwd_rows = check_attention_bwd(head_width_cases + hw_path_cases[1:] + wide128_bwd
+                                      + wide_f32_bwd)
     hw_launches = {name: head_width_path(name, kernels) for name in HEAD_WIDTH_CFGS}
     preprocess_check()
     torch.cuda.empty_cache()
@@ -3894,11 +3904,17 @@ def main() -> int:
                (att, "bf16_wide", hw_att_rows[4], hw_launches["wide"]),
                (att, "bf16_wide", hw_att_rows[5], hw_launches["wide"]),
                (att, "f32_wide", hw_att_rows[6], hw_launches["wide"]),
+               # the f32 wide-head kernels' other rows, beside the path that
+               # runs them: (2, 4, 77, 256) and the vision chunk in 256-wide heads
+               (att, "f32_wide", hw_att_rows[2], hw_launches["wide"]),
+               (att, "f32_wide", hw_att_rows[12], hw_launches["wide"]),
                (att, "bf16_tc", hw_att_rows[3], hw_launches["tiny"]),
                (att, "bf16_tc", hw_att_rows[7], hw_launches["tiny"]),
                (att, "f32", hw_att_rows[8], hw_launches["tiny"]),
                (bwd, "bf16_wide", hw_bwd_rows[4], hw_launches["wide"]),
                (bwd, "f32_wide", hw_bwd_rows[5], hw_launches["wide"]),
+               (bwd, "f32_wide", hw_bwd_rows[2], hw_launches["wide"]),
+               *((bwd, "f32_wide", hw_bwd_rows[i], hw_launches["wide"]) for i in (10, 11, 12)),
                (bwd, "bf16", hw_bwd_rows[6], hw_launches["tiny"]),
                (bwd, "f32", hw_bwd_rows[7], hw_launches["tiny"])]
     # a row's own launch named its variant: it must be the one the entry

@@ -142,12 +142,31 @@
 //   * Rows must be 16-byte aligned; the caller copies others (Dh = 100:
 //     200-byte rows into 208).
 //
-// attention_wide (f32 above Dh = 128, any S).  Right first and simple: f32
-// FMA on CUDA cores, one element loaded at a time (any stride and
-// alignment), 64-column steps over the head for q.k^T and 64 output columns
-// a block (grid.z), so registers and shared memory stay bounded at any
-// width; its shared-memory loads bound it far above its bytes and
-// operations (PERF.md, its rows).
+// attention_wide (f32 above Dh = 128, any Dh and S).  No CLIP preset
+// reaches it (every tower's heads are 64 wide); a custom config does.  What
+// bounds it on the H100: operations, as attention_f32 (at (16, 4, 257,
+// 256) 4.3 GFLOP on 67 MB: 0.026 ms at 3xTF32's 494.7 / 3 TFLOP/s).  The
+// design is attention_f32's arithmetic (3xTF32 on mma.sync, a warp owning
+// 16 query rows with the online softmax in its accumulators, one pass, P.V
+// summed apart a tile) made to take any width at bounded cost:
+//   * The head is cut into nd <= 64-column chunks, and W warps share each
+//     16-row tile, one chunk each (common.cuh, f32 wide-head attention):
+//     each takes its chunk's share of q.k^T (hi.hi apart from the small
+//     terms), the shares are summed through shared memory, and each warp
+//     forms the same softmax and P.V over its own columns.  So q.k^T is
+//     taken once up to Dh = 256, R times above (R rounds over grid.z).  A
+//     block per 64-column chunk (grid.z), each recomputing q.k^T, restaged
+//     every operand a chunk and lost to the plain version (PERF.md).
+//   * A block takes up to eight warps; keys stream in stages of 16 a warp
+//     (the live keys alone) through a two-stage cp.async ring, one barrier
+//     an item and one for the shares, K's chunks (and V's at the own round)
+//     of the round; the query rows are staged once (R = 1) or with each
+//     round.  Rows are read in place: 16-byte copies where aligned, 4-byte
+//     otherwise.  Two blocks an SM (__launch_bounds__(256, 2): f32 tiles of
+//     the whole width leave no room for more, and 16-key stages for no
+//     wider ones).
+//   * Where the grid is thin, 2 splits of a tile's warps take its keys
+//     and merge (m, l, acc) in a fixed order, as attention_f32 does.
 
 #include "common.cuh"
 
@@ -904,90 +923,287 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
                                  stream);
 }
 
-// --- f32 wide-head kernel (f32 above Dh = 128) ------------------------------
+// --- f32 wide-head kernel (f32 above Dh = 128, tensor cores) ----------------
 
-// A block takes kWideRows query rows of one (batch, head) and kWideCols of
-// the output's columns (common.cuh, f32 wide-head attention).  Two passes
-// over 64-key tiles: each row's max and sum, then P = exp2(c s - c m) / l,
-// into P.V over the block's columns.  The scores q.k^T are f32 FMA over
-// 64-column steps of q and K staged in shared memory, so each pass reads K
-// whole and every column block repeats them.
-__global__ void __launch_bounds__(kWideThreads)
+constexpr int kF32WideWarps = 8;             // warps a block at most
+constexpr int kF32WideKeys = 16;             // keys a warp takes of a stage
+constexpr int kF32WideNT = kF32WideKeys / 8;
+constexpr int kF32WideVals = 4 + 4 * kF32WideUnits;   // a lane's (m, l, acc): a split's hand-over
+
+// Floats of a ring stage: K's W chunks of `keys` rows, V's, then at R > 1
+// the block's `rows` query rows' W chunks (at R = 1 staged once).
+__host__ __device__ inline int f32_wide_stage(const F32Wide& sh, int rows, int keys) {
+  return sh.W * (2 * keys + (sh.R > 1 ? rows : 0)) * kF32WidePitch;
+}
+
+// Dynamic shared floats of a block of `tiles` row tiles and `splits`: the
+// two-stage ring (or the splits' hand-over, if larger), the query rows at R
+// = 1, then each warp's slot of partial scores.
+__host__ __device__ inline int f32_wide_floats(const F32Wide& sh, int tiles, int splits) {
+  const int rows = 16 * tiles, warps = splits * tiles * sh.W;
+  const int ring = 2 * f32_wide_stage(sh, rows, kF32WideKeys * splits);
+  const int merge = (splits - 1) * tiles * sh.W * kF32WideVals * 32;
+  return (ring > merge ? ring : merge) + (sh.R > 1 ? 0 : sh.W * rows * kF32WidePitch) +
+         warps * kF32WideNT * 128;
+}
+
+// A block takes `tiles` 16-row query tiles of one (batch, head), as even as
+// the tiles allow, W warps a tile, warp w owning chunk z W + w of the
+// output's columns (z = blockIdx.z; common.cuh, f32 wide-head attention).
+// Where the grid is thin (R = 1), `splits` sets of those warps take a
+// tile's keys, set s the keys 16 s .. 16 s + 15 of every stage, and merge
+// (m, l, acc) at the end in a fixed order, as attention_f32's splits do.
+// Its items: the key tiles of 16 splits keys (the live keys alone), each
+// over the R rounds with its own round last, through a two-stage cp.async
+// ring filled one item ahead (one barrier an item): K's W chunks, at R > 1
+// the query rows' (at R = 1 they are staged once), and at the own round V's.
+// Each warp takes q k^T over its chunk of the round (hi.hi apart from the
+// small terms) and at a tile's last round the W shares are summed through
+// shared memory (a second barrier); then attention_f32's one pass: the
+// online softmax, each warp the same, and acc = alpha acc + P V over its
+// columns, the tile's P V summed apart.  flags: 1 = q, k and v rows 16-byte
+// aligned with Dh a multiple of 4, 2 = o rows 8-byte aligned with an even
+// Dh.
+__global__ void __launch_bounds__(32 * kF32WideWarps, 2)
 attention_wide(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int H, int S, int Dh,
-               Strides qs, Strides ks, Strides vs, Strides os, int causal, float c) {
-  __shared__ float q_s[kWideRows * kWidePitch], k_s[kWideTile * kWidePitch],
-      p_s[kWideRows * kWidePitch];
+               Strides qs, Strides ks, Strides vs, Strides os, int causal, float c, int flags,
+               int splits) {
+  constexpr int P = kF32WidePitch, NT = kF32WideNT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const F32Wide sh(Dh);
+  const int nd = sh.nd, R = sh.R, W = sh.W, z = blockIdx.z;
+  const int tiles = blockDim.x / 32 / W / splits;
+  const int keys = kF32WideKeys * splits;        // keys a stage
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the warp's chunk of a round, its row tile, its split
+  const int wc = warp % W, tile = warp / W % tiles, split = warp / W / tiles;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int r0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
-  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8;
-  const int lim = causal ? min(S, r0 + r + 1) : S;      // keys < lim are live for the row
-  // every tile starts at a key <= r0, live for each of the block's rows
-  const int n_tiles = ((causal ? min(S, r0 + kWideRows) : S) + kWideTile - 1) / kWideTile;
+  const int tiles16 = (S + 15) / 16;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, tiles16);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, tiles16);
+  const int r_first = u_first * 16, n_rows = (u_end - u_first) * 16;
+  const int rows = 16 * tiles;
+  const int block_keys = causal ? min(S, u_end * 16) : S;   // keys any of its rows sees
+  const int n_tiles = (block_keys + keys - 1) / keys;
+  const int n_items = n_tiles * R;
+  const int stage = f32_wide_stage(sh, rows, keys);
+  float* ring = reinterpret_cast<float*>(smem);
+  // R = 1: the query rows' chunks, after the ring or the splits' hand-over
+  float* q_res = ring + max(2 * stage, (splits - 1) * tiles * W * kF32WideVals * 32);
+  float* slots = q_res + (R > 1 ? 0 : W * rows * P);
+  const bool vec = flags & 1;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
 
-  float s[8];
-  auto scores = [&](int key0) {                  // s[j] = q_row . k_(key0 + t8 + 8 j)
+  // the next item's copies (every thread), one commit group an item, empty
+  // past the last
+  F32Item ld(R, z);
+  int n_loaded = 0;
+  auto load = [&]() {
+    if (n_loaded < n_items) {
+      float* st = ring + (n_loaded & 1) * stage;
+      const F32Item& w = ld;
+      const int k0 = w.tile * keys, n_keys = (min(keys, block_keys - k0) + 7) & ~7;
+      for (int j = 0; j < W && w.round * W + j < nd; ++j) {
+        const int cc = w.round * W + j, c0 = sh.begin(cc), wd = sh.width(cc);
+        f32_chunk_async(st + j * keys * P, kb, ks.s, k0, n_keys, S, c0, wd, Dh, vec);
+        if (w.i == R - 1)
+          f32_chunk_async(st + (W + j) * keys * P, vb, vs.s, k0, n_keys, S, c0, wd, Dh, vec);
+        if (R > 1)
+          f32_chunk_async(st + (2 * W * keys + j * rows) * P, qb, qs.s, r_first, n_rows, S, c0,
+                          wd, Dh, vec);
+      }
+      ld.next(R, n_tiles, z);
+    }
+    ++n_loaded;
+    cp_async_commit();
+  };
+  if (R == 1)
+    for (int j = 0; j < W; ++j)
+      f32_chunk_async(q_res + j * rows * P, qb, qs.s, r_first, n_rows, S, sh.begin(j),
+                      sh.width(j), Dh, vec);
+  load();
+
+  const int unit = u_first + tile;
+  const bool live = unit < u_end;
+  const int r0 = unit * 16;
+  const int ra = r0 + g, rb = ra + 8;
+  const int lim_a = causal ? min(S, ra + 1) : S, lim_b = causal ? min(S, rb + 1) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;    // the least of the rows' limits
+  const int warp_keys = !live ? 0 : causal ? min(S, r0 + 16) : S;
+  const int own = z * W + wc;                          // the warp's output chunk
+  const int z8 = own < nd ? sh.width(own) / 8 : 0, zc0 = own < nd ? sh.begin(own) : 0;
+  float* tile_slots = slots + (split * tiles + tile) * W * NT * 128;   // its W warps' shares
+
+  float s[NT][4], s_lo[NT][4], acc[kF32WideUnits][4];
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = 0.f;
-    for (int d0 = 0; d0 < Dh; d0 += kWideCols) {
-      __syncthreads();                           // the staged rows' readers are done
-      wide_load(q_s, qb, qs.s, r0, kWideRows, S, d0, Dh);
-      wide_load(k_s, kb, ks.s, key0, kWideTile, S, d0, Dh);
-      __syncthreads();
-      wide_dot(s, q_s + r * kWidePitch, k_s, t8);
+  for (int n = 0; n < kF32WideUnits; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  F32Item w(R, z);
+  for (int it = 0; it < n_items; ++it, w.next(R, n_tiles, z)) {
+    cp_async_wait<0>();                          // item it has landed ...
+    __syncthreads();                             // ... for every thread; it - 1 is done
+    load();                                      // item it + 1, into it - 1's stage
+    const float* st = ring + (it & 1) * stage;
+    const int kw = split * kF32WideKeys;         // the warp's keys in the stage
+    const int key0 = w.tile * keys + kw;
+    const int n_live = min(NT, (warp_keys - key0 + 7) / 8);   // the same for a tile's W warps
+    const int cc = w.round * W + wc;
+    if (n_live > 0) {
+      if (w.i == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = s_lo[nt][e] = 0.f;
+      }
+      if (cc < nd) {
+        const float* a = R > 1 ? st + (2 * W * keys + wc * rows + tile * 16) * P
+                               : q_res + (wc * rows + tile * 16) * P;
+        f32_wide_abt<NT, false>(s, s_lo, a, st + (wc * keys + kw) * P, sh.width(cc) >> 3,
+                                n_live, g, t);
+      }
+    }
+    if (w.i < R - 1) continue;                   // the shares are whole at the last round
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] += s_lo[nt][e];
+    if (n_live > 0) xchg_put<NT>(tile_slots + wc * NT * 128, s, lane);
+    __syncthreads();                             // every share is in
+    if (n_live <= 0) continue;
+    xchg_sum<NT>(s, tile_slots, W, lane);
+    // online softmax: the quad's rows share m; l is each thread's part
+    const bool masked = key0 + NT * 8 > lim_warp;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + nt * 8 + 2 * t + e % 2;
+        if (nt >= n_live || (masked && key >= (e < 2 ? lim_a : lim_b))) s[nt][e] = -CUDART_INF_F;
+        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      }
+    float mc[2], alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFullMask, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFullMask, mx[half], 2));
+      const float mn = fmaxf(m[half], mx[half]);
+      mc[half] = mn == -CUDART_INF_F ? 0.f : mn * c;      // no live key yet: add nothing
+      alpha[half] = exp2f(fmaf(m[half], c, -mc[half]));
+      m[half] = mn;
+      l[half] *= alpha[half];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (key0 + t8 + 8 * j >= lim) s[j] = -CUDART_INF_F;
-  };
-
-  float m = -CUDART_INF_F, l = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    scores(tile * kWideTile);
-    float mx = s[0];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[j]);
-    const float mn = fmaxf(m, row_max(mx)), mc = mn * c;
-    float sum = l * exp2f(fmaf(m, c, -mc));
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(fmaf(s[nt][e], c, -mc[e / 2]));
+        l[e / 2] += s[nt][e];
+      }
+    // acc = alpha acc + P v over the warp's columns (V's chunk wc of the own
+    // round), the tile's P v summed apart: the tensor core rounds its sums
+    // toward zero
+    float pv[kF32WideUnits][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sum += exp2f(fmaf(s[j], c, -mc));
-    l = sum;
-    m = mn;
+    for (int n = 0; n < kF32WideUnits; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+    f32_wide_cb<NT, false>(pv, s, st + ((W + wc) * keys + kw) * P, n_live, z8, g, t);
+#pragma unroll
+    for (int n = 0; n < kF32WideUnits; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e / 2], pv[n][e]);
   }
-  const float mc = m * c, inv_l = 1.f / row_sum(l);
 
-  float acc[8];
+  if (splits > 1) {
+    // splits 1.. hand their (m, l, acc) to split 0 through the idle ring
+    __syncthreads();                             // every thread is done with the ring
+    const int at = (tile * W + wc) * kF32WideVals * 32 + lane;   // a split's set of slots
+    if (split > 0) {
+      float* dst = ring + (split - 1) * tiles * W * kF32WideVals * 32 + at;
+      dst[0] = m[0];
+      dst[32] = m[1];
+      dst[64] = l[0];
+      dst[96] = l[1];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int key0 = tile * kWideTile;
-    scores(key0);
-    __syncthreads();                             // k_s's readers are done
+      for (int n = 0; n < kF32WideUnits; ++n)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      p_s[r * kWidePitch + t8 + 8 * j] = exp2f(fmaf(s[j], c, -mc)) * inv_l;
-    wide_load(k_s, vb + c0, vs.s, key0, kWideTile, S, 0, Dh - c0);   // V's block columns
+        for (int e = 0; e < 4; ++e) dst[(4 + n * 4 + e) * 32] = acc[n][e];
+    }
     __syncthreads();
-    wide_acc(acc, p_s + r * kWidePitch, k_s, t8);
-  }
-  const int row = r0 + r;
-  if (row >= S) return;
-  float* orow = o + b * os.b + h * os.h + row * os.s;
+    if (split > 0) return;
+    for (int sp = 1; sp < splits; ++sp) {
+      const float* src = ring + (sp - 1) * tiles * W * kF32WideVals * 32 + at;
+      float fa[2], fb[2];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (c0 + t8 + 8 * j < Dh) orow[c0 + t8 + 8 * j] = acc[j];
+      for (int half = 0; half < 2; ++half) {
+        const float mo = src[half * 32];
+        const float mn = fmaxf(m[half], mo);
+        const float mcn = mn == -CUDART_INF_F ? 0.f : mn * c;
+        fa[half] = exp2f(fmaf(m[half], c, -mcn));
+        fb[half] = exp2f(fmaf(mo, c, -mcn));
+        l[half] = l[half] * fa[half] + src[(2 + half) * 32] * fb[half];
+        m[half] = mn;
+      }
+#pragma unroll
+      for (int n = 0; n < kF32WideUnits; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = acc[n][e] * fa[e / 2] + src[(4 + n * 4 + e) * 32] * fb[e / 2];
+    }
+  }
+  if (!live || z8 == 0) return;
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(kFullMask, l[half], 1);
+    l[half] += __shfl_xor_sync(kFullMask, l[half], 2);
+    inv[half] = 1.f / l[half];
+  }
+  f32_wide_store(o + b * os.b + h * os.h, os.s, acc, inv, ra, S, zc0, min(Dh, zc0 + 8 * z8),
+                 flags & 2, t);
 }
 
 int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
                 int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal, float scale,
                 cudaStream_t stream) {
-  const dim3 grid(B * H, (S + kWideRows - 1) / kWideRows, (Dh + kWideCols - 1) / kWideCols);
-  attention_wide<<<grid, kWideThreads, 0, stream>>>(
+  static int smem_set[64];
+  // the most any call takes: two splits of four warps at R = 1 (Dh = 256)
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_wide),
+                                     4 * f32_wide_floats(F32Wide(256), 1, 2), smem_set);
+  if (err != cudaSuccess) return err;
+  auto rows16 = [](const void* p, const Strides& s) {
+    return aligned(p, 16) && s.b % 4 == 0 && s.s % 4 == 0 && s.h % 4 == 0;
+  };
+  const int flags = (Dh % 4 == 0 && rows16(q, qs) && rows16(k, ks) && rows16(v, vs) ? 1 : 0) |
+                    (Dh % 2 == 0 && aligned(o, 8) && os.b % 2 == 0 && os.s % 2 == 0 &&
+                             os.h % 2 == 0 ? 2 : 0);
+  // a block per (batch, head), up to kF32WideWarps / (W splits) 16-row
+  // tiles of its queries as even as the tiles allow, and round z of the
+  // output's chunks; splits (at R = 1) where the warps alone give fewer than
+  // two to each of the card's four sub-partitions an SM (key_splits), at
+  // most one a 16 keys of S
+  const F32Wide sh(Dh);
+  const int tiles16 = (S + 15) / 16;
+  const int splits = sh.R > 1 ? 1
+                              : min(min(key_splits(static_cast<long long>(B) * H * tiles16 * sh.W),
+                                        kF32WideWarps / sh.W),
+                                    (S + kF32WideKeys - 1) / kF32WideKeys);
+  const int most = kF32WideWarps / (sh.W * splits);
+  const int blocks_y = (tiles16 + most - 1) / most;
+  const int tiles = (tiles16 + blocks_y - 1) / blocks_y;
+  attention_wide<<<dim3(B * H, blocks_y, sh.R), 32 * sh.W * tiles * splits,
+                   4 * f32_wide_floats(sh, tiles, splits), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, S, Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f);
+      static_cast<float*>(o), H, S, Dh, qs, ks, vs, os, causal, scale * 1.4426950408889634f,
+      flags, splits);
   return cudaGetLastError();
 }
 

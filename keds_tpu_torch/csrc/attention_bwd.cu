@@ -155,13 +155,30 @@
 //     two blocks an SM; at most 136 KB and 103 KB of shared memory.  Rows
 //     must be 16-byte aligned; the caller copies others.
 
-// attention_bwd_wide_dq and attention_bwd_wide_dkv (f32 above Dh = 64).
-// The same two launches on CUDA cores: dq per 16 query rows (two sweeps
-// over 64-key tiles), then dk and dv per 16 key rows; each block writes 64
-// of the gradients' columns (grid.z) and recomputes q k^T and dO V^T over
-// the whole width, in f32 FMA with a shared-memory load each (common.cuh,
-// f32 wide-head attention): right first, bound by its shared-memory loads
-// (PERF.md, its rows).
+// attention_bwd_wide_dq and attention_bwd_wide_dkv (f32 above Dh = 64, any
+// Dh and S).  Every f32 backward above 64 (128-wide heads too) and custom
+// configs' wide heads reach them.  What bounds them on the H100: operations
+// at large S (at (16, 4, 257, 256) 10.8 GFLOP on 118 MB: 0.066 ms at
+// 3xTF32's rate), latency at the prompts' S.  The tuned f32 pair's design
+// (attention_bwd_f32_dq and _dkv: 3xTF32 on mma.sync, a warp owning 16 rows,
+// its per-element arithmetic, splits merged in a fixed order, no atomics, so
+// two calls agree bit for bit) made width-general as the forward's
+// attention_wide (attention.cu):
+//   * W warps share each 16-row tile, one <= 64-column chunk each (common.cuh,
+//     f32 wide-head attention): s = q k^T and dP = dO V^T (dkv: their
+//     transposes) are summed over the W shares through shared memory, and
+//     each warp writes the gradients' columns of its own chunk, so the
+//     products over the width are taken once up to Dh = 256.
+//   * dq: K and V stream through a two-stage cp.async ring in stages of 16
+//     keys a warp, twice, the block's q and dO rows staged once (R = 1):
+//     the statistics m, l and D, then dS = P (dP - D) into dQ.  It writes m
+//     c, 1 / l and D to the workspace (3 x BH x S floats).  dkv: the queries
+//     that see the block's keys stream with their dO rows and, at a tile's
+//     last round, their statistics; P^T and dS^T enter dV and dK.
+//   * Blocks of up to four warps, two an SM (their shared memory allows no
+//     more); where the grid is thin, 2 to 4 splits of a tile's warps take
+//     its keys (dq) or queries (dkv), a block of up to eight warps.  Rows are
+//     read in place (16-byte copies where aligned, else 4 bytes).
 
 #include "common.cuh"
 
@@ -1273,15 +1290,17 @@ attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // (m, l, D) of the splits of each tile: every split warp merges them in the
-// same order into the same values.
-__device__ __forceinline__ void merge_stats(F32Dq& w, float* xchg, int split, int tile,
-                                            int tiles, int splits, float c, int lane) {
+// same order into the same values (a barrier: every thread of the block
+// calls it).
+__device__ __forceinline__ void merge_stats(float (&wm)[2], float (&wl)[2], float (&wdd)[2],
+                                            float* xchg, int split, int tile, int tiles,
+                                            int splits, float c, int lane) {
   float* mine = xchg + (split * tiles + tile) * 6 * 32 + lane;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mine[h * 32] = w.m[h];
-    mine[(2 + h) * 32] = w.l[h];
-    mine[(4 + h) * 32] = w.dd[h];
+    mine[h * 32] = wm[h];
+    mine[(2 + h) * 32] = wl[h];
+    mine[(4 + h) * 32] = wdd[h];
   }
   __syncthreads();
 #pragma unroll
@@ -1296,9 +1315,9 @@ __device__ __forceinline__ void merge_stats(F32Dq& w, float* xchg, int split, in
       l = fmaf(x[(2 + h) * 32], f, l);
       dd = fmaf(x[(4 + h) * 32], f, dd);
     }
-    w.m[h] = m;
-    w.l[h] = l;
-    w.dd[h] = dd;
+    wm[h] = m;
+    wl[h] = l;
+    wdd[h] = dd;
   }
 }
 
@@ -1373,7 +1392,7 @@ attention_bwd_f32_dq(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();                               // the stage is refilled next
     }
     if (sweep == 0) {
-      if (splits > 1) merge_stats(w, xchg, split, tile, tiles, splits, c, lane);
+      if (splits > 1) merge_stats(w.m, w.l, w.dd, xchg, split, tile, tiles, splits, c, lane);
       w.finish_stats(c, S);
     }
   }
@@ -1514,138 +1533,322 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, vo
   return cudaGetLastError();
 }
 
-// --- f32 wide-head kernels (f32 above Dh = kHeadDim) -------------------------
+// --- f32 wide-head kernels (f32 above Dh = kHeadDim, tensor cores) ----------
 
-// Shared floats of a wide block: its kWideRows rows of two tensors (a, c),
-// then a tile of kWideTile rows of two more (b, d).
-constexpr int kWideSmem = (2 * kWideRows + 2 * kWideTile) * kWidePitch;
+constexpr int kF32WideWarps = 4;    // warps a block at most (two blocks an SM; twice with splits)
+constexpr int kF32WideRows = 16;    // keys (dq) or queries (dkv) a warp takes of a stage
+constexpr int kF32WideNT = kF32WideRows / 8;
 
-// x[j] = a_row . b_(b0 + t8 + 8 j) and y[j] = c_row . d_(b0 + t8 + 8 j)
-// over the whole head width, the block's rows from row a0 (a and c) against
-// the tile's (b and d), staged 64 columns at a time.
-__device__ __forceinline__ void wide_products(float (&x)[8], float (&y)[8], float* sm,
-                                              const float* a, long long as, const float* c,
-                                              long long cs, int a0, const float* b, long long bs,
-                                              const float* d, long long ds, int b0, int S, int Dh) {
-  float* a_s = sm;
-  float* c_s = a_s + kWideRows * kWidePitch;
-  float* b_s = c_s + kWideRows * kWidePitch;
-  float* d_s = b_s + kWideTile * kWidePitch;
-  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) x[j] = y[j] = 0.f;
-  for (int d0 = 0; d0 < Dh; d0 += kWideCols) {
-    __syncthreads();                             // the staged rows' readers are done
-    wide_load(a_s, a, as, a0, kWideRows, S, d0, Dh);
-    wide_load(c_s, c, cs, a0, kWideRows, S, d0, Dh);
-    wide_load(b_s, b, bs, b0, kWideTile, S, d0, Dh);
-    wide_load(d_s, d, ds, b0, kWideTile, S, d0, Dh);
-    __syncthreads();
-    wide_dot(x, a_s + r * kWidePitch, b_s, t8);
-    wide_dot(y, c_s + r * kWidePitch, d_s, t8);
-  }
+// Floats of a ring stage: the streamed tile's two operands' W chunks (dq: K
+// and V; dkv: q and dO) of `tile` rows, at R > 1 the block's `rows` rows of
+// its own two operands' W chunks (dq: q and dO; dkv: K and V; at R = 1
+// staged once), and dkv's three statistics a streamed row.
+__host__ __device__ inline int f32_wide_stage(const F32Wide& sh, int rows, int tile, bool dkv) {
+  return sh.W * (2 * tile + (sh.R > 1 ? 2 * rows : 0)) * kF32WidePitch + (dkv ? 3 * tile : 0);
 }
 
-// dq: a block takes kWideRows query rows and kWideCols of dq's columns.
-// Sweep 1 over 64-key tiles takes each row's max m, sum l and D = sum_j P_j
-// dP_j (D's sum rescaled with l as m grows); the column block 0
-// writes m c, 1 / l and D to the workspace (3 x BH x S floats).  Sweep 2
-// forms dS = P (dP - D) into dq = scale dS K over the block's
-// columns.  s = q k^T and dP = dO v^T are f32 FMA over the whole width.
-__global__ void __launch_bounds__(kWideThreads)
+// Dynamic shared floats of a block of `tiles` row tiles and `splits`: the
+// two-stage ring (or the splits' accumulators, if larger), its own operands
+// at R = 1, each warp's two slots of partial products, and dq's splits'
+// statistics.
+__host__ __device__ inline int f32_wide_floats(const F32Wide& sh, int tiles, int splits, bool dkv) {
+  const int rows = 16 * tiles, warps = splits * tiles * sh.W;
+  const int ring = 2 * f32_wide_stage(sh, rows, kF32WideRows * splits, dkv);
+  const int merge = (splits - 1) * tiles * sh.W * (dkv ? 2 : 1) * kF32AccFloats;
+  return (ring > merge ? ring : merge) + (sh.R > 1 ? 0 : 2 * sh.W * rows * kF32WidePitch) +
+         warps * 2 * kF32WideNT * 128 + (dkv || splits == 1 ? 0 : warps * 6 * 32);
+}
+
+// dq: a block takes `tiles` 16-row query tiles of one (batch, head), as even
+// as the tiles allow, W warps a tile, warp w owning chunk z W + w of dq's
+// columns (z = blockIdx.z; common.cuh, f32 wide-head attention); where the
+// grid is thin (R = 1), `splits` sets of those warps take a tile's keys, set
+// s the keys 16 s .. 16 s + 15 of every stage.  K and V stream through a
+// two-stage cp.async ring filled one item ahead (one barrier an item) in
+// tiles of 16 splits keys (the live keys alone), each over the R rounds
+// with the own round last, twice; the block's q and dO rows are staged once
+// at R = 1, else with each round.  Each warp takes s = q k^T and dP = dO V^T
+// over its chunk of the round (hi.hi apart), and at a tile's last round the
+// W shares are summed through shared memory.  The tuned pair's per-element
+// arithmetic and splits (F32Dq, merge_stats): sweep 1 takes each row's max
+// m, sum l and D = sum P dP with the same online rescaling, the splits
+// merging them in a fixed order; sweep 2 forms dS = P (dP - D) into dQ =
+// scale dS K over the warp's columns, the splits' sums added in order at
+// the end.  The block of round 0 writes m c, 1 / l and D (0 past S) to the
+// workspace (3 x BH x S floats).  flags: 1 = q, k, v and dO rows 16-byte
+// aligned with Dh a multiple of 4, 2 = dq, dk and dv rows 8-byte aligned
+// with an even Dh.
+__global__ void __launch_bounds__(64 * kF32WideWarps)
 attention_bwd_wide_dq(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       float* __restrict__ dq, float* __restrict__ stats, int BH, int H, int S,
                       int Dh, Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs,
-                      int causal, float scale, float c) {
-  __shared__ float sm[kWideSmem];
+                      int causal, float scale, float c, int flags, int splits) {
+  constexpr int P = kF32WidePitch, NT = kF32WideNT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const F32Wide sh(Dh);
+  const int nd = sh.nd, R = sh.R, W = sh.W, z = blockIdx.z;
+  const int tiles = blockDim.x / 32 / W / splits;
+  const int T = kF32WideRows * splits;           // keys a stage
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the warp's chunk of a round, its row tile, its split
+  const int wc = warp % W, wt = warp / W % tiles, split = warp / W / tiles;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int r0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
-  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8, row = r0 + r;
-  const int lim = causal ? min(S, row + 1) : S;          // keys < lim are live for the row
-  // every tile starts at a key <= r0, live for each of the block's rows
-  const int n_tiles = ((causal ? min(S, r0 + kWideRows) : S) + kWideTile - 1) / kWideTile;
+  const int tiles16 = (S + 15) / 16;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, tiles16);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, tiles16);
+  const int r_first = u_first * 16, n_rows = (u_end - u_first) * 16;
+  const int rows = 16 * tiles, warps = splits * tiles * W;
+  const int block_keys = causal ? min(S, u_end * 16) : S;
+  const int n_tiles = (block_keys + T - 1) / T;
+  const int per_sweep = n_tiles * R, n_items = 2 * per_sweep;
+  const int stage = f32_wide_stage(sh, rows, T, false);
+  float* ring = reinterpret_cast<float*>(smem);
+  // R = 1: q's chunks, then dO's, after the ring or the splits' hand-over
+  float* own_res = ring + max(2 * stage, (splits - 1) * tiles * W * kF32AccFloats);
+  float* slots = own_res + (R > 1 ? 0 : 2 * W * rows * P);
+  float* xchg = slots + warps * 2 * NT * 128;      // the splits' statistics
+  const bool vec = flags & 1;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const float* gb = dout + b * gs.b + h * gs.h;
 
-  float s[8], dp[8];
-  auto products = [&](int key0) {
-    wide_products(s, dp, sm, qb, qs.s, gb, gs.s, r0, kb, ks.s, vb, vs.s, key0, S, Dh);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (key0 + t8 + 8 * j >= lim) s[j] = -CUDART_INF_F;
+  // the next item's copies, one commit group an item (empty past the
+  // last): K's chunks, V's, then (R > 1) q's rows' and dO's
+  F32Item ld(R, z);
+  int n_loaded = 0;
+  auto load = [&]() {
+    if (n_loaded < n_items) {
+      float* st = ring + (n_loaded & 1) * stage;
+      const F32Item& w = ld;
+      const int k0 = w.tile * T, n_keys = (min(T, block_keys - k0) + 7) & ~7;
+      for (int j = 0; j < W && w.round * W + j < nd; ++j) {
+        const int cc = w.round * W + j, c0 = sh.begin(cc), wd = sh.width(cc);
+        f32_chunk_async(st + j * T * P, kb, ks.s, k0, n_keys, S, c0, wd, Dh, vec);
+        f32_chunk_async(st + (W + j) * T * P, vb, vs.s, k0, n_keys, S, c0, wd, Dh, vec);
+        if (R > 1) {
+          float* ob = st + 2 * W * T * P;
+          f32_chunk_async(ob + j * rows * P, qb, qs.s, r_first, n_rows, S, c0, wd, Dh, vec);
+          f32_chunk_async(ob + (W + j) * rows * P, gb, gs.s, r_first, n_rows, S, c0, wd, Dh, vec);
+        }
+      }
+      ld.next(R, n_tiles, z);
+    }
+    ++n_loaded;
+    cp_async_commit();
   };
-
-  float m = -CUDART_INF_F, l = 0.f, dsum = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    products(tile * kWideTile);
-    float mx = s[0];
-#pragma unroll
-    for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[j]);
-    const float mn = fmaxf(m, row_max(mx)), mcn = mn * c;
-    const float alpha = exp2f(fmaf(m, c, -mcn));
-    l *= alpha;
-    dsum *= alpha;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float e = exp2f(fmaf(s[j], c, -mcn));
-      l += e;
-      dsum = fmaf(e, dp[j], dsum);
+  if (R == 1)
+    for (int j = 0; j < W; ++j) {
+      f32_chunk_async(own_res + j * rows * P, qb, qs.s, r_first, n_rows, S, sh.begin(j),
+                      sh.width(j), Dh, vec);
+      f32_chunk_async(own_res + (W + j) * rows * P, gb, gs.s, r_first, n_rows, S, sh.begin(j),
+                      sh.width(j), Dh, vec);
     }
-    m = mn;
-  }
-  const float mc = m * c, inv_l = 1.f / row_sum(l), D = row_sum(dsum) * inv_l;
-  if (blockIdx.z == 0 && t8 == 0 && row < S) {
-    const long long at = static_cast<long long>(bh) * S + row, n = static_cast<long long>(BH) * S;
-    stats[at] = mc;
-    stats[n + at] = inv_l;
-    stats[2 * n + at] = D;
-  }
+  load();
 
-  float* ds_s = sm;                                // the block's rows of dS
-  float* k_s = sm + 2 * kWideRows * kWidePitch;    // K's tile, the block's columns
-  float acc[8];
+  const int unit = u_first + wt;
+  const bool live = unit < u_end;
+  const int r0 = unit * 16;
+  const int ra = r0 + g, rb = ra + 8;
+  const int lim_a = causal ? min(S, ra + 1) : S, lim_b = causal ? min(S, rb + 1) : S;
+  const int lim_warp = causal ? min(S, r0 + 1) : S;
+  const int warp_keys = !live ? 0 : causal ? min(S, r0 + 16) : S;
+  const int own = z * W + wc;                      // the warp's chunk of dq
+  const int z8 = own < nd ? sh.width(own) / 8 : 0, zc0 = own < nd ? sh.begin(own) : 0;
+  // the shares of s, then of dP, of the warp's (split, tile)
+  float* s_slots = slots + 2 * (split * tiles + wt) * W * NT * 128;
+  float* dp_slots = s_slots + W * NT * 128;
+
+  float s[NT][4], s_lo[NT][4], dp[NT][4], dp_lo[NT][4], acc[kF32WideUnits][4];
+  // sweep 1: m, l and D's sum; then m c, 1 / l and D
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int key0 = tile * kWideTile;
-    products(key0);
-    __syncthreads();                               // the staged rows' readers are done
+  for (int n = 0; n < kF32WideUnits; ++n)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p = exp2f(fmaf(s[j], c, -mc)) * inv_l;
-      ds_s[r * kWidePitch + t8 + 8 * j] = p * (dp[j] - D);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  F32Item w(R, z);
+  for (int it = 0; it < n_items; ++it, w.next(R, n_tiles, z)) {
+    cp_async_wait<0>();                          // item it has landed ...
+    __syncthreads();                             // ... for every thread; it - 1 is done
+    load();                                      // item it + 1, into it - 1's stage
+    if (it == per_sweep) {                       // sweep 1's statistics
+      if (splits > 1)
+        merge_stats(m, l, dd, xchg, split, wt * W + wc, tiles * W, splits, c, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          l[half] += __shfl_xor_sync(kFullMask, l[half], off);
+          dd[half] += __shfl_xor_sync(kFullMask, dd[half], off);
+        }
+        // rows >= S (and a warp with no rows): P = 0, and a finite m c for dkv
+        const bool row_live = live && ra + 8 * half < S;
+        m[half] = row_live ? m[half] * c : 0.f;
+        l[half] = row_live ? 1.f / l[half] : 0.f;
+        dd[half] = row_live ? dd[half] * l[half] : 0.f;
+      }
     }
-    wide_load(k_s, kb + c0, ks.s, key0, kWideTile, S, 0, Dh - c0);
+    const float* st = ring + (it & 1) * stage;
+    const int kw = split * kF32WideRows;         // the warp's keys in the stage
+    const int key0 = w.tile * T + kw;
+    const int n_live = min(NT, (warp_keys - key0 + 7) / 8);   // the same for a tile's W warps
+    const int cc = w.round * W + wc;
+    if (n_live > 0) {
+      if (w.i == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = s_lo[nt][e] = dp[nt][e] = dp_lo[nt][e] = 0.f;
+      }
+      if (cc < nd) {
+        const float* ob = R > 1 ? st + 2 * W * T * P : own_res;
+        const int steps = sh.width(cc) >> 3;
+        f32_wide_abt<NT, true>(s, s_lo, ob + (wc * rows + wt * 16) * P, st + (wc * T + kw) * P,
+                               steps, n_live, g, t);
+        f32_wide_abt<NT, true>(dp, dp_lo, ob + ((W + wc) * rows + wt * 16) * P,
+                               st + ((W + wc) * T + kw) * P, steps, n_live, g, t);
+      }
+    }
+    if (w.i < R - 1) continue;                   // the shares are whole at the last round
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] += s_lo[nt][e];
+        dp[nt][e] += dp_lo[nt][e];
+      }
+    if (n_live > 0) {
+      xchg_put<NT>(s_slots + wc * NT * 128, s, lane);
+      xchg_put<NT>(dp_slots + wc * NT * 128, dp, lane);
+    }
+    __syncthreads();                             // every share is in
+    if (n_live <= 0) continue;
+    xchg_sum<NT>(s, s_slots, W, lane);
+    xchg_sum<NT>(dp, dp_slots, W, lane);
+    const bool masked = key0 + NT * 8 > lim_warp;
+    bool on[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        on[nt][e] = nt < n_live &&
+                    !(masked && key0 + nt * 8 + 2 * t + e % 2 >= (e < 2 ? lim_a : lim_b));
+    if (it < per_sweep) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (on[nt][e]) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      float mcs[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFullMask, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFullMask, mx[half], 2));
+        const float mn = fmaxf(m[half], mx[half]);
+        mcs[half] = mn == -CUDART_INF_F ? 0.f : mn * c;   // no live key yet: add nothing
+        const float alpha = exp2f(fmaf(m[half], c, -mcs[half]));
+        m[half] = mn;
+        l[half] *= alpha;
+        dd[half] *= alpha;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = on[nt][e] ? exp2f(fmaf(s[nt][e], c, -mcs[e / 2])) : 0.f;
+          l[e / 2] += p;
+          dd[e / 2] = fmaf(p, dp[nt][e], dd[e / 2]);
+        }
+      continue;
+    }
+    // dS = P (dP - D) into dQ over the warp's columns (K's chunk wc of the
+    // own round)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = on[nt][e] ? exp2f(fmaf(s[nt][e], c, -m[e / 2])) * l[e / 2] : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dd[e / 2]);
+      }
+    f32_wide_cb<NT, true>(acc, s, st + (wc * T + kw) * P, n_live, z8, g, t);
+  }
+  if (splits > 1) {                              // splits 1.. hand dQ to split 0 in order
+    __syncthreads();                             // every thread is done with the ring
+    const int at = (wt * W + wc) * kF32AccFloats + lane;
+    if (split > 0) put_acc(acc, ring + (split - 1) * tiles * W * kF32AccFloats + at);
     __syncthreads();
-    wide_acc(acc, ds_s + r * kWidePitch, k_s, t8);
+    if (split > 0) return;
+    for (int sp = 1; sp < splits; ++sp)
+      add_acc(acc, ring + (sp - 1) * tiles * W * kF32AccFloats + at);
   }
-  if (row >= S) return;
-  float* out = dq + b * dqs.b + h * dqs.h + row * dqs.s;
+  if (!live) return;
+  if (z == 0 && wc == 0 && t == 0) {
+    const long long n = static_cast<long long>(BH) * S;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (c0 + t8 + 8 * j < Dh) out[c0 + t8 + 8 * j] = acc[j] * scale;
+    for (int half = 0; half < 2; ++half) {
+      const int r = ra + 8 * half;
+      if (r >= S) continue;
+      const long long at = static_cast<long long>(bh) * S + r;
+      stats[at] = m[half];
+      stats[n + at] = l[half];
+      stats[2 * n + at] = dd[half];
+    }
+  }
+  if (z8 == 0) return;
+  const float mul[2] = {scale, scale};
+  f32_wide_store(dq + b * dqs.b + h * dqs.h, dqs.s, acc, mul, ra, S, zc0, min(Dh, zc0 + 8 * z8),
+                 flags & 2, t);
 }
 
-// dk and dv: a block takes kWideRows key rows and kWideCols of the columns,
-// and sweeps the 64-query tiles (from the tile of its first key when
-// causal) with the workspace's statistics: P^T and dP^T recomputed over the
-// whole width, dv += P^T dO and dk += scale dS^T q over the block's
-// columns.
-__global__ void __launch_bounds__(kWideThreads)
+// dk and dv: a block takes `tiles` 16-row key tiles of one (batch, head), W
+// warps a tile, warp w owning chunk z W + w of the columns, and `splits`
+// sets of them a tile's queries (set s the queries 16 s .. 16 s + 15 of
+// every stage).  The query rows that see the block's keys (from its first
+// key when causal) stream through the ring with their dO rows in tiles of
+// 16 splits, each over the R rounds, once, and with a tile's last round
+// their statistics from dq's workspace; the block's K and V rows are staged
+// once at R = 1, else with each round.  Each warp takes P^T = k q^T and
+// dP^T = V dO^T over its chunk of the round (hi.hi apart), the W shares are
+// summed at a tile's last round, and P^T = exp2(c s - m c) / l and dS^T =
+// P^T (dP^T - D) (F32Dkv's arithmetic) enter dV += P^T dO and dK += dS^T q
+// over the warp's columns, the splits' sums added in order at the end.
+__global__ void __launch_bounds__(64 * kF32WideWarps)
 attention_bwd_wide_dkv(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        float* __restrict__ dk, float* __restrict__ dv,
-                       const float* __restrict__ stats,
-                       int BH, int H, int S, int Dh, Strides qs, Strides ks, Strides vs,
-                       Strides gs, Strides dks, Strides dvs, int causal, float scale, float c) {
-  __shared__ float sm[kWideSmem];
-  __shared__ float st[3 * kWideTile];              // m c, 1 / l and D of the tile's queries
+                       const float* __restrict__ stats, int BH, int H, int S, int Dh, Strides qs,
+                       Strides ks, Strides vs, Strides gs, Strides dks, Strides dvs, int causal,
+                       float scale, float c, int flags, int splits) {
+  constexpr int P = kF32WidePitch, NT = kF32WideNT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const F32Wide sh(Dh);
+  const int nd = sh.nd, R = sh.R, W = sh.W, z = blockIdx.z;
+  const int tiles = blockDim.x / 32 / W / splits;
+  const int T = kF32WideRows * splits;           // queries a stage
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wc = warp % W, wt = warp / W % tiles, split = warp / W / tiles;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int j0 = blockIdx.y * kWideRows, c0 = blockIdx.z * kWideCols;
-  const int r = threadIdx.x / 8, t8 = threadIdx.x % 8, key = j0 + r;
+  const int tiles16 = (S + 15) / 16;
+  const int u_first = tile_begin(blockIdx.y, gridDim.y, tiles16);
+  const int u_end = tile_begin(blockIdx.y + 1, gridDim.y, tiles16);
+  const int j_first = u_first * 16, n_rows = (u_end - u_first) * 16;
+  const int rows = 16 * tiles;
+  // query rows from q0: when causal no earlier row sees the block's keys
+  const int q0 = causal ? j_first : 0;
+  const int n_tiles = (S - q0 + T - 1) / T;
+  const int n_items = n_tiles * R;
+  const int stats_at = W * (2 * T + (R > 1 ? 2 * rows : 0)) * P;   // in a stage
+  const int stage = f32_wide_stage(sh, rows, T, true);
+  float* ring = reinterpret_cast<float*>(smem);
+  // R = 1: K's chunks, then V's, after the ring or the splits' hand-over
+  float* own_res = ring + max(2 * stage, (splits - 1) * tiles * W * 2 * kF32AccFloats);
+  float* slots = own_res + (R > 1 ? 0 : 2 * W * rows * P);
+  const bool vec = flags & 1;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
@@ -1653,65 +1856,214 @@ attention_bwd_wide_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const long long n = static_cast<long long>(BH) * S;
   const float* sb = stats + static_cast<long long>(bh) * S;
 
-  float* p_s = sm;                                  // the block's rows of P^T
-  float* ds_s = sm + kWideRows * kWidePitch;        // and of dS^T
-  float* q_s = sm + 2 * kWideRows * kWidePitch;     // the tile's q and dO, the block's columns
-  float* g_s = q_s + kWideTile * kWidePitch;
-  float s[8], dp[8], av[8], ak[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) av[j] = ak[j] = 0.f;
-  const int n_tiles = (S + kWideTile - 1) / kWideTile;
-  for (int tile = causal ? j0 / kWideTile : 0; tile < n_tiles; ++tile) {
-    const int i0 = tile * kWideTile;
-    // st's last readers passed the previous tile's second barrier
-    for (int e = threadIdx.x; e < 3 * kWideTile; e += blockDim.x) {
-      const int qq = i0 + e % kWideTile;
-      st[e] = qq < S ? sb[e / kWideTile * n + qq] : 0.f;
+  // the next item's copies, one commit group an item (empty past the
+  // last): q's chunks, dO's, (R > 1) K's rows' and V's, then (the last
+  // round) the statistics
+  F32Item ld(R, z);
+  int n_loaded = 0;
+  auto load = [&]() {
+    if (n_loaded < n_items) {
+      float* st = ring + (n_loaded & 1) * stage;
+      const F32Item& w = ld;
+      const int i0 = q0 + w.tile * T, n_q = (min(T, S - i0) + 7) & ~7;
+      for (int j = 0; j < W && w.round * W + j < nd; ++j) {
+        const int cc = w.round * W + j, c0 = sh.begin(cc), wd = sh.width(cc);
+        f32_chunk_async(st + j * T * P, qb, qs.s, i0, n_q, S, c0, wd, Dh, vec);
+        f32_chunk_async(st + (W + j) * T * P, gb, gs.s, i0, n_q, S, c0, wd, Dh, vec);
+        if (R > 1) {
+          float* ob = st + 2 * W * T * P;
+          f32_chunk_async(ob + j * rows * P, kb, ks.s, j_first, n_rows, S, c0, wd, Dh, vec);
+          f32_chunk_async(ob + (W + j) * rows * P, vb, vs.s, j_first, n_rows, S, c0, wd, Dh, vec);
+        }
+      }
+      if (w.i == R - 1) {                        // m c, 1 / l and D, 0 past S
+        float* dst = st + stats_at;
+        for (int e = threadIdx.x; e < 3 * T; e += blockDim.x) {
+          const int which = e / T, i = i0 + e % T;
+          const bool in = i < S;
+          cp_async4(dst + e, sb + which * n + (in ? i : 0), in);
+        }
+      }
+      ld.next(R, n_tiles, z);
     }
-    wide_products(s, dp, sm, kb, ks.s, vb, vs.s, j0, qb, qs.s, gb, gs.s, i0, S, Dh);
-    __syncthreads();                               // the staged rows' readers are done
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int qi = t8 + 8 * j, qq = i0 + qi;
-      const bool live = qq < S && (!causal || qq >= key);
-      const float p = live ? exp2f(fmaf(s[j], c, -st[qi])) * st[kWideTile + qi] : 0.f;
-      p_s[r * kWidePitch + qi] = p;
-      ds_s[r * kWidePitch + qi] = p * (dp[j] - st[2 * kWideTile + qi]);
+    ++n_loaded;
+    cp_async_commit();
+  };
+  if (R == 1)
+    for (int j = 0; j < W; ++j) {
+      f32_chunk_async(own_res + j * rows * P, kb, ks.s, j_first, n_rows, S, sh.begin(j),
+                      sh.width(j), Dh, vec);
+      f32_chunk_async(own_res + (W + j) * rows * P, vb, vs.s, j_first, n_rows, S, sh.begin(j),
+                      sh.width(j), Dh, vec);
     }
-    wide_load(q_s, qb + c0, qs.s, i0, kWideTile, S, 0, Dh - c0);
-    wide_load(g_s, gb + c0, gs.s, i0, kWideTile, S, 0, Dh - c0);
+  load();
+
+  const int unit = u_first + wt;
+  const bool live = unit < u_end;
+  const int c0w = unit * 16;                     // the warp's keys
+  const int ja = c0w + g, jb = ja + 8;
+  const int own = z * W + wc;                    // the warp's chunk of dk and dv
+  const int z8 = own < nd ? sh.width(own) / 8 : 0, zc0 = own < nd ? sh.begin(own) : 0;
+  // the shares of P^T, then of dP^T, of the warp's (split, tile)
+  float* p_slots = slots + 2 * (split * tiles + wt) * W * NT * 128;
+  float* dp_slots = p_slots + W * NT * 128;
+
+  float pt[NT][4], pt_lo[NT][4], dpt[NT][4], dpt_lo[NT][4];
+  float av[kF32WideUnits][4], ak[kF32WideUnits][4];
+#pragma unroll
+  for (int nn = 0; nn < kF32WideUnits; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[nn][e] = ak[nn][e] = 0.f;
+
+  F32Item w(R, z);
+  for (int it = 0; it < n_items; ++it, w.next(R, n_tiles, z)) {
+    cp_async_wait<0>();                          // item it has landed ...
+    __syncthreads();                             // ... for every thread; it - 1 is done
+    load();                                      // item it + 1, into it - 1's stage
+    const float* st = ring + (it & 1) * stage;
+    const int qw = split * kF32WideRows;         // the warp's queries in the stage
+    const int i0 = q0 + w.tile * T + qw;
+    // the same for a tile's W warps: no live key, no live query, or every
+    // query before every key
+    const bool active = live && i0 < S && !(causal && i0 + kF32WideRows - 1 < c0w);
+    const int n_live = active ? min(NT, (S - i0 + 7) / 8) : 0;
+    const int cc = w.round * W + wc;
+    if (n_live > 0) {
+      if (w.i == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pt[nt][e] = pt_lo[nt][e] = dpt[nt][e] = dpt_lo[nt][e] = 0.f;
+      }
+      if (cc < nd) {
+        const float* ob = R > 1 ? st + 2 * W * T * P : own_res;
+        const int steps = sh.width(cc) >> 3;
+        f32_wide_abt<NT, true>(pt, pt_lo, ob + (wc * rows + wt * 16) * P,
+                               st + (wc * T + qw) * P, steps, n_live, g, t);
+        f32_wide_abt<NT, true>(dpt, dpt_lo, ob + ((W + wc) * rows + wt * 16) * P,
+                               st + ((W + wc) * T + qw) * P, steps, n_live, g, t);
+      }
+    }
+    if (w.i < R - 1) continue;                   // the shares are whole at the last round
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pt[nt][e] += pt_lo[nt][e];
+        dpt[nt][e] += dpt_lo[nt][e];
+      }
+    if (n_live > 0) {
+      xchg_put<NT>(p_slots + wc * NT * 128, pt, lane);
+      xchg_put<NT>(dp_slots + wc * NT * 128, dpt, lane);
+    }
+    __syncthreads();                             // every share is in
+    if (n_live <= 0) continue;
+    xchg_sum<NT>(pt, p_slots, W, lane);
+    xchg_sum<NT>(dpt, dp_slots, W, lane);
+    const float* mc_s = st + stats_at + qw;
+    const float* il_s = mc_s + T;
+    const float* d_s = il_s + T;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int ic = nt * 8 + 2 * t;             // the columns' queries
+      // read only live blocks: the statistics end at the 8-rounded tile
+      float2 mq = make_float2(0.f, 0.f), lq = mq, dq2 = mq;
+      if (nt < n_live) {
+        mq = *reinterpret_cast<const float2*>(mc_s + ic);
+        lq = *reinterpret_cast<const float2*>(il_s + ic);
+        dq2 = *reinterpret_cast<const float2*>(d_s + ic);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool odd = e % 2;
+        const int i = i0 + ic + odd, key = e < 2 ? ja : jb;
+        const bool on = nt < n_live && i < S && !(causal && key > i);
+        const float p =
+            on ? exp2f(fmaf(pt[nt][e], c, -(odd ? mq.y : mq.x))) * (odd ? lq.y : lq.x) : 0.f;
+        pt[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - (odd ? dq2.y : dq2.x));
+      }
+    }
+    // dV += P^T dO and dK += dS^T q over the warp's columns (dO's and q's
+    // chunk wc of the own round)
+    f32_wide_cb<NT, true>(av, pt, st + ((W + wc) * T + qw) * P, n_live, z8, g, t);
+    f32_wide_cb<NT, true>(ak, dpt, st + (wc * T + qw) * P, n_live, z8, g, t);
+  }
+  if (splits > 1) {                              // splits 1.. hand dV and dK to split 0 in order
+    __syncthreads();                             // every thread is done with the ring
+    const int at = (wt * W + wc) * 2 * kF32AccFloats + lane;
+    float* x = ring + (split - 1) * tiles * W * 2 * kF32AccFloats + at;
+    if (split > 0) {
+      put_acc(av, x);
+      put_acc(ak, x + kF32AccFloats);
+    }
     __syncthreads();
-    wide_acc(av, p_s + r * kWidePitch, g_s, t8);
-    wide_acc(ak, ds_s + r * kWidePitch, q_s, t8);
-  }
-  if (key >= S) return;
-  float* dv_row = dv + b * dvs.b + h * dvs.h + key * dvs.s;
-  float* dk_row = dk + b * dks.b + h * dks.h + key * dks.s;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = c0 + t8 + 8 * j;
-    if (col < Dh) {
-      dv_row[col] = av[j];
-      dk_row[col] = ak[j] * scale;
+    if (split > 0) return;
+    for (int sp = 1; sp < splits; ++sp) {
+      const float* y = ring + (sp - 1) * tiles * W * 2 * kF32AccFloats + at;
+      add_acc(av, y);
+      add_acc(ak, y + kF32AccFloats);
     }
   }
+  if (!live || z8 == 0) return;
+  const int c_end = min(Dh, zc0 + 8 * z8);
+  const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
+  f32_wide_store(dv + b * dvs.b + h * dvs.h, dvs.s, av, one, ja, S, zc0, c_end, flags & 2, t);
+  f32_wide_store(dk + b * dks.b + h * dks.h, dks.s, ak, mul, ja, S, zc0, c_end, flags & 2, t);
 }
 
 int launch_wide(const void* q, const void* k, const void* v, const void* dout, void* dq,
                 void* dk, void* dv, int BH, int H, int S, int Dh, const Strides* st, int causal,
                 float scale, float* stats, cudaStream_t stream) {
-  const dim3 grid(BH, (S + kWideRows - 1) / kWideRows, (Dh + kWideCols - 1) / kWideCols);
+  // 16-byte cp.async rows where q, k, v and dO allow them, 8-byte stores
+  // where dq, dk and dv do
+  int vec = Dh % 4 == 0, pairs = Dh % 2 == 0;
+  const void* in[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    vec = vec && reinterpret_cast<unsigned long long>(in[i]) % 16 == 0 && st[i].b % 4 == 0 &&
+          st[i].s % 4 == 0 && st[i].h % 4 == 0;
+  const void* out[3] = {dq, dk, dv};
+  for (int i = 0; i < 3; ++i)
+    pairs = pairs && reinterpret_cast<unsigned long long>(out[i]) % 8 == 0 &&
+            st[4 + i].b % 2 == 0 && st[4 + i].s % 2 == 0 && st[4 + i].h % 2 == 0;
+  const int flags = vec | pairs << 1;
+  static int dq_set[64], dkv_set[64];
+  // the most any call takes: two splits of four warps at R = 1 (Dh = 256)
+  const F32Wide widest(256);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_wide_dq),
+                               4 * f32_wide_floats(widest, 1, 2, false), dq_set);
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(attention_bwd_wide_dkv),
+                     4 * f32_wide_floats(widest, 1, 2, true), dkv_set);
+  if (err != cudaSuccess) return err;
+  // a block per (batch, head), up to kF32WideWarps / W 16-row tiles of its
+  // query (dq) or key (dkv) rows as even as the tiles allow, W warps a tile,
+  // and round z of the gradients' chunks; splits (at R = 1) as the forward's,
+  // a block of up to twice the warps then
+  const F32Wide sh(Dh);
+  const int tiles16 = (S + 15) / 16;
+  const int splits = sh.R > 1 ? 1
+                              : min(min(key_splits(static_cast<long long>(BH) * tiles16 * sh.W),
+                                        2 * kF32WideWarps / sh.W),
+                                    (S + kF32WideRows - 1) / kF32WideRows);
+  const int most = (splits > 1 ? 2 * kF32WideWarps : kF32WideWarps) / (sh.W * splits);
+  const int blocks_y = (tiles16 + most - 1) / most;
+  const int tiles = (tiles16 + blocks_y - 1) / blocks_y;
+  const dim3 grid(BH, blocks_y, sh.R);
+  const int threads = 32 * sh.W * tiles * splits;
   const float c = scale * 1.4426950408889634f;
   const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
               *vt = static_cast<const float*>(v), *gt = static_cast<const float*>(dout);
-  attention_bwd_wide_dq<<<grid, kWideThreads, 0, stream>>>(
-      qt, kt, vt, gt, static_cast<float*>(dq), stats, BH, H, S, Dh, st[0], st[1], st[2], st[3],
-      st[4], causal, scale, c);
-  const cudaError_t err = cudaGetLastError();
+  attention_bwd_wide_dq<<<grid, threads, 4 * f32_wide_floats(sh, tiles, splits, false),
+                          stream>>>(qt, kt, vt, gt, static_cast<float*>(dq), stats, BH, H, S, Dh,
+                                    st[0], st[1], st[2], st[3], st[4], causal, scale, c, flags,
+                                    splits);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_wide_dkv<<<grid, kWideThreads, 0, stream>>>(
-      qt, kt, vt, gt, static_cast<float*>(dk), static_cast<float*>(dv), stats, BH, H, S, Dh,
-      st[0], st[1], st[2], st[3], st[5], st[6], causal, scale, c);
+  attention_bwd_wide_dkv<<<grid, threads, 4 * f32_wide_floats(sh, tiles, splits, true),
+                           stream>>>(qt, kt, vt, gt, static_cast<float*>(dk),
+                                     static_cast<float*>(dv), stats, BH, H, S, Dh, st[0], st[1],
+                                     st[2], st[3], st[5], st[6], causal, scale, c, flags, splits);
   return cudaGetLastError();
 }
 

@@ -508,70 +508,6 @@ __host__ __device__ __forceinline__ int tile_begin(int y, int blocks, int tiles)
   return static_cast<int>(static_cast<long long>(y) * tiles / blocks);
 }
 
-// --- f32 wide-head attention (CUDA cores) -------------------------------------
-//
-// The f32 wide-head kernels (attention.cu attention_wide, attention_bwd.cu
-// attention_bwd_wide_*) read one element at a time into f32 shared rows, so
-// any head width, stride and alignment is taken.  A block takes kWideRows
-// rows of one (batch, head) against tiles of kWideTile rows, its threads 8 a
-// row: thread t takes row t / 8 and the tile's rows (or columns) t % 8 + 8 j.
-// Products step over the head dimension kWideCols columns at a time, and a
-// block writes kWideCols of the output's columns (grid.z), recomputing the
-// scores, so that registers and shared memory stay bounded at any Dh.
-
-constexpr int kWideRows = 16;
-constexpr int kWideTile = 64;
-constexpr int kWideCols = 64;
-constexpr int kWidePitch = kWideCols + 1;    // floats a shared row: conflict-free
-constexpr int kWideThreads = 8 * kWideRows;
-
-// rows x kWideCols elements of src (rows `stride` elements apart), from row
-// r0 and column d0, into shared rows of kWidePitch floats; zero past row
-// n_rows and column n_cols.
-__device__ __forceinline__ void wide_load(float* dst, const float* src, long long stride, int r0,
-                                          int rows, int n_rows, int d0, int n_cols) {
-  for (int e = threadIdx.x; e < rows * kWideCols; e += blockDim.x) {
-    const int i = e / kWideCols, d = e % kWideCols;
-    const int r = r0 + i, col = d0 + d;
-    dst[i * kWidePitch + d] = r < n_rows && col < n_cols ? src[r * stride + col] : 0.f;
-  }
-}
-
-// x[j] += a_row . (row t8 + 8 j of the tile b) over one step's kWideCols columns
-__device__ __forceinline__ void wide_dot(float (&x)[8], const float* a_row, const float* b,
-                                         int t8) {
-#pragma unroll 8
-  for (int d = 0; d < kWideCols; ++d) {
-    const float a = a_row[d];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = fmaf(a, b[(t8 + 8 * j) * kWidePitch + d], x[j]);
-  }
-}
-
-// acc[j] += sum_i w_row[i] b[i][t8 + 8 j] over the tile's kWideTile rows of b
-__device__ __forceinline__ void wide_acc(float (&acc)[8], const float* w_row, const float* b,
-                                         int t8) {
-#pragma unroll 8
-  for (int i = 0; i < kWideTile; ++i) {
-    const float w = w_row[i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = fmaf(w, b[i * kWidePitch + t8 + 8 * j], acc[j]);
-  }
-}
-
-// Reductions over the 8 threads of a row (adjacent lanes of one warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
-
 // --- bf16 wide-head attention (Dh > 64, tensor cores) --------------------------
 //
 // The bf16 wide-head kernels (attention.cu attention_wide_tc, attention_bwd.cu
@@ -737,6 +673,232 @@ __device__ __forceinline__ void wide_store(__nv_bfloat16* dst, long long stride,
   }
 }
 
+// --- f32 wide-head attention (above the tuned widths, tensor cores) ---------
+//
+// The f32 wide-head kernels (attention.cu attention_wide, attention_bwd.cu
+// attention_bwd_wide_*) take any head width on mma.sync in three TF32 terms
+// (above), as the tuned f32 kernels do at their widths.  The head
+// dimension, zero-padded to a multiple of 8 in shared memory, is cut into
+// nd = ceil(Dh / 64) chunks (F32Chunks), so a warp's accumulators stay at
+// most 16 x 64 floats.  W warps share each 16-row tile, one chunk each, in
+// R = ceil(nd / 4) rounds of W = ceil(nd / R) chunks (F32Wide): each warp
+// takes its chunks' share of a product over the width, the W shares are
+// summed through shared memory (xchg_put, xchg_sum), and each warp writes
+// the output columns of its own chunk.  A block owns the chunks of round z
+// (grid.z) and takes its rounds in WideItem's order, its own last
+// (F32Item), so the products over the width are computed R times: once up
+// to Dh = 256.  Operands are staged by cp.async, 16 bytes where rows are
+// 16-byte aligned and Dh a multiple of 4, else 4 bytes (f32 rows are read in
+// place, never copied), into rows of kF32WidePitch floats (= 4 mod 32:
+// every fragment load is free of bank conflicts).
+
+constexpr int kF32WideUnits = 8;             // 8-column units a chunk at most (64 columns)
+constexpr int kF32WidePitch = 8 * kF32WideUnits + 4;
+
+constexpr int kF32WideCols = 4;              // warps sharing a row tile at most
+
+// nd chunks of cw columns, the last narrower (never empty: nd = ceil(Dh /
+// 64)), taken without a division.
+struct F32Chunks {
+  int nd, cw, dp;                            // chunks, columns a chunk, Dh rounded up to 8
+  __host__ __device__ F32Chunks(int Dh) : dp((Dh + 7) & ~7) {
+    const int units = dp / 8;
+    nd = (units + kF32WideUnits - 1) / kF32WideUnits;
+    cw = (units + nd - 1) / nd * 8;
+  }
+  __host__ __device__ int begin(int c) const { return c * cw; }
+  __host__ __device__ int width(int c) const { return dp - c * cw < cw ? dp - c * cw : cw; }
+};
+
+// The chunks, and the rounds R of W chunks that cover them (W warps a row
+// tile; round r holds chunks r W .. r W + W - 1 below nd).
+struct F32Wide : F32Chunks {
+  int R, W;
+  __host__ __device__ F32Wide(int Dh) : F32Chunks(Dh) {
+    R = (nd + kF32WideCols - 1) / kF32WideCols;
+    W = (nd + R - 1) / R;
+  }
+};
+
+// The items of an f32 wide block in WideItem's order (the tiles, each over
+// the R rounds with round z last), stepped without a division.
+struct F32Item {
+  int tile, i, round;                        // the tile, the item's place in it, its round
+  __device__ F32Item(int R, int z) : tile(0), i(0), round(z + 1 < R ? z + 1 : 0) {}
+  __device__ void next(int R, int n_tiles, int z) {
+    if (++i == R) {
+      i = 0;
+      if (++tile == n_tiles) tile = 0;         // the next sweep
+    }
+    round = z + 1 + i < R ? z + 1 + i : z + 1 + i - R;
+  }
+};
+
+// Rows j0 .. j0 + rows - 1 of a (batch, head) f32 operand `src` (rows
+// `stride` floats apart), its columns c0 .. c0 + width - 1 (width a
+// multiple of 8, at most 64), into shared rows kF32WidePitch floats apart at
+// `dst`, the block's threads sharing them: zero past row S and column Dh.
+// vec: 16-byte copies (rows 16-byte aligned, Dh a multiple of 4), else 4
+// bytes; thread e takes the pieces e, e + blockDim.x, ... of 64-column rows.
+__device__ __forceinline__ void f32_chunk_async(float* dst, const float* src, long long stride,
+                                                int j0, int rows, int S, int c0, int width,
+                                                int Dh, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * 16; e += blockDim.x) {
+      const int j = e >> 4, d = (e & 15) * 4, col = c0 + d;
+      if (d >= width) continue;
+      const bool in = j0 + j < S && col < Dh;
+      cp_async16(dst + j * kF32WidePitch + d, in ? src + (j0 + j) * stride + col : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * 64; e += blockDim.x) {
+      const int j = e >> 6, d = e & 63, col = c0 + d;
+      if (d >= width) continue;
+      const bool in = j0 + j < S && col < Dh;
+      cp_async4(dst + j * kF32WidePitch + d, in ? src + (j0 + j) * stride + col : src, in);
+    }
+  }
+}
+
+// The A fragment of 16 staged rows at `rows` (kF32WidePitch floats apart),
+// 8 columns from there, split.
+__device__ __forceinline__ void a_frag_rows(unsigned (&ah)[4], unsigned (&al)[4],
+                                            const float* rows, int g, int t) {
+  split_tf32(rows[g * kF32WidePitch + t], ah[0], al[0]);
+  split_tf32(rows[(g + 8) * kF32WidePitch + t], ah[1], al[1]);
+  split_tf32(rows[g * kF32WidePitch + t + 4], ah[2], al[2]);
+  split_tf32(rows[(g + 8) * kF32WidePitch + t + 4], ah[3], al[3]);
+}
+
+// x_hi[n] + x_lo[n] += A B_n^T over `steps` 8-column steps of a chunk, for A
+// the 16 staged rows at `a` and B_n the 8 staged rows 8 n .. at `b`, n <
+// live (warp-uniform): hi.hi summed apart from the small terms
+// (mma_3xtf32_apart), against the tensor core's rounding toward zero over
+// sums as long as the head.  Whole: a whole chunk and tile take a path that
+// no branch splits (faster in the backward; it costs registers that the
+// forward's two blocks an SM do not have).
+template <int N, bool Whole>
+__device__ __forceinline__ void f32_wide_abt(float (&x_hi)[N][4], float (&x_lo)[N][4],
+                                             const float* a, const float* b, int steps, int live,
+                                             int g, int t) {
+  if (Whole && steps == kF32WideUnits && live == N) {
+#pragma unroll
+    for (int kk = 0; kk < kF32WideUnits; ++kk) {
+      unsigned ah[4], al[4], bh[N][2], bl[N][2];
+      a_frag_rows(ah, al, a + kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        b_frag_rows(bh[n], bl[n], b + n * 8 * kF32WidePitch + kk * 8, kF32WidePitch, g, t);
+      mma_3xtf32_apart<N>(x_hi, x_lo, ah, al, bh, bl, N);
+    }
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kF32WideUnits; ++kk) {
+    if (kk >= steps) break;
+    unsigned ah[4], al[4], bh[N][2], bl[N][2];
+    a_frag_rows(ah, al, a + kk * 8, g, t);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (n < live)
+        b_frag_rows(bh[n], bl[n], b + n * 8 * kF32WidePitch + kk * 8, kF32WidePitch, g, t);
+    mma_3xtf32_apart<N>(x_hi, x_lo, ah, al, bh, bl, live);
+  }
+}
+
+// acc[n] += C B for C the 16 x 8 tiles c[kt], kt < live, and B the staged
+// rows 8 kt .. at `b`, its columns 8 n .. 8 n + 7 for n < cols (both
+// warp-uniform); Whole as f32_wide_abt's.
+template <int KT, bool Whole>
+__device__ __forceinline__ void f32_wide_cb(float (&acc)[kF32WideUnits][4], const float (&c)[KT][4],
+                                            const float* b, int live, int cols, int g, int t) {
+  if (Whole && live == KT && cols == kF32WideUnits) {
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      unsigned ah[4], al[4];
+      c_to_a(c[kt], ah, al);
+#pragma unroll
+      for (int n0 = 0; n0 < kF32WideUnits; n0 += 4) {
+        unsigned bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b_frag_cols(bh[j], bl[j], b + kt * 8 * kF32WidePitch + (n0 + j) * 8, kF32WidePitch, g,
+                      t);
+        mma_3xtf32<4>(acc + n0, ah, al, bh, bl, 4);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt >= live) break;
+    unsigned ah[4], al[4];
+    c_to_a(c[kt], ah, al);
+#pragma unroll
+    for (int n0 = 0; n0 < kF32WideUnits; n0 += 4) {
+      if (n0 >= cols) break;
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < cols)
+          b_frag_cols(bh[j], bl[j], b + kt * 8 * kF32WidePitch + (n0 + j) * 8, kF32WidePitch, g,
+                      t);
+      mma_3xtf32<4>(acc + n0, ah, al, bh, bl, cols - n0);
+    }
+  }
+}
+
+// Partial products over the width, summed across the warps that share a
+// row tile (one chunk of the width a warp): each warp puts its 16 x 8 N
+// tiles in its slot of 128 N floats (lane-major, so conflict-free), and
+// after a barrier every warp of the tile sums the W slots in the same
+// order, so all W hold the same sums.
+template <int N>
+__device__ __forceinline__ void xchg_put(float* slot, const float (&x)[N][4], int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) slot[(n * 4 + e) * 32 + lane] = x[n][e];
+}
+
+template <int N>
+__device__ __forceinline__ void xchg_sum(float (&x)[N][4], const float* slots, int W, int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = 0.f;
+      for (int w = 0; w < W; ++w) sum += slots[(w * N * 4 + n * 4 + e) * 32 + lane];
+      x[n][e] = sum;
+    }
+}
+
+// Store rows ra and ra + 8 (those < S) of a 16-row C tile set acc, row
+// half h times mul[h], as columns c0 + 8 n + 2t (+1) below c_end, to the f32
+// rows at `dst` (`stride` floats apart); pairs: 8-byte stores (even Dh,
+// rows 8-byte aligned).
+__device__ __forceinline__ void f32_wide_store(float* dst, long long stride,
+                                               const float (&acc)[kF32WideUnits][4],
+                                               const float (&mul)[2], int ra, int S, int c0,
+                                               int c_end, bool pairs, int t) {
+#pragma unroll
+  for (int n = 0; n < kF32WideUnits; ++n) {
+    const int col = c0 + n * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = ra + 8 * half;
+      if (r >= S || col >= c_end) continue;
+      float* p = dst + r * stride + col;
+      const float x0 = acc[n][2 * half] * mul[half], x1 = acc[n][2 * half + 1] * mul[half];
+      if (pairs) {
+        *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+      } else {
+        p[0] = x0;
+        if (col + 1 < c_end) p[1] = x1;
+      }
+    }
+  }
+}
 
 }  // namespace keds
 

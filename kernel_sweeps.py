@@ -3,7 +3,8 @@
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
     python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k] [topk_split]
-                             [attention] [attention_bwd] [attention_precision] [mma_rate]
+                             [attention] [attention_bwd] [attention_split]
+                             [attention_precision] [mma_rate]
                              [train_check_controls]
                              [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
                              [int8_layouts]
@@ -54,7 +55,8 @@ attention         the attention forward at the rows of chip_smoke.py: bf16 at
                   32, 128) causal and (128, 6, 8, 128) causal, with the
                   image stream's prompt at Dh = 64 beside them; f32
                   above Dh = 128 (the f32 wide-head kernel) at (2, 4, 77,
-                  256) and (64, 2, 8, 160) causal; on
+                  256) and (64, 2, 8, 160) causal and ViT-L/14's vision
+                  chunk in 256-wide heads, (16, 4, 257, 256); on
                   the inputs and the graph-replay timing of
                   ``chip_smoke.py``, SDPA's time beside each.  Takes ``--impl`` as ``rank`` does (an
                   implementation that refuses a shape times it as null).
@@ -70,12 +72,19 @@ attention_bwd     the attention backward (``attention_backward``): bf16
                   causal, (128, 6, 8, 128) causal and (256, 6, 32, 128)
                   causal, with the neighbour templates at Dh = 64 beside
                   them; f32 above Dh = 64 at (2, 4, 77, 256) and (64, 2,
-                  8, 160) causal; on the inputs and the
+                  8, 160) causal, (16, 4, 257, 256) with its Dh = 64 twin
+                  (16, 16, 257, 64), and (128, 6, 8, 128) and (256, 6, 32,
+                  128) causal; on the inputs and the
                   graph-replay timing of ``chip_smoke.py``, SDPA's backward
                   (its forward and backward less its forward) beside each.
                   Takes ``--impl`` as ``rank`` does (an implementation that
                   refuses a shape times it as null): run parent, change,
                   change, parent.
+attention_split   where the f32 wide-head routes' time goes, by CUDA kernel
+                  (torch.profiler, ten calls): the forward and the
+                  backward's dq and dkv launches at the f32 wide rows of
+                  attention and attention_bwd, with the tuned kernels' at
+                  (16, 16, 257, 64) beside them.  Takes ``--impl``.
 attention_precision
                   the f32 attention forward and backward against float64:
                   the kernels' largest error beside the plain version's and
@@ -147,10 +156,10 @@ from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, SERVE_CORPUS, SER
                         train_reading)
 
 PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "topk_split", "attention",
-          "attention_bwd", "attention_precision", "mma_rate", "train_check_controls",
+          "attention_bwd", "attention_split", "attention_precision", "mma_rate", "train_check_controls",
           "raw_check_controls", "rn_gain_controls", "rn_encode_chunks", "int8_layouts")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "topk_split", "attention",
-               "attention_bwd")   # --impl's
+               "attention_bwd", "attention_split")   # --impl's
 # bf16 above Dh = 64 (the wide-head kernels): chip_smoke.py's rows, and the
 # main path's widths re-split into 128-wide heads (the same bytes as their
 # Dh = 64 rows)
@@ -164,9 +173,17 @@ WIDE_BWD_SHAPES = ((4, 16, 257, 80, torch.bfloat16, False), (4, 8, 77, 128, torc
                    (QUERY_BATCH, 2, 8, 160, torch.bfloat16, True),
                    (TRAIN_BATCH, 6, 8, 128, torch.bfloat16, True),
                    (2 * TRAIN_BATCH, 6, 32, 128, torch.bfloat16, True))
-# f32 above Dh = 128 forward, 64 backward (the f32 wide-head kernels): chip_smoke.py's rows
+# f32 above Dh = 128 forward, 64 backward (the f32 wide-head kernels):
+# chip_smoke.py's rows, and ViT-L/14's vision chunk in 256-wide heads (the
+# same bytes as its Dh = 64 row)
 F32_WIDE_SHAPES = ((2, 4, 77, 256, torch.float32, True),
-                   (QUERY_BATCH, 2, 8, 160, torch.float32, True))
+                   (QUERY_BATCH, 2, 8, 160, torch.float32, True),
+                   (16, 4, 257, 256, torch.float32, False))
+# the backward's alone (above Dh = 64): the image stream's prompt and the
+# neighbour templates in 128-wide heads, and the vision chunk's Dh = 64 twin
+F32_WIDE_BWD_SHAPES = ((TRAIN_BATCH, 6, 8, 128, torch.float32, True),
+                       (2 * TRAIN_BATCH, 6, 32, 128, torch.float32, True),
+                       (16, 16, 257, 64, torch.float32, False))
 FWD_SHAPES = ((16, 16, 257, 64, torch.bfloat16, False), (64, 12, 32, 64, torch.bfloat16, True),
               (2, 4, 77, 64, torch.float32, True), (16, 16, 577, 64, torch.bfloat16, False),
               (2, 4, 289, 64, torch.float32, False), (2, 4, 577, 64, torch.float32, False),
@@ -208,7 +225,7 @@ BWD_SHAPES = ((TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True),
               (4, 16, 577, 64, torch.float32, False),
               # the neighbour templates at Dh = 64, beside their 128-wide twin
               (2 * TRAIN_BATCH, 12, 32, 64, torch.bfloat16, True),
-              *WIDE_BWD_SHAPES, *F32_WIDE_SHAPES)
+              *WIDE_BWD_SHAPES, *F32_WIDE_SHAPES, *F32_WIDE_BWD_SHAPES)
 CONTROL_FAULTS = ("none", "attention_detached", "dq_zero", "dk_zero", "dv_zero")
 
 
@@ -361,6 +378,36 @@ def attention_bwd(impl: str) -> None:
             continue
         ms[name] = time_ms(lambda: attention_backward(q, k, v, dout, causal))
     emit("attention_bwd", impl=impl, kernel_ms=ms, sdpa_backward_ms=sdpa)
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key's function name, without namespace and arguments."""
+    import re
+
+    found = re.search(r"(\w+(?:<[^>]*>)?)\(", key)
+    return found.group(1) if found else key
+
+
+def attention_split(impl: str) -> None:
+    from keds_tpu_torch.ops.attention import attention, attention_backward
+
+    rows = []
+    for B, H, S, Dh, dtype, causal in (*F32_WIDE_SHAPES, *F32_WIDE_BWD_SHAPES):
+        q, k, v = _qkv(B, H, S, Dh, dtype)
+        dout = _dout(B, H, S, Dh, dtype)
+        calls = {"forward": lambda: attention(q, k, v, causal),
+                 "backward": lambda: attention_backward(q, k, v, dout, causal)}
+        for name, fn in calls.items():
+            fn()                        # built, warm
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            ms = {_kernel_name(e.key): e.device_time_total / 10 / 1e3
+                  for e in prof.key_averages() if e.device_time_total}
+            rows.append(dict(shape=[B, H, S, Dh], causal=causal, call=name, ms_by_kernel=ms))
+    emit("attention_split", impl=impl, rows=rows)
 
 
 def _attention_f64(q, k, v, causal):

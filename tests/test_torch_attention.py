@@ -54,8 +54,9 @@ def test_attention_bf16_rounds_probs_to_v_dtype():
 
 
 # Every head width the port routes apart on the card (64: the tuned kernels;
-# above it the wide-head kernels, 128 columns a chunk), in f32 and bf16.
-WIDE_HEAD_WIDTHS = [64, 80, 128, 160]
+# above it the wide-head kernels, 128 columns a chunk in bf16, 64 in f32),
+# in f32 and bf16; 256: the f32 wide-head kernels' timed rows.
+WIDE_HEAD_WIDTHS = [64, 80, 128, 160, 256]
 # bf16: the two round P to bf16 after f32 sums taken in another order, so a
 # probability may round the other way (one bf16 step of P), and the output
 # rounds to bf16 (a step of 2^-8 relative)

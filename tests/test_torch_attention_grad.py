@@ -71,7 +71,7 @@ def test_pseudo_token_grads_through_text_tower_match_jax():
 BF16_GRAD_TOL = (3e-2, 2e-2)    # (atol, rtol)
 
 
-@pytest.mark.parametrize("dh", [64, 80, 128, 160])
+@pytest.mark.parametrize("dh", [64, 80, 128, 160, 256])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("s", [8, 37])
 @pytest.mark.parametrize("causal", [False, True])

@@ -1576,17 +1576,22 @@ def test_attention_backward_f32_streamed_near_one_hot_softmax(cuda, s):
         _check_backward(q, k, v, dout, causal)
 
 
-@pytest.mark.parametrize("b,h", [(1, 1), (40, 16)])
-@pytest.mark.parametrize("s", [8, 77, 289])
-def test_attention_f32_batch_heads(cuda, b, h, s):
+@pytest.mark.parametrize("b,h,s,dh,causal", [
+    *((b, h, s, 64, True) for b, h in ((1, 1), (40, 16)) for s in (8, 77, 289)),
+    # the f32 wide-head kernels' timed rows: ViT-L/14's vision chunk in
+    # 256-wide heads, the image stream's prompt and the neighbour templates
+    # in 128-wide heads (forward on the tuned kernel there)
+    (16, 4, 257, 256, False), (128, 6, 8, 128, True), (256, 6, 32, 128, True)])
+def test_attention_f32_batch_heads(cuda, b, h, s, dh, causal):
     """B*H = 1 (the keys split over four warps) and 640, above 132 SMs x 4
-    warps (one warp a tile), forward and backward, causal."""
-    qkv, (q, k, v), dout = _grad_inputs(cuda, b, h, s, torch.float32, 70 + s)
-    out = attention(q, k, v, True)
+    warps (one warp a tile), and the f32 rows of kernel_sweeps.py off Dh =
+    64, forward and backward."""
+    _, (q, k, v), dout = _head_qkv(cuda, b, h, s, dh, torch.float32, 70 + s)
+    out = attention(q, k, v, causal)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, attention_reference(q, k, v, True),
+    torch.testing.assert_close(out, attention_reference(q, k, v, causal),
                                atol=ATT_TOL[torch.float32], rtol=0)
-    _check_backward(q, k, v, dout, True)
+    _check_backward(q, k, v, dout, causal)
 
 
 @pytest.mark.parametrize("s", [8, 77, 289, 577])
@@ -1601,15 +1606,17 @@ def test_attention_backward_f32_is_deterministic(cuda, s):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dh", [64, 80, 128, 160, 256])
 @pytest.mark.parametrize("s", [77, 257, 577])
-def test_attention_f32_is_not_tf32(cuda, s):
+def test_attention_f32_is_not_tf32(cuda, s, dh):
     """The f32 kernels keep f32's precision where TF32 would not: on inputs
     whose low mantissa bits matter (uniform in [1, 2), so that TF32 keeps
     only 10 of 23 fraction bits), the kernels' error against the plain
     version is at most a tenth of the error of the plain version run on the
-    same inputs cut to TF32, forward and backward."""
+    same inputs cut to TF32, forward and backward, at every f32 route (the
+    wide-head kernels above Dh = 128 forward, 64 backward)."""
     gen = _gen(cuda, s)
-    q, k, v, dout = (1 + torch.rand((2, 4, s, 64), generator=gen, device=cuda)
+    q, k, v, dout = (1 + torch.rand((2, 4, s, dh), generator=gen, device=cuda)
                      for _ in range(4))
     q = q - 1.5                          # scores of both signs
     out = attention(q, k, v, True)
