@@ -2,7 +2,8 @@
 """Smoke run of the keds_tpu_torch serving, training and evaluation paths
 (ViT-L/14 and RN50), of the RN family and the rest of the model surface,
 of its serve, demo and train command lines and tools, of two ranks of the
-port sharing the card, and of the full-scale eval benches, on one CUDA card.
+port sharing the card, of the full-scale eval benches and of
+graft_entry_torch.py's entry() and dry run, on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py full-sweeps    # the benches' full sweeps alone
@@ -203,6 +204,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            cannot see a gradient off by a factor), and the sweep's epoch-1 tables equal to the one-process
            device-ranked tables but for near-ties within 1e-5.  Each rank
            is joined with a timeout; a failed rank fails the phase.
+18b. graft_entry
+           graft_entry_torch.py, the counterpart of __graft_entry__.py:
+           fn(*entry()) once (ViT-L/14 bf16 from synth seed 0, a 16384-row
+           DB, 8 zero images, 8 prompts at S=32; launch counts zeroed just
+           before and read just after: B2 bf16_tc 36, B1 bf16_tc 2, nothing
+           else), three calls timed, its first 2 rows against the same
+           weights' f32 run on the CPU (cosine >= 0.995; centred cosine,
+           the CPU's mean of the rows taken out, >= 0.99, which the card's
+           rows with each caption reversed must miss), unit rows; then
+           dryrun_multichip(2), two gloo ranks sharing cuda:0 at the tiny
+           f32 config: each rank's four OK lines (the precomputed-neighbour
+           loss bit-equal to the searched one) and its launches (B1 f32 8,
+           B2 f32 12, B2' f32 8, no bf16).
 2a. any_depth_path
            D off the kernels' steps through the entry points (launch and
            pad counts zeroed just before and read just after): the exact
@@ -264,7 +278,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            three times an epoch for CIRR's device ranking, B2 bf16_tc 24
            times an encoded chunk and 12 times a composed batch, nothing else.
 19. the kernels line (launches of each path beside each variant, the
-    dist path's rank 0 among them; RN50's serving for the D = 1024 top-k
+    dist path's rank 0 among them; graft_entry's entry() beside its own
+    vision and search rows and its dry run's rank 0 beside the f32 rows of
+    its shapes; RN50's serving for the D = 1024 top-k
     rows and its text tower's attention, the 336 px encode for the rows
     above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
     rows with their pads, head_widths' two configs beside the rows of their
@@ -2405,6 +2421,112 @@ def dist_path(clip_params, heads, db, eval_ref, root: pathlib.Path) -> dict:
     return by_rank[0]
 
 
+# --- graft_entry_torch.py: entry() and dryrun_multichip(n) ---------------------
+
+ENTRY_CPU_ROWS = 2
+# entry()'s card rows against the CPU's f32 with the CPU's mean of them taken
+# out read 0.9990-0.9991 on the H100 (PERF.md); the control (each row's
+# caption reversed, a token-order fault) read 0.46-0.55
+ENTRY_CENTRED_MIN = 0.99
+# one fn(*entry()): B2 in each of 24 vision and 12 text blocks, B1 on each table
+ENTRY_WANT = {("attention", "bf16_tc"): 36, ("mips_topk", "bf16_tc"): 2,
+              ("attention", "f32"): 0, ("attention_bwd", "bf16"): 0,
+              ("attention_bwd", "f32"): 0, ("mips_topk", "f32"): 0}
+DRYRUN_RANKS = 2
+# a rank of the f32 dry run: B1 on both shards' tables in (a), for (b)'s
+# indices, in (c) (k=16 and the captions' k=2) and in (d); B2 in the two
+# text blocks of (a) and (b), twice in (c), and the two vision and two text
+# blocks of (d); B2' in each of those train-step blocks
+DRYRUN_WANT = {("mips_topk", "f32"): 8, ("attention", "f32"): 12,
+               ("attention_bwd", "f32"): 8, ("mips_topk", "bf16_tc"): 0,
+               ("attention", "bf16_tc"): 0, ("attention_bwd", "bf16"): 0}
+
+
+def graft_entry_path(kernels) -> dict:
+    """graft_entry_torch.py on the card.  fn(*entry()) once (ViT-L/14 bf16,
+    a 16384-row DB, 8 zero images, prompts at S=32), launch counts zeroed
+    just before and read just after, then three more calls timed; its first
+    ENTRY_CPU_ROWS rows held to the same weights' f32 run on the CPU (cosine
+    >= COSINE_MIN, centred cosine >= ENTRY_CENTRED_MIN, which the control,
+    the card's rows with each caption reversed, must miss); unit rows.  Then
+    dryrun_multichip(DRYRUN_RANKS), its ranks sharing cuda:0 over gloo: each
+    rank's four lines and its launches.  Returns the launches by path."""
+    import graft_entry_torch as ge
+    from keds_tpu_torch.models.convert import cast_floating
+
+    t = time.perf_counter()
+    fn, args = ge.entry()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    for k in kernels.values():
+        k.reset()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = {name: dict(k.launches) for name, k in kernels.items()}
+    check_path_launches("graft_entry", launches, ENTRY_WANT)
+    runs_ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            runs_ms.append((time.perf_counter() - t) * 1e3)
+
+    t = time.perf_counter()
+    clip_params, heads, db_img, db_txt, images, text = args
+    rows = slice(0, ENTRY_CPU_ROWS)
+    reversed_caption = text[rows].clone()
+    reversed_caption[:, 6:20] = reversed_caption[:, 6:20].flip(1)
+    with torch.inference_mode():
+        control = fn(clip_params, heads, db_img, db_txt, images[rows], reversed_caption)
+        cpu = fn(*(cast_floating(a, torch.float32, "cpu")
+                   for a in (clip_params, heads, db_img, db_txt)),
+                 images[rows].float().cpu(), text[rows].cpu())
+    card = out[rows]
+    mean = cpu.double().mean(dim=0)
+    cos, centred = _cosines(card, cpu), _cosines(card.double().cpu() - mean, cpu - mean)
+    control_cos = _cosines(control, cpu)
+    control_centred = _cosines(control.double().cpu() - mean, cpu - mean)
+    norms = out.float().norm(dim=1)
+    ok = dict(shape=tuple(out.shape) == (8, 768) and out.dtype == torch.bfloat16,
+              finite=bool(torch.isfinite(out).all()),
+              unit_rows=bool(((norms - 1).abs() <= 1e-2).all()),
+              cosine=min(cos) >= COSINE_MIN,
+              centred=min(centred) >= ENTRY_CENTRED_MIN > max(control_centred))
+    check_s = time.perf_counter() - t
+    del fn, args, out, control, cpu
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ranks = ge.dryrun_multichip(DRYRUN_RANKS)
+    dryrun_s = time.perf_counter() - t
+    steps = ("image-stream step OK", "precomputed-neighbour step OK (bit-equal",
+             "text-stream step OK", f"sharded composed-query OK, out ({4 * DRYRUN_RANKS}, 64)")
+    for r in ranks:
+        check_path_launches(f"graft_dryrun_rank{r['rank']}", r["launches"], DRYRUN_WANT)
+    ok.update(dryrun_lines=all(
+        len(r["lines"]) == len(steps) and all(
+            ln.startswith(f"dryrun_multichip({DRYRUN_RANKS}): {s}")
+            for ln, s in zip(r["lines"], steps)) for r in ranks),
+        dryrun_bit_equal=all(r["losses"]["image"] == r["losses"]["neighbours"] for r in ranks),
+        dryrun_on_card=all(r["device"] == "cuda:0" and r["backend"] == "gloo" for r in ranks))
+    emit("graft_entry", model="ViT-L/14", dtype="bf16", db_rows=ge.ENTRY_DB_ROWS,
+         batch=8, text_shape=list(text.shape), build_s=build_s, first_call_s=first_s,
+         call_ms=runs_ms, cpu_rows=ENTRY_CPU_ROWS, cosine=cos, threshold=COSINE_MIN,
+         centred_cosine=centred, centred_threshold=ENTRY_CENTRED_MIN,
+         control="each row's caption reversed", control_cosine=control_cos,
+         control_centred_cosine=control_centred, row_norms=norms.tolist(),
+         check_s=check_s, launches=launches, dryrun_ranks=DRYRUN_RANKS, dryrun_s=dryrun_s,
+         dryrun_lines=ranks[0]["lines"], dryrun_losses=[r["losses"] for r in ranks],
+         dryrun_launches=[r["launches"] for r in ranks], checks=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"graft_entry checks failed: {ok}")
+    return {"entry": launches, "dryrun_rank0": ranks[0]["launches"]}
+
+
 # --- int8 retrieval and the W8A8 towers (ROADMAP items 14 and 15) ------------
 
 INT8_PEAK_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
@@ -3680,7 +3802,12 @@ def main() -> int:
                                 (VIT336_IMAGES, 16, 257, 64, f32, False),
                                 (VIT336_IMAGES, 16, 577, 64, f32, False),
                                 # the bf16 336 px check's own shape (streamed)
-                                (VIT336_IMAGES, 16, 577, 64, bf16, False)])
+                                (VIT336_IMAGES, 16, 577, 64, bf16, False),
+                                # graft_entry: entry()'s vision blocks; the dry
+                                # run's train-step prompt (a rank's 4 rows, one
+                                # 64-wide head)
+                                (8, 16, 257, 64, bf16, False),
+                                (4, 1, 8, 64, f32, True)])
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
@@ -3696,7 +3823,8 @@ def main() -> int:
                                     (TRAIN_BATCH, 12, 8, 64, f32, True),
                                     (2 * TRAIN_BATCH, 12, 32, 64, f32, True),
                                     (4, 16, 577, 64, f32, False),
-                                    (4, 12, 1025, 64, bf16, False)])   # streamed
+                                    (4, 12, 1025, 64, bf16, False),   # streamed
+                                    (4, 1, 8, 64, f32, True)])   # graft_entry's dry run
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
                             (QUERY_BATCH, DB_ROWS // DIST_RANKS, 768, 16, bf16),  # a shard
@@ -3716,7 +3844,10 @@ def main() -> int:
                             (QUERY_BATCH, N_CORPUS, 1024, 10, f32),  # RN50 ranking
                             # any D: padded to the step (f32 16, bf16 64), or
                             # bf16 above 1024 on the BF16 score route
-                            *((QUERY_BATCH, ANY_D_ROWS, d, 16, dt) for d, dt in ANY_D_CASES)])
+                            *((QUERY_BATCH, ANY_D_ROWS, d, 16, dt) for d, dt in ANY_D_CASES),
+                            # graft_entry: entry()'s search; the dry run's over a
+                            # shard (both ranks' 8 queries, 64 rows of 64)
+                            (8, 16384, 768, 16, bf16), (8, 64, 64, 16, f32)])
     any_d_launches = any_depth_path(kernels)
     walls("kernel_rows")
 
@@ -3847,6 +3978,11 @@ def main() -> int:
         dist_launches = dist_path(clip_params, heads, db, eval_ref, pathlib.Path(d))
     walls("dist_path")
 
+    # --- graft_entry_torch.py: entry() and the 2-rank dry run -------------------
+    torch.cuda.empty_cache()
+    graft_launches = graft_entry_path(kernels)
+    walls("graft_entry")
+
     # --- the full-scale CIRR and COCO eval benches ------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build) as d:
@@ -3916,7 +4052,13 @@ def main() -> int:
                (bwd, "f32_wide", hw_bwd_rows[2], hw_launches["wide"]),
                *((bwd, "f32_wide", hw_bwd_rows[i], hw_launches["wide"]) for i in (10, 11, 12)),
                (bwd, "bf16", hw_bwd_rows[6], hw_launches["tiny"]),
-               (bwd, "f32", hw_bwd_rows[7], hw_launches["tiny"])]
+               (bwd, "f32", hw_bwd_rows[7], hw_launches["tiny"]),
+               # graft_entry_torch.py: entry() in bf16, the dry run's rank 0 in f32
+               (att, "bf16_tc", att_rows[20], graft_launches["entry"]),
+               (top, "bf16_tc", topk_rows[20], graft_launches["entry"]),
+               (att, "f32", att_rows[21], graft_launches["dryrun_rank0"]),
+               (bwd, "f32", bwd_rows[13], graft_launches["dryrun_rank0"]),
+               (top, "f32", topk_rows[21], graft_launches["dryrun_rank0"])]
     # a row's own launch named its variant: it must be the one the entry
     # prints its times under
     wrong = [(name, variant, row["shape"], row["variant"])
@@ -3936,7 +4078,9 @@ def main() -> int:
              **{f"any_depth_{p}": c for p, c in any_d_launches.items()},
              **{f"fullscale_{p}": c for p, c in fullscale_launches.items()},
              **{f"head_widths_{p}": c for p, c in hw_launches.items()},
-             **{f"dist_{p}_rank0": c for p, c in dist_launches.items()}}
+             **{f"dist_{p}_rank0": c for p, c in dist_launches.items()},
+             "graft_entry": graft_launches["entry"],
+             "graft_entry_dryrun_rank0": graft_launches["dryrun_rank0"]}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],

@@ -7,7 +7,7 @@ from ``chip_smoke.py`` so that the smoke run stays a check.
                              [attention_precision] [mma_rate]
                              [train_check_controls]
                              [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
-                             [int8_layouts]
+                             [int8_layouts] [graft_entry_controls]
 
 Each phase prints one JSON line; with no phase named, all run.
 
@@ -136,6 +136,13 @@ int8_layouts      ``torch._int_mm`` (the W8A8 towers' int8 product) at a
                   tower's, the weight row-major and column-major, beside a
                   bf16 ``mm``; and which small shapes cuBLASLt takes in
                   each layout.
+graft_entry_controls
+                  graft_entry_torch.py's composed query (``entry()``'s
+                  weights and first 2 rows) on the card against the same
+                  weights' f32 run on the CPU, cosine and centred cosine
+                  (the CPU's mean of the rows taken out), for the right run
+                  and two faults: each caption reversed (chip_smoke.py's
+                  control) and the DB's two modalities swapped.
 """
 
 from __future__ import annotations
@@ -151,13 +158,15 @@ import numpy as np
 import torch
 
 from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, SERVE_CORPUS, SERVE_WIDE_TOPN,
-                        TRAIN_BATCH, VIT336_IMAGES, _dout, _qkv, _unit_rows, compare_readings,
+                        TRAIN_BATCH, VIT336_IMAGES, _cosines, _dout, _qkv, _unit_rows,
+                        compare_readings,
                         emit, jpeg_bytes, raw_reading, time_ms, train_check_batch,
                         train_reading)
 
 PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "topk_split", "attention",
           "attention_bwd", "attention_split", "attention_precision", "mma_rate", "train_check_controls",
-          "raw_check_controls", "rn_gain_controls", "rn_encode_chunks", "int8_layouts")
+          "raw_check_controls", "rn_gain_controls", "rn_encode_chunks", "int8_layouts",
+          "graft_entry_controls")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "topk_split", "attention",
                "attention_bwd", "attention_split")   # --impl's
 # bf16 above Dh = 64 (the wide-head kernels): chip_smoke.py's rows, and the
@@ -710,6 +719,29 @@ def rn_encode_chunks() -> None:
              host_ms=float(np.median(walls[1:])), host_ms_runs=walls[1:])
         profile_device(f"rn_encode_chunks_profile_{chunk}", encode,
                        [("convolution (cuDNN)", ("conv", "fprop", "cudnn", "implicit"))])
+
+
+def graft_entry_controls() -> None:
+    import graft_entry_torch as ge
+    from keds_tpu_torch.models.convert import cast_floating
+
+    fn, (clip_params, heads, db_img, db_txt, images, text) = ge.entry()
+    rows = slice(0, 2)
+    reversed_caption = text[rows].clone()
+    reversed_caption[:, 6:20] = reversed_caption[:, 6:20].flip(1)
+    with torch.inference_mode():
+        runs = {"right": fn(clip_params, heads, db_img, db_txt, images[rows], text[rows]),
+                "caption_reversed": fn(clip_params, heads, db_img, db_txt, images[rows],
+                                       reversed_caption),
+                "db_modalities_swapped": fn(clip_params, heads, db_txt, db_img, images[rows],
+                                            text[rows])}
+        cpu = fn(*(cast_floating(a, torch.float32, "cpu")
+                   for a in (clip_params, heads, db_img, db_txt)),
+                 images[rows].float().cpu(), text[rows].cpu())
+    mean = cpu.double().mean(dim=0)
+    for name, card in runs.items():
+        emit("graft_entry_control", run=name, cosine=_cosines(card, cpu),
+             centred_cosine=_cosines(card.double().cpu() - mean, cpu - mean))
 
 
 def main() -> int:

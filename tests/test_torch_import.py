@@ -56,8 +56,22 @@ def test_import_loads_no_jax_and_no_keds_tpu():
             "keds_tpu_torch.tools.bench_coco_fullscale"} <= set(MODULES)
 
 
+def test_graft_entry_torch_loads_no_jax_and_no_keds_tpu():
+    """The port's counterpart of __graft_entry__.py stands alone too."""
+    code = (
+        "import sys, graft_entry_torch\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'keds_tpu' or m.startswith('keds_tpu.') or m == '__graft_entry__']\n"
+        "assert not bad, bad\n"
+        "assert 'keds_tpu_torch.retrieval.database' in sys.modules\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
-                                  REPO / "kernel_sweeps.py",
+                                  REPO / "kernel_sweeps.py", REPO / "graft_entry_torch.py",
                                   REPO / "tests" / "torch_dist_worker.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_neither_jax_nor_keds_tpu(path):
