@@ -230,8 +230,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2b. head_widths
            B2 and B2' at head widths off 64 (rows as in 2): the wide-head
            kernels at (4, 16, 257, 80) and (4, 8, 77, 128) causal in bf16
-           and (2, 4, 77, 256) causal in f32, and the tensor-core kernels on
-           heads zero-padded to 64 at (64, 2, 32, 32) bf16 causal; the
+           and (2, 4, 77, 256) causal in f32, and the tensor-core kernels at
+           the heads' own width, Dh = 32, at (64, 2, 32, 32) bf16 causal; the
            shapes the two configs below give the kernels, all causal: the
            wide one's engine batch at (64, 2, 32, 160) bf16 and its train
            steps' prompts at (64, 2, 8, 160) bf16 and f32, the tiny one's at
@@ -247,8 +247,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            tests/test_api_surface.py's (text heads of 32) and the same with
            text heads of 160, each a bf16 engine batch of 64 composed
            queries and a bf16 and an f32 image-stream train step, launch
-           and pad counts zeroed just before and read just after (padded
-           and wide launches > 0), against the CPU's f32; and
+           and pad counts zeroed just before and read just after (the tiny
+           one: bf16 launches > 0 and no bf16 pad, the f32 backward's 2
+           pads; the wide one: wide launches > 0), against the CPU's f32;
+           empty shapes (empty_shape_check): the top-k at k = 0 and at no
+           query through each tiling and mips_topk, B2 and B2' at B * H = 0,
+           each of its shape on the card with no launch; and
            transforms.device_preprocess on an (8, 480, 640, 3) batch
            against the CPU's.
 17a. extract_features, profile_dir, validate_artifacts
@@ -495,23 +499,24 @@ def check_attention_bwd(cases):
                    launches=BWD_KERNEL.launches[variant] - launches0[variant],
                    **_padded(BWD_KERNEL.pads[variant] - pads0[variant]))
         if not variant.endswith("_wide"):     # the tuned kernels' plan
-            row["plan"] = _bwd_plan(B * H, S, dtype)
+            row["plan"] = _bwd_plan(B * H, S, dtype, Dh)
         emit("attention_bwd", **row)
         rows.append(row)
     return rows
 
 
-def _bwd_plan(batch_heads: int, S: int, dtype) -> dict:
-    """The tuned backward kernels' launch plan, as keds_attention_bwd_plan
-    gives it, and the blocks of a call over ``batch_heads`` slices."""
+def _bwd_plan(batch_heads: int, S: int, dtype, Dh: int = 64) -> dict:
+    """The tuned backward kernels' launch plan for a head of ``Dh``, as
+    keds_attention_bwd_plan gives it, and the blocks of a call over
+    ``batch_heads`` slices."""
     import ctypes
 
     from keds_tpu_torch.ops.attention import BWD_KERNEL
 
     out = (ctypes.c_int * 5)()
     code = 1 if dtype == torch.bfloat16 else 0
-    if BWD_KERNEL.lib().keds_attention_bwd_plan(S, code, ctypes.cast(out, ctypes.c_void_p)):
-        raise AssertionError(f"keds_attention_bwd_plan refused S={S} {dtype}")
+    if BWD_KERNEL.lib().keds_attention_bwd_plan(S, code, Dh, ctypes.cast(out, ctypes.c_void_p)):
+        raise AssertionError(f"keds_attention_bwd_plan refused S={S} Dh={Dh} {dtype}")
     plan = dict(zip(("key_tiles", "slices", "warps", "smem_bytes", "workspace_rows"), out))
     return dict(plan, blocks=-(-batch_heads // plan["slices"]))
 
@@ -3288,8 +3293,9 @@ def any_depth_path(kernels) -> dict:
 
 
 # tests/test_api_surface.py's tiny config (a text tower of two 32-wide heads:
-# the tuned kernels on heads zero-padded to 64) and the same with two
-# 160-wide heads (the wide-head kernels, f32 too: above its kernel's 128)
+# the tuned kernels, bf16 at the heads' own width, the f32 backward on heads
+# zero-padded to 64) and the same with two 160-wide heads (the wide-head
+# kernels, f32 too: above its kernel's 128)
 HEAD_WIDTH_CFGS = {"tiny": dict(embed_dim=64, image_resolution=32, vision_layers=2,
                                 vision_width=64, vision_patch_size=16, transformer_width=64,
                                 transformer_heads=2, transformer_layers=2)}
@@ -3300,8 +3306,9 @@ HEAD_WIDTH_DB_ROWS = 4096
 HEAD_WIDTH_WANT = {
     "tiny": ({("attention", "bf16_wide"): 0, ("attention", "f32_wide"): 0,
               ("attention_bwd", "bf16_wide"): 0, ("attention_bwd", "f32_wide"): 0,
-              ("attention_bwd_pads", "bf16"): 2, ("attention_bwd_pads", "f32"): 2},
-             [("attention_pads", "bf16_tc")]),
+              ("attention_pads", "bf16_tc"): 0, ("attention_bwd", "bf16"): 2,
+              ("attention_bwd_pads", "bf16"): 0, ("attention_bwd_pads", "f32"): 2},
+             [("attention", "bf16_tc")]),
     "wide": ({("attention_pads", "bf16_tc"): 0, ("attention_bwd_pads", "bf16"): 0,
               ("attention_bwd_pads", "f32"): 0, ("attention_bwd", "bf16_wide"): 2,
               ("attention_bwd", "f32_wide"): 2},
@@ -3366,6 +3373,50 @@ def head_width_path(name: str, kernels) -> dict:
             and r32["passes"]):
         raise AssertionError(f"head_widths_{name}: card vs CPU {out}")
     return launches
+
+
+def empty_shape_check(kernels) -> None:
+    """Empty shapes on the card, as keds_tpu answers them: top-k at k = 0
+    and at no query through each tiling of B1 and through mips_topk, and B2
+    and B2' at B * H = 0 (forward, backward and through autograd, bf16 and
+    f32); each result of its shape, dtype and layout on the card, and no
+    launch counted."""
+    from keds_tpu_torch.ops import attention as att_mod, topk as topk_mod
+
+    before = {n: (dict(k.launches), dict(k.pads)) for n, k in kernels.items()}
+    grid = dict(topk_mod.GRID_LAUNCHES)
+    checked = []
+    for tiling in topk_mod.TILINGS:
+        dtype = torch.bfloat16 if tiling.variant.startswith("bf16") else torch.float32
+        db = _unit_rows(300, 128, dtype, seed=300)
+        for b, k in ((4, 0), (0, 4), (0, 0)):
+            q = _unit_rows(4, 128, dtype, seed=b)[:b]
+            for vals, idx in (topk_mod.launch(q, db, k, tiling, 1), topk_mod.mips_topk(q, db, k)):
+                if not (vals.shape == idx.shape == (b, k) and vals.device == idx.device == db.device
+                        and (vals.dtype, idx.dtype) == (torch.float32, torch.int32)):
+                    raise AssertionError(f"empty top-k {tiling} B={b} k={k}: {vals.shape} "
+                                         f"{vals.dtype} {idx.shape} {idx.dtype}")
+            checked.append(f"mips_topk code {tiling.code} B={b} k={k}")
+    for B, H, S, Dh in ((0, 2, 5, 64), (2, 0, 77, 32), (0, 3, 300, 24), (0, 1, 9, 80)):
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.zeros((B, S, 3, H, Dh), device=DEV, dtype=dtype, requires_grad=True)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            out = att_mod.attention(q, k, v, True)
+            grads = att_mod.attention_backward(q, k, v, out.detach(), True)
+            out.sum().backward()
+            # the card's result: a view of a (B, S, H, Dh) buffer
+            want = torch.empty((B, S, H, Dh)).transpose(1, 2).stride() if qkv.is_cuda \
+                else out.stride()
+            if not (all(t.shape == (B, H, S, Dh) and t.device == qkv.device and t.dtype == dtype
+                        for t in (out, *grads)) and out.stride() == want
+                    and qkv.grad.shape == qkv.shape):
+                raise AssertionError(f"empty attention {(B, H, S, Dh)} {dtype}")
+            checked.append(f"attention {(B, H, S, Dh)} {str(dtype)[6:]}")
+    torch.cuda.synchronize()
+    after = {n: (dict(k.launches), dict(k.pads)) for n, k in kernels.items()}
+    if after != before or topk_mod.GRID_LAUNCHES != grid:
+        raise AssertionError(f"an empty shape launched or padded: {before} -> {after}")
+    emit("empty_shapes", checked=checked, launches="none")
 
 
 def preprocess_check() -> dict:
@@ -3854,7 +3905,7 @@ def main() -> int:
     # --- every head width: B2 and B2' off Dh = 64 ------------------------------
     head_width_cases = [(4, 16, 257, 80, bf16, False), (4, 8, 77, 128, bf16, True),
                         (2, 4, 77, 256, f32, True),     # the wide-head kernels
-                        (64, 2, 32, 32, bf16, True)]    # the tiny config's text, padded
+                        (64, 2, 32, 32, bf16, True)]    # the tiny config's text, at Dh = 32
     # the shapes head_width_path gives the kernels: each config's engine
     # batch (S=32 prompts) and its train steps' prompts (S=8), bf16 and f32
     hw_path_cases = [(QUERY_BATCH, 2, 32, 160, bf16, True),
@@ -3875,6 +3926,7 @@ def main() -> int:
     hw_bwd_rows = check_attention_bwd(head_width_cases + hw_path_cases[1:] + wide128_bwd
                                       + wide_f32_bwd)
     hw_launches = {name: head_width_path(name, kernels) for name in HEAD_WIDTH_CFGS}
+    empty_shape_check(kernels)
     preprocess_check()
     torch.cuda.empty_cache()
     walls("head_widths")
@@ -4035,8 +4087,8 @@ def main() -> int:
                (att, "bf16_tc", att_rows[12], fullscale_launches["cirr_device"]),
                # every head width, each path beside its own shapes: the wide
                # config's engine batch and bf16 and f32 train steps on the
-               # wide-head kernels, the tiny config's on padded heads (the f32
-               # forward at Dh = 32 unpadded)
+               # wide-head kernels, the tiny config's on the tuned kernels at
+               # Dh = 32 (the f32 backward on heads padded to 64)
                (att, "bf16_wide", hw_att_rows[4], hw_launches["wide"]),
                (att, "bf16_wide", hw_att_rows[5], hw_launches["wide"]),
                (att, "f32_wide", hw_att_rows[6], hw_launches["wide"]),
@@ -4051,6 +4103,7 @@ def main() -> int:
                (bwd, "f32_wide", hw_bwd_rows[5], hw_launches["wide"]),
                (bwd, "f32_wide", hw_bwd_rows[2], hw_launches["wide"]),
                *((bwd, "f32_wide", hw_bwd_rows[i], hw_launches["wide"]) for i in (10, 11, 12)),
+               (bwd, "bf16", hw_bwd_rows[3], hw_launches["tiny"]),
                (bwd, "bf16", hw_bwd_rows[6], hw_launches["tiny"]),
                (bwd, "f32", hw_bwd_rows[7], hw_launches["tiny"]),
                # graft_entry_torch.py: entry() in bf16, the dry run's rank 0 in f32

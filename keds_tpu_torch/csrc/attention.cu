@@ -15,14 +15,15 @@
 // the fused qkv projection's (B, S, 3, H, Dh) output are read in place and
 // the context is written straight into (B, S, H, Dh) order.
 //
-// Five designs: bf16 at Dh = 64 for S <= kMaxResident (K and V of a
+// Five designs: bf16 at Dh <= 64 for S <= kMaxResident (K and V of a
 // (batch, head) whole in shared memory) and above it (K and V streamed in
-// key chunks), bf16 above Dh = 64 (the wide-head tensor-core kernel), one
-// f32 design at every S and Dh <= 128, and f32 above it.  None falls back
-// to another; bf16 heads narrower than 64 are zero-padded to it by the
-// caller (keds_attention_fwd_route says which route takes which width).
+// key chunks, at Dh = 64), bf16 above Dh = 64 (the wide-head tensor-core
+// kernel), one f32 design at every S and Dh <= 128, and f32 above it.  None
+// falls back to another; bf16 heads narrower than 64 are zero-padded to it
+// by the caller above kMaxResident keys alone (keds_attention_fwd_route
+// says which route takes which width, and the width it runs at).
 //
-// attention_tc (bf16, Dh = 64, S <= 288).  What bounds it on the H100: at
+// attention_tc<DH> (bf16, Dh <= 64, S <= 288).  What bounds it on the H100: at
 // the vision chunk (16, 16, 257, 64) the function moves 34 MB and does 4.3
 // GFLOP, about 128 flop per byte against the card's ridge of about 295, so
 // the floor is the HBM read (10 us).  The design keeps the products on
@@ -46,6 +47,13 @@
 //   * The 1/sqrt(Dh) scale is applied to the f32 scores (folded with
 //     log2(e) into the fma that feeds exp2), and only key tiles that reach
 //     a row's limit (S, or the diagonal when causal) are masked.
+//   * A head narrower than 64 runs at DH, Dh rounded up to 16 (a template
+//     parameter: 16, 32, 48 or 64): K and V rows of DH + 8 elements, zero
+//     past Dh by cp.async's source size, q's fragments zero past Dh, DH / 16
+//     k-steps of q.k^T and DH / 8 n-tiles of P.V, the output written at
+//     the caller's width.  Nothing is padded in device memory, and a block
+//     stages (DH + 8) / 72 of the 64-wide kernel's bytes (S = 288: 27 KB at
+//     DH = 16, 81 KB at 64), so more blocks share an SM.
 //
 // attention_tc_stream (bf16, Dh = 64, S > 288).  Two passes, so that P is
 // normalised before it is rounded, where the reference rounds it: one pass
@@ -181,30 +189,64 @@ struct Strides {
   long long b, s, h;
 };
 
+bool aligned(const void* p, long long bytes) {
+  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
+}
+
 // --- bf16 tensor-core kernels ----------------------------------------------
 
-constexpr int kTcHeadDim = 64;
+constexpr int kTcHeadDim = 64;               // the streamed kernel's width
 constexpr int kTcPitch = kTcHeadDim + 8;     // 144-byte smem rows
 constexpr int kTcMaxWarps = 9;
 constexpr int kTcRows = 16;                  // query rows per warp tile
 
+// The resident kernel at head width DH (16, 32, 48 or 64: a head of Dh runs
+// at Dh rounded up to 16, zero past Dh in shared memory and in q's
+// fragments): rows of DH + 8 elements, an odd multiple of 16 bytes, so
+// every ldmatrix is conflict-free.
+template <int DH> struct TcShape {
+  static constexpr int kPitch = DH + 8;
+  static constexpr int kSteps = DH / 16;     // 16-column k-steps of q k^T
+  static constexpr int kTiles = DH / 8;      // 8-column n-tiles of P V
+};
+
 __host__ __device__ constexpr int tc_key_rows(int n_keys) { return (n_keys + 15) & ~15; }
 
-size_t tc_smem_bytes(int n_keys) {
-  return 2 * static_cast<size_t>(tc_key_rows(n_keys)) * kTcPitch * sizeof(bf16);
+size_t tc_smem_bytes(int n_keys, int dh) {
+  return 2 * static_cast<size_t>(tc_key_rows(n_keys)) * (dh + 8) * sizeof(bf16);
+}
+
+// Columns c, c + 1 of a q row as an A-fragment register: zero at and past
+// Dh (the row is 4-byte aligned; an odd Dh's last column is read alone).
+__device__ __forceinline__ unsigned tc_q_pair(const bf16* row, int c, int Dh) {
+  if (c + 2 <= Dh) return __ldg(reinterpret_cast<const unsigned*>(row + c));
+  return c < Dh ? __ldg(reinterpret_cast<const unsigned short*>(row + c)) : 0u;
 }
 
 // The query fragments of rows ra and rb = ra + 8 (zero for rows >= S).
-__device__ __forceinline__ void tc_load_q(unsigned (&qf)[4][4], const bf16* qb, long long qs,
-                                          int ra, int rb, int S, int t) {
-  const unsigned* qa = reinterpret_cast<const unsigned*>(qb + ra * qs);
-  const unsigned* qr = reinterpret_cast<const unsigned*>(qb + rb * qs);
+// FULL: Dh is the kernel's width, so no column is masked and no load is
+// conditional on one.
+template <bool FULL, int KS>
+__device__ __forceinline__ void tc_load_q(unsigned (&qf)[KS][4], const bf16* qb, long long qs,
+                                          int ra, int rb, int S, int Dh, int t) {
+  const bf16* qa = qb + ra * qs;
+  const bf16* qr = qb + rb * qs;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qf[kk][0] = ra < S ? __ldg(qa + kk * 8 + t) : 0u;
-    qf[kk][1] = rb < S ? __ldg(qr + kk * 8 + t) : 0u;
-    qf[kk][2] = ra < S ? __ldg(qa + kk * 8 + 4 + t) : 0u;
-    qf[kk][3] = rb < S ? __ldg(qr + kk * 8 + 4 + t) : 0u;
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    if (FULL) {
+      const unsigned* ua = reinterpret_cast<const unsigned*>(qa + c);
+      const unsigned* ub = reinterpret_cast<const unsigned*>(qr + c);
+      qf[kk][0] = ra < S ? __ldg(ua) : 0u;
+      qf[kk][1] = rb < S ? __ldg(ub) : 0u;
+      qf[kk][2] = ra < S ? __ldg(ua + 4) : 0u;
+      qf[kk][3] = rb < S ? __ldg(ub + 4) : 0u;
+    } else {
+      qf[kk][0] = ra < S ? tc_q_pair(qa, c, Dh) : 0u;
+      qf[kk][1] = rb < S ? tc_q_pair(qr, c, Dh) : 0u;
+      qf[kk][2] = ra < S ? tc_q_pair(qa, c + 8, Dh) : 0u;
+      qf[kk][3] = rb < S ? tc_q_pair(qr, c + 8, Dh) : 0u;
+    }
   }
 }
 
@@ -218,12 +260,14 @@ struct TcLimits {
 // Pass 1 over the 16-key tile at `k_tile` (keys key0..key0+15): each row's
 // max m of the raw scores and its sum l = sum exp2(c * (s - m)),
 // c = scale * log2(e), rescaled as m grows.
+template <int DH>
 __device__ __forceinline__ void tc_stats_tile(float (&m)[2], float (&l)[2],
-                                              const unsigned (&qf)[4][4], const bf16* k_tile,
-                                              int key0, TcLimits lim, float c, int lane) {
+                                              const unsigned (&qf)[DH / 16][4],
+                                              const bf16* k_tile, int key0, TcLimits lim,
+                                              float c, int lane) {
   const int t = lane % 4;
   float s[2][4];
-  mma_abt<kTcPitch>(s, qf, k_tile, lane);
+  mma_abt<TcShape<DH>::kPitch>(s, qf, k_tile, lane);
   const bool masked = key0 + 16 > lim.warp;       // warp-uniform
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -268,14 +312,16 @@ __device__ __forceinline__ void tc_finish_stats(float (&m)[2], float (&l)[2], fl
 
 // Pass 2 over one 16-key tile: P = exp2(c * s - c * m) / l rounded to
 // bf16, acc += P.V in f32.
-__device__ __forceinline__ void tc_pv_tile(float (&acc)[kTcHeadDim / 8][4],
-                                           const unsigned (&qf)[4][4], const bf16* k_tile,
+template <int DH>
+__device__ __forceinline__ void tc_pv_tile(float (&acc)[DH / 8][4],
+                                           const unsigned (&qf)[DH / 16][4], const bf16* k_tile,
                                            const bf16* v_tile, int key0, TcLimits lim, float c,
                                            const float (&mc)[2], const float (&inv_l)[2],
                                            int lane) {
+  constexpr int P = TcShape<DH>::kPitch;
   const int t = lane % 4;
   float s[2][4];
-  mma_abt<kTcPitch>(s, qf, k_tile, lane);
+  mma_abt<P>(s, qf, k_tile, lane);
   const bool masked = key0 + 16 > lim.warp;       // warp-uniform
   float p[2][4];
 #pragma unroll
@@ -289,41 +335,38 @@ __device__ __forceinline__ void tc_pv_tile(float (&acc)[kTcHeadDim / 8][4],
     }
   const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
                           pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-  mma_ab<kTcPitch>(acc, pa, v_tile, lane);
+  mma_ab<P>(acc, pa, v_tile, lane);
 }
 
-__device__ __forceinline__ void tc_store(bf16* ob, long long os, const float (&acc)[8][4],
-                                         int ra, int rb, int S, int t) {
-#pragma unroll
-  for (int nt = 0; nt < kTcHeadDim / 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<unsigned*>(ob + ra * os + d) = pack_bf16(acc[nt][0], acc[nt][1]);
-    if (rb < S)
-      *reinterpret_cast<unsigned*>(ob + rb * os + d) = pack_bf16(acc[nt][2], acc[nt][3]);
-  }
-}
-
+// FULL: Dh = DH and 4-byte aligned output rows, so no column is tested;
+// the other instantiation masks columns past Dh (a head width off 16).
+// Measured on the H100: column tests in the FULL kernel cost it 2-15 %,
+// and both paths in one kernel took 126 registers where one takes 94 (one
+// block an SM at the vision chunk, 30 % slower), hence two kernels.
+template <int DH, bool FULL>
 __global__ void __launch_bounds__(32 * kTcMaxWarps)
 attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S, int Dh,
              Strides qs, Strides ks, Strides vs, Strides os, int causal,
-             float scale_log2e) {
+             float scale_log2e, int pairs) {
+  using Sh = TcShape<DH>;
+  constexpr int P = Sh::kPitch;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (S + kTcRows - 1) / kTcRows;
   const int kp = tc_key_rows(S);
   bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kp * kTcPitch;
+  bf16* v_s = k_s + kp * P;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const bf16* kb_ptr = k + b * ks.b + h * ks.h;
   const bf16* vb_ptr = v + b * vs.b + h * vs.h;
-  for (int e = threadIdx.x; e < kp * (kTcHeadDim / 8); e += blockDim.x) {
-    const int j = e / (kTcHeadDim / 8), c = (e % (kTcHeadDim / 8)) * 8;
-    const bool in = j < S;                 // padded key rows are zero-filled
-    const int js = in ? j : 0;
-    cp_async16(k_s + j * kTcPitch + c, kb_ptr + js * ks.s + c, in);
-    cp_async16(v_s + j * kTcPitch + c, vb_ptr + js * vs.s + c, in);
+  // 16-byte pieces of K's and V's rows; key rows past S and columns past
+  // Dh are zero-filled (cp.async's source size), never read
+  for (int e = threadIdx.x; e < kp * (DH / 8); e += blockDim.x) {
+    const int j = e / (DH / 8), c = (e % (DH / 8)) * 8;
+    const int bytes = j >= S ? 0 : FULL ? 16 : 2 * max(0, min(8, Dh - c));
+    cp_async_part(k_s + j * P + c, bytes ? kb_ptr + j * ks.s + c : kb_ptr, bytes);
+    cp_async_part(v_s + j * P + c, bytes ? vb_ptr + j * vs.s + c : vb_ptr, bytes);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -338,8 +381,8 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int tile = warp; tile < n_tiles; tile += n_warps) {
     const int r0 = tile * kTcRows;
     const int ra = r0 + g, rb = ra + 8;        // this thread's two rows
-    unsigned qf[4][4];
-    tc_load_q(qf, qb, qs.s, ra, rb, S, t);
+    unsigned qf[Sh::kSteps][4];
+    tc_load_q<FULL>(qf, qb, qs.s, ra, rb, S, Dh, t);
     const TcLimits lim{causal ? min(S, ra + 1) : S, causal ? min(S, rb + 1) : S,
                        causal ? min(S, r0 + 1) : S};
     const int n_kb = ((causal ? min(S, r0 + kTcRows) : S) + 15) / 16;
@@ -348,20 +391,20 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 #pragma unroll 2
     for (int kb = 0; kb < n_kb; ++kb)
-      tc_stats_tile(m, l, qf, k_s + kb * 16 * kTcPitch, kb * 16, lim, c, lane);
+      tc_stats_tile<DH>(m, l, qf, k_s + kb * 16 * P, kb * 16, lim, c, lane);
     float mc[2], inv_l[2];
     tc_finish_stats(m, l, c, mc, inv_l);
 
-    float acc[kTcHeadDim / 8][4];
+    float acc[Sh::kTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < kTcHeadDim / 8; ++nt)
+    for (int nt = 0; nt < Sh::kTiles; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll 2
     for (int kb = 0; kb < n_kb; ++kb)
-      tc_pv_tile(acc, qf, k_s + kb * 16 * kTcPitch, v_s + kb * 16 * kTcPitch, kb * 16, lim,
-                 c, mc, inv_l, lane);
-    tc_store(ob, os.s, acc, ra, rb, S, t);
+      tc_pv_tile<DH>(acc, qf, k_s + kb * 16 * P, v_s + kb * 16 * P, kb * 16, lim, c, mc,
+                     inv_l, lane);
+    store_tile_rows<FULL>(ob, os.s, acc, 1.f, ra, rb, ra < S, rb < S, Dh, pairs, t);
   }
 }
 
@@ -543,15 +586,48 @@ attention_tc_stream(const bf16* __restrict__ q, bf16* __restrict__ o, int H, int
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt) {
     const int ra = r0 + mt * 16 + g;
-    tc_store(o + b * os.b + h * os.h, os.s, acc[mt], ra, ra + 8, S, t);
+    store_tile_rows<true>(o + b * os.b + h * os.h, os.s, acc[mt], 1.f, ra, ra + 8, ra < S,
+                          ra + 8 < S, kTcHeadDim, true, t);
   }
 }
 
+// The resident kernel at width DH for a head of Dh <= DH (S <= kMaxResident).
+template <int DH, bool FULL>
+int launch_tc_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
+                       int S, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
+                       int causal, float c, int pairs, cudaStream_t stream) {
+  static int smem_set[64];
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_tc<DH, FULL>),
+                               static_cast<int>(tc_smem_bytes(kMaxResident, DH)), smem_set);
+  if (err != cudaSuccess) return err;
+  // One block per (batch, head); its warps take the 16-row tiles
+  // round-robin, as many warps as make the rounds even.
+  const int n_tiles = (S + kTcRows - 1) / kTcRows;
+  const int rounds = (n_tiles + kTcMaxWarps - 1) / kTcMaxWarps;
+  const int warps = (n_tiles + rounds - 1) / rounds;
+  attention_tc<DH, FULL><<<B * H, 32 * warps, tc_smem_bytes(S, DH), stream>>>(
+      q, k, v, o, H, S, Dh, qs, ks, vs, os, causal, c, pairs);
+  return cudaGetLastError();
+}
+
+template <int DH>
+int launch_tc_resident(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
+                       int S, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
+                       int causal, float c, cudaStream_t stream) {
+  const int pairs = Dh % 2 == 0 && aligned(o, 4) && os.b % 2 == 0 && os.s % 2 == 0 &&
+                    os.h % 2 == 0;
+  return Dh == DH && pairs
+             ? launch_tc_kernel<DH, true>(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, c,
+                                          pairs, stream)
+             : launch_tc_kernel<DH, false>(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, c,
+                                           pairs, stream);
+}
+
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H,
-              int S, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+              int S, int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
               float scale, cudaStream_t stream) {
   const float c = scale * 1.4426950408889634f;
-  if (S > kMaxResident) {
+  if (S > kMaxResident) {                      // Dh = kTcHeadDim (fwd_route)
     static int smem_set[64];
     cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_tc_stream),
                                  kStreamSmem, smem_set);
@@ -570,20 +646,23 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H
         v_map, k_tc, v_tc);
     return cudaGetLastError();
   }
-  static int smem_set[64];
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_tc),
-                               static_cast<int>(tc_smem_bytes(kMaxResident)), smem_set);
-  if (err != cudaSuccess) return err;
-  // One block per (batch, head); its warps take the 16-row tiles
-  // round-robin, as many warps as make the rounds even.
-  const int n_tiles = (S + kTcRows - 1) / kTcRows;
-  const int rounds = (n_tiles + kTcMaxWarps - 1) / kTcMaxWarps;
-  const int warps = (n_tiles + rounds - 1) / rounds;
-  attention_tc<<<B * H, 32 * warps, tc_smem_bytes(S), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, S, qs, ks, vs, os,
-      causal, c);
-  return cudaGetLastError();
+  const bf16 *qt = static_cast<const bf16*>(q), *kt = static_cast<const bf16*>(k),
+             *vt = static_cast<const bf16*>(v);
+  bf16* ot = static_cast<bf16*>(o);
+  switch ((Dh + 15) / 16) {                    // the least multiple of 16 at or above Dh
+    case 1:
+      return launch_tc_resident<16>(qt, kt, vt, ot, B, H, S, Dh, qs, ks, vs, os, causal, c,
+                                    stream);
+    case 2:
+      return launch_tc_resident<32>(qt, kt, vt, ot, B, H, S, Dh, qs, ks, vs, os, causal, c,
+                                    stream);
+    case 3:
+      return launch_tc_resident<48>(qt, kt, vt, ot, B, H, S, Dh, qs, ks, vs, os, causal, c,
+                                    stream);
+    default:
+      return launch_tc_resident<64>(qt, kt, vt, ot, B, H, S, Dh, qs, ks, vs, os, causal, c,
+                                    stream);
+  }
 }
 
 // --- f32 kernel: products on tensor cores in three TF32 terms ---------------
@@ -900,10 +979,6 @@ constexpr F32Launch kF32Launch[3][3] = {
     {launch_f32_t<32, 1>, launch_f32_t<32, 2>, launch_f32_t<32, 4>},
     {launch_f32_t<64, 1>, launch_f32_t<64, 2>, launch_f32_t<64, 4>},
     {launch_f32_t<128, 1>, launch_f32_t<128, 2>, launch_f32_t<128, 4>}};
-
-bool aligned(const void* p, long long bytes) {
-  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
-}
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
                int S, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
@@ -1421,32 +1496,43 @@ int launch_wide_tc(const void* q, const void* k, const void* v, void* o, int B, 
 // Routes of keds_attention_fwd.
 enum FwdRoute : int { kRouteF32 = 0, kRouteTc = 1, kRouteWide = 2 };
 
-// The route for `dtype` at head width Dh (-1: not taken), and in *width the
-// width it runs at: bf16 below kTcHeadDim runs the tensor-core kernels on
-// inputs zero-padded to it (the caller pads), f32 up to kMaxHeadDim its own
-// kernel (padded in shared memory), and wider heads the wide-head kernel.
-int fwd_route(int dtype, int Dh, int* width) {
-  if (Dh < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
-  *width = dtype == kBFloat16 && Dh < kTcHeadDim ? kTcHeadDim : Dh;
-  if (dtype == kFloat32) return Dh <= kMaxHeadDim ? kRouteF32 : kRouteWide;
-  return Dh <= kTcHeadDim ? kRouteTc : kRouteWide;
+// The route for `dtype` at head width Dh and sequence length S (-1: not
+// taken); out[0] = the width the caller hands the inputs at, out[1] = the
+// head width the kernel runs at (zero-padded past Dh in shared memory and
+// registers).  bf16 up to kTcHeadDim runs the tensor-core kernels: resident
+// at Dh rounded up to 16, streamed (S > kMaxResident) at kTcHeadDim, to
+// which the caller zero-pads a narrower head; f32 up to kMaxHeadDim its own
+// kernel (at 32, 64 or 128); wider heads the wide-head kernels (bf16 at Dh
+// rounded up to 16, f32 to 8).
+int fwd_route(int dtype, int Dh, int S, int* out) {
+  if (Dh < 1 || S < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
+  out[0] = Dh;
+  if (dtype == kFloat32) {
+    out[1] = Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= kMaxHeadDim ? kMaxHeadDim : (Dh + 7) & ~7;
+    return Dh <= kMaxHeadDim ? kRouteF32 : kRouteWide;
+  }
+  out[1] = (Dh + 15) & ~15;
+  if (Dh > kTcHeadDim) return kRouteWide;
+  if (S > kMaxResident) out[0] = out[1] = kTcHeadDim;
+  return kRouteTc;
 }
 
 }  // namespace
 
-extern "C" int keds_attention_fwd_route(int dtype, int Dh, int* width) {
-  return fwd_route(dtype, Dh, width);
+extern "C" int keds_attention_fwd_route(int dtype, int Dh, int S, int* out) {
+  return fwd_route(dtype, Dh, S, out);
 }
 
 // strides: 12 int64 values, (batch, seq, head) element strides of q, k, v, o.
-// Dh is the width the route runs at (keds_attention_fwd_route's *width).
+// Dh is the width the caller hands the inputs at (keds_attention_fwd_route's
+// out[0]).
 extern "C" int keds_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, int dtype, int B, int H, int S,
                                   int Dh, const long long* strides, int causal,
                                   float scale, void* stream) {
-  int width = 0;
-  const int route = fwd_route(dtype, Dh, &width);
-  if (S < 1 || B * H < 1 || route < 0 || width != Dh) return cudaErrorInvalidValue;
+  int out[2] = {0, 0};
+  const int route = fwd_route(dtype, Dh, S, out);
+  if (B * H < 1 || route < 0 || out[0] != Dh) return cudaErrorInvalidValue;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
@@ -1455,7 +1541,7 @@ extern "C" int keds_attention_fwd(const void* q, const void* k, const void* v,
   if (route == kRouteF32)
     return launch_f32(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);
   if (route == kRouteTc)
-    return launch_tc(q, k, v, o, B, H, S, qs, ks, vs, os, causal, scale, st);
+    return launch_tc(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);
   return dtype == kFloat32
              ? launch_wide(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st)
              : launch_wide_tc(q, k, v, o, B, H, S, Dh, qs, ks, vs, os, causal, scale, st);

@@ -18,7 +18,7 @@
 // are (B, H, S, Dh) views with any (batch, seq, head) strides; dq, dk and dv
 // are written once each (no atomics, so two calls agree bit for bit).
 //
-// attention_bwd_tc (bf16, Dh = 64, S <= kMaxSeq = 128).  What bounds it on the H100:
+// attention_bwd_tc<NKB, DH> (bf16, Dh <= 64, S <= kMaxSeq = 128).  What bounds it on the H100:
 // bytes.  It reads q, k, v and dO and writes dq, dk and dv, 7 * B*H*S*Dh * 2
 // bytes, against 10 * B*H*pairs*Dh flops: at S <= 128 that is at most 91
 // flops a byte, under the card's ridge of about 295.  The design keeps the
@@ -55,6 +55,15 @@
 //     exported (keds_attention_bwd_plan); the wrapper reads its workspace
 //     rows through keds_attention_bwd_route.
 //   Shared memory: 47 KB a block at S = 77, 74 KB at S = 128.
+//   * A head narrower than 64 runs at DH, Dh rounded up to 16 (a template
+//     parameter beside NKB: 16, 32, 48 or 64): rows of DH + 8 elements,
+//     zero past Dh by cp.async's source size (nothing padded in device
+//     memory), DH / 16 k-steps of every product over the head and DH / 8
+//     n-tiles of dQ, dK and dV, the gradients written at the caller's
+//     width.  A slice stages (DH + 8) / 72 of the 64-wide bytes (S = 77:
+//     26 KB at DH = 32, 16 KB at DH = 16), so shared memory lets more
+//     blocks share an SM; the registers of pass A's rows of scores, which
+//     do not narrow, still bound them (tc_min_blocks).
 //
 // attention_bwd_tc_dq and attention_bwd_tc_dkv (bf16, Dh = 64, S > 128).
 // Above 128 keys a warp's row of scores no longer fits in registers and a
@@ -121,9 +130,9 @@
 //     102 KB and 104 KB at four tiles).
 
 // attention_bwd_wide_tc_dq and attention_bwd_wide_tc_dkv (bf16 above Dh =
-// 64, any Dh and S; narrower heads are zero-padded to 64 by the caller and
-// take the kernels above).  No CLIP preset reaches them; a custom config
-// does.  What bounds them on the H100: at (4, 16, 257, 80) the function
+// 64, any Dh and S; narrower heads take the kernels above: the resident one
+// at their own width, the streamed ones zero-padded to 64 by the caller).
+// No CLIP preset reaches them; a custom config does.  What bounds them on the H100: at (4, 16, 257, 80) the function
 // moves 18.4 MB (0.0055 ms) and does 3.4 GFLOP, so bytes; as at Dh = 64,
 // the tile stream's latency and the VJP's 11 products of 2 S^2 Dh set the
 // time.  The streamed routes' design (two launches, no atomics, the same
@@ -199,11 +208,17 @@ struct Strides {
 constexpr int kTcPitch = kHeadDim + 8;       // 144-byte rows of q, k, v, dO
 constexpr int kSmallSlices = 4;              // (batch, head) slices a block at S <= 16
 
-// q, k, v and dO of one (batch, head), and three f32 statistics a row.
-__host__ __device__ constexpr int tc_slice_bytes(int key_tiles) {
-  return 16 * key_tiles * (4 * kTcPitch * static_cast<int>(sizeof(bf16)) +
+// Rows of DH + 8 elements at head width DH (16, 32, 48 or 64): an odd
+// multiple of 16 bytes, so every ldmatrix is conflict-free.
+__host__ __device__ constexpr int tc_pitch(int dh) { return dh + 8; }
+
+// q, k, v and dO of one (batch, head) at head width dh, and three f32
+// statistics a row.
+__host__ __device__ constexpr int tc_slice_bytes(int key_tiles, int dh) {
+  return 16 * key_tiles * (4 * tc_pitch(dh) * static_cast<int>(sizeof(bf16)) +
                            3 * static_cast<int>(sizeof(float)));
 }
+
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -213,10 +228,10 @@ struct Plan {
   int key_tiles, slices, warps, smem_bytes;
 };
 
-Plan tc_plan(int S) {
+Plan tc_plan(int S, int dh) {
   const int n = (S + 15) / 16;
   const int slices = n == 1 ? kSmallSlices : 1;
-  return Plan{n, slices, n == 1 ? kSmallSlices : n, slices * tc_slice_bytes(n)};
+  return Plan{n, slices, n == 1 ? kSmallSlices : n, slices * tc_slice_bytes(n, dh)};
 }
 
 // Blocks an SM that the register budget must allow (shared memory allows
@@ -225,30 +240,35 @@ __host__ __device__ constexpr int tc_min_blocks(int key_tiles) {
   return key_tiles == 1 ? 4 : key_tiles <= 5 ? 3 : key_tiles == 6 ? 2 : 1;
 }
 
-template <int NKB>
+// FULL: Dh = DH and 4-byte aligned gradient rows, so no column is tested;
+// the other instantiation masks columns past Dh (a head width off 16).
+template <int NKB, int DH, bool FULL>
 __global__ void __launch_bounds__(32 * (NKB == 1 ? kSmallSlices : NKB), tc_min_blocks(NKB))
 attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                 int BH, int H, int S, Strides qs, Strides ks, Strides vs, Strides gs,
-                 Strides dqs, Strides dks, Strides dvs, int causal, float scale) {
+                 int BH, int H, int S, int Dh, Strides qs, Strides ks, Strides vs, Strides gs,
+                 Strides dqs, Strides dks, Strides dvs, int causal, float scale, int pairs) {
   constexpr int kRows = 16 * NKB;            // staged rows per tensor, zero past S
   constexpr int kSlices = NKB == 1 ? kSmallSlices : 1;
+  constexpr int P = tc_pitch(DH), KS = DH / 16, NT = DH / 8, kPieces = DH / 8;
   extern __shared__ __align__(16) unsigned char smem[];
 
+  // 16-byte pieces of the rows; rows past S and columns past Dh are
+  // zero-filled (cp.async's source size), never read
   const bf16* const src[4] = {q, k, v, dout};
   const Strides sst[4] = {qs, ks, vs, gs};
 #pragma unroll
   for (int tn = 0; tn < 4; ++tn) {
-    for (int e = threadIdx.x; e < kSlices * kRows * 8; e += blockDim.x) {
-      const int sl = e / (kRows * 8), j = (e / 8) % kRows, c = (e % 8) * 8;
+    for (int e = threadIdx.x; e < kSlices * kRows * kPieces; e += blockDim.x) {
+      const int sl = e / (kRows * kPieces), j = (e / kPieces) % kRows, c = (e % kPieces) * 8;
       const int bh = blockIdx.x * kSlices + sl;
-      const bool in = j < S && bh < BH;
-      const int b = in ? bh / H : 0, h = in ? bh % H : 0;
-      bf16* dst = reinterpret_cast<bf16*>(smem + sl * tc_slice_bytes(NKB)) +
-                  (tn * kRows + j) * kTcPitch + c;
-      cp_async16(dst, src[tn] + b * sst[tn].b + h * sst[tn].h + (in ? j : 0) * sst[tn].s + c,
-                 in);
+      const int bytes = j >= S || bh >= BH ? 0 : FULL ? 16 : 2 * max(0, min(8, Dh - c));
+      const int b = bytes ? bh / H : 0, h = bytes ? bh % H : 0;
+      bf16* dst = reinterpret_cast<bf16*>(smem + sl * tc_slice_bytes(NKB, DH)) +
+                  (tn * kRows + j) * P + c;
+      const long long at = bytes ? b * sst[tn].b + h * sst[tn].h + j * sst[tn].s + c : 0;
+      cp_async_part(dst, src[tn] + at, bytes);
     }
     if (tn % 2) cp_async_commit();           // q and k, then v and dO
   }
@@ -262,12 +282,12 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x * kSlices + sl;
   const bool live = bh < BH;
   const int b = live ? bh / H : 0, h = live ? bh % H : 0;
-  const bf16* q_s = reinterpret_cast<const bf16*>(smem + sl * tc_slice_bytes(NKB));
-  const bf16* k_s = q_s + kRows * kTcPitch;
-  const bf16* v_s = k_s + kRows * kTcPitch;
-  const bf16* g_s = v_s + kRows * kTcPitch;
+  const bf16* q_s = reinterpret_cast<const bf16*>(smem + sl * tc_slice_bytes(NKB, DH));
+  const bf16* k_s = q_s + kRows * P;
+  const bf16* v_s = k_s + kRows * P;
+  const bf16* g_s = v_s + kRows * P;
   // each query row's m * scale * log2(e), 1 / l (0 past S) and D
-  float* mc_s = reinterpret_cast<float*>(const_cast<bf16*>(g_s + kRows * kTcPitch));
+  float* mc_s = reinterpret_cast<float*>(const_cast<bf16*>(g_s + kRows * P));
   float* il_s = mc_s + kRows;
   float* d_s = il_s + kRows;
 
@@ -282,15 +302,15 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int lim_warp = causal ? min(S, r0 + 1) : S;
     const float c = scale * 1.4426950408889634f;
 
-    unsigned af[4][4];
+    unsigned af[KS][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldmatrix_a<kTcPitch>(af[kk], q_s + r0 * kTcPitch + kk * 16, lane);
+    for (int kk = 0; kk < KS; ++kk) ldmatrix_a<P>(af[kk], q_s + r0 * P + kk * 16, lane);
     float s[NKB][2][4];
     float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int kb = 0; kb < NKB; ++kb) {
       if (kb >= n_live) continue;
-      mma_abt<kTcPitch>(s[kb], af, k_s + kb * 16 * kTcPitch, lane);
+      mma_abt<P>(s[kb], af, k_s + kb * 16 * P, lane);
       const bool masked = (kb + 1) * 16 > lim_warp;     // warp-uniform
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -340,13 +360,13 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldmatrix_a<kTcPitch>(af[kk], g_s + r0 * kTcPitch + kk * 16, lane);
+    for (int kk = 0; kk < KS; ++kk) ldmatrix_a<P>(af[kk], g_s + r0 * P + kk * 16, lane);
     float dp[NKB][2][4];
     float dsum[2] = {0.f, 0.f};
 #pragma unroll
     for (int kb = 0; kb < NKB; ++kb) {
       if (kb >= n_live) continue;
-      mma_abt<kTcPitch>(dp[kb], af, v_s + kb * 16 * kTcPitch, lane);
+      mma_abt<P>(dp[kb], af, v_s + kb * 16 * P, lane);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -368,9 +388,9 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dS = P * (dP - D) as hi + lo in bf16; dQ = scale * dS K
-    float acc[8][4];
+    float acc[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll
@@ -389,19 +409,10 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack_bf16(hi[1][0], hi[1][1]), pack_bf16(hi[1][2], hi[1][3])};
       const unsigned la[4] = {pack_bf16(lo[0][0], lo[0][1]), pack_bf16(lo[0][2], lo[0][3]),
                               pack_bf16(lo[1][0], lo[1][1]), pack_bf16(lo[1][2], lo[1][3])};
-      mma_ab2<kTcPitch>(acc, ha, la, k_s + kb * 16 * kTcPitch, lane);
+      mma_ab2<P>(acc, ha, la, k_s + kb * 16 * P, lane);
     }
-    bf16* dqb = dq + b * dqs.b + h * dqs.h;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int d = nt * 8 + 2 * t;
-      if (live && ra < S)
-        *reinterpret_cast<unsigned*>(dqb + ra * dqs.s + d) =
-            pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
-      if (live && rb < S)
-        *reinterpret_cast<unsigned*>(dqb + rb * dqs.s + d) =
-            pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
-    }
+    store_tile_rows<FULL>(dq + b * dqs.b + h * dqs.h, dqs.s, acc, scale, ra, rb,
+                        live && ra < S, live && rb < S, Dh, pairs, t);
   }
   __syncthreads();
 
@@ -410,9 +421,9 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int c0 = tile * 16;
     const int ja = c0 + g, jb = ja + 8;       // this thread's two keys
     const float c = scale * 1.4426950408889634f;
-    float av[8][4], ak[8][4];
+    float av[NT][4], ak[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
     for (int qt = causal ? tile : 0; qt < NKB; ++qt) {
@@ -420,13 +431,13 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // made them; keys >= S give rows that are never stored
       float st[2][4], dpt[2][4];
       {
-        unsigned af[4][4];       // reloaded each tile: fewer live registers
+        unsigned af[KS][4];      // reloaded each tile: fewer live registers
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) ldmatrix_a<kTcPitch>(af[kk], k_s + c0 * kTcPitch + kk * 16, lane);
-        mma_abt<kTcPitch>(st, af, q_s + qt * 16 * kTcPitch, lane);
+        for (int kk = 0; kk < KS; ++kk) ldmatrix_a<P>(af[kk], k_s + c0 * P + kk * 16, lane);
+        mma_abt<P>(st, af, q_s + qt * 16 * P, lane);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) ldmatrix_a<kTcPitch>(af[kk], v_s + c0 * kTcPitch + kk * 16, lane);
-        mma_abt<kTcPitch>(dpt, af, g_s + qt * 16 * kTcPitch, lane);
+        for (int kk = 0; kk < KS; ++kk) ldmatrix_a<P>(af[kk], v_s + c0 * P + kk * 16, lane);
+        mma_abt<P>(dpt, af, g_s + qt * 16 * P, lane);
       }
       const bool diag = causal && qt == tile;
       float p[2][4], hi[2][4], lo[2][4];
@@ -453,43 +464,50 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack_bf16(hi[1][0], hi[1][1]), pack_bf16(hi[1][2], hi[1][3])};
       const unsigned la[4] = {pack_bf16(lo[0][0], lo[0][1]), pack_bf16(lo[0][2], lo[0][3]),
                               pack_bf16(lo[1][0], lo[1][1]), pack_bf16(lo[1][2], lo[1][3])};
-      mma_ab<kTcPitch>(av, pa, g_s + qt * 16 * kTcPitch, lane);
-      mma_ab2<kTcPitch>(ak, ha, la, q_s + qt * 16 * kTcPitch, lane);
+      mma_ab<P>(av, pa, g_s + qt * 16 * P, lane);
+      mma_ab2<P>(ak, ha, la, q_s + qt * 16 * P, lane);
     }
-    bf16* dvb = dv + b * dvs.b + h * dvs.h;
-    bf16* dkb = dk + b * dks.b + h * dks.h;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int d = nt * 8 + 2 * t;
-      if (live && ja < S) {
-        *reinterpret_cast<unsigned*>(dvb + ja * dvs.s + d) = pack_bf16(av[nt][0], av[nt][1]);
-        *reinterpret_cast<unsigned*>(dkb + ja * dks.s + d) =
-            pack_bf16(ak[nt][0] * scale, ak[nt][1] * scale);
-      }
-      if (live && jb < S) {
-        *reinterpret_cast<unsigned*>(dvb + jb * dvs.s + d) = pack_bf16(av[nt][2], av[nt][3]);
-        *reinterpret_cast<unsigned*>(dkb + jb * dks.s + d) =
-            pack_bf16(ak[nt][2] * scale, ak[nt][3] * scale);
-      }
-    }
+    const bool in_a = live && ja < S, in_b = live && jb < S;
+    store_tile_rows<FULL>(dv + b * dvs.b + h * dvs.h, dvs.s, av, 1.f, ja, jb, in_a, in_b, Dh,
+                        pairs, t);
+    store_tile_rows<FULL>(dk + b * dks.b + h * dks.h, dks.s, ak, scale, ja, jb, in_a, in_b, Dh,
+                        pairs, t);
   }
 }
 
-template <int NKB>
-int launch_tc(const void* q, const void* k, const void* v, const void* dout, void* dq,
-              void* dk, void* dv, int BH, int H, int S, const Strides* st, int causal,
-              float scale, cudaStream_t stream) {
+template <int NKB, int DH, bool FULL>
+int launch_tc_kernel(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                     void* dk, void* dv, int BH, int H, int S, int Dh, const Strides* st,
+                     int causal, float scale, int pairs, cudaStream_t stream) {
   static int smem_set[64];
-  const Plan p = tc_plan(16 * NKB);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_tc<NKB>),
+  const Plan p = tc_plan(16 * NKB, DH);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(attention_bwd_tc<NKB, DH, FULL>),
                                p.smem_bytes, smem_set);
   if (err != cudaSuccess) return err;
-  attention_bwd_tc<NKB><<<(BH + p.slices - 1) / p.slices, 32 * p.warps, p.smem_bytes, stream>>>(
+  attention_bwd_tc<NKB, DH, FULL><<<(BH + p.slices - 1) / p.slices, 32 * p.warps,
+                                    p.smem_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), BH, H, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      causal, scale);
+      static_cast<bf16*>(dv), BH, H, S, Dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      causal, scale, pairs);
   return cudaGetLastError();
+}
+
+// The resident kernel of NKB key tiles at width DH for a head of Dh <= DH.
+template <int NKB, int DH>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout, void* dq,
+              void* dk, void* dv, int BH, int H, int S, int Dh, const Strides* st, int causal,
+              float scale, cudaStream_t stream) {
+  int pairs = Dh % 2 == 0;
+  const void* out[3] = {dq, dk, dv};
+  for (int i = 0; i < 3; ++i)
+    pairs = pairs && reinterpret_cast<unsigned long long>(out[i]) % 4 == 0 &&
+            st[4 + i].b % 2 == 0 && st[4 + i].s % 2 == 0 && st[4 + i].h % 2 == 0;
+  return Dh == DH && pairs
+             ? launch_tc_kernel<NKB, DH, true>(q, k, v, dout, dq, dk, dv, BH, H, S, Dh, st,
+                                               causal, scale, pairs, stream)
+             : launch_tc_kernel<NKB, DH, false>(q, k, v, dout, dq, dk, dv, BH, H, S, Dh, st,
+                                                causal, scale, pairs, stream);
 }
 
 // --- streamed bf16 kernels (S > kMaxSeq) ------------------------------------
@@ -2486,33 +2504,49 @@ int launch_wide_tc(const void* q, const void* k, const void* v, const void* dout
 }
 
 // Routes of keds_attention_bwd: the tuned kernels (bf16 tensor cores or f32
-// 3xTF32, at kHeadDim) and the wide-head pair.
+// 3xTF32, at most kHeadDim wide) and the wide-head pair.
 enum BwdRoute : int { kRouteTuned = 0, kRouteWide = 1 };
 
-// The route for `dtype` at head width Dh (-1: not taken), and in *width the
-// width it runs at: below kHeadDim the tuned kernels on inputs zero-padded
-// to it (the caller pads), above it the wide-head pair.
-int bwd_route(int dtype, int Dh, int* width) {
-  if (Dh < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
-  *width = Dh < kHeadDim ? kHeadDim : Dh;
-  return Dh <= kHeadDim ? kRouteTuned : kRouteWide;
+// The route for `dtype` at head width Dh and sequence length S (-1: not
+// taken); *width = the width the caller hands the inputs at, *runs = the
+// head width the kernels run at (zero past Dh in shared memory).  At most
+// kHeadDim the tuned kernels: bf16 resident (S <= kMaxSeq) at Dh rounded up
+// to 16; bf16 streamed and f32 at kHeadDim, to which the caller zero-pads a
+// narrower head.  Above it the wide-head pair (bf16 at Dh rounded up to 16,
+// f32 to 8).
+int bwd_route(int dtype, int Dh, int S, int* width, int* runs) {
+  if (Dh < 1 || S < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
+  *width = Dh;
+  *runs = dtype == kBFloat16 ? (Dh + 15) & ~15 : (Dh + 7) & ~7;
+  if (Dh > kHeadDim) return kRouteWide;
+  if (dtype == kFloat32 || S > kMaxSeq) *width = *runs = kHeadDim;
+  return kRouteTuned;
 }
 
-using Launch =int (*)(const void*, const void*, const void*, const void*, void*, void*,
-                       void*, int, int, int, const Strides*, int, float, cudaStream_t);
-constexpr Launch kTcLaunch[kMaxSeq / 16] = {launch_tc<1>, launch_tc<2>, launch_tc<3>,
-                                            launch_tc<4>, launch_tc<5>, launch_tc<6>,
-                                            launch_tc<7>, launch_tc<8>};
+using Launch = int (*)(const void*, const void*, const void*, const void*, void*, void*,
+                       void*, int, int, int, int, const Strides*, int, float, cudaStream_t);
+// the resident bf16 kernel by head width (16, 32, 48, 64) and 16-key tiles
+constexpr Launch kTcLaunch[4][kMaxSeq / 16] = {
+    {launch_tc<1, 16>, launch_tc<2, 16>, launch_tc<3, 16>, launch_tc<4, 16>,
+     launch_tc<5, 16>, launch_tc<6, 16>, launch_tc<7, 16>, launch_tc<8, 16>},
+    {launch_tc<1, 32>, launch_tc<2, 32>, launch_tc<3, 32>, launch_tc<4, 32>,
+     launch_tc<5, 32>, launch_tc<6, 32>, launch_tc<7, 32>, launch_tc<8, 32>},
+    {launch_tc<1, 48>, launch_tc<2, 48>, launch_tc<3, 48>, launch_tc<4, 48>,
+     launch_tc<5, 48>, launch_tc<6, 48>, launch_tc<7, 48>, launch_tc<8, 48>},
+    {launch_tc<1, 64>, launch_tc<2, 64>, launch_tc<3, 64>, launch_tc<4, 64>,
+     launch_tc<5, 64>, launch_tc<6, 64>, launch_tc<7, 64>, launch_tc<8, 64>}};
 
 }  // namespace
 
-// The launch plan at sequence length S for `dtype`: out[0..4] = 16-row
-// tiles, (batch, head) slices a block, warps a block, dynamic shared bytes
-// (of the larger of two launches) and the f32 workspace rows a (batch, head)
-// takes for each of three statistics (0 where one launch needs none: bf16
-// at S <= kMaxSeq, f32 at S <= kF32Chunk).
-extern "C" int keds_attention_bwd_plan(int S, int dtype, int* out) {
-  if (S < 1 || (dtype != kFloat32 && dtype != kBFloat16)) return cudaErrorInvalidValue;
+// The tuned kernels' launch plan at sequence length S for `dtype` and a
+// head of Dh <= kHeadDim: out[0..4] = 16-row tiles, (batch, head) slices a
+// block, warps a block, dynamic shared bytes (of the larger of two
+// launches; the resident bf16 kernel's at the width Dh runs at) and the f32
+// workspace rows a (batch, head) takes for each of three statistics (0
+// where one launch needs none: bf16 at S <= kMaxSeq, f32 at S <= kF32Chunk).
+extern "C" int keds_attention_bwd_plan(int S, int dtype, int Dh, int* out) {
+  if (S < 1 || Dh < 1 || Dh > kHeadDim || (dtype != kFloat32 && dtype != kBFloat16))
+    return cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     const F32Plan p = f32_plan(S);
     out[0] = p.tiles;
@@ -2521,7 +2555,7 @@ extern "C" int keds_attention_bwd_plan(int S, int dtype, int* out) {
     out[3] = p.smem_bytes;
     out[4] = p.resident ? 0 : 16 * p.tiles;
   } else if (S <= kMaxSeq) {
-    const Plan p = tc_plan(S);
+    const Plan p = tc_plan(S, (Dh + 15) & ~15);
     out[0] = p.key_tiles;
     out[1] = p.slices;
     out[2] = p.warps;
@@ -2538,37 +2572,39 @@ extern "C" int keds_attention_bwd_plan(int S, int dtype, int* out) {
 }
 
 // The route of keds_attention_bwd for `dtype` at head width Dh and sequence
-// length S (-1: not taken): out[0] = the width it runs at (the caller
-// zero-pads narrower inputs), out[1] = the f32 workspace rows a (batch,
-// head) takes for each of three statistics (0: none).
+// length S (-1: not taken): out[0] = the width the caller hands the inputs
+// at (it zero-pads narrower ones to it), out[1] = the head width the
+// kernels run at, out[2] = the f32 workspace rows a (batch, head) takes for
+// each of three statistics (0: none).
 extern "C" int keds_attention_bwd_route(int dtype, int Dh, int S, int* out) {
-  const int route = S < 1 ? -1 : bwd_route(dtype, Dh, &out[0]);
+  const int route = bwd_route(dtype, Dh, S, &out[0], &out[1]);
   if (route == kRouteWide) {
-    out[1] = S;
+    out[2] = S;
   } else if (route == kRouteTuned) {
     int plan[5];
-    keds_attention_bwd_plan(S, dtype, plan);
-    out[1] = plan[4];
+    keds_attention_bwd_plan(S, dtype, out[0], plan);
+    out[2] = plan[4];
   }
   return route;
 }
 
 // strides: 21 int64 values, (batch, seq, head) element strides of q, k, v,
 // dO, dq, dk, dv in that order; every head dimension has unit stride.  Dh
-// is the width the route runs at (keds_attention_bwd_route's out[0]).  The
+// is the width the caller hands the inputs at (keds_attention_bwd_route's
+// out[0]).  The
 // bf16 tuned kernels also need 16-byte aligned rows of q, k, v and dO, and
 // the f32 ones 8-byte aligned rows of dq, dk and dv.  A route with
-// workspace rows (out[1]) takes a `workspace` of 3 * B * H * out[1] floats
+// workspace rows (out[2]) takes a `workspace` of 3 * B * H * out[2] floats
 // (16-byte aligned).
 extern "C" int keds_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, void* dq, void* dk, void* dv,
                                   int dtype, int B, int H, int S, int Dh,
                                   const long long* strides, int causal, float scale,
                                   void* workspace, void* stream) {
-  int plan[2] = {0, 0};
+  int plan[3] = {0, 0, 0};
   const int route = keds_attention_bwd_route(dtype, Dh, S, plan);
   if (route < 0 || plan[0] != Dh || B * H < 1) return cudaErrorInvalidValue;
-  if (plan[1] > 0 && workspace == nullptr) return cudaErrorInvalidValue;
+  if (plan[2] > 0 && workspace == nullptr) return cudaErrorInvalidValue;
   Strides st[7];
   for (int t = 0; t < 7; ++t)
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
@@ -2592,7 +2628,7 @@ extern "C" int keds_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == kBFloat16)
     return S > kMaxSeq
                ? launch_tc_stream(q, k, v, dout, dq, dk, dv, B * H, H, S, st, causal, scale, ws, s)
-               : kTcLaunch[(S - 1) / 16](q, k, v, dout, dq, dk, dv, B * H, H, S, st, causal,
-                                         scale, s);
+               : kTcLaunch[(Dh - 1) / 16][(S - 1) / 16](q, k, v, dout, dq, dk, dv, B * H, H,
+                                                        S, Dh, st, causal, scale, s);
   return cudaErrorInvalidValue;
 }

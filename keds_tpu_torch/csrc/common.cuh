@@ -61,11 +61,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// --- bf16 tiles of head dimension 64 in shared memory ----------------------
+// --- bf16 tiles of head dimension 16 to 64 in shared memory ----------------
 //
 // Tiles are row major with a row pitch of kPitch elements; a pitch that is an
 // odd multiple of 16 bytes puts the 8 rows an ldmatrix reads on distinct
-// banks.  Fragments follow mma_bf16's layout.
+// banks.  Fragments follow mma_bf16's layout.  The head dimension is KS
+// 16-column steps (q k^T) or NT 8-column tiles (P V): 64 unless a narrower
+// head's kernel names it.
 
 // A fragment of the 16x16 tile at `tile`.
 template <int kPitch>
@@ -75,10 +77,10 @@ __device__ __forceinline__ void ldmatrix_a(unsigned (&a)[4], const __nv_bfloat16
   ldmatrix_x4(a, tile + ((mi % 2) * 8 + lane % 8) * kPitch + (mi / 2) * 8);
 }
 
-// s = A B^T for A (16 x 64, fragments a[k / 16]) and B the 16 x 64 tile at
-// `rows`: s[nt] holds the products with rows nt*8 .. nt*8+7 of B.
-template <int kPitch>
-__device__ __forceinline__ void mma_abt(float (&s)[2][4], const unsigned (&a)[4][4],
+// s = A B^T for A (16 x 16 KS, fragments a[k / 16]) and B the 16 x 16 KS
+// tile at `rows`: s[nt] holds the products with rows nt*8 .. nt*8+7 of B.
+template <int kPitch, int KS>
+__device__ __forceinline__ void mma_abt(float (&s)[2][4], const unsigned (&a)[KS][4],
                                         const __nv_bfloat16* rows, int lane) {
   const int mi = lane / 8;
   const __nv_bfloat16* row = rows + ((mi / 2) * 8 + lane % 8) * kPitch + (mi % 2) * 8;
@@ -87,7 +89,7 @@ __device__ __forceinline__ void mma_abt(float (&s)[2][4], const unsigned (&a)[4]
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     unsigned bf[4];
     ldmatrix_x4(bf, row + ks * 16);
     mma_bf16(s[0], a[ks], bf);
@@ -95,15 +97,15 @@ __device__ __forceinline__ void mma_abt(float (&s)[2][4], const unsigned (&a)[4]
   }
 }
 
-// acc += A B for A (16 x 16, fragment a) and B the 16 x 64 tile at `rows`:
-// acc[nt] holds columns nt*8 .. nt*8+7.
-template <int kPitch>
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const unsigned (&a)[4],
+// acc += A B for A (16 x 16, fragment a) and B the 16 x 8 NT tile at
+// `rows`: acc[nt] holds columns nt*8 .. nt*8+7.
+template <int kPitch, int NT>
+__device__ __forceinline__ void mma_ab(float (&acc)[NT][4], const unsigned (&a)[4],
                                        const __nv_bfloat16* rows, int lane) {
   const int mi = lane / 8;
   const __nv_bfloat16* row = rows + ((mi % 2) * 8 + lane % 8) * kPitch + (mi / 2) * 8;
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
+  for (int np = 0; np < NT / 2; ++np) {
     unsigned bf[4];
     ldmatrix_x4_trans(bf, row + np * 16);
     mma_bf16(acc[2 * np], a, bf);
@@ -112,14 +114,14 @@ __device__ __forceinline__ void mma_ab(float (&acc)[8][4], const unsigned (&a)[4
 }
 
 // acc += (A0 + A1) B: mma_ab for two A fragments sharing each B fragment.
-template <int kPitch>
-__device__ __forceinline__ void mma_ab2(float (&acc)[8][4], const unsigned (&a0)[4],
+template <int kPitch, int NT>
+__device__ __forceinline__ void mma_ab2(float (&acc)[NT][4], const unsigned (&a0)[4],
                                         const unsigned (&a1)[4], const __nv_bfloat16* rows,
                                         int lane) {
   const int mi = lane / 8;
   const __nv_bfloat16* row = rows + ((mi % 2) * 8 + lane % 8) * kPitch + (mi / 2) * 8;
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
+  for (int np = 0; np < NT / 2; ++np) {
     unsigned bf[4];
     ldmatrix_x4_trans(bf, row + np * 16);
     mma_bf16(acc[2 * np], a0, bf);
@@ -467,6 +469,34 @@ __device__ __forceinline__ void b_frag_cols(unsigned (&bh)[2], unsigned (&bl)[2]
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Rows ra and rb = ra + 8 of a 16-row C tile set acc (those with in_a,
+// in_b), times `mul`, to the bf16 rows at `base` (`stride` elements
+// apart), columns below Dh: 4-byte stores where `pairs` (even Dh, rows
+// 4-byte aligned).  FULL: every column, in 4-byte stores (Dh = 8 NT,
+// pairs), with no test a column.
+template <bool FULL, int NT>
+__device__ __forceinline__ void store_tile_rows(__nv_bfloat16* base, long long stride,
+                                                const float (&acc)[NT][4], float mul, int ra,
+                                                int rb, bool in_a, bool in_b, int Dh,
+                                                bool pairs, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int d = nt * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!(half ? in_b : in_a) || (!FULL && d >= Dh)) continue;
+      __nv_bfloat16* p = base + (half ? rb : ra) * stride + d;
+      const float x0 = acc[nt][2 * half] * mul, x1 = acc[nt][2 * half + 1] * mul;
+      if (FULL || pairs) {
+        *reinterpret_cast<unsigned*>(p) = pack_bf16(x0, x1);
+      } else {
+        p[0] = __float2bfloat16_rn(x0);
+        if (d + 1 < Dh) p[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
 }
 
 // Raise a kernel's dynamic shared-memory limit to `bytes` on the current

@@ -4,8 +4,9 @@
 :func:`attention` is the op every tower block calls.  On a CUDA tensor it
 launches a hand-written kernel of ``csrc/attention.cu`` (which replaces the
 Pallas ``flash_attention``) or raises: bf16 at Dh <= 64 runs the tensor-core
-kernel (variant ``bf16_tc``, Dh = 64, narrower heads zero-padded to it; above
-288 keys K and V stream through shared memory in tiles), f32 at Dh <= 128 the
+kernel (variant ``bf16_tc``: up to 288 keys at Dh rounded up to 16, in
+shared memory alone; above them K and V stream through shared memory in
+tiles at Dh = 64, narrower heads zero-padded to it), f32 at Dh <= 128 the
 f32 kernel (variant ``f32``), whose products run on tensor cores in three
 TF32 terms: about f32's accuracy, where one TF32 product keeps 11 bits (its
 note in the source says what it measured), at any sequence length.  Wider
@@ -25,21 +26,25 @@ the streamed ``bf16_stream``, and ``f32``, one design at any S; wider heads
 :func:`attention_reference`.  Otherwise (serving, ``torch.inference_mode``)
 the forward kernel runs alone and nothing is saved.
 
-Which route a call takes, and the head width it runs at, the libraries say
-(``keds_attention_fwd_route``, ``keds_attention_bwd_route``).  A narrower
-head is zero-padded to that width here, its output sliced back: the padded
-columns add exact zeros to q.k^T and P.V and give zero gradient columns.
-The scale stays 1/sqrt(Dh) of the caller's Dh.  ``pads[variant]`` counts
-those calls; the wide routes run at the caller's width and pad nothing
-here.  The bf16 kernels stage rows with 16-byte copies: an input whose
-rows are not 16-byte aligned is copied first (:func:`_aligned_rows`).
+Which route a call takes, the width it takes the inputs at and the head
+width it runs at, the libraries say (``keds_attention_fwd_route``,
+``keds_attention_bwd_route``).  Where a route takes a wider head than the
+caller's (bf16's streamed routes and f32's backward take 64), the head is
+zero-padded to it here, its output sliced back: the padded columns add
+exact zeros to q.k^T and P.V and give zero gradient columns.  The scale
+stays 1/sqrt(Dh) of the caller's Dh.  ``pads[variant]`` counts those
+calls; every other route runs at the caller's width, zero past it in
+shared memory alone, and pads nothing here.  The bf16 kernels stage rows
+with 16-byte copies: an input whose rows are not 16-byte aligned is copied
+first (:func:`_aligned_rows`).  An empty batch (B * H = 0) launches
+nothing: it returns empty results of the usual layout.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,13 +55,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("attention", {
     "keds_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
                            ctypes.c_float, _P],
-    "keds_attention_fwd_route": [_I, _I, _P],
+    "keds_attention_fwd_route": [_I, _I, _I, _P],
 }, variants=("bf16_tc", "f32", "bf16_wide", "f32_wide"))
 
 BWD_KERNEL = CudaKernel("attention_bwd", {
     "keds_attention_bwd": [_P] * 7 + [_I] * 5 + [_P, _I, ctypes.c_float, _P, _P],
     "keds_attention_bwd_route": [_I, _I, _I, _P],
-    "keds_attention_bwd_plan": [_I, _I, _P],
+    "keds_attention_bwd_plan": [_I, _I, _I, _P],
 }, variants=("bf16", "f32", "bf16_stream", "bf16_wide", "f32_wide"))
 
 # dtype -> (variant prefix, the C entry points' dtype code)
@@ -110,14 +115,28 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError(f"attention kernel needs S >= 1, got S={q.shape[2]}")
 
 
-def _route(fn, *args) -> Tuple[int, int, int]:
-    """(route, width it runs at, workspace rows) from a library's route
-    function; the libraries decide which kernel takes which head width."""
-    out = (ctypes.c_int * 2)()
+class Route(NamedTuple):
+    """A library's route for a call: which kernel takes it, the width it
+    takes the inputs at (the caller's Dh, or wider: the inputs are
+    zero-padded to it), the head width it runs at, and the f32 workspace
+    rows a (batch, head) takes for each of three statistics (the backward's;
+    0: none)."""
+
+    route: int
+    width: int
+    runs_at: int
+    rows: int
+
+
+def _route(fn, *args) -> Route:
+    """The route of a library's route function (``keds_attention_fwd_route``
+    or ``keds_attention_bwd_route`` at dtype code, Dh and S): the libraries
+    decide which kernel takes which head width."""
+    out = (ctypes.c_int * 3)()
     route = fn(*args, ctypes.cast(out, ctypes.c_void_p))
     if route < 0:
         raise ValueError(f"attention kernel takes Dh >= 1, got Dh={args[1]}")
-    return route, out[0], out[1]
+    return Route(route, *out)
 
 
 def _aligned_rows(t: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -143,14 +162,21 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _output(B: int, H: int, S: int, width: int, like: torch.Tensor) -> torch.Tensor:
+    """A (B, H, S, width) view of a new (B, S, H, width) buffer."""
+    return torch.empty((B, S, H, width), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
 def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
     require_cuda(q, k, v)
     _check_qkv(q, k, v)
     B, H, S, Dh = q.shape
+    if B * H == 0:                              # nothing to compute, nothing launched
+        return _output(B, H, S, Dh, q)
     lib = KERNEL.lib()
     prefix, code = _DTYPES[q.dtype]
-    route, width, _ = _route(lib.keds_attention_fwd_route, code, Dh)
+    route, width, _, _ = _route(lib.keds_attention_fwd_route, code, Dh, S)
     variant = ("f32", "bf16_tc", prefix + "_wide")[route]
     if width != Dh:
         q, k, v = _zero_padded(width, q, k, v)
@@ -162,7 +188,7 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = _aligned_rows(k, 16), _aligned_rows(v, 16)
     elif variant == "bf16_wide":                # 16-byte cp.async rows
         q, k, v = (_aligned_rows(t, 16) for t in (q, k, v))
-    out = torch.empty((B, S, H, width), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _output(B, H, S, width, q)
     _launch_forward(lib, code, q, k, v, out, causal, 1.0 / math.sqrt(Dh))
     KERNEL.launches[variant] += 1
     return out if width == Dh else out[..., :Dh]
@@ -184,19 +210,27 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`attention` for the output gradient ``dout``.
 
     On CUDA it launches ``csrc/attention_bwd.cu`` at any S >= 1 and Dh >= 1,
-    f32 or bf16 (Dh <= 64 padded to 64 on the tuned kernels, bf16 above 128
+    f32 or bf16 (Dh <= 64 on the tuned kernels: bf16 up to 128 keys at the
+    caller's width, bf16 above them and f32 padded to 64; bf16 above 128
     and f32 above 64 keys as two launches; wider heads the wide-head pair,
     two launches; a workspace of 3 * B * H * rows floats, the rows from
     ``keds_attention_bwd_route``); q, k and v may be strided views, and a
     ``dout`` whose head dimension is not contiguous is made contiguous
     here, as is, for every bf16 route, any input whose rows are not
     16-byte aligned.  The three gradients are views of one (B, S, 3, H, Dh)
-    buffer (the padded width's, sliced), laid out as the fused qkv
-    projection's output.  On the CPU it runs
-    :func:`attention_reference_backward`."""
+    buffer (a padded width's, sliced, where the route pads), laid out as
+    the fused qkv projection's output; at B * H = 0 nothing is launched.
+    On the CPU it runs :func:`attention_reference_backward`."""
     if q.device.type == "cpu":
         return attention_reference_backward(q, k, v, dout, causal)
     return _backward_kernel(q, k, v, dout, causal)
+
+
+def _gradients(B: int, H: int, S: int, width: int, like: torch.Tensor):
+    """(dq, dk, dv): (B, H, S, width) views of a new (B, S, 3, H, width)
+    buffer, laid out as the fused qkv projection's output."""
+    grads = torch.empty((B, S, 3, H, width), dtype=like.dtype, device=like.device)
+    return tuple(grads[:, :, i].transpose(1, 2) for i in range(3))
 
 
 def _backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -208,9 +242,11 @@ def _backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"output gradient {dout.shape} {dout.dtype} does not match "
                          f"q {q.shape} {q.dtype}")
+    if B * H == 0:                              # nothing to compute, nothing launched
+        return _gradients(B, H, S, Dh, q)
     lib = BWD_KERNEL.lib()
     prefix, code = _DTYPES[q.dtype]
-    route, width, rows = _route(lib.keds_attention_bwd_route, code, Dh, S)
+    route, width, _, rows = _route(lib.keds_attention_bwd_route, code, Dh, S)
     # bf16 above BWD_RESIDENT_SEQ: the call's two streamed launches count
     # once, apart from the resident kernel's; f32 and the wide pair: a call
     # counts once
@@ -223,8 +259,7 @@ def _backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         BWD_KERNEL.pads[variant] += 1
     elif prefix == "bf16":                      # 16-byte cp.async rows, every route
         q, k, v, dout = (_aligned_rows(t, 16) for t in (q, k, v, dout))
-    grads = torch.empty((B, S, 3, H, width), dtype=q.dtype, device=q.device)
-    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    dq, dk, dv = _gradients(B, H, S, width, q)
     _launch_backward(lib, code, q, k, v, dout, (dq, dk, dv), causal, 1.0 / math.sqrt(Dh), rows)
     BWD_KERNEL.launches[variant] += 1
     return (dq, dk, dv) if width == Dh else tuple(g[..., :Dh] for g in (dq, dk, dv))
@@ -268,9 +303,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors, which may be strided views as long as Dh is contiguous.
 
     The CUDA result is a (B, H, S, Dh) view of a (B, S, H, Dh) contiguous
-    buffer, so ``out.transpose(1, 2).reshape(B, S, H * Dh)`` is free (a
-    padded head's result is a slice of the padded width's buffer, and the
-    reshape copies)."""
+    buffer, so ``out.transpose(1, 2).reshape(B, S, H * Dh)`` is free (but
+    where a bf16 head narrower than 64 streams, above 288 keys: its result
+    is a slice of the 64-wide buffer, and the reshape copies)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

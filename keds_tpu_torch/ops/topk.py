@@ -17,7 +17,8 @@ kernel, it takes any D: a D off the kernel's depth step (64 for bf16, 16
 for f32, 32 for the one-launch f32) is zero-padded in the wrapper, which
 adds 0 to every inner product, and counts in ``KERNEL.pads``.  On CPU
 tensors it runs the plain version :func:`mips_topk_plain`.  Both order
-equal scores by lower row index first.
+equal scores by lower row index first.  As ``lax.top_k`` does, both take
+k = 0 (empty results), and no query (B = 0); neither launches anything.
 
 :func:`mips_topk_sharded` searches a database whose rows are split over the
 ranks of a mesh (the counterpart of faiss ``index_cpu_to_all_gpus``): each
@@ -104,8 +105,9 @@ def kernel_depth(tiling: Tiling, dim: int) -> int:
 
 
 def _check_k(k: int, n: int) -> None:
-    if not 1 <= k <= n:
-        raise ValueError(f"top-k needs 1 <= k <= N, got k={k}, N={n}")
+    """0 <= k <= N, as ``lax.top_k`` takes it."""
+    if not 0 <= k <= n:
+        raise ValueError(f"top-k needs 0 <= k <= N, got k={k}, N={n}")
 
 
 def mips_topk_plain(queries: torch.Tensor, db: torch.Tensor,
@@ -146,7 +148,7 @@ def split_plan(n_queries: int, n_rows: int, n_sms: int,
     bf16 = dtype == torch.bfloat16
     if bf16 and k <= LANE_K and kernel_depth(TC, dim) <= TC_MAX_DIM:
         n_chunks = -(-n_rows // TC.chunk_rows)
-        want = -(-n_sms // -(-n_queries // TC.query_tile))
+        want = -(-n_sms // max(1, -(-n_queries // TC.query_tile)))
         return TC, max(1, min(n_chunks, want))
     if bf16:
         tiling = BF16
@@ -163,7 +165,7 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by inner product: queries (B, D), db (N, D) ->
     (values (B, k) f32, indices (B, k) int32), best first, ties to the lower
-    index."""
+    index; 0 <= k <= N."""
     if queries.device.type == "cpu":
         return mips_topk_plain(queries, db, k)
     require_cuda(queries, db)
@@ -176,6 +178,8 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     if db.shape[1] != D:
         raise ValueError(f"top-k kernel needs queries and database of one D, got "
                          f"{tuple(queries.shape)} and {tuple(db.shape)}")
+    if B == 0 or k == 0:                        # nothing to search: no pad, no launch
+        return _results(B, k, queries.device)
     tiling, n_splits = split_plan(B, N, sm_count(queries), queries.dtype, k, D)
     if D % depth_step(tiling):
         queries, db = pad_depth(queries, depth_step(tiling)), pad_depth(db, depth_step(tiling))
@@ -185,6 +189,12 @@ def mips_topk(queries: torch.Tensor, db: torch.Tensor,
     if queries.data_ptr() % 16 or db.data_ptr() % 16:
         raise ValueError("top-k kernel needs 16-byte aligned inputs")
     return launch(queries, db, k, tiling, n_splits)
+
+
+def _results(B: int, k: int, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New (B, k) f32 values and int32 indices on ``dev``."""
+    return (torch.empty((B, k), dtype=torch.float32, device=dev),
+            torch.empty((B, k), dtype=torch.int32, device=dev))
 
 
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
@@ -206,10 +216,11 @@ def launch(queries: torch.Tensor, db: torch.Tensor, k: int, tiling: Tiling,
     or row segments, on inputs :func:`mips_topk` has checked (the card tests
     also call it with a plan of their own).  The scratch score matrix is
     kept under ``SCORE_BYTES``: more queries than fit take one launch each
-    share."""
+    share.  No query, or k = 0, launches nothing."""
     (B, D), N, dev = queries.shape, db.shape[0], queries.device
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    vals, idx = _results(B, k, dev)
+    if B == 0 or k == 0:
+        return vals, idx
     if tiling is TC:
         ld, step = 0, B
         cand_shape = (B, n_splits, k)
@@ -311,7 +322,9 @@ def mips_topk_approx(queries: torch.Tensor, db: torch.Tensor,
     the lower index), whose exact re-rank then changes nothing.  So this
     is :func:`mips_topk`: B1 at k on the card, :func:`mips_topk_plain` on
     the CPU.  These are the reference's own semantics off the TPU, not a
-    fallback."""
+    fallback.  ``lax.approx_max_k`` refuses k = 0, and so does this."""
+    if k < 1:
+        raise ValueError(f"approximate top-k needs k >= 1, got k={k}")
     return mips_topk(queries, db, k)
 
 

@@ -3,7 +3,7 @@
 from ``chip_smoke.py`` so that the smoke run stays a check.
 
     python3 kernel_sweeps.py [--impl DIR] [rank] [topk_anatomy] [narrow_k] [wide_k] [topk_split]
-                             [attention] [attention_bwd] [attention_split]
+                             [attention] [attention_bwd] [attention_split] [narrow_heads]
                              [attention_precision] [mma_rate]
                              [train_check_controls]
                              [raw_check_controls] [rn_gain_controls] [rn_encode_chunks]
@@ -85,6 +85,18 @@ attention_split   where the f32 wide-head routes' time goes, by CUDA kernel
                   backward's dq and dkv launches at the f32 wide rows of
                   attention and attention_bwd, with the tuned kernels' at
                   (16, 16, 257, 64) beside them.  Takes ``--impl``.
+narrow_heads      B2 and B2' in bf16 at heads narrower than 64 (the tiny
+                  config's text tower: (64, 2, 32, 32) and (64, 2, 8, 32)
+                  causal, forward and backward), their Dh = 64 twins
+                  (64, 2, {32, 8}, 64) causal, and the main path's Dh = 64
+                  rows: forward (16, 16, 257, 64) and (64, 12, 32, 64)
+                  causal, backward (128, 12, 8, 64) and (64, 12, 77, 64)
+                  causal; with the f32 backward at (64, 2, 8, 32)
+                  causal (still padded to 64); the wrapper's call timed
+                  (its pad copies with it where it pads), on the inputs and
+                  the graph-replay timing of ``chip_smoke.py``, SDPA's
+                  forward or backward beside each.  Takes ``--impl``: run
+                  parent, change, change, parent.
 attention_precision
                   the f32 attention forward and backward against float64:
                   the kernels' largest error beside the plain version's and
@@ -164,11 +176,28 @@ from chip_smoke import (DB_ROWS, QUERY_BATCH, RAW_CHECK_BATCH, SERVE_CORPUS, SER
                         train_reading)
 
 PHASES = ("rank", "topk_anatomy", "narrow_k", "wide_k", "topk_split", "attention",
-          "attention_bwd", "attention_split", "attention_precision", "mma_rate", "train_check_controls",
+          "attention_bwd", "attention_split", "narrow_heads", "attention_precision", "mma_rate",
+          "train_check_controls",
           "raw_check_controls", "rn_gain_controls", "rn_encode_chunks", "int8_layouts",
           "graft_entry_controls")
 IMPL_PHASES = ("rank", "narrow_k", "wide_k", "topk_split", "attention",
-               "attention_bwd", "attention_split")   # --impl's
+               "attention_bwd", "attention_split", "narrow_heads")   # --impl's
+# bf16 heads narrower than 64 (the tiny config's text tower), their Dh = 64
+# twins and the main path's Dh = 64 rows: (B, H, S, Dh, dtype, causal,
+# backward)
+NARROW_HEAD_SHAPES = ((QUERY_BATCH, 2, 32, 32, torch.bfloat16, True, False),
+                      (QUERY_BATCH, 2, 8, 32, torch.bfloat16, True, False),
+                      (QUERY_BATCH, 2, 32, 32, torch.bfloat16, True, True),
+                      (QUERY_BATCH, 2, 8, 32, torch.bfloat16, True, True),
+                      (QUERY_BATCH, 2, 32, 64, torch.bfloat16, True, False),
+                      (QUERY_BATCH, 2, 8, 64, torch.bfloat16, True, False),
+                      (QUERY_BATCH, 2, 32, 64, torch.bfloat16, True, True),
+                      (QUERY_BATCH, 2, 8, 64, torch.bfloat16, True, True),
+                      (16, 16, 257, 64, torch.bfloat16, False, False),
+                      (QUERY_BATCH, 12, 32, 64, torch.bfloat16, True, False),
+                      (TRAIN_BATCH, 12, 8, 64, torch.bfloat16, True, True),
+                      (QUERY_BATCH, 12, 77, 64, torch.bfloat16, True, True),
+                      (QUERY_BATCH, 2, 8, 32, torch.float32, True, True))
 # bf16 above Dh = 64 (the wide-head kernels): chip_smoke.py's rows, and the
 # main path's widths re-split into 128-wide heads (the same bytes as their
 # Dh = 64 rows)
@@ -387,6 +416,33 @@ def attention_bwd(impl: str) -> None:
             continue
         ms[name] = time_ms(lambda: attention_backward(q, k, v, dout, causal))
     emit("attention_bwd", impl=impl, kernel_ms=ms, sdpa_backward_ms=sdpa)
+
+
+def narrow_heads(impl: str) -> None:
+    import torch.nn.functional as F
+
+    from keds_tpu_torch.ops.attention import attention as fwd
+    from keds_tpu_torch.ops.attention import attention_backward
+
+    ms, sdpa = {}, {}
+    for B, H, S, Dh, dtype, causal, backward in NARROW_HEAD_SHAPES:
+        q, k, v = _qkv(B, H, S, Dh, dtype)
+        dout = _dout(B, H, S, Dh, dtype)
+        name = (f"{'bwd' if backward else 'fwd'} {B}x{H}x{S}x{Dh} {str(dtype)[6:]}"
+                f"{' causal' if causal else ''}")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+        if backward:
+            sdpa[name] = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, dout))
+                          - time_ms(sdpa_fwd))
+            ms[name] = time_ms(lambda: attention_backward(q, k, v, dout, causal))
+        else:
+            sdpa[name] = time_ms(sdpa_fwd)
+            ms[name] = time_ms(lambda: fwd(q, k, v, causal))
+    emit("narrow_heads", impl=impl, kernel_ms=ms, sdpa_ms=sdpa)
 
 
 def _kernel_name(key: str) -> str:

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 from keds_tpu.ops.attention import attention_reference as jax_reference
 from keds_tpu.ops.attention import flash_attention
 
+from keds_tpu_torch.ops import attention as att_mod
 from keds_tpu_torch.ops.attention import attention, attention_reference
 
 torch.set_num_threads(1)
@@ -88,3 +89,52 @@ def test_attention_every_head_width_matches_jax(dh, dtype, s, causal):
                     causal).numpy()
     np.testing.assert_allclose(out, want, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(out, plain, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(0, 2, 5, 64), (2, 0, 5, 64), (0, 0, 1, 24)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_empty_batch_matches_jax(shape, causal):
+    """B = 0 or H = 0: an empty result of the inputs' shape and dtype, as
+    keds_tpu's attention_reference (its default attention) gives."""
+    q = np.zeros(shape, np.float32)
+    want = np.asarray(jax_reference(jnp.asarray(q), jnp.asarray(q), jnp.asarray(q), causal))
+    got = attention(*(torch.from_numpy(q),) * 3, causal).numpy()
+    assert got.shape == want.shape == shape and got.dtype == want.dtype
+
+
+@pytest.mark.parametrize("shape", [(0, 2, 5, 64), (2, 0, 5, 24), (0, 3, 300, 32),
+                                   (0, 1, 9, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_attention_kernel_wrapper_empty_batch_launches_nothing(monkeypatch, shape, dtype):
+    """The card wrappers at B * H = 0 reach no library and count nothing:
+    the forward's result is a (B, H, S, Dh) view of a (B, S, H, Dh) buffer,
+    the backward's three gradients views of one (B, S, 3, H, Dh) buffer.
+    S < 1 keeps its refusal."""
+    def no_library():
+        raise AssertionError("an empty batch must not reach the library")
+
+    monkeypatch.setattr(att_mod, "require_cuda", lambda *t: None)
+    monkeypatch.setattr(att_mod.KERNEL, "lib", no_library)
+    monkeypatch.setattr(att_mod.BWD_KERNEL, "lib", no_library)
+    counts = [dict(c) for c in (att_mod.KERNEL.launches, att_mod.KERNEL.pads,
+                                att_mod.BWD_KERNEL.launches, att_mod.BWD_KERNEL.pads)]
+    B, H, S, Dh = shape
+    qkv = torch.zeros((B, S, 3, H, Dh), dtype=dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = att_mod._forward_kernel(q, k, v, True)
+    assert out.shape == shape and out.dtype == dtype
+    assert out.stride() == torch.empty((B, S, H, Dh)).transpose(1, 2).stride()
+    grads = att_mod._backward_kernel(q, k, v, out, True)
+    buffer = torch.empty((B, S, 3, H, Dh))
+    for i, g in enumerate(grads):
+        want = buffer[:, :, i].transpose(1, 2)
+        assert g.shape == shape and g.dtype == dtype
+        assert g._base is grads[0]._base and g._base.shape == buffer.shape
+        assert (g.stride(), g.storage_offset()) == (want.stride(), want.storage_offset())
+    assert counts == [dict(c) for c in (att_mod.KERNEL.launches, att_mod.KERNEL.pads,
+                                        att_mod.BWD_KERNEL.launches, att_mod.BWD_KERNEL.pads)]
+    empty_s = torch.zeros((B, H, 0, Dh), dtype=dtype)
+    with pytest.raises(ValueError, match="S >= 1"):
+        att_mod._forward_kernel(empty_s, empty_s, empty_s, False)
+    with pytest.raises(ValueError, match="S >= 1"):
+        att_mod._backward_kernel(empty_s, empty_s, empty_s, empty_s, False)

@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 
 from keds_tpu.models import clip as jclip
+from keds_tpu.ops.attention import attention_reference as jax_reference
 from keds_tpu.ops.attention import flash_attention
 
 from keds_tpu_torch.models import clip as tclip
@@ -19,6 +20,26 @@ from torch_port_helpers import D, JCFG, TCFG, jax_models, port_models
 
 torch.set_num_threads(1)
 TOL = 1e-5   # f32 on both sides; sums in another order
+
+
+@pytest.mark.parametrize("shape", [(0, 2, 5, 64), (2, 0, 5, 64), (0, 1, 8, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_grad_empty_batch_matches_jax_vjp(shape, causal):
+    """B = 0 or H = 0: empty gradients of the inputs' shape and dtype, as
+    the VJP of keds_tpu's attention_reference gives, through autograd and
+    through attention_backward."""
+    q = np.zeros(shape, np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_reference(a, b, c, causal),
+                     *(jnp.asarray(q),) * 3)
+    ref = [np.asarray(t) for t in vjp(jnp.asarray(q))]
+    tq, tk, tv = (torch.from_numpy(q.copy()).requires_grad_(True) for _ in range(3))
+    grads = torch.autograd.grad(attention(tq, tk, tv, causal), (tq, tk, tv),
+                                torch.from_numpy(q), allow_unused=True)
+    plain = attention_backward(*(torch.from_numpy(q),) * 4, causal)
+    for got, pl, want in zip(grads, plain, ref):
+        for t in (got, pl):
+            assert t is not None and t.shape == want.shape == shape
+            assert t.numpy().dtype == want.dtype
 
 
 @pytest.mark.parametrize("s", [1, 5, 8, 33, 77])

@@ -46,7 +46,8 @@ W = 2
 PROMPT = np.zeros((1, 77), np.int32)
 PROMPT[0, :5] = [49406, 320, 1125, 539, 49407]   # "a photo of"
 FEAT_TOL = 1e-5     # f32 features and gradients: sums in another order
-TOPK_CASES = ("n_pad_negative_scores", "k_above_shard_rows", "ties_across_shards")
+TOPK_CASES = ("n_pad_negative_scores", "k_above_shard_rows", "ties_across_shards",
+              "k_zero")
 
 
 def _topk_inputs(rng):
@@ -56,8 +57,11 @@ def _topk_inputs(rng):
     small = rng.standard_normal((9, D)).astype(np.float32)           # 5 rows a shard, k=6
     half = rng.standard_normal((8, D)).astype(np.float32)
     tied = np.concatenate([half, half])        # row i and row i + 8 score alike
-    return [(q, neg, 4), (rng.standard_normal((5, D)).astype(np.float32), small, 6),
-            (rng.standard_normal((5, D)).astype(np.float32), tied, 5)]
+    cases = [(q, neg, 4), (rng.standard_normal((5, D)).astype(np.float32), small, 6),
+             (rng.standard_normal((5, D)).astype(np.float32), tied, 5)]
+    # k = 0 (the serve CLI's --topn 0): empty results; over 9 rows, so a pad
+    # row gives JAX's Pallas backend a candidate (it refuses k = 0 itself)
+    return cases + [(q, small, 0)]
 
 
 def _templates(rng, n, n_stars):
@@ -138,6 +142,9 @@ def test_mips_topk_sharded_matches_jax(run, case, backend):
     np.testing.assert_array_equal(idx, pi.numpy())
     if TOPK_CASES[case] == "n_pad_negative_scores":
         assert (vals < 0).all() and (idx < len(rows)).all()   # no pad row in the result
+    if TOPK_CASES[case] == "k_zero":
+        assert vals.shape == idx.shape == jv.shape == (len(q), 0)
+        assert (vals.dtype, idx.dtype) == (jv.dtype, ji.dtype)
 
 
 # --- sharded retrieval -----------------------------------------------------------

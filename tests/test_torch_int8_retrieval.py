@@ -321,6 +321,23 @@ def test_int8_sharded_search_matches_jax_mesh(ranks, true_rows):
                                z["q"], z["rows"])
 
 
+@pytest.mark.parametrize("true_rows", [True, False])
+def test_int8_sharded_search_at_k_zero_matches_jax_mesh(ranks, true_rows):
+    """k = 0 (the serve CLI's --topn 0): empty (B, 0) f32 values and int32
+    indices on every rank, as the JAX mesh gives."""
+    z = ranks.z
+    rows = np.concatenate([z["rows"], np.zeros((1, D), np.float32)])
+    q8, sc = jtopk.quantize_int8(jnp.asarray(rows))
+    jv, ji = jtopk.mips_topk_int8_sharded(jnp.asarray(z["q"]), q8, sc, 0, ranks.mesh,
+                                          n_real=37,
+                                          db=jnp.asarray(rows) if true_rows else None)
+    tag = "true_k0" if true_rows else "deq_k0"
+    for out in ranks.outs:
+        for got, want in ((out[f"sharded_{tag}_vals"], jv), (out[f"sharded_{tag}_idx"], ji)):
+            assert got.shape == want.shape == (len(z["q"]), 0)
+            assert got.dtype == np.asarray(want).dtype
+
+
 def test_int8_sharded_pad_rows_cannot_win(ranks):
     """Every true score is negative; the zero pad row scores 0.0 and must
     not appear."""

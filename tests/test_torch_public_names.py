@@ -229,28 +229,43 @@ def test_device_preprocess_matches_host_for_uniform_image():
     np.testing.assert_allclose(dev[0], host, atol=1e-2)
 
 
-# --- ops/attention.py: narrow heads zero-padded to the kernels' width --------------
+# --- ops/attention.py: narrow heads, at their own width or zero-padded ----------
+
+def _dh16(dh):
+    return -(-dh // 16) * 16
+
 
 class _RouteLibs:
     """The libraries' route functions as the card test
     (test_torch_cuda.py::test_attention_routes_by_head_width) holds them:
-    bf16 forward and both backward routes run Dh < 64 at 64."""
+    bf16 Dh < 64 runs at Dh rounded up to 16 on the resident kernels (288
+    keys forward, 128 backward) and is padded to 64 above them; the f32
+    backward pads Dh < 64 to 64; out = (width handed, width run at,
+    workspace rows)."""
 
     @staticmethod
     def _out(ptr):
         return ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int))
 
-    def keds_attention_fwd_route(self, code, dh, ptr):
-        self._out(ptr)[0] = 64 if code == 1 and dh < 64 else dh
-        return (1 if dh <= 64 else 2) if code == 1 else (0 if dh <= 128 else 2)
+    def keds_attention_fwd_route(self, code, dh, s, ptr):
+        out = self._out(ptr)
+        if code == 1:
+            out[0], out[1] = (64, 64) if dh <= 64 and s > 288 else (dh, _dh16(dh))
+            return 1 if dh <= 64 else 2
+        out[0], out[1] = dh, next((w for w in (32, 64, 128) if dh <= w), -(-dh // 8) * 8)
+        return 0 if dh <= 128 else 2
 
     def keds_attention_bwd_route(self, code, dh, s, ptr):
         out = self._out(ptr)
-        out[0] = max(dh, 64)
-        # the wide pair's workspace rows at every S; the tuned kernels' above
-        # one launch's lengths (bf16 128 keys, f32 64), S rounded up to 16
-        out[1] = s if dh > 64 else 16 * -(-s // 16) if s > (128 if code == 1 else 64) else 0
-        return int(dh > 64)
+        if dh > 64:             # the wide pair: a workspace row per query row
+            out[0], out[1], out[2] = dh, _dh16(dh) if code == 1 else -(-dh // 8) * 8, s
+            return 1
+        resident = code == 1 and s <= 128
+        out[0], out[1] = (dh, _dh16(dh)) if resident else (64, 64)
+        # the tuned kernels' workspace above one launch's lengths (bf16 128
+        # keys, f32 64), S rounded up to 16
+        out[2] = 16 * -(-s // 16) if s > (128 if code == 1 else 64) else 0
+        return 0
 
 
 def _plain(q, k, v, causal, scale):
@@ -299,21 +314,31 @@ def _inputs(dh, dtype, s=9, b=2, h=3, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("dh", [1, 32, 48])
+@pytest.mark.parametrize("dh", [1, 16, 24, 32, 48])
+@pytest.mark.parametrize("s", [9, 300])
 @pytest.mark.parametrize("causal", [False, True])
-def test_padded_forward_is_exact(plain_kernels, dtype, dh, causal):
-    """The wrapper pads bf16 to 64 (f32 runs its own width), passes the
-    caller's 1/sqrt(Dh) and slices the output back: the plain version on
-    the unpadded inputs, to 1e-6 (the padded product sums the same terms,
-    with zeros, in an order the BLAS picks)."""
-    (q, k, v), _ = _inputs(dh, dtype)
-    width = 64 if dtype == torch.bfloat16 else dh
+def test_padded_forward_is_exact(plain_kernels, dtype, dh, s, causal):
+    """bf16 up to 288 keys and f32 run at the caller's Dh (the kernel at Dh
+    rounded up to 16 in bf16, 32 to 128 in f32: no pad counted, the result
+    a view of a (B, S, H, Dh) buffer); bf16 above 288 keys streams at 64:
+    the wrapper pads, counts it and slices the output back.  Either way
+    the scale is the caller's 1/sqrt(Dh) and the result is the plain
+    version on the caller's inputs, to 1e-6 (a padded product sums the
+    same terms, with zeros, in an order the BLAS picks)."""
+    (q, k, v), _ = _inputs(dh, dtype, s=s)
+    padded = dtype == torch.bfloat16 and s > 288
+    width = 64 if padded else dh
+    route = att_mod._route(_RouteLibs().keds_attention_fwd_route,
+                           int(dtype == torch.bfloat16), dh, s)
+    assert route.width == width
+    if dtype == torch.bfloat16:
+        assert route.runs_at == (64 if padded else _dh16(dh))
     launches, pads = dict(att_mod.KERNEL.launches), dict(att_mod.KERNEL.pads)
     out = att_mod._forward_kernel(q, k, v, causal)
     variant = "bf16_tc" if dtype == torch.bfloat16 else "f32"
     assert plain_kernels == [width]
     assert att_mod.KERNEL.launches == dict(launches, **{variant: launches[variant] + 1})
-    assert att_mod.KERNEL.pads == dict(pads, **{variant: pads[variant] + (width != dh)})
+    assert att_mod.KERNEL.pads == dict(pads, **{variant: pads[variant] + padded})
     assert out.shape == q.shape and out.dtype == dtype
     B, H, S, _ = q.shape
     assert out.stride() == (S * H * width, width, H * width, 1)
@@ -322,40 +347,49 @@ def test_padded_forward_is_exact(plain_kernels, dtype, dh, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("dh", [1, 32, 48])
+@pytest.mark.parametrize("dh", [1, 16, 24, 32, 48])
 @pytest.mark.parametrize("s", [9, 130])
 @pytest.mark.parametrize("causal", [False, True])
 def test_padded_backward_is_exact(plain_kernels, dtype, dh, s, causal):
-    """Both dtypes pad to 64 (a workspace above the one-launch lengths);
-    dq, dk and dv are views of one (B, S, 3, H, 64) buffer sliced to Dh,
-    equal to the plain backward on the unpadded inputs to 1e-6."""
+    """bf16 up to 128 keys runs at the caller's Dh (the kernel at Dh rounded
+    up to 16; no pad counted, dq, dk and dv views of one (B, S, 3, H, Dh)
+    buffer); bf16 above them (streamed, a workspace) and f32 pad to 64:
+    the gradients are views of one (B, S, 3, H, 64) buffer sliced to Dh.
+    Either way equal to the plain backward on the caller's inputs to 1e-6."""
     (q, k, v), dout = _inputs(dh, dtype, s=s)
     prefix = "bf16" if dtype == torch.bfloat16 else "f32"
     variant = prefix + ("_stream" if prefix == "bf16" and s > 128 else "")
+    padded = not (prefix == "bf16" and s <= 128)
+    width = 64 if padded else dh
+    route = att_mod._route(_RouteLibs().keds_attention_bwd_route, int(prefix == "bf16"), dh, s)
+    assert (route.width, route.runs_at) == ((64, 64) if padded else (dh, _dh16(dh)))
     launches, pads = dict(att_mod.BWD_KERNEL.launches), dict(att_mod.BWD_KERNEL.pads)
     grads = att_mod._backward_kernel(q, k, v, dout, causal)
-    assert plain_kernels == [64]
+    assert plain_kernels == [width]
     assert att_mod.BWD_KERNEL.launches == dict(launches, **{variant: launches[variant] + 1})
-    assert att_mod.BWD_KERNEL.pads == dict(pads, **{variant: pads[variant] + 1})
+    assert att_mod.BWD_KERNEL.pads == dict(pads, **{variant: pads[variant] + padded})
     B, H, S, _ = q.shape
     ref = att_mod.attention_reference_backward(q, k, v, dout, causal)
     for i, (g, r) in enumerate(zip(grads, ref)):
         assert g.shape == q.shape and g.dtype == dtype
-        assert g.stride() == (S * 3 * H * 64, 64, 3 * H * 64, 1)
-        assert g.data_ptr() == grads[0].data_ptr() + i * H * 64 * g.element_size()
+        assert g.stride() == (S * 3 * H * width, width, 3 * H * width, 1)
+        assert g.data_ptr() == grads[0].data_ptr() + i * H * width * g.element_size()
         torch.testing.assert_close(g.float(), r.float(), atol=1e-6, rtol=0)
 
 
 def test_padded_attention_saves_the_callers_inputs(plain_kernels):
-    """The autograd Function runs the padded forward but saves the caller's
-    unpadded q, k and v, so autograd sees the caller's shapes."""
-    (q, k, v), _ = _inputs(32, torch.bfloat16)
-    q.requires_grad_(True)
-    out = att_mod._AttentionFunction.apply(q, k, v, True)
-    assert plain_kernels == [64] and out.shape == q.shape
-    assert [t.shape for t in out.grad_fn.saved_tensors] == [q.shape] * 3
-    assert all(a is b or a.data_ptr() == b.data_ptr()
-               for a, b in zip(out.grad_fn.saved_tensors, (q, k, v)))
+    """The autograd Function saves the caller's q, k and v, whether the
+    forward runs at their width (bf16 Dh = 32 at S = 9) or on copies padded
+    to 64 (at S = 300), so autograd sees the caller's shapes."""
+    for s, width in ((9, 32), (300, 64)):
+        plain_kernels.clear()
+        (q, k, v), _ = _inputs(32, torch.bfloat16, s=s)
+        q.requires_grad_(True)
+        out = att_mod._AttentionFunction.apply(q, k, v, True)
+        assert plain_kernels == [width] and out.shape == q.shape
+        assert [t.shape for t in out.grad_fn.saved_tensors] == [q.shape] * 3
+        assert all(a is b or a.data_ptr() == b.data_ptr()
+                   for a, b in zip(out.grad_fn.saved_tensors, (q, k, v)))
 
 
 @pytest.mark.parametrize("dh", [64, 65, 80, 100, 320])

@@ -100,6 +100,20 @@ def test_serve_cli_equals_jax(run, monkeypatch, ranking, corpus, topn, n_results
     assert_same_results(got, want, n_results)
 
 
+@pytest.mark.parametrize("ranking", ["host", "device"])
+def test_serve_cli_topn_zero_writes_what_jax_writes(run, monkeypatch, ranking):
+    """--topn 0: every query's line is keds_tpu's, line for line, with
+    "results": [] (device ranking: a top-k at k = 0, which launches
+    nothing on the card)."""
+    if ranking == "device":
+        monkeypatch.setattr(jserve, "DEVICE_RANK_MIN_ROWS", 1)
+        monkeypatch.setattr(tserve, "DEVICE_RANK_MIN_ROWS", 1)
+    want = _serve(jserve, run, "small", 0, "jax_zero_" + ranking)
+    got = _serve(tserve, run, "small", 0, "port_zero_" + ranking, ["--device", "cpu"])
+    assert len(got) == 7 and got == want
+    assert all(line["results"] == [] for line in got)
+
+
 def test_serve_cli_refuses_what_it_does_not_take(run, tmp_path):
     """What the serve CLI refuses; and --num-partitions 2 on one process,
     which it takes as the JAX CLI does: clamped to the one rank with the

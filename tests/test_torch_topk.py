@@ -9,6 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
+from keds_tpu.ops import topk as jtopk
 from keds_tpu.ops.pallas_topk import mips_topk_pallas
 from keds_tpu.ops.topk import mips_topk as jax_mips_topk
 
@@ -90,6 +91,83 @@ def test_topk_ties_go_to_lower_index_at_large_k(k):
 def test_topk_rejects_k_above_n():
     with pytest.raises(ValueError, match="k <= N"):
         mips_topk(torch.zeros(2, 32), torch.zeros(5, 32), 6)
+
+
+def _searches(k):
+    """(name, JAX search, port search) of every backend at k: exact,
+    int8 with the true rows, the dequantized rows and no re-rank, and
+    approx."""
+    int8 = [(f"int8_{tag}", kw) for tag, kw in (("true", {"db": True}), ("deq", {}),
+                                                 ("stage1", {"oversample": 1}))]
+    out = [("exact", lambda q, d: jtopk.mips_topk(q, d, k),
+            lambda q, d: mips_topk(q, d, k)),
+           ("approx", lambda q, d: jtopk.mips_topk_approx(q, d, k),
+            lambda q, d: topk_mod.mips_topk_approx(q, d, k))]
+    for name, kw in int8:
+        def jax_fn(q, d, kw=kw):
+            extra = dict(kw, db=d) if "db" in kw else kw
+            return jtopk.mips_topk_int8(q, *jtopk.quantize_int8(d), k, **extra)
+
+        def port_fn(q, d, kw=kw):
+            extra = dict(kw, db=d) if "db" in kw else kw
+            return topk_mod.mips_topk_int8(q, *topk_mod.quantize_int8(d), k, **extra)
+        out.append((name, jax_fn, port_fn))
+    return out
+
+
+@pytest.mark.parametrize("b,k", [(3, 0), (0, 4), (0, 0), (0, 9)])
+def test_topk_empty_matches_jax(b, k):
+    """k = 0 (the serve CLI's --topn 0) and no query, as keds_tpu answers
+    them: (B, k) f32 values and int32 indices from the exact, int8 and
+    approx searches; approx refuses k = 0 as lax.approx_max_k does."""
+    rng = np.random.default_rng(b * 10 + k)
+    q = rng.standard_normal((b, 16)).astype(np.float32)
+    db = rng.standard_normal((9, 16)).astype(np.float32)
+    for name, jax_fn, port_fn in _searches(k):
+        if name == "approx" and k == 0:
+            with pytest.raises(ValueError):
+                jax_fn(jnp.asarray(q), jnp.asarray(db))
+            with pytest.raises(ValueError, match="k >= 1"):
+                port_fn(torch.from_numpy(q), torch.from_numpy(db))
+            continue
+        jv, ji = (np.asarray(t) for t in jax_fn(jnp.asarray(q), jnp.asarray(db)))
+        pv, pi = (t.numpy() for t in port_fn(torch.from_numpy(q), torch.from_numpy(db)))
+        assert pv.shape == pi.shape == jv.shape == ji.shape == (b, k), name
+        assert (pv.dtype, pi.dtype) == (jv.dtype, ji.dtype) == (np.float32, np.int32), name
+        np.testing.assert_array_equal(pi, ji)
+        np.testing.assert_array_equal(pv, jv)
+
+
+@pytest.mark.parametrize("tiling", topk_mod.TILINGS, ids=lambda t: f"code{t.code}")
+@pytest.mark.parametrize("b,k", [(4, 0), (0, 4), (0, 0)])
+def test_topk_kernel_wrapper_launches_nothing_when_empty(monkeypatch, tiling, b, k):
+    """The card wrapper at k = 0 or B = 0: empty (B, k) results, with no
+    launch, no pad and no library, through every tiling (D = 100 is off
+    every depth step)."""
+    def no_library():
+        raise AssertionError("an empty search must not reach the library")
+
+    monkeypatch.setattr(topk_mod.KERNEL, "lib", no_library)
+    monkeypatch.setattr(topk_mod, "require_cuda", lambda *t: None)
+    monkeypatch.setattr(topk_mod, "sm_count", lambda t: H100_SMS)
+    dtype = torch.bfloat16 if tiling.variant.startswith("bf16") else torch.float32
+    q, db = torch.zeros((b, 100), dtype=dtype), torch.zeros((50, 100), dtype=dtype)
+    launches, grid, pads = (dict(c) for c in (topk_mod.KERNEL.launches, topk_mod.GRID_LAUNCHES,
+                                               topk_mod.KERNEL.pads))
+    for vals, idx in (topk_mod.launch(q, db, k, tiling, 1), topk_mod.mips_topk(q, db, k)):
+        assert vals.shape == idx.shape == (b, k)
+        assert (vals.dtype, idx.dtype) == (torch.float32, torch.int32)
+    assert topk_mod.KERNEL.launches == launches and topk_mod.GRID_LAUNCHES == grid
+    assert topk_mod.KERNEL.pads == pads
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("k", [0, 16, 33])
+@pytest.mark.parametrize("n", [256, 500_000])
+def test_split_plan_takes_no_queries(dtype, k, n):
+    """No query divides by nothing: the plan is one query's."""
+    assert topk_mod.split_plan(0, n, H100_SMS, dtype, k, 768) == \
+        topk_mod.split_plan(1, n, H100_SMS, dtype, k, 768)
 
 
 # split_plan needs no library and no card: its tiles mirror csrc/topk.cu.

@@ -249,8 +249,8 @@ def cuda_topk(out: dict, url: str) -> None:
 
 
 def int8(mesh, d: str, out: dict) -> None:
-    """The sharded int8 search (true-row and dequantized re-rank), its pad
-    rows against negative scores, and the int8 and approx Retrievers over a
+    """The sharded int8 search (true-row and dequantized re-rank, at k = 5
+    and k = 0), its pad rows against negative scores, and the int8 and approx Retrievers over a
     sharded DB (tests/test_torch_int8_retrieval.py)."""
     from keds_tpu_torch.ops.topk import mips_topk_int8_sharded, quantize_int8
     from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
@@ -261,8 +261,9 @@ def int8(mesh, d: str, out: dict) -> None:
                                  device="cpu").shard_over(mesh)
     q8, sc = quantize_int8(db.image_db)
     for tag, rows in (("true", db.image_db), ("deq", None)):
-        v, ix = mips_topk_int8_sharded(q, q8, sc, 5, mesh, len(z["rows"]), db_shard=rows)
-        out[f"sharded_{tag}_vals"], out[f"sharded_{tag}_idx"] = v.numpy(), ix.numpy()
+        for k, key in ((5, tag), (0, tag + "_k0")):
+            v, ix = mips_topk_int8_sharded(q, q8, sc, k, mesh, len(z["rows"]), db_shard=rows)
+            out[f"sharded_{key}_vals"], out[f"sharded_{key}_idx"] = v.numpy(), ix.numpy()
     neg = KnowledgeDB.from_arrays(z["neg"], z["neg"], dtype=torch.float32, normalize=False,
                                   device="cpu").shard_over(mesh)
     v, ix = mips_topk_int8_sharded(torch.ones((1, 16)), *quantize_int8(neg.image_db), 4, mesh,
