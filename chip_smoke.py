@@ -2,8 +2,9 @@
 """Smoke run of the keds_tpu_torch serving, training and evaluation paths
 (ViT-L/14 and RN50), of the RN family and the rest of the model surface,
 of its serve, demo and train command lines and tools, of two ranks of the
-port sharing the card, of the full-scale eval benches and of
-graft_entry_torch.py's entry() and dry run, on one CUDA card.
+port sharing the card, of the full-scale eval benches, of
+graft_entry_torch.py's entry() and dry run and of bench_torch.py's modes at
+--quick, on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py full-sweeps    # the benches' full sweeps alone
@@ -217,6 +218,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            f32 config: each rank's four OK lines (the precomputed-neighbour
            loss bit-equal to the searched one) and its launches (B1 f32 8,
            B2 f32 12, B2' f32 8, no bf16).
+18c. bench_entry
+           bench_torch.py, the counterpart of bench.py, in this process at
+           --quick (50 000 DB rows) --iters 2 on the main path's
+           ViT-L/14 weights and the first 50 000 rows of its DB, built once
+           and handed to each of six modes: the headline (256-query macro
+           batches), --latency (b1, b32, b256), --train, --train --stream
+           text, --train --neighbors and --train --raw.  Each mode's launch
+           counts are zeroed just before and read just after; its one JSON
+           line parses with bench.py's keys and a finite, positive value;
+           serving launches B1 and B2 and no backward, training B2', and
+           --neighbors no B1.  One line a mode with its wall.
 2a. any_depth_path
            D off the kernels' steps through the entry points (launch and
            pad counts zeroed just before and read just after): the exact
@@ -275,8 +287,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            host-ranked in bf16 at batch 64 with 8 decode threads: each JSON
            line, the two recall tables equal but for near-ties within 1e-5
            (eval_path's gate), the text buckets the prompts took; then
-           bench_coco_fullscale over 5000 rows (10 000 JPEGs) at 1 epoch (of
-           25), device-ranked, its tables finite.  Launch counts are zeroed
+           bench_coco_fullscale over 2500 rows (5000 JPEGs; 5000 rows in
+           full-sweeps) at 1 epoch (of 25), device-ranked, its tables finite.  Launch counts are zeroed
            just before and read just after each run and must equal what its
            batches give: B1 bf16_tc twice a query batch, B1 f32 (k=101)
            three times an epoch for CIRR's device ranking, B2 bf16_tc 24
@@ -284,7 +296,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 19. the kernels line (launches of each path beside each variant, the
     dist path's rank 0 among them; graft_entry's entry() beside its own
     vision and search rows and its dry run's rank 0 beside the f32 rows of
-    its shapes; RN50's serving for the D = 1024 top-k
+    its shapes; bench_entry's modes beside the rows of their shapes over
+    its 50 000 rows; RN50's serving for the D = 1024 top-k
     rows and its text tower's attention, the 336 px encode for the rows
     above 288 keys, any_depth_path's searches for the D = 100, 96 and 1280
     rows with their pads, head_widths' two configs beside the rows of their
@@ -2532,6 +2545,72 @@ def graft_entry_path(kernels) -> dict:
     return {"entry": launches, "dryrun_rank0": ranks[0]["launches"]}
 
 
+# --- bench_torch.py: the benchmark entry's modes at --quick ------------------
+
+BENCH_QUICK_ROWS = 50_000      # bench.py's --quick DB
+BENCH_ITERS = 2                # of --quick's 5: the whole run is near its time limit
+BENCH_SERVE_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_TRAIN_KEYS = {"metric", "value", "unit", "method", "vs_baseline"}
+# serving launches B1 and B2 and no backward; a train step B2' in each text
+# block and B1 unless its neighbours are precomputed
+BENCH_SERVE_LAUNCHES = ({("attention_bwd", "bf16"): 0, ("attention", "f32"): 0,
+                   ("attention_bwd", "f32"): 0},
+                  (("attention", "bf16_tc"), ("mips_topk", "bf16_tc")))
+BENCH_TRAIN_LAUNCHES = ({}, (("attention_bwd", "bf16"), ("attention", "bf16_tc"),
+                       ("mips_topk", "bf16_tc")))
+# mode: (bench_torch.py's flags past --quick, its line's keys, (exact, positive) launches)
+BENCH_MODES = {
+    "headline": ([], BENCH_SERVE_KEYS, BENCH_SERVE_LAUNCHES),
+    "latency": (["--latency"], BENCH_SERVE_KEYS | {"method", "curve"}, BENCH_SERVE_LAUNCHES),
+    "train": (["--train"], BENCH_TRAIN_KEYS, BENCH_TRAIN_LAUNCHES),
+    "train_text": (["--train", "--stream", "text"], BENCH_TRAIN_KEYS, BENCH_TRAIN_LAUNCHES),
+    "train_neighbors": (["--train", "--neighbors"], BENCH_TRAIN_KEYS,
+                        ({("mips_topk", v): 0 for v in ("bf16_tc", "f32", "bf16")},
+                         BENCH_TRAIN_LAUNCHES[1][:2])),
+    "train_raw": (["--train", "--raw"], BENCH_TRAIN_KEYS, BENCH_TRAIN_LAUNCHES)}
+
+
+def bench_entry_path(clip_params, heads, db, kernels) -> dict:
+    """bench_torch.py's six BENCH_MODES at --quick in this process, on the
+    main path's weights and the first BENCH_QUICK_ROWS rows of its DB (built
+    once, handed to each mode), each mode's launch counts zeroed just
+    before and read just after.  Returns the launches by mode."""
+    import io
+
+    import bench_torch
+    from keds_tpu_torch.retrieval.database import KnowledgeDB
+
+    n = BENCH_QUICK_ROWS
+    built = (clip_params, heads, KnowledgeDB(db.image_db[:n], db.text_db[:n], db.names[:n]))
+    by_mode = {}
+    for mode, (extra, keys, (want, positive)) in BENCH_MODES.items():
+        argv = ["--quick", "--iters", str(BENCH_ITERS), *extra]
+        out = io.StringIO()
+        for k in kernels.values():
+            k.reset()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench_torch.run(argv, built=built)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launches = by_mode[mode] = {name: dict(k.launches) for name, k in kernels.items()}
+        check_path_launches(f"bench_{mode}", launches, want, positive)
+        lines = out.getvalue().splitlines()
+        line = json.loads(lines[0]) if len(lines) == 1 else {}
+        values = [line.get("value")]
+        if mode == "latency":
+            values += [v for point in line.get("curve", {}).values() for v in point.values()]
+        ok = dict(one_line=len(lines) == 1, keys=set(line) == keys,
+                  value=all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+                            for v in values))
+        emit("bench_entry", mode=mode, argv=argv, db_rows=n, line=line, wall_s=wall_s,
+             launches=launches, checks=ok)
+        if not all(ok.values()):
+            raise AssertionError(f"bench_entry {mode} checks failed: {ok} {lines}")
+        torch.cuda.empty_cache()
+    return by_mode
+
+
 # --- int8 retrieval and the W8A8 towers (ROADMAP items 14 and 15) ------------
 
 INT8_PEAK_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
@@ -3208,7 +3287,7 @@ EXTRACT_TOL = 2e-2         # the JAX tool's own test tolerance (tests/test_data_
 PROFILE_BATCH = 128        # 4096 feature pairs: 32 steps, the window 10-20 inside
 VALIDATE_IMAGES = 256      # a CIRR val tree of this many PNGs and as many queries
 FULLSCALE_CIRR_EPOCHS = 1  # of the protocol's 30 sweep epochs a branch
-FULLSCALE_COCO_ROWS = 5000     # the protocol's val2017 split
+FULLSCALE_COCO_ROWS = 2500     # half the protocol's val2017 split: the run's time limit
 FULLSCALE_COCO_EPOCHS = 1  # of 25: the sweep's first two checkpoints
 FULLSCALE_WORKERS = 8      # the eval CLI's decode threads (--workers)
 
@@ -3858,7 +3937,15 @@ def main() -> int:
                                 # run's train-step prompt (a rank's 4 rows, one
                                 # 64-wide head)
                                 (8, 16, 257, 64, bf16, False),
-                                (4, 1, 8, 64, f32, True)])
+                                (4, 1, 8, 64, f32, True),
+                                # bench_entry: --latency at b1 (vision, text)
+                                # and b32's text (its vision the 16-image chunk)
+                                (1, 16, 257, 64, bf16, False),
+                                (1, 12, 32, 64, bf16, True),
+                                (32, 12, 32, 64, bf16, True),
+                                # and its text stream's neighbour templates
+                                # (bench.py's, EOT at 14: the S=16 bucket)
+                                (2 * TRAIN_BATCH, 12, 16, 64, bf16, True)])
     bwd_rows = check_attention_bwd([(TRAIN_BATCH, 12, 8, 64, bf16, True),   # train prompt
                                     (64, 12, 16, 64, bf16, True),    # text buckets
                                     (64, 12, 32, 64, bf16, True),
@@ -3875,7 +3962,9 @@ def main() -> int:
                                     (2 * TRAIN_BATCH, 12, 32, 64, f32, True),
                                     (4, 16, 577, 64, f32, False),
                                     (4, 12, 1025, 64, bf16, False),   # streamed
-                                    (4, 1, 8, 64, f32, True)])   # graft_entry's dry run
+                                    (4, 1, 8, 64, f32, True),    # graft_entry's dry run
+                                    # bench_entry's text-stream templates
+                                    (2 * TRAIN_BATCH, 12, 16, 64, bf16, True)])
     topk_rows = check_topk([(256, DB_ROWS, 768, 16, bf16),
                             (QUERY_BATCH, DB_ROWS, 768, 16, bf16),   # retrieval
                             (QUERY_BATCH, DB_ROWS // DIST_RANKS, 768, 16, bf16),  # a shard
@@ -3898,7 +3987,13 @@ def main() -> int:
                             *((QUERY_BATCH, ANY_D_ROWS, d, 16, dt) for d, dt in ANY_D_CASES),
                             # graft_entry: entry()'s search; the dry run's over a
                             # shard (both ranks' 8 queries, 64 rows of 64)
-                            (8, 16384, 768, 16, bf16), (8, 64, 64, 16, f32)])
+                            (8, 16384, 768, 16, bf16), (8, 64, 64, 16, f32),
+                            # bench_entry over BENCH_QUICK_ROWS: the macro
+                            # batch, --latency's b1 and b32, the train steps
+                            # (k=16, and the text stream's captions at k=2)
+                            *((B, BENCH_QUICK_ROWS, 768, k, bf16)
+                              for B, k in ((256, 16), (1, 16), (32, 16), (TRAIN_BATCH, 16),
+                                           (TRAIN_BATCH, 2)))])
     any_d_launches = any_depth_path(kernels)
     walls("kernel_rows")
 
@@ -4035,6 +4130,11 @@ def main() -> int:
     graft_launches = graft_entry_path(kernels)
     walls("graft_entry")
 
+    # --- bench_torch.py's six modes at --quick on the main path's weights --------
+    torch.cuda.empty_cache()
+    bench_launches = bench_entry_path(clip_params, heads, db, kernels)
+    walls("bench_entry")
+
     # --- the full-scale CIRR and COCO eval benches ------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build) as d:
@@ -4111,7 +4211,24 @@ def main() -> int:
                (top, "bf16_tc", topk_rows[20], graft_launches["entry"]),
                (att, "f32", att_rows[21], graft_launches["dryrun_rank0"]),
                (bwd, "f32", bwd_rows[13], graft_launches["dryrun_rank0"]),
-               (top, "f32", topk_rows[21], graft_launches["dryrun_rank0"])]
+               (top, "f32", topk_rows[21], graft_launches["dryrun_rank0"]),
+               # bench_torch.py at --quick, each mode beside its own shapes
+               (top, "bf16_tc", topk_rows[22], bench_launches["headline"]),
+               (att, "bf16_tc", att_rows[0], bench_launches["headline"]),
+               (att, "bf16_tc", att_rows[3], bench_launches["headline"]),
+               (top, "bf16_tc", topk_rows[23], bench_launches["latency"]),
+               (top, "bf16_tc", topk_rows[24], bench_launches["latency"]),
+               (att, "bf16_tc", att_rows[22], bench_launches["latency"]),
+               (att, "bf16_tc", att_rows[23], bench_launches["latency"]),
+               (att, "bf16_tc", att_rows[24], bench_launches["latency"]),
+               (top, "bf16_tc", topk_rows[25], bench_launches["train"]),
+               (bwd, "bf16", bwd_rows[0], bench_launches["train"]),
+               (top, "bf16_tc", topk_rows[26], bench_launches["train_text"]),
+               (att, "bf16_tc", att_rows[25], bench_launches["train_text"]),
+               (bwd, "bf16", bwd_rows[14], bench_launches["train_text"]),
+               (bwd, "bf16", bwd_rows[0], bench_launches["train_neighbors"]),
+               (att, "bf16_tc", att_rows[0], bench_launches["train_raw"]),
+               (bwd, "bf16", bwd_rows[0], bench_launches["train_raw"])]
     # a row's own launch named its variant: it must be the one the entry
     # prints its times under
     wrong = [(name, variant, row["shape"], row["variant"])
@@ -4133,7 +4250,8 @@ def main() -> int:
              **{f"head_widths_{p}": c for p, c in hw_launches.items()},
              **{f"dist_{p}_rank0": c for p, c in dist_launches.items()},
              "graft_entry": graft_launches["entry"],
-             "graft_entry_dryrun_rank0": graft_launches["dryrun_rank0"]}
+             "graft_entry_dryrun_rank0": graft_launches["dryrun_rank0"],
+             **{f"bench_{m}": c for m, c in bench_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": f"{name}/{variant}", "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name][variant], "max_abs_err": row["max_abs_err"],

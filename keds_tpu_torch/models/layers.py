@@ -115,11 +115,16 @@ def final_block_pooled(x: torch.Tensor, blk: dict, n_heads: int, pool_idx,
     row: (B, S, D) -> (B, D).  Attention runs over the full sequence (shared
     with :func:`residual_block`); after it nothing mixes tokens, so the other
     rows cannot change the pooled one.  ``pool_idx`` is a scalar or (B,)
-    row index, already clamped by the caller."""
+    row index, already clamped by the caller.  A Python int index is filled
+    in on the device, not copied from the host, so that a CUDA graph can
+    capture the block."""
     B = x.shape[0]
     h = layer_norm(x, blk["ln1_g"], blk["ln1_b"])
     ctx = _attention_ctx(h, blk["qkv_w"], blk["qkv_b"], n_heads, causal)
-    idx = torch.as_tensor(pool_idx, device=x.device).long().expand(B)
+    if isinstance(pool_idx, int):
+        idx = torch.full((B,), pool_idx, dtype=torch.long, device=x.device)
+    else:
+        idx = torch.as_tensor(pool_idx, device=x.device).long().expand(B)
     rows = torch.arange(B, device=x.device)
     x_row = x[rows, idx] + linear(ctx[rows, idx], blk["out_w"], blk["out_b"])
     h2 = layer_norm(x_row, blk["ln2_g"], blk["ln2_b"])

@@ -162,12 +162,17 @@ def region_transform(n_px: int, normalize: bool = True) -> Callable:
 
 def device_normalize(images: torch.Tensor) -> torch.Tensor:
     """uint8 NHWC batches are scaled to [0, 1] and CLIP-normalised in float32
-    on the images' device; float inputs pass through unchanged."""
+    on the images' device; float inputs pass through unchanged.  The
+    channel constants are filled in on the device, not copied from the
+    host, so that a CUDA graph can capture the call."""
     if images.dtype != torch.uint8:
         return images
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=images.device)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=images.device)
-    return (images.to(torch.float32) / 255.0 - mean) / std
+
+    def channels(values) -> torch.Tensor:
+        return torch.stack([torch.full((), v, dtype=torch.float32, device=images.device)
+                            for v in values])
+
+    return (images.to(torch.float32) / 255.0 - channels(CLIP_MEAN)) / channels(CLIP_STD)
 
 
 def device_preprocess(images_u8, n_px: int = 224, device: DeviceLike = None) -> torch.Tensor:

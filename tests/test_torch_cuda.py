@@ -1977,3 +1977,60 @@ def test_api_surface_tiny_config_bf16_train_step_card_matches_cpu(cuda):
     (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
     assert abs(l_card - l_cpu) <= 0.01 * abs(l_cpu)
     assert float(g_card @ g_cpu) / float(g_card.norm() * g_cpu.norm()) >= 0.99
+
+
+@pytest.mark.parametrize("images_dtype", [torch.bfloat16, torch.uint8], ids=str)
+def test_composed_step_replays_from_a_cuda_graph(cuda, images_dtype):
+    """bench_torch.py's composed step (its --latency device reading)
+    captured in a CUDA graph: nothing in it copies from the host, and a
+    replay after new images are copied into the captured input gives the
+    eager step's rows on those images."""
+    import bench_torch as bt
+    from keds_tpu_torch import synth
+    from keds_tpu_torch.models.clip import ClipConfig
+    from keds_tpu_torch.retrieval.database import Retriever
+
+    cfg = ClipConfig(**_API_CFG)
+    params, heads, db = synth.build(cfg, db_rows=300, dtype=torch.bfloat16, seed=7,
+                                    device=cuda)
+    retriever = Retriever(db)
+    rng = np.random.default_rng(2)
+    shape = (32, cfg.image_resolution, cfg.image_resolution, 3)
+
+    def draw():
+        if images_dtype == torch.uint8:
+            return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(cuda)
+        return torch.from_numpy(rng.standard_normal(shape)).to(torch.bfloat16).to(cuda)
+
+    images, other = draw(), draw()
+    text = torch.as_tensor(bt.tokenizer.bucket_text(bt.query_text(rng, 32, 14)), device=cuda)
+
+    def step():
+        """bt.composed_step's two parts, the features kept to check the replay."""
+        f = bt.mclip.encode_image_chunked(params, cfg, images, 16)
+        return f, bt.rest_body(params, cfg, heads, retriever, f, text)
+
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bt.composed_step(params, cfg, heads, retriever, images, text, 16)
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            composed = bt.composed_step(params, cfg, heads, retriever, images, text, 16)
+            f_out, out = step()
+        f_first, _ = step()
+        images.copy_(other)
+        graph.replay()
+        f_eager, eager = step()
+        torch.cuda.synchronize()
+    assert out.shape == (32, cfg.embed_dim) and bool(torch.isfinite(out).all())
+    # bf16: a couple of ulps for another GEMM order (unit rows: 2^-8 near 1)
+    torch.testing.assert_close(out.float(), eager.float(), atol=1e-2, rtol=0)
+    torch.testing.assert_close(composed.float(), eager.float(), atol=1e-2, rtol=0)
+    scale = float(f_eager.float().abs().max())
+    torch.testing.assert_close(f_out.float(), f_eager.float(), atol=1e-2 * scale, rtol=0)
+    # the replay read the new images: their features are not the first ones
+    assert float((f_first.float() - f_eager.float()).abs().max()) > 0.1 * scale

@@ -70,8 +70,25 @@ def test_graft_entry_torch_loads_no_jax_and_no_keds_tpu():
     assert out.returncode == 0, out.stderr
 
 
+def test_bench_torch_loads_no_jax_and_no_keds_tpu():
+    """The port's counterpart of bench.py stands alone: no jax, no
+    keds_tpu, neither bench nor __graft_entry__."""
+    code = (
+        "import sys, bench_torch\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'keds_tpu' or m.startswith('keds_tpu.')"
+        " or m in ('bench', '__graft_entry__')]\n"
+        "assert not bad, bad\n"
+        "assert 'keds_tpu_torch.train.trainer' in sys.modules\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py",
                                   REPO / "kernel_sweeps.py", REPO / "graft_entry_torch.py",
+                                  REPO / "bench_torch.py",
                                   REPO / "tests" / "torch_dist_worker.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_neither_jax_nor_keds_tpu(path):
@@ -79,6 +96,8 @@ def test_sources_import_neither_jax_nor_keds_tpu(path):
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+keds_tpu(\.|\s|$)", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+(regex|ftfy)\b", src, re.M)
+    # nor the JAX package's root harnesses
+    assert not re.search(r"^\s*(import|from)\s+(bench|__graft_entry__)\b", src, re.M)
     # PIL only inside functions (indented), never at module level
     assert not re.search(r"^(import|from)\s+PIL\b", src, re.M)
 
