@@ -16,7 +16,10 @@ Images are decoded with PIL on ``--workers`` threads (processes with
 ``--worker-processes``) and sent as uint8; the corpus is encoded in
 ``--batch-size`` batches (the ragged tail padded) and ranked on the device
 once it has ``DEVICE_RANK_MIN_ROWS`` rows, on the host below that.  Runs on
-the CUDA device unless ``--device cpu``.
+the CUDA device unless ``--device cpu``.  ``--profile-dir`` writes a
+``torch.profiler`` trace of the query batches 1-10 (all of them if there
+are fewer), the engine's spans among its ranges
+(:mod:`keds_tpu_torch.profiling`).
 
 With ``--distributed`` every rank reads the same corpus and queries and
 computes its block of each batch (``--db-shard`` splits the DB, and the
@@ -37,6 +40,8 @@ import numpy as np
 # Corpora of at least this many rows rank on the device (the fused top-k in
 # f32; only (B, topn) comes back); smaller ones rank on the host.
 DEVICE_RANK_MIN_ROWS = 4096
+# --profile-dir traces the first this many query batches.
+PROFILE_BATCHES = 10
 
 
 class _QueryDataset:
@@ -87,6 +92,7 @@ def _serve(cfg) -> dict:
     from keds_tpu_torch.engine import ComposedQueryEngine
     from keds_tpu_torch.io.checkpoint import load_heads_checkpoint
     from keds_tpu_torch.models.loader import load_clip
+    from keds_tpu_torch.profiling import start_trace, stop_trace
 
     device, mesh = setup_runtime(cfg)
     clip_params, clip_cfg, _, t_val = load_clip(
@@ -130,17 +136,23 @@ def _serve(cfg) -> dict:
                           worker_processes=cfg.worker_processes)
     topn = min(cfg.topn, len(names))
     primary = mesh.rank == 0
+    prof = start_trace(cfg.profile_dir) if cfg.profile_dir else None
     t0 = time.perf_counter()
     with open(out_path if primary else os.devnull, "w") as out:
-        for chunk, (imgs, text) in zip(chunks, q_loader):
+        for b, (chunk, (imgs, text)) in enumerate(zip(chunks, q_loader)):
             scores, idx = engine.search([pad_batch(imgs, macro)], [pad_batch(text, macro)],
                                         ranked, topn)
+            if prof is not None and b + 1 == PROFILE_BATCHES:
+                stop_trace(prof, cfg.profile_dir)
+                prof = None
             for qi, q in enumerate(chunk):
                 out.write(json.dumps({
                     "query": q["image"], "text": q.get("text", "a photo of *"),
                     "results": [{"name": names[j], "score": float(scores[qi][r])}
                                 for r, j in enumerate(idx[qi])]}) + "\n")
             out.flush()
+    if prof is not None:
+        stop_trace(prof, cfg.profile_dir)
     q_loader.close()
     queries_s = time.perf_counter() - t0
     logging.info("served %d composed queries in %.2fs (%.1f q/s incl. decode)",

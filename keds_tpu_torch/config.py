@@ -256,7 +256,9 @@ def _add_flags(parser: argparse.ArgumentParser) -> None:
         help="tensorboard, wandb or all, beside scalars.jsonl")
     add("--wandb-notes", type=str, default="")
     add("--profile-dir", type=str, default=None,
-        help="write a torch.profiler trace of steps 10-20 of the first epoch here")
+        help="write a torch.profiler trace here, the program's spans among its ranges: "
+             "the train CLI traces steps 10-20 of the first epoch, the serve CLI its "
+             "query batches 1-10")
     add("--debug", action="store_true", default=False, help="log at DEBUG")
     add("--copy-codebase", action="store_true", default=False,
         help="copy keds_tpu_torch into <logs>/<name>/code before training")

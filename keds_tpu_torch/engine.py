@@ -26,11 +26,15 @@ back in global order on every rank, a DB split with
 :meth:`KnowledgeDB.shard_over` is searched across the ranks, and
 :meth:`corpus_to_device` splits the corpus rows too, ranked with
 :func:`~keds_tpu_torch.ops.topk.mips_topk_sharded`.
+
+While a profile runs, each call and each of its batches is a span, the
+batch's stages inside it (:mod:`keds_tpu_torch.profiling`).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Callable, Iterable, Iterator, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -42,6 +46,7 @@ from keds_tpu_torch.ops.quant import maybe_quantize_clip
 from keds_tpu_torch.ops.topk import mips_topk, mips_topk_sharded
 from keds_tpu_torch.parallel.mesh import (Mesh, all_gather, fetch_global,
                                           shard_global_batch, shard_rows)
+from keds_tpu_torch.profiling import span
 from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 from keds_tpu_torch.tokenizer import bucket_text, star_token_id
@@ -100,30 +105,50 @@ class ComposedQueryEngine:
         """Retrieval, fusion and the composed text tower for image features
         ``f``; unit-norm result in the compute dtype."""
         ti, tt = self.retriever.retrieve_features(f.float(), k=self.db_topk)
-        tok = compose_pseudo_tokens(self.heads, f, ti.to(f.dtype), tt.to(f.dtype))
-        out = mclip.encode_text_img_retrieval(self.clip_c, self.cfg, text, tok,
-                                              split_id=self.split_id)
-        return out / out.norm(dim=-1, keepdim=True)
+        with span("fuse"):
+            tok = compose_pseudo_tokens(self.heads, f, ti.to(f.dtype), tt.to(f.dtype))
+        with span("text"):
+            out = mclip.encode_text_img_retrieval(self.clip_c, self.cfg, text, tok,
+                                                  split_id=self.split_id)
+            return out / out.norm(dim=-1, keepdim=True)
 
     # -- corpus -------------------------------------------------------------
     @torch.inference_mode()
     def encode_corpus(self, image_batches: Iterable) -> np.ndarray:
         """Encode target images (NHWC, uint8 or float) into unit-norm f32
         features on the host."""
-        outs = []
-        for b in image_batches:
-            x, n = self._rows(b)
-            f = self.encode_features(x)
-            outs.append(self._fetch((f / f.norm(dim=-1, keepdim=True)).float(), n))
-        return torch.cat(outs).cpu().numpy()
+        with span("engine.encode_corpus"):
+            outs = []
+            for b in image_batches:
+                with span("engine.batch", step=True):
+                    with span("input"):
+                        x, n = self._rows(b)
+                    with span("encode"):
+                        f = self.encode_features(x)
+                        f = (f / f.norm(dim=-1, keepdim=True)).float()
+                    with span("fetch"):
+                        outs.append(self._fetch(f, n))
+            with span("fetch"):
+                return torch.cat(outs).cpu().numpy()
 
     # -- queries ------------------------------------------------------------
-    def _compose_device(self, image_batches: Sequence,
-                        text_batches: Sequence) -> Iterator[Tuple[torch.Tensor, int]]:
+    def _compose_device(self, image_batches: Sequence, text_batches: Sequence,
+                        then: Optional[Callable[[torch.Tensor], object]] = None
+                        ) -> Iterator[Tuple[object, int]]:
+        """Each batch's composed features, or ``then`` of them, and its row
+        count.  A batch is an ``engine.batch`` span, which ends before the
+        caller gets its result: ``then`` runs inside it."""
         for im, tx in zip(image_batches, text_batches):
-            xi, n = self._rows(im)
-            xt, _ = self._rows(bucket_text(tx))   # one bucket on every rank
-            yield self.compose_features(self.encode_features(xi), xt), n
+            with span("engine.batch", step=True):
+                with span("input"):
+                    xi, n = self._rows(im)
+                    xt, _ = self._rows(bucket_text(tx))   # one bucket on every rank
+                with span("encode"):
+                    f = self.encode_features(xi)
+                out = self.compose_features(f, xt)
+                if then is not None:
+                    out = then(out)
+            yield out, n
 
     @torch.inference_mode()
     def compose_batch(self, images, text) -> Tuple[torch.Tensor, int]:
@@ -135,9 +160,10 @@ class ComposedQueryEngine:
     @torch.inference_mode()
     def compose(self, image_batches: Sequence, text_batches: Sequence) -> np.ndarray:
         """Composed query features for (reference image, prompt-with-*) pairs."""
-        outs = [self._fetch(f.float(), n)
-                for f, n in self._compose_device(image_batches, text_batches)]
-        return torch.cat(outs).cpu().numpy()
+        with span("engine.compose"):
+            feats = list(self._compose_device(image_batches, text_batches))
+            with span("fetch"):
+                return torch.cat([self._fetch(f.float(), n) for f, n in feats]).cpu().numpy()
 
     # -- device-side corpus ranking ------------------------------------------
     def corpus_to_device(self, corpus: np.ndarray) -> DeviceCorpus:
@@ -153,12 +179,13 @@ class ComposedQueryEngine:
         fused top-k kernel on the card).  Under a mesh ``q_feats`` is this
         rank's block of a batch (:meth:`compose_batch`); every rank gets the
         whole padded batch's results, searched over every corpus shard."""
-        topn = min(topn, corpus.n_real)
-        q = q_feats.float().contiguous()
-        if self.mesh is None:
-            return mips_topk(q, corpus.array, topn)
-        return mips_topk_sharded(all_gather(self.mesh, q).flatten(0, 1), corpus.array,
-                                 topn, self.mesh, corpus.n_real)
+        with span("rank"):
+            topn = min(topn, corpus.n_real)
+            q = q_feats.float().contiguous()
+            if self.mesh is None:
+                return mips_topk(q, corpus.array, topn)
+            return mips_topk_sharded(all_gather(self.mesh, q).flatten(0, 1), corpus.array,
+                                     topn, self.mesh, corpus.n_real)
 
     @torch.inference_mode()
     def search(self, image_batches: Sequence, text_batches: Sequence,
@@ -167,13 +194,15 @@ class ComposedQueryEngine:
         """(scores, indices) of the top ``topn`` corpus rows per composed
         query.  A :class:`DeviceCorpus` ranks on the device; a numpy corpus
         ranks on the host."""
-        if isinstance(corpus, DeviceCorpus):
-            ranked = [(*self.rank(f, corpus, topn), n)
-                      for f, n in self._compose_device(image_batches, text_batches)]
-            scores = torch.cat([s[:n] for s, _, n in ranked]).cpu().numpy()
-            idx = torch.cat([i[:n] for _, i, n in ranked]).cpu().numpy()
-            return scores, idx.astype(np.int64)
-        q = self.compose(image_batches, text_batches)
-        sims = q @ np.asarray(corpus, np.float32).T
-        idx = np.argsort(-sims, axis=1, kind="stable")[:, :topn]
-        return np.take_along_axis(sims, idx, axis=1), idx
+        with span("engine.search"):
+            if isinstance(corpus, DeviceCorpus):
+                ranked = list(self._compose_device(image_batches, text_batches,
+                                                   lambda f: self.rank(f, corpus, topn)))
+                with span("fetch"):
+                    scores = torch.cat([s[:n] for (s, _), n in ranked]).cpu().numpy()
+                    idx = torch.cat([i[:n] for (_, i), n in ranked]).cpu().numpy()
+                return scores, idx.astype(np.int64)
+            q = self.compose(image_batches, text_batches)
+            sims = q @ np.asarray(corpus, np.float32).T
+            idx = np.argsort(-sims, axis=1, kind="stable")[:, :topn]
+            return np.take_along_axis(sims, idx, axis=1), idx

@@ -37,6 +37,7 @@ from keds_tpu_torch.ops.topk import (mips_topk, mips_topk_approx, mips_topk_int8
                                      mips_topk_int8_sharded, mips_topk_sharded,
                                      quantize_int8)
 from keds_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce_sum, shard_rows
+from keds_tpu_torch.profiling import span
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 
 
@@ -332,7 +333,8 @@ class Retriever:
         it (eval, the default) nothing is shuffled.  The gather ->
         permutation -> cast tail is the same either way.  ``text=False``
         (the text stream, which fuses without the caption neighbours)
-        neither searches nor gathers them and returns None for them."""
+        neither searches nor gathers them and returns None for them.  It is
+        the ``retrieve`` span (:mod:`keds_tpu_torch.profiling`)."""
         image_db, text_db = self.db.image_db, self.db.text_db
         if idx is not None:
             img_idx, txt_idx = idx
@@ -340,14 +342,15 @@ class Retriever:
                 raise ValueError(
                     f"precomputed neighbour indices are {img_idx.shape[1]}/"
                     f"{txt_idx.shape[1]} wide but k={k}; slice the pack to k columns")
-        else:
-            img_idx, txt_idx = self.neighbour_indices(feature, k, text)
-        topk_img = self._gather(image_db, img_idx)
-        if generator is not None:
-            topk_img = topk_img[:, torch.randperm(k, generator=generator,
-                                                  device=generator.device)]
-        topk_txt = self._gather(text_db, txt_idx).to(feature.dtype) if text else None
-        return topk_img.to(feature.dtype), topk_txt
+        with span("retrieve"):
+            if idx is None:
+                img_idx, txt_idx = self.neighbour_indices(feature, k, text)
+            topk_img = self._gather(image_db, img_idx)
+            if generator is not None:
+                topk_img = topk_img[:, torch.randperm(k, generator=generator,
+                                                      device=generator.device)]
+            topk_txt = self._gather(text_db, txt_idx).to(feature.dtype) if text else None
+            return topk_img.to(feature.dtype), topk_txt
 
     def retrieve_caption_neighbors(self, feature: torch.Tensor, k: int = 2,
                                    idx: Optional[torch.Tensor] = None

@@ -45,6 +45,7 @@ from keds_tpu_torch.models import clip as mclip
 from keds_tpu_torch.models.composition import FusionHeads
 from keds_tpu_torch.models.convert import cast_floating, head_parameter_groups
 from keds_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from keds_tpu_torch.profiling import span, stage_spans
 from keds_tpu_torch.retrieval.database import Retriever, unit_rows
 from keds_tpu_torch.runtime import DeviceLike, resolve_device
 from keds_tpu_torch.tokenizer import bucket_text
@@ -54,6 +55,12 @@ from keds_tpu_torch.train.schedule import cosine_lr
 
 # The pseudo-tokens of the image stream: fused + text-condition + mapped.
 K_PSEUDO = 3
+
+# The train step's stage spans: the span that opens as each ``mark`` stage
+# ends (``backward`` opens ``all_reduce`` under a mesh of several ranks).
+STAGE_AFTER = {"encode": "retrieve", "retrieval": "fuse", "heads_forward": "text",
+               "text_tower_forward": "backward", "backward": "optimizer",
+               "all_reduce": "optimizer"}
 
 
 def make_optimizer(cfg, total_steps: int,
@@ -145,7 +152,9 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
     ``f(stage)`` as each stage ends (``encode`` for a raw batch,
     ``retrieval``, ``heads_forward``, ``text_tower_forward``, ``backward``,
     ``all_reduce`` under a mesh of several ranks, ``optimizer``), for a
-    caller that times them.
+    caller that times them.  While a profile runs the step is a
+    ``train.step`` span and its stages the spans of :data:`STAGE_AFTER`
+    (:mod:`keds_tpu_torch.profiling`).
 
     Under ``mesh`` the batch is this rank's rows (every rank the same
     count) and the step is the global batch's; ``grad_scale`` multiplies
@@ -161,9 +170,18 @@ def make_train_step(clip_params: dict, cfg: mclip.ClipConfig, retriever: Retriev
         prompt = torch.as_tensor(truncated_prompt(prompt_tokens, cfg.eot_id), device=dev).long()
     clip_c = frozen_clip(clip_params, compute_dtype, dev)
     index_fields = ("img_idx", "txt_idx") + (("cap2_idx",) if text else ())
+    after = dict(STAGE_AFTER)
+    if mesh is not None and mesh.size > 1:
+        after["backward"] = "all_reduce"
 
     def train_step(heads: FusionHeads, batch: TrainBatch, step: int,
                    mark: Callable[[str], None] = no_mark) -> torch.Tensor:
+        with span("train.step", step=True):
+            first = "encode" if isinstance(batch, RawBatch) else "retrieve"
+            return staged_step(heads, batch, step, stage_spans(mark, first, after))
+
+    def staged_step(heads: FusionHeads, batch: TrainBatch, step: int,
+                    mark: Callable[[str], None]) -> torch.Tensor:
         if isinstance(batch, RawBatch):
             if text:
                 raise ValueError("a RawBatch trains the image stream only: the text "

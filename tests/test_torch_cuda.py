@@ -2034,3 +2034,32 @@ def test_composed_step_replays_from_a_cuda_graph(cuda, images_dtype):
     torch.testing.assert_close(f_out.float(), f_eager.float(), atol=1e-2 * scale, rtol=0)
     # the replay read the new images: their features are not the first ones
     assert float((f_first.float() - f_eager.float()).abs().max()) > 0.1 * scale
+
+
+def test_a_span_and_the_device_trace_share_one_clock(cuda):
+    """Under a device-only profile (the benchmark's), a span around one B1
+    search and a synchronise holds the search's kernel launch calls, and
+    the kernel starts on the card after the span opens and within 1 ms of
+    it: the program's spans and the device trace share one clock."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from keds_tpu_torch.profiling import SPANS, span
+
+    q, db = _unit(64, 768, torch.bfloat16, cuda, 1), _unit(20_000, 768, torch.bfloat16, cuda, 2)
+    mips_topk(q, db, 16)                                # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with span("b1_search"):
+            mips_topk(q, db, 16)
+            torch.cuda.synchronize()
+    s = next(s for s in reversed(SPANS) if s.name == "b1_search")
+    events = [(e.name(), e.device_type() == torch.autograd.DeviceType.CUDA, e.start_ns(),
+               e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()]
+    launches = [(a, b) for n, dev, a, b in events
+                if not dev and re.match(r"cu(da)?LaunchKernel", n)]
+    kernels = [a for n, dev, a, _ in events if dev and "topk_" in n]
+    assert launches and kernels, events
+    assert all(s.start_ns <= a and b <= s.end_ns for a, b in launches), (s, launches)
+    assert s.start_ns < min(kernels) < s.start_ns + 1_000_000, (s, kernels)

@@ -333,6 +333,16 @@ def test_heads_after_three_steps_match_jax(run, jax_runs, stream):
 
 
 @pytest.mark.parametrize("stream", STREAMS)
+def test_a_step_under_a_mesh_records_its_all_reduce_stage(run, stream):
+    """Each rank's train step under a profile: its stages in order, the
+    gradients' all-reduce between backward and the optimizer."""
+    stages = ["retrieve", "retrieve", "fuse", "text", "backward", "all_reduce", "optimizer"]
+    for o in run.outs:
+        assert list(o[f"tr_{stream}_d1_spans"]) == (
+            ["train.step"] + (["encode"] if stream == "raw" else []) + stages)
+
+
+@pytest.mark.parametrize("stream", STREAMS)
 def test_two_ranks_equal_one_process_on_the_global_batch_with_dropout(run, stream):
     """Dropout 0.1: each rank draws the global batch's masks and keeps its
     rows, so 2 ranks equal one process stepping on the global batch (at the

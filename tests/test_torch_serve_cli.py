@@ -130,3 +130,27 @@ def test_serve_cli_refuses_what_it_does_not_take(run, tmp_path):
     assert "2 devices requested, 1 available — using all" in (
         run / "logs" / "port_np2" / "out.log").read_text()
     assert_same_results(got, _serve(jserve, run, "small", 5, "jax_np2"), 5)
+
+
+@pytest.mark.parametrize("ranking,batches", [("host", 10), ("device", 1)])
+def test_serve_cli_profile_dir_traces_the_query_batches(run, monkeypatch, ranking, batches):
+    """--profile-dir: one trace of the first ``PROFILE_BATCHES`` query
+    batches (all 2 of them at 10, the first at 1), each an engine.search
+    range with its engine.batch, stages and fetch; the results those of
+    the run without it."""
+    import glob
+
+    if ranking == "device":
+        monkeypatch.setattr(tserve, "DEVICE_RANK_MIN_ROWS", 1)
+    monkeypatch.setattr(tserve, "PROFILE_BATCHES", batches)
+    prof = run / f"prof_{ranking}"
+    got = _serve(tserve, run, "small", 5, f"port_prof_{ranking}",
+                 ["--device", "cpu", "--profile-dir", str(prof)])
+    assert got == _serve(tserve, run, "small", 5, f"port_noprof_{ranking}", ["--device", "cpu"])
+    (path,) = glob.glob(str(prof / "*.pt.trace.json"))
+    names = [e["name"] for e in json.loads(open(path).read())["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    stages = ["engine.search", "engine.batch", "input", "encode", "retrieve", "fuse", "text",
+              "fetch"] + (["rank"] if ranking == "device" else ["engine.compose"])
+    for stage in stages:
+        assert names.count(stage) == min(batches, 2), stage

@@ -150,10 +150,15 @@ def core(mesh, d: str, out: dict) -> None:
 
 def train(mesh, z: dict, params, cfg, heads, out: dict) -> None:
     """Per stream: three steps at dropout 0 (the step-0 gradients, the
-    losses, the heads after the third) and one step at dropout 0.1."""
+    losses, the heads after the third) and one step at dropout 0.1, under a
+    CPU profile (its spans' names, in the order they opened)."""
+    import contextlib
     import copy
 
+    from torch.profiler import ProfilerActivity, profile
+
     from keds_tpu_torch.models.convert import cast_floating
+    from keds_tpu_torch.profiling import SPANS
     from keds_tpu_torch.retrieval.database import KnowledgeDB, Retriever
     from keds_tpu_torch.train.losses import RawBatch, TrainBatch
     from keds_tpu_torch.train.trainer import make_optimizer, make_train_step
@@ -183,7 +188,13 @@ def train(mesh, z: dict, params, cfg, heads, out: dict) -> None:
             tag = f"tr_{stream}_d{int(dropout * 10)}"
             losses = []
             for t in range(steps):
-                losses.append(float(step(theads, batch(stream, t), t)))
+                before = {s.id for s in SPANS}
+                with (profile(activities=[ProfilerActivity.CPU]) if dropout
+                      else contextlib.nullcontext()):
+                    losses.append(float(step(theads, batch(stream, t), t)))
+                if dropout:
+                    out[f"{tag}_spans"] = np.array([s.name for s in sorted(
+                        SPANS, key=lambda s: s.id) if s.id not in before])
                 if t == 0:
                     for i, p in enumerate(leaves(theads)):
                         if p.grad is not None:
